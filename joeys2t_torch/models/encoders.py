@@ -1,0 +1,69 @@
+# coding: utf-8
+"""
+Transformer encoder with the Conv1d/GLU audio subsampler (counterpart of
+joeys2t_tpu/models/encoders.py ``TransformerEncoder`` :29).
+
+The JAX encoder pads the subsampled sequence to a multiple of 128 for the
+TPU kernel's lanes; the CUDA flash kernel masks any key length itself, so
+the port does not pad. Padded frames are masked keys either way, and the
+output is the same.
+"""
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from joeys2t_torch.models.modules import (Conv1dSubsampler, TransformerEncoderLayer,
+                                          layer_norm, sinusoidal_pe)
+
+
+def lengths_to_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """Bool validity mask (B, 1, max_len); True at valid frames."""
+    return (torch.arange(max_len, device=lengths.device)[None, :]
+            < lengths[:, None])[:, None, :]
+
+
+class TransformerEncoder(nn.Module):
+    """Transformer encoder with optional conv subsampling for S2T."""
+
+    def __init__(self, hidden_size: int = 512, ff_size: int = 2048, num_layers: int = 8,
+                 num_heads: int = 4, dropout: float = 0.1, emb_dropout: float = 0.1,
+                 layer_norm_position: str = "pre", activation: str = "relu",
+                 alpha: float = 1.0, subsample: bool = False, in_channels: int = 80,
+                 conv_channels: int = 512, conv_kernel_sizes: Sequence[int] = (3, 3),
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.layer_norm_position = layer_norm_position
+        self.dtype = dtype
+        self.layers = nn.ModuleList(
+            TransformerEncoderLayer(hidden_size, ff_size, num_heads, dropout, alpha,
+                                    layer_norm_position, activation, dtype, device)
+            for _ in range(num_layers))
+        self.emb_dropout = nn.Dropout(emb_dropout)
+        # final layer norm exists iff layer_norm == "pre" (joeynmt/encoders.py:223-226)
+        self.layer_norm = (nn.LayerNorm(hidden_size, eps=1e-6, device=device)
+                           if layer_norm_position == "pre" else None)
+        self.subsampler = (Conv1dSubsampler(in_channels, conv_channels, hidden_size,
+                                            conv_kernel_sizes, dtype, device)
+                           if subsample else None)
+
+    @property
+    def output_size(self) -> int:
+        return self.hidden_size
+
+    def forward(self, src_embed: torch.Tensor, src_length: torch.Tensor,
+                mask: Optional[torch.Tensor] = None):
+        """(B, T, E) fbank features (S2T) or embedded tokens ->
+        (output (B, T', H), None, mask (B, 1, T'))."""
+        if self.subsampler is not None:
+            src_embed, src_length = self.subsampler(src_embed, src_length)
+        if mask is None:
+            mask = lengths_to_mask(src_length, src_embed.shape[1])
+        pe = sinusoidal_pe(src_embed.shape[1], src_embed.shape[2], src_embed.device)
+        x = self.emb_dropout(src_embed + pe.to(src_embed.dtype)[None]).to(self.dtype)
+        for layer in self.layers:
+            x = layer(x, mask)
+        if self.layer_norm is not None:
+            x = layer_norm(self.layer_norm, x, self.dtype)
+        return x, None, mask
