@@ -23,7 +23,8 @@ goes wrong:
    profiled decode loop;
 4. card vs CPU: a small float32 model with the same seeded weights on the
    card and on the CPU must give the same encoder output (within 1e-4) and
-   the same greedy tokens.
+   the same greedy tokens; and key-masked attention at a head size or dtype
+   the flash kernel does not take must raise on the card.
 
 Output: diagnostics, then one JSON line of kernel measurements, then the
 card's name and power limit as nvidia-smi reports them, and last
@@ -258,6 +259,8 @@ def serving_phase():
         print(f"[serving] {name}: {len(texts)} transcripts, {steps} decode steps, "
               f"{wall:.3f} s wall, {seconds / wall:.1f} audio-s/s")
     check(asr.stats["requests"] == 3, f"{asr.stats['requests']} requests served")
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          "serving cast the caller's float32 master weights")
     print(f"[serving] total: {total_audio:.0f} audio-s in {total_wall:.3f} s = "
           f"{total_audio / total_wall:.1f} audio-s/s")
     return flash_attention_fwd.launches, decode_attention.launches, asr, batch
@@ -287,8 +290,8 @@ def breakdown_phase(asr, batch):
         (feats, flen), t_front = timed(lambda: device_frontend(waves, lengths))
         (enc, _, mask), t_enc = timed(lambda: asr.model.encode(feats, flen))
         stats = {}
-        _, t_dec = timed(lambda: transformer_greedy(asr.model, asr.spec, enc, mask, 96,
-                                                    device="cuda", stats=stats))
+        _, t_dec = timed(lambda: transformer_greedy(asr.decode_model, asr.spec, enc, mask,
+                                                    96, device="cuda", stats=stats))
         total = t_front + t_enc + t_dec
         print(f"[breakdown] 64 x 10 s: front end {t_front * 1e3:.2f} ms "
               f"({100 * t_front / total:.1f} %), encoder {t_enc * 1e3:.2f} ms "
@@ -297,8 +300,8 @@ def breakdown_phase(asr, batch):
               f"{t_dec / stats['decode_steps'] * 1e3:.3f} ms")
         steps = 16
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, wall = timed(lambda: transformer_greedy(asr.model, asr.spec, enc, mask,
-                                                       steps, device="cuda"))
+            _, wall = timed(lambda: transformer_greedy(asr.decode_model, asr.spec, enc,
+                                                       mask, steps, device="cuda"))
     kernels = {}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
@@ -370,6 +373,21 @@ def card_vs_cpu_phase():
           f"encoder err {enc_err:.3g} (tol 1e-4), greedy tokens identical "
           f"({out['cpu'][2].shape[1]} steps)")
 
+    # no plain path on the card: key-masked attention at a head size or dtype
+    # the flash kernel does not take raises instead of running plain PyTorch
+    from joeys2t_torch.models.modules import MultiHeadedAttention
+
+    x = torch.randn(2, 5, 64, device="cuda")
+    key_mask = torch.ones(2, 1, 5, dtype=torch.bool, device="cuda")
+    for heads, dtype in ((4, torch.bfloat16), (1, torch.float16)):
+        mha = MultiHeadedAttention(heads, 64, dtype=dtype, device="cuda").eval()
+        try:
+            mha(x, x, x, key_mask)
+            fail(f"attention with head size {64 // heads} in {dtype} ran on the card")
+        except ValueError:
+            pass
+    print("[card-vs-cpu] head size 16 bf16 and head size 64 f16 attention raise on the card")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -394,7 +412,6 @@ def main():
                     max_abs_err=head["max_abs_err"], ms=head["ms"],
                     plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                     bound_by=head["bound_by"], library_ms=head["library_ms"],
-                    kernel_ms=head["ms"], bound_us=head["bound_ms"] * 1e3,
                     case=head["case"], cases=cases)
 
     kernels = [

@@ -15,13 +15,17 @@
 // bias is the finite -1e9 of the model, so a row whose keys are all masked
 // gets the uniform average over its keys, as the Pallas kernel gives.
 //
-// What bounds it on this card: at the encoder's shapes (S ~ 250-750, D = 128)
-// the work is ~4*S*D flops per loaded byte pair, far above the H100's ~295
-// flop/byte ridge, so the bound is operations. This first version does the
-// products on the CUDA cores in f32 (SIMT FMA from shared memory, 16x16
-// threads, register micro-tiles); tensor cores (mma/wgmma) and TMA are later
-// work. Shared-memory rows are padded by one float to keep the K reads free
-// of bank conflicts.
+// What bounds it on this card: with Sq = Sk = S the work is 4*S*S*E flops
+// over 4*S*E elements read or written once, i.e. S flops per element. In bf16
+// that is S/2 flop/byte against the H100 SXM's ridge of 989 TF / 3.35 TB/s
+// ~ 295 flop/byte: bytes bound the 10 s utterances (S = 250, 125 flop/byte)
+// and operations the 30 s ones (S = 750, 375 flop/byte). In f32 it is S/4
+// flop/byte against a ridge of 67 TF / 3.35 TB/s ~ 20: operations at both.
+// This first version is far from either bound: it does the products on the
+// CUDA cores in f32 (SIMT FMA from shared memory, 16x16 threads, register
+// micro-tiles); tensor cores (mma/wgmma) and TMA are later work.
+// Shared-memory rows are padded by one float to keep the K reads free of bank
+// conflicts.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>

@@ -5,15 +5,17 @@ Transformer decoder (counterpart of joeys2t_tpu/models/decoders.py
 over the encoder output, and the KV-cached decode path (``init_cache`` and
 ``decode_step``) that greedy search runs. Caches are (B, H, S, D): the
 cross-attention K/V are projected once per utterance, the self-attention
-K/V fill a preallocated buffer one slot per step.
+K/V fill a preallocated buffer one slot per step. The positional encoding
+table and the cross-attention bias are built once per utterance, in
+``init_cache``, and the self-attention bias once per step for all layers.
 """
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 
-from joeys2t_torch.models.modules import (TransformerDecoderLayer, dense, layer_norm,
-                                          sinusoidal_pe, subsequent_mask)
+from joeys2t_torch.models.modules import (NEG_INF, TransformerDecoderLayer, dense,
+                                          layer_norm, sinusoidal_pe, subsequent_mask)
 
 
 class TransformerDecoder(nn.Module):
@@ -61,13 +63,21 @@ class TransformerDecoder(nn.Module):
                    else dense(self.ctc_output_layer, encoder_output, self.dtype))
         return dense(self.output_layer, x, self.dtype), x, ctc_out
 
-    def init_cache(self, encoder_output: torch.Tensor, max_len: int) -> Dict[str, Dict]:
-        """Decode cache per layer: the cross K/V projected once, and zeroed
+    def init_cache(self, encoder_output: torch.Tensor, max_len: int,
+                   src_mask: Optional[torch.Tensor] = None) -> Dict[str, Dict]:
+        """Decode cache: per layer the cross K/V projected once and zeroed
         self-attention buffers of ``max_len`` slots, all (B, H, S, Dh) in the
-        compute dtype."""
-        b = encoder_output.shape[0]
+        compute dtype; and, shared by every layer and step, the positional
+        encoding table (max_len, size) and the cross-attention bias (B, S)
+        f32 from ``src_mask`` (B, 1, S) bool."""
+        b, s = encoder_output.shape[:2]
+        device = encoder_output.device
         shape = (b, self.num_heads, max_len, self.hidden_size // self.num_heads)
-        cache = {}
+        cross_bias = torch.zeros((b, s), dtype=torch.float32, device=device)
+        if src_mask is not None:
+            cross_bias.masked_fill_(~src_mask[:, 0, :], NEG_INF)
+        cache = {"pe": sinusoidal_pe(max_len, self.hidden_size, device),
+                 "cross_bias": cross_bias}
         for i, layer in enumerate(self.layers):
             ck, cv = layer.precompute_cross_kv(encoder_output)  # (B, S, H, D)
             cache[f"layer_{i}"] = {
@@ -78,14 +88,16 @@ class TransformerDecoder(nn.Module):
             }
         return cache
 
-    def decode_step(self, trg_embed_t: torch.Tensor, index: int, cache: Dict,
-                    src_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def decode_step(self, trg_embed_t: torch.Tensor, index: int,
+                    cache: Dict) -> torch.Tensor:
         """One decode step at position ``index`` -> logits (B, 1, V); the
         self-attention caches are updated in place."""
-        size = trg_embed_t.shape[2]
-        max_len = cache["layer_0"]["self_k"].shape[2]
-        pe_t = sinusoidal_pe(max_len, size, trg_embed_t.device)[index]
-        x = (trg_embed_t + pe_t.to(trg_embed_t.dtype)).to(self.dtype)
+        x = (trg_embed_t + cache["pe"][index].to(trg_embed_t.dtype)).to(self.dtype)
+        # slots 0..index are valid in every layer's self-attention buffer
+        self_bias = torch.full((x.shape[0], cache["pe"].shape[0]), NEG_INF,
+                               dtype=torch.float32, device=x.device)
+        self_bias[:, :index + 1] = 0.0
         for i, layer in enumerate(self.layers):
-            x = layer.decode_step(x, cache[f"layer_{i}"], index, src_mask)
+            x = layer.decode_step(x, cache[f"layer_{i}"], index, self_bias,
+                                  cache["cross_bias"])
         return dense(self.output_layer, self._final(x), self.dtype)

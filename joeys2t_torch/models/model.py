@@ -69,15 +69,17 @@ class Seq2SeqModel(nn.Module):
         logits, _, ctc_logits = self.decode(trg_input, encoder_output, src_mask, trg_mask)
         return logits, ctc_logits, src_mask
 
-    def init_cache(self, encoder_output: torch.Tensor, max_len: int) -> Dict:
-        return self.decoder.init_cache(encoder_output, max_len)
+    def init_cache(self, encoder_output: torch.Tensor, max_len: int,
+                   src_mask: Optional[torch.Tensor] = None) -> Dict:
+        """Decode cache for ``max_len`` steps over ``encoder_output`` with
+        its source mask (B, 1, S)."""
+        return self.decoder.init_cache(encoder_output, max_len, src_mask)
 
-    def decode_step(self, prev_tokens: torch.Tensor, index: int, cache: Dict,
-                    src_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def decode_step(self, prev_tokens: torch.Tensor, index: int, cache: Dict
+                    ) -> torch.Tensor:
         """One KV-cached decode step -> logits (B, 1, V); ``cache`` is
         updated in place."""
-        return self.decoder.decode_step(self.trg_embed(prev_tokens), index, cache,
-                                        src_mask)
+        return self.decoder.decode_step(self.trg_embed(prev_tokens), index, cache)
 
 
 def build_model(cfg: Dict, src_vocab=None, trg_vocab=None,

@@ -13,12 +13,17 @@ module's compute ``dtype`` (bfloat16 on the card), residual scale ``alpha``.
 Attention routing: full-length attention with a key-padding mask goes
 through the flash-attention wrapper, and the per-step decode attention over
 the (B, H, S, D) caches through the decode-attention wrapper; both run the
-hand-written CUDA kernel on a CUDA tensor and their plain version on a CPU
-tensor. Attention with a full (B, Tq, Tk) mask, such as causal decoder
-self-attention over a whole sequence, stays plain PyTorch.
+hand-written CUDA kernel on a CUDA tensor (or raise, for a head size or
+dtype the kernel does not take) and their plain version on a CPU tensor.
+Attention with a full (B, Tq, Tk) mask, such as causal decoder
+self-attention over a whole sequence, stays plain PyTorch, and so does
+key-masked attention on a CPU tensor at a head size the kernel does not
+take, as in the JAX module.
 
 Unlike the functional JAX modules, ``step_self`` writes the new key/value
-into the caller's self-attention cache in place.
+into the caller's self-attention cache in place, and the decode steps take
+additive (B, S) biases that the decoder builds once per step (self) or once
+per utterance (cross) instead of masks.
 """
 import math
 from typing import Optional, Sequence, Tuple
@@ -128,7 +133,8 @@ class MultiHeadedAttention(nn.Module):
         are projected from ``k``."""
         del v
         key_mask_only = mask is None or (mask.dim() == 3 and mask.shape[1] == 1)
-        if key_mask_only and supported(self.head_size, self.dtype):
+        if key_mask_only and (q.device.type != "cpu"
+                              or supported(self.head_size, self.dtype)):
             context = mha_flash_flat(
                 dense(self.q_layer, q, self.dtype), dense(self.k_layer, k, self.dtype),
                 dense(self.v_layer, k, self.dtype), self.num_heads,
@@ -143,33 +149,28 @@ class MultiHeadedAttention(nn.Module):
         return self._attend(q_h, k_h, v_h, mask)
 
     def step_self(self, q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
-                  index: int) -> torch.Tensor:
+                  index: int, bias: torch.Tensor) -> torch.Tensor:
         """One self-attention decode step (B, 1, size) -> (B, 1, size); writes
         this step's key/value into slot ``index`` of the (B, H, S_max, Dh)
-        caches in place."""
+        caches in place. ``bias`` (B, S_max) f32 is 0 at slots 0..index and
+        NEG_INF beyond."""
         k_h, v_h = self.project_kv(q)  # (B, 1, H, Dh)
         cache_k[:, :, index] = k_h[:, 0].to(cache_k.dtype)
         cache_v[:, :, index] = v_h[:, 0].to(cache_v.dtype)
-        q_h = self._split_heads(dense(self.q_layer, q, self.dtype))
-        b, s_max = q_h.shape[0], cache_k.shape[2]
-        bias = torch.full((b, s_max), NEG_INF, dtype=torch.float32, device=q.device)
-        bias[:, :index + 1] = 0.0
-        ctx = decode_attention(q_h[:, 0], cache_k, cache_v, bias,
-                               sm_scale=1.0 / math.sqrt(self.head_size))
-        return dense(self.output_layer, ctx.reshape(b, 1, self.size), self.dtype)
+        return self._step(q, cache_k, cache_v, bias)
 
     def step_cross(self, q: torch.Tensor, k_h: torch.Tensor, v_h: torch.Tensor,
-                   mask: Optional[torch.Tensor]) -> torch.Tensor:
+                   bias: torch.Tensor) -> torch.Tensor:
         """One cross-attention decode step (B, 1, size) -> (B, 1, size)
-        against the precomputed (B, H, S, Dh) K/V."""
+        against the precomputed (B, H, S, Dh) K/V; ``bias`` (B, S) f32 is 0
+        at valid source frames and NEG_INF at padding."""
+        return self._step(q, k_h, v_h, bias)
+
+    def _step(self, q, k_h, v_h, bias):
         q_h = self._split_heads(dense(self.q_layer, q, self.dtype))
-        b, s = k_h.shape[0], k_h.shape[2]
-        bias = torch.zeros((b, s), dtype=torch.float32, device=q.device)
-        if mask is not None:
-            bias.masked_fill_(~mask[:, 0, :], NEG_INF)
         ctx = decode_attention(q_h[:, 0], k_h, v_h, bias,
                                sm_scale=1.0 / math.sqrt(self.head_size))
-        return dense(self.output_layer, ctx.reshape(b, 1, self.size), self.dtype)
+        return dense(self.output_layer, ctx.reshape(q.shape[0], 1, self.size), self.dtype)
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -275,14 +276,16 @@ class TransformerDecoderLayer(nn.Module):
         return self.src_trg_att.project_kv(memory)
 
     def decode_step(self, x: torch.Tensor, cache: dict, index: int,
-                    src_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                    self_bias: torch.Tensor, cross_bias: torch.Tensor) -> torch.Tensor:
         """Single decode step (B, 1, size) -> (B, 1, size) with the cached
-        self/cross K/V; the self-attention cache is updated in place."""
+        self/cross K/V and their (B, S) additive biases; the self-attention
+        cache is updated in place."""
         pre = self.layer_norm_position == "pre"
         residual = x
         if pre:
             x = layer_norm(self.x_layer_norm, x, self.dtype)
-        h1 = self.trg_trg_att.step_self(x, cache["self_k"], cache["self_v"], index)
+        h1 = self.trg_trg_att.step_self(x, cache["self_k"], cache["self_v"], index,
+                                        self_bias)
         h1 = h1 + self.alpha * residual
         if not pre:
             h1 = layer_norm(self.x_layer_norm, h1, self.dtype)
@@ -290,7 +293,8 @@ class TransformerDecoderLayer(nn.Module):
         h1_residual = h1
         if pre:
             h1 = layer_norm(self.dec_layer_norm, h1, self.dtype)
-        h2 = self.src_trg_att.step_cross(h1, cache["cross_k"], cache["cross_v"], src_mask)
+        h2 = self.src_trg_att.step_cross(h1, cache["cross_k"], cache["cross_v"],
+                                         cross_bias)
         h2 = h2 + self.alpha * h1_residual
         if not pre:
             h2 = layer_norm(self.dec_layer_norm, h2, self.dtype)

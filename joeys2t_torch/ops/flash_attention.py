@@ -32,13 +32,10 @@ def supported(head_dim: int, dtype: torch.dtype) -> bool:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          bias: torch.Tensor, sm_scale: float, num_heads: int,
-                          dropout_rate: float = 0.0
+                          bias: torch.Tensor, sm_scale: float, num_heads: int
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's math in plain PyTorch: f32 scores with the additive key
-    bias, f32 softmax, f32 context. Returns (out like q, lse (B, Sq, H) f32).
-    ``dropout_rate`` drops attention probabilities with torch's global
-    generator (training only; the kernel has no dropout yet)."""
+    bias, f32 softmax, f32 context. Returns (out like q, lse (B, Sq, H) f32)."""
     b, sq, e = q.shape
     d = e // num_heads
     qh = q.float().reshape(b, sq, num_heads, d) * sm_scale
@@ -49,9 +46,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # (scores near -1e9) lse rounds to the masked value and loses log(Sk)
     p = torch.softmax(s, dim=-1)
     lse = torch.logsumexp(s, dim=-1)  # (B, H, Sq)
-    if dropout_rate > 0.0:
-        p = torch.nn.functional.dropout(p, dropout_rate, training=True)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, vh).reshape(b, sq, e)
+    out =torch.einsum("bhqk,bkhd->bqhd", p, vh).reshape(b, sq, e)
     return out.to(q.dtype), lse.transpose(1, 2).contiguous()
 
 
@@ -64,16 +59,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :param q: (B, Sq, E), E = num_heads * head_dim, f32 or bf16
     :param k, v: (B, Sk, E), q's dtype
     :param bias: (B, Sk) f32, 0 for a valid key and -1e9 for a masked one
+    :param dropout_rate: must be 0 on every device until the kernel has
+        in-kernel dropout (training)
     :return: (out (B, Sq, E) in q's dtype, lse (B, Sq, H) f32)
     """
+    if dropout_rate > 0.0:
+        raise NotImplementedError("attention dropout is not in the flash kernel yet")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, bias, sm_scale, num_heads,
-                                     dropout_rate)
+        return flash_attention_plain(q, k, v, bias, sm_scale, num_heads)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout is not in the CUDA flash kernel yet")
     b, sq, e = q.shape
     sk = k.shape[1]
     if e % num_heads:

@@ -13,6 +13,7 @@ Checking "every row finished" reads one flag from the device per step.
 Repetition penalty, n-gram blocking, prompts and returned attention are not
 ported yet and raise.
 """
+import copy
 from typing import Dict, Optional
 
 import torch
@@ -44,15 +45,20 @@ def _banned_ids(spec: ModelSpec, vocab_size: int, generate_unk: bool,
 
 
 def _cast_params_to_compute_dtype(model: Seq2SeqModel) -> Seq2SeqModel:
-    """Cast the float32 parameters to the model's compute dtype, once, in
-    place, so the decode loop reads each weight once in that dtype per step
-    instead of re-casting float32 masters at every use. LayerNorm still
-    computes in float32 (from the cast values, as in the JAX loop).
-    float32 models and already-cast models are returned unchanged."""
+    """A model whose decode side (target embedding and decoder) holds copies
+    of the float parameters in the compute dtype, so the decode loop reads
+    each weight once in that dtype per step instead of re-casting float32
+    masters at every use. LayerNorm still computes in float32 (from the cast
+    values, as in the JAX loop). The encoder is shared, not copied, and
+    ``model`` keeps its float32 masters: the JAX function likewise casts a
+    copy of the parameters inside jit. A model whose decode side is already
+    in the compute dtype (every float32 model) is returned unchanged."""
     dtype = model.decoder.dtype
-    if any(p.dtype != dtype for p in model.parameters()):
-        model.to(dtype)
-    return model
+    decode_side = (model.trg_embed, model.decoder)
+    if all(p.dtype == dtype for m in decode_side for p in m.parameters()):
+        return model
+    trg_embed, decoder = (copy.deepcopy(m).to(dtype) for m in decode_side)
+    return Seq2SeqModel(model.encoder, decoder, trg_embed).train(model.training)
 
 
 @torch.inference_mode()
@@ -64,7 +70,7 @@ def _transformer_greedy(model: Seq2SeqModel, spec: ModelSpec,
     b = encoder_output.shape[0]
     device = encoder_output.device
     l1 = max_output_length + 1
-    cache = model.init_cache(encoder_output, l1)
+    cache = model.init_cache(encoder_output, l1, src_mask)
     ys = torch.full((b, l1), spec.pad_index, dtype=torch.long, device=device)
     ys[:, 0] = spec.bos_index
     yv = torch.zeros((b, l1), dtype=torch.float32, device=device)
@@ -75,7 +81,7 @@ def _transformer_greedy(model: Seq2SeqModel, spec: ModelSpec,
 
     step = 0
     while step < max_output_length:
-        logits = model.decode_step(ys[:, step:step + 1], step, cache, src_mask)
+        logits = model.decode_step(ys[:, step:step + 1], step, cache)
         log_probs = logits[:, 0].float()
         if return_prob:
             log_probs = torch.log_softmax(log_probs, dim=-1)
@@ -98,6 +104,11 @@ def transformer_greedy(model: Seq2SeqModel, spec: ModelSpec,
                        max_output_length: int, device=None,
                        stats: Optional[Dict] = None, **kwargs):
     """KV-cached greedy decoding on ``device`` (``cuda`` unless given).
+
+    A model with float32 masters and a lower compute dtype decodes from a
+    copy of its decode side cast for this call; a caller that decodes many
+    times casts once with ``_cast_params_to_compute_dtype`` and passes the
+    result, as ``Transcriber`` does.
 
     :param encoder_output: (B, S, H) on ``device``
     :param src_mask: (B, 1, S) bool on ``device``

@@ -94,6 +94,10 @@ class Transcriber:
     """Batched wav -> text with on-device feature extraction (16 kHz audio,
     as many mel bins as the model's subsampler takes, utterance CMVN).
 
+    The model moves to the device and into eval mode; the encoder runs on
+    its float32 masters, and the decoder from a copy of the decode side in
+    the compute dtype, cast once here (``decode_model``).
+
     ``stats`` counts what the instance served: requests (calls of
     ``transcribe_batch``), utterances, audio seconds and decode steps."""
 
@@ -101,8 +105,8 @@ class Transcriber:
 
     def __init__(self, model, spec, trg_vocab, device=None):
         self.device = resolve_device(device)
-        # the weights move to the device and are cast to the compute dtype once
-        self.model = _cast_params_to_compute_dtype(model.to(self.device).eval())
+        self.model = model.to(self.device).eval()
+        self.decode_model = _cast_params_to_compute_dtype(self.model)
         self.spec = spec
         self.trg_vocab = trg_vocab
         self.num_mel_bins = model.encoder.subsampler.conv_layers[0].weight.shape[1]
@@ -162,7 +166,7 @@ class Transcriber:
         enc, _, enc_mask = self.model.encode(feats, frame_lengths)
         if max_output_length is None:
             max_output_length = int(enc.shape[1] * 1.5) + 8
-        out, _, _ = transformer_greedy(self.model, self.spec, enc, enc_mask,
+        out, _, _ = transformer_greedy(self.decode_model, self.spec, enc, enc_mask,
                                        max_output_length, device=self.device,
                                        stats=self.stats, **generate_kwargs)
         self.stats["requests"] += 1

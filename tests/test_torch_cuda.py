@@ -73,6 +73,20 @@ def test_decode_kernel_matches_plain(card, mode):
                                atol=1e-5 if qdt == torch.float32 else 1e-2, rtol=0)
 
 
+@pytest.mark.parametrize("heads,dtype", [(4, torch.bfloat16), (1, torch.float16)])
+def test_unsupported_head_size_or_dtype_raises_on_card(card, heads, dtype):
+    """Key-masked attention the flash kernel cannot take (head size 16, or
+    float16) raises on the card instead of running plain PyTorch."""
+    from joeys2t_torch.models.modules import MultiHeadedAttention
+
+    mha = MultiHeadedAttention(heads, 64, dtype=dtype, device=card).eval()
+    x = torch.randn(2, 5, 64, device=card)
+    before = fa.flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="flash kernel takes"):
+        mha(x, x, x, torch.ones(2, 1, 5, dtype=torch.bool, device=card))
+    assert fa.flash_attention_fwd.launches == before
+
+
 def test_small_model_card_matches_cpu(card):
     cfg = {"encoder": {"num_layers": 2, "num_heads": 2, "embeddings": {},
                        "hidden_size": 256, "ff_size": 512, "subsample": True,

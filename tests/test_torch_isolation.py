@@ -86,6 +86,24 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     assert out.shape == (1, 4)
 
 
+@pytest.mark.parametrize("heads,dtype", [(4, torch.bfloat16), (1, torch.float16),
+                                         (1, torch.float32)])
+def test_key_masked_attention_off_the_cpu_takes_the_kernel_wrapper(heads, dtype):
+    """Off the CPU, key-masked attention goes to the flash wrapper whatever
+    its head size (16 or 64) and dtype, so on a card a head size or dtype
+    the kernel does not take raises there instead of running plain PyTorch
+    attention. The meta device stands in for the card: the plain path would
+    run on it, the wrapper refuses it."""
+    from joeys2t_torch.models.modules import MultiHeadedAttention
+
+    mha = MultiHeadedAttention(heads, 64, dtype=dtype, device="meta").eval()
+    x = torch.empty(2, 5, 64, device="meta")
+    with pytest.raises(ValueError, match="flash attention runs on"):
+        mha(x, x, x, torch.ones(2, 1, 5, dtype=torch.bool, device="meta"))
+    full_mask = torch.ones(2, 5, 5, dtype=torch.bool, device="meta")
+    assert mha(x, x, x, full_mask).shape == (2, 5, 64)  # causal masks stay plain
+
+
 def test_state_dict_round_trips_through_jax_converter():
     _, _, params, _ = jax_s2t(seed=3)
     state = flax_params_to_state_dict(params)

@@ -50,11 +50,12 @@ B, T = 4, 560  # 140 frames after subsampling: the JAX encoder pads to 256
 LENGTHS = np.array([560, 430, 301, 500])
 
 
-def jax_s2t(seed=0):
-    """The JAX model with xavier-initialized weights, every leaf (biases and
-    LayerNorm too) perturbed so no parameter keeps its trivial value."""
+def jax_s2t(seed=0, compute_dtype=jnp.float32):
+    """The JAX model with xavier-initialized float32 weights, every leaf
+    (biases and LayerNorm too) perturbed so no parameter keeps its trivial
+    value."""
     vocab = JaxVocabulary(TOKENS, JaxSpecialSymbols())
-    model, spec = jax_build_model(CFG, trg_vocab=vocab)
+    model, spec = jax_build_model(CFG, trg_vocab=vocab, compute_dtype=compute_dtype)
     params = model.init({"params": jax.random.PRNGKey(seed)}, jnp.zeros((B, 40, 80)),
                         jnp.zeros((B, 4), jnp.int32), jnp.full((B,), 40), None,
                         jnp.ones((B, 1, 4), bool))["params"]
@@ -65,10 +66,10 @@ def jax_s2t(seed=0):
     return model, spec, params, vocab
 
 
-def port_from_jax(params):
+def port_from_jax(params, compute_dtype=torch.float32):
     """The port model on the CPU carrying the JAX weights."""
     model, spec = build_model(CFG, trg_vocab=Vocabulary(TOKENS, SpecialSymbols()),
-                              device="cpu")
+                              compute_dtype=compute_dtype, device="cpu")
     model.load_state_dict(flax_params_to_state_dict(params))
     return model, spec
 
@@ -128,8 +129,8 @@ def test_decode_steps_and_caches_match(pair):
     cache_j = jmodel.apply({"params": params}, enc_j, max_len,
                            src_valid=mask_j[:, 0, :], method="init_cache")
     with torch.no_grad():
-        cache_t = tmodel.init_cache(torch.tensor(np.asarray(enc_j)), max_len)
         mask_t = torch.tensor(np.asarray(mask_j))
+        cache_t = tmodel.init_cache(torch.tensor(np.asarray(enc_j)), max_len, mask_t)
         for name in ("cross_k", "cross_v"):
             np.testing.assert_allclose(cache_t["layer_1"][name].numpy(),
                                        np.asarray(cache_j["layer_1"][name]), atol=1e-5)
@@ -140,7 +141,7 @@ def test_decode_steps_and_caches_match(pair):
                 {"params": params}, jnp.asarray(tokens[:, step:step + 1]), step, cache_j,
                 mask_j, method="decode_step")
             logits_t = tmodel.decode_step(
-                torch.tensor(tokens[:, step:step + 1]).long(), step, cache_t, mask_t)
+                torch.tensor(tokens[:, step:step + 1]).long(), step, cache_t)
             np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j),
                                        atol=1e-4, rtol=1e-4, err_msg=f"step {step}")
             for layer in ("layer_0", "layer_1"):

@@ -81,6 +81,14 @@ def test_flash_wrapper_on_cpu_runs_plain_version():
     assert port_fa.flash_attention_fwd.launches == before  # no kernel on the CPU
 
 
+def test_flash_dropout_raises_on_every_device():
+    """Dropout waits for the kernel's training slice; the CPU refuses it as
+    the card does, instead of dropping with torch's global generator."""
+    q = torch.zeros(1, 4, 128)
+    with pytest.raises(NotImplementedError):
+        port_fa.flash_attention_fwd(q, q, q, torch.zeros(1, 4), 0.125, 2, dropout_rate=0.1)
+
+
 # --------------------------------------------------------- decode attention
 def _decode_inputs(mode, seed=0, b=3, h=2, s=33, d=64):
     rng = np.random.RandomState(seed)
