@@ -24,7 +24,29 @@ goes wrong:
 4. card vs CPU: a small float32 model with the same seeded weights on the
    card and on the CPU must give the same encoder output (within 1e-4) and
    the same greedy tokens; and key-masked attention at a head size or dtype
-   the flash kernel does not take must raise on the card.
+   the flash kernel does not take must raise on the card;
+5. training: the librispeech_100h model (``model:`` and ``training:`` of the
+   config: bf16 compute on float32 masters, dropout 0.1, label smoothing 0.1,
+   CTC weight 0.3, AdamW, warmup-inverse-sqrt, clipping at 10,
+   ``batch_multiplier`` 4) takes 2 updates of 4 micro-batches of 64
+   synthetic 6-10 s utterances with 48-token targets through
+   ``TrainManager``; the loss must be finite, every weight must move and stay
+   float32, the learning rate must follow the scheduler, and each
+   micro-batch must launch the flash forward and backward exactly 24 times
+   each (16 encoder self-attentions, 8 decoder cross-attentions) with the
+   plain attention versions disabled; then the time per micro-batch and
+   update, trained audio-s/s, a forward / backward / optimizer breakdown,
+   peak memory, and the card's busy share and top kernels over 8 profiled
+   micro-batches;
+6. training, card vs CPU: one float32 update of a small model at dropout 0
+   on the card and on the CPU must agree (loss to 1e-5 relative, gradients
+   to 1e-4 of their global norm, weights to 2 * lr).
+
+Phase 2 also holds the flash backward against its plain version at the
+training path's shapes (B=64 Sq=Sk=250; B=64 Sq=47 Sk=250; B=2 Sq=Sk=750),
+in f32 and bf16, at dropout 0 and 0.1, with the forward's dropped output
+against the plain one and the dropout mask read out of both kernels bit for
+bit, and times SDPA's backward beside it.
 
 Output: diagnostics, then one JSON line of kernel measurements, then the
 card's name and power limit as nvidia-smi reports them, and last
@@ -137,6 +159,107 @@ def flash_case(b, s, dtype, gen):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def sdpa_backend(qh, kh, vh, mask, sm, rate):
+    """The first SDPA backend that takes an additive mask and a backward
+    here (flash does not take a mask): (name, context manager factory)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                q = qh.detach().requires_grad_()
+                out = torch.nn.functional.scaled_dot_product_attention(
+                    q, kh, vh, attn_mask=mask, scale=sm, dropout_p=rate)
+                out.sum().backward()
+            torch.cuda.synchronize()
+            return backend.name, lambda b=backend: sdpa_kernel([b])
+        except RuntimeError:
+            continue
+    fail("no SDPA backend runs forward and backward with an additive mask")
+
+
+def flash_bwd_case(b, sq, sk, dtype, rate, gen):
+    """The backward kernels against the plain backward; with dropout also the
+    forward kernel against the plain forward (the same keep bits)."""
+    from joeys2t_torch.ops import flash_attention as fa
+
+    h, d = 4, 128
+    e = h * d
+    q = torch.randn(b, sq, e, generator=gen).to(dtype).cuda()
+    k, v = (torch.randn(b, sk, e, generator=gen).to(dtype).cuda() for _ in range(2))
+    d_out = torch.randn(b, sq, e, generator=gen).to(dtype).cuda()
+    lengths = torch.randint(sk // 2, sk + 1, (b,), generator=gen)
+    lengths[0] = sk
+    bias = torch.where(torch.arange(sk)[None, :] < lengths[:, None], 0.0, -1e9).float().cuda()
+    seed = torch.tensor([1234 + b + sq], dtype=torch.int32, device="cuda")
+    sm = d ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, bias, sm, h, rate, seed)
+    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, bias, sm, h, rate, seed)
+    grads = fa.flash_attention_bwd(q, k, v, bias, out, lse, d_out, sm, h, rate, seed)
+    refs = fa.flash_attention_bwd_plain(q, k, v, bias, out, lse, d_out, sm, h, rate, seed)
+    torch.cuda.synchronize()
+    # f32: summation order only; bf16: one rounding of each output
+    rel = 1e-5 if dtype == torch.float32 else 2e-2
+    fwd_tol = 1e-4 if dtype == torch.float32 else 2e-2
+    fwd_err = (out.float() - ref_out.float()).abs().max().item()
+    check(fwd_err <= fwd_tol, f"flash fwd dropout {rate} {dtype} {b}x{sq}x{sk}: "
+          f"err {fwd_err} > {fwd_tol}")
+    errs, tols = [], []
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        check(bool(torch.isfinite(g.float()).all()), f"flash bwd {name}: non-finite")
+        errs.append((g.float() - r.float()).abs().max().item())
+        tols.append(rel * r.float().abs().max().item())
+        check(errs[-1] <= tols[-1], f"flash bwd {name} {dtype} rate {rate} {b}x{sq}x{sk}: "
+              f"max abs err {errs[-1]} > {tols[-1]} ({rel} of the largest value)")
+    ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, bias, out, lse, d_out, sm, h,
+                                                rate, seed))
+    plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, bias, out, lse, d_out, sm, h, rate, seed), iters=5)
+    fwd_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, bias, sm, h, rate, seed))
+    qh, kh, vh, doh = (t.view(t.shape[0], t.shape[1], h, d).transpose(1, 2).contiguous()
+                       .requires_grad_() for t in (q, k, v, d_out))
+    mask = bias.to(dtype)[:, None, None, :]
+    backend, ctx = sdpa_backend(qh, kh, vh, mask, sm, rate)
+    with ctx():
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qh, kh, vh, attn_mask=mask, scale=sm, dropout_p=rate)
+        sdpa_out = sdpa()
+        library_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (qh, kh, vh), doh,
+                                                         retain_graph=True))
+        sdpa_fb_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), doh))
+    del sdpa_out
+    n_bytes = nbytes(q, k, v, bias, out, lse, d_out, *grads)
+    bound_ms, bound_by = bound(n_bytes, 10 * b * sq * sk * e, dtype)
+    return dict(case=f"B={b} Sq={sq} Sk={sk} H={h} D={d} {str(dtype)[6:]} dropout {rate}",
+                max_abs_err=max(errs), tol=min(tols), fwd_err=fwd_err, ms=ms,
+                plain_ms=plain_ms, fwd_ms=fwd_ms, library_ms=library_ms,
+                library=f"SDPA backward ({backend})", sdpa_fwd_bwd_ms=sdpa_fb_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def mask_bits_case():
+    """The kernels' keep mask read out bit for bit: with V the identity in
+    each head band the forward's output is the dropped probability matrix,
+    and with dO the identity the backward's dV is its transpose."""
+    from joeys2t_torch.ops import flash_attention as fa
+
+    b, h, d = 8, 4, 128
+    gen = torch.Generator().manual_seed(5)
+    q, k = (torch.randn(b, d, h * d, generator=gen).cuda() for _ in range(2))
+    eye = torch.eye(d, device="cuda").repeat(1, h)[None].expand(b, d, h * d).contiguous()
+    bias = torch.zeros(b, d, device="cuda")
+    seed = torch.tensor([2024], dtype=torch.int32, device="cuda")
+    keep = fa.attention_keep(seed, b, h, d, d, 0.1, "cuda")
+    out, lse = fa.flash_attention_fwd(q, k, eye, bias, 1.0 / d, h, 0.1, seed)
+    _, _, dv = fa.flash_attention_bwd(q, k, eye, bias, out, lse, eye, 1.0 / d, h, 0.1, seed)
+    fwd_keep = out.reshape(b, d, h, d).permute(0, 2, 1, 3) != 0
+    bwd_keep = dv.reshape(b, d, h, d).permute(0, 2, 3, 1) != 0
+    check(torch.equal(fwd_keep, keep), "forward kernel's dropout mask differs from plain")
+    check(torch.equal(bwd_keep, keep), "backward kernel's dropout mask differs from plain")
+    return keep.numel(), keep.float().mean().item()
+
+
 def decode_case(kind, s, mode, gen):
     from joeys2t_torch.ops import decode_attention as da
 
@@ -198,7 +321,21 @@ def kernel_phase():
               f"kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, library "
               f"{c['library_ms'] if c['library_ms'] is None else round(c['library_ms'], 4)}"
               f" ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
-    return flash, decode
+    # the training path's shapes: encoder (250 frames), decoder cross (47
+    # target positions), and 30 s utterances (K4's range); the headline first
+    backward = [flash_bwd_case(b, sq, sk, dt, rate, gen)
+                for b, sq, sk in ((64, 250, 250), (64, 47, 250), (2, 750, 750))
+                for rate in (0.1, 0.0) for dt in (torch.bfloat16, torch.float32)]
+    for c in backward:
+        print(f"[kernels] flash bwd {c['case']}: err {c['max_abs_err']:.3g} (tol "
+              f"{c['tol']:.3g}), fwd err {c['fwd_err']:.3g}; kernel {c['ms']:.4f} ms, plain "
+              f"{c['plain_ms']:.4f} ms, {c['library']} {c['library_ms']:.4f} ms (fwd+bwd "
+              f"{c['sdpa_fwd_bwd_ms']:.4f} ms), bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']}); forward kernel with this dropout {c['fwd_ms']:.4f} ms")
+    n, kept = mask_bits_case()
+    print(f"[kernels] dropout mask bits of the forward and backward kernels identical to "
+          f"the plain version's: {n} of {n} (keep fraction {kept:.4f} at rate 0.1)")
+    return flash, decode, backward
 
 
 # ------------------------------------------------------------------ phase 3
@@ -389,6 +526,217 @@ def card_vs_cpu_phase():
     print("[card-vs-cpu] head size 16 bf16 and head size 64 f16 attention raise on the card")
 
 
+# ------------------------------------------------------------ phases 5, 6
+def synthetic_batches(n, b, rng, vocab_size, min_frames=600, max_frames=1000, trg_len=48):
+    """``n`` training batches of ``b`` fbank-like utterances (CMVN-scaled,
+    slowly varying noise; 10 ms frames) with ``trg_len``-token targets
+    (bos, words, eos)."""
+    from joeys2t_torch.data.batch import Batch
+
+    out = []
+    for _ in range(n):
+        lengths = rng.randint(min_frames, max_frames + 1, size=b)
+        lengths[0] = max_frames
+        t = int(lengths.max())
+        smooth = np.cumsum(rng.randn(b, t, 80).astype(np.float32), axis=1) * 0.05
+        src = (rng.randn(b, t, 80).astype(np.float32) + smooth) * (
+            np.arange(t)[None, :, None] < lengths[:, None, None])
+        trg = rng.randint(4, vocab_size, size=(b, trg_len))
+        trg[:, 0], trg[:, -1] = 2, 3
+        out.append(Batch(src.astype(np.float32), lengths, None, trg,
+                         np.full(b, trg_len), None, np.arange(b), 1, 3, task="S2T"))
+    return out
+
+
+def sync_time(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def train_phase():
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from joeys2t_torch.config import SpecialSymbols, load_config, parse_train_args
+    from joeys2t_torch.losses import build_loss_function
+    from joeys2t_torch.models import build_model
+    from joeys2t_torch.ops import flash_attention as fa
+    from joeys2t_torch.optim import WarmupInverseSquareRootScheduler
+    from joeys2t_torch.training import TrainManager
+    from joeys2t_torch.vocabulary import Vocabulary
+
+    cfg = load_config(REPO / "configs" / "librispeech_100h.yaml")
+    vocab = Vocabulary([f"w{i}" for i in range(4996)], SpecialSymbols())
+    model, spec = build_model(cfg["model"], trg_vocab=vocab, compute_dtype=torch.bfloat16,
+                              device="cuda", generator=torch.Generator().manual_seed(0))
+    args = parse_train_args(cfg["training"])
+    check(args.batch_multiplier == 4 and args.optimizer == "adamw"
+          and args.scheduling == "warmupinversesquareroot" and args.clip_grad_norm == 10.0
+          and args.label_smoothing == 0.1 and args.ctc_weight == 0.3,
+          f"unexpected training config {args}")
+    check(cfg["model"]["encoder"]["dropout"] == 0.1 == cfg["model"]["decoder"]["dropout"],
+          "the flagship trains with dropout 0.1")
+    tm = TrainManager(model, spec, build_loss_function(args, spec), args,
+                      seed=cfg.get("random_seed", 42), device="cuda")
+    n_enc, n_dec = len(model.encoder.layers), len(model.decoder.layers)
+    per_micro = n_enc + n_dec  # encoder self + decoder cross attentions
+    rng = np.random.RandomState(7)
+    batches = synthetic_batches(8, 64, rng, len(vocab))
+    audio_s = [float(b.src_length.sum()) / 100.0 for b in batches]  # 10 ms frames
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    expected = WarmupInverseSquareRootScheduler(peak_rate=args.learning_rate,
+                                                warmup=args.learning_rate_warmup,
+                                                min_rate=args.learning_rate_min)
+    check(tm.current_lr == expected.step(0), f"initial lr {tm.current_lr}")
+
+    # the plain attention versions must not run on the training path
+    plain = (fa.flash_attention_plain, fa.flash_attention_bwd_plain)
+
+    def refuse(*_a, **_k):
+        raise AssertionError("plain attention ran on the card's training path")
+
+    fa.flash_attention_plain = fa.flash_attention_bwd_plain = refuse
+    fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    micro_ms, update_s, losses, lrs = [], [], [], []
+    try:
+        torch.cuda.synchronize()
+        t_update = time.perf_counter()
+        for i, batch in enumerate(batches):
+            f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+            out, wall = sync_time(lambda: tm.train_batch(batch))
+            micro_ms.append(wall * 1e3)
+            losses.append(out["loss"].item())
+            check(fa.flash_attention_fwd.launches - f0 == per_micro
+                  and fa.flash_attention_bwd.launches - b0 == per_micro,
+                  f"micro-batch {i}: {fa.flash_attention_fwd.launches - f0} forward and "
+                  f"{fa.flash_attention_bwd.launches - b0} backward flash launches, "
+                  f"expected {per_micro} each")
+            check(out["stepped"] == (i % 4 == 3), f"micro-batch {i}: stepped={out['stepped']}")
+            if out["stepped"]:
+                update_s.append(time.perf_counter() - t_update)
+                t_update = time.perf_counter()
+                lrs.append(tm.current_lr)
+    finally:
+        fa.flash_attention_plain, fa.flash_attention_bwd_plain = plain
+    fwd_launches, bwd_launches = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(losses)), f"non-finite training loss {losses}")
+    check(tm.stats.steps == 2, f"{tm.stats.steps} updates")
+    check(lrs == [expected.step(1), expected.step(2)], f"lr {lrs} off the schedule")
+    check(all(p.dtype == torch.float32 for p in model.parameters()), "masters left float32")
+    moved = sum(not torch.equal(p, before[n]) for n, p in model.named_parameters())
+    check(moved == len(before), f"{len(before) - moved} weights did not move")
+    del before
+    print(f"[train] librispeech_100h: {n_enc} enc / {n_dec} dec layers, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M float32 masters, bf16 "
+          f"compute, dropout 0.1, batch_multiplier {args.batch_multiplier}, B=64, "
+          f"{batches[0].trg.shape[1]} decoder positions")
+    print(f"[train] 2 updates: losses {[round(x, 4) for x in losses]}, lr {lrs}, "
+          f"{fwd_launches} forward + {bwd_launches} backward flash launches "
+          f"({per_micro} + {per_micro} per micro-batch), every weight moved, float32")
+    print(f"[train] ms per micro-batch: {[round(x, 2) for x in micro_ms]}; per update: "
+          f"{[round(x * 1e3, 2) for x in update_s]}; trained audio-s/s: "
+          f"{[round(sum(audio_s[4 * i:4 * i + 4]) / t, 1) for i, t in enumerate(update_s)]}"
+          f" (second update {sum(audio_s[4:]):.1f} audio-s in {update_s[1]:.3f} s); peak "
+          f"memory {peak_gib:.2f} GiB")
+
+    # breakdown: forward (loss), backward, optimizer, each ending in a sync
+    fwd_s, bwd_s = [], []
+    for batch in batches[:4]:
+        _, _, arrays, normalizer = tm._prepare_batch(batch)
+        (loss, _), t = sync_time(lambda: tm._loss_and_metrics(arrays, normalizer))
+        fwd_s.append(t)
+        _, t = sync_time(loss.backward)
+        bwd_s.append(t)
+    _, opt_s = sync_time(tm.apply_accum)
+    fwd_ms, bwd_ms = 1e3 * np.mean(fwd_s), 1e3 * np.mean(bwd_s)
+    print(f"[train] breakdown per micro-batch: forward+loss {fwd_ms:.2f} ms, backward "
+          f"{bwd_ms:.2f} ms; optimizer (clip + AdamW) {opt_s * 1e3:.2f} ms per update")
+
+    # the card's busy share and top kernels over 8 profiled micro-batches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = sync_time(lambda: [tm.train_batch(b) for b in batches])
+    kernels = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            n, t = kernels.get(ev.name, (0, 0.0))
+            kernels[ev.name] = (n + 1, t + ev.time_range.elapsed_us())
+    if not kernels:
+        print("[train] device busy share: not measured (no device events recorded)")
+        return fwd_launches, bwd_launches
+    busy_us = sum(t for _, t in kernels.values())
+    flash_bwd_us = sum(t for name, (_, t) in kernels.items() if "flash_bwd" in name)
+    flash_fwd_us = sum(t for name, (_, t) in kernels.items() if "flash_fwd" in name)
+    print(f"[train] profiled 8 micro-batches: wall {wall * 1e3:.2f} ms, device busy "
+          f"{busy_us / 1e3:.2f} ms ({100 * busy_us / (wall * 1e6):.1f} %), "
+          f"{sum(n for n, _ in kernels.values()) / 8:.0f} kernels per micro-batch; flash "
+          f"backward kernels {flash_bwd_us / 1e3:.2f} ms ({100 * flash_bwd_us / busy_us:.1f} %"
+          f" of busy), flash forward {flash_fwd_us / 1e3:.2f} ms "
+          f"({100 * flash_fwd_us / busy_us:.1f} %)")
+    for name, (n, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"[train]   {t / 1e3:8.3f} ms {n:5d}x  {name[:110]}")
+    return fwd_launches, bwd_launches
+
+
+def train_card_vs_cpu_phase():
+    """One float32 update at dropout 0 of a small model on the card and on
+    the CPU, from the same seeded weights and batches."""
+    from joeys2t_torch.config import SpecialSymbols, parse_train_args
+    from joeys2t_torch.losses import build_loss_function
+    from joeys2t_torch.models import build_model
+    from joeys2t_torch.training import TrainManager
+    from joeys2t_torch.vocabulary import Vocabulary
+
+    cfg = {"encoder": {"type": "transformer", "num_layers": 2, "num_heads": 2,
+                       "embeddings": {"embedding_dim": 80}, "hidden_size": 256,
+                       "ff_size": 1024, "subsample": True, "conv_kernel_sizes": [5, 5],
+                       "conv_channels": 256, "in_channels": 80, "layer_norm": "pre",
+                       "dropout": 0.0},
+           "decoder": {"type": "transformer", "num_layers": 2, "num_heads": 2,
+                       "embeddings": {"embedding_dim": 256, "scale": True},
+                       "hidden_size": 256, "ff_size": 1024, "layer_norm": "pre",
+                       "dropout": 0.0}}
+    training = {"optimizer": "adamw", "adam_betas": [0.9, 0.98], "weight_decay": 0.01,
+                "scheduling": "warmupinversesquareroot", "learning_rate": 2e-3,
+                "learning_rate_warmup": 10, "clip_grad_norm": 1.0, "batch_size": 8,
+                "batch_multiplier": 2, "label_smoothing": 0.1,
+                "loss": "crossentropy-ctc", "ctc_weight": 0.3}
+    vocab = Vocabulary([f"w{i}" for i in range(196)], SpecialSymbols())
+    batches = synthetic_batches(2, 6, np.random.RandomState(3), len(vocab), 300, 520, 20)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model, spec = build_model(cfg, trg_vocab=vocab, device=dev,
+                                  generator=torch.Generator().manual_seed(2))
+        args = parse_train_args(training)
+        tm = TrainManager(model, spec, build_loss_function(args, spec), args, device=dev)
+        apply, seen = tm.apply_accum, {}
+
+        def capture(model=model, apply=apply, seen=seen):
+            seen.update({n: p.grad.detach().cpu().clone()
+                         for n, p in model.named_parameters()})
+            apply()
+
+        tm.apply_accum = capture
+        loss = sum(tm.train_batch(b)["loss"].item() for b in batches)
+        runs[dev] = (loss, seen, {n: p.detach().cpu() for n, p in model.named_parameters()},
+                     tm.current_lr)
+    (l_cpu, g_cpu, p_cpu, lr), (l_gpu, g_gpu, p_gpu, _) = runs["cpu"], runs["cuda"]
+    norm = float(torch.stack([g.double().square().sum() for g in g_cpu.values()]).sum().sqrt())
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    grad_err = max((g_gpu[n] - g).abs().max().item() for n, g in g_cpu.items()) / norm
+    param_err = max((p_gpu[n] - p).abs().max().item() for n, p in p_cpu.items())
+    check(loss_err <= 1e-5, f"training loss differs between card and CPU by {loss_err}")
+    check(grad_err <= 1e-4, f"gradients differ by {grad_err} of their norm")
+    check(param_err <= 2 * lr, f"updated weights differ by {param_err} > 2 lr = {2 * lr}")
+    print(f"[train-card-vs-cpu] f32 2+2 layers hidden 256, 2 micro-batches: loss rel err "
+          f"{loss_err:.3g} (tol 1e-5), gradient err {grad_err:.3g} of the norm (tol 1e-4), "
+          f"weight err {param_err:.3g} (tol 2 lr = {2 * lr:.3g})")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -399,27 +747,36 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
     build_phase()
-    flash, decode = kernel_phase()
+    flash, decode, backward = kernel_phase()
     flash_launches, decode_launches, asr, batch = serving_phase()
     breakdown_phase(asr, batch)
     del asr, batch
     card_vs_cpu_phase()
+    torch.cuda.empty_cache()
+    train_fwd_launches, train_bwd_launches = train_phase()
+    train_card_vs_cpu_phase()
 
     def entry(name, source, replaces, also, cases, launches):
-        head = cases[0]  # the serving path's shape and dtype
+        head = cases[0]  # the main path's headline shape and dtype
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    also_replaces=also, launches=launches,
-                    max_abs_err=head["max_abs_err"], ms=head["ms"],
-                    plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                    also_replaces=also, launches=sum(launches.values()),
+                    launches_by_path=launches, max_abs_err=head["max_abs_err"],
+                    ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                     bound_by=head["bound_by"], library_ms=head["library_ms"],
                     case=head["case"], cases=cases)
 
     kernels = [
         entry("flash_attention_fwd", "joeys2t_torch/csrc/flash_attention.cu",
               "joeys2t_tpu/ops/flash_attention.py:492",
-              "joeys2t_tpu/ops/flash_attention.py:262", flash, flash_launches),
+              "joeys2t_tpu/ops/flash_attention.py:262", flash,
+              {"serving": flash_launches, "train": train_fwd_launches}),
+        entry("flash_attention_bwd", "joeys2t_torch/csrc/flash_attention.cu",
+              "joeys2t_tpu/ops/flash_attention.py:562",
+              "joeys2t_tpu/ops/flash_attention.py:306", backward,
+              {"train": train_bwd_launches}),
         entry("decode_attention", "joeys2t_torch/csrc/decode_attention.cu",
-              "joeys2t_tpu/ops/decode_attention.py:185", None, decode, decode_launches),
+              "joeys2t_tpu/ops/decode_attention.py:185", None, decode,
+              {"serving": decode_launches}),
     ]
     print(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,14 @@
 # coding: utf-8
 """
-Configuration: special symbols and the YAML config loader.
+Configuration: special symbols, the `training` section and the YAML config
+loader.
 
 Counterpart of joeys2t_tpu/config.py (``SpecialSymbols`` :28,
-``ConfigurationError`` :23, ``load_config`` :210). The port depends on
+``ConfigurationError`` :23, ``TrainConfig`` :45, ``load_config`` :210,
+``parse_train_args`` :259). ``TrainConfig`` keeps the fields the train step
+reads; the `training` options of the parts the port does not have yet
+(checkpoint loading, profiling, model and pipeline parallelism, optimizers
+other than adam/adamw, bf16 moments) raise ``NotImplementedError`` when set. The port depends on
 torch, numpy and the standard library only, so it reads the repository's
 configs with its own YAML reader: block mappings by indentation, ``- item``
 block lists, ``[a, b]`` flow lists, quoted and plain scalars resolved as
@@ -15,6 +20,8 @@ import dataclasses
 import re
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
+
+PORTED_OPTIMIZERS = ("adam", "adamw")
 
 
 class ConfigurationError(Exception):
@@ -36,6 +43,104 @@ class SpecialSymbols:
     sep_id: Optional[int] = None
     sep_token: Optional[str] = None
     lang_tags: List[str] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The fields of the JAX package's ``TrainConfig`` (joeynmt/config.py:26-65,
+    defaults :252-353) that the train step reads."""
+
+    loss: str = "crossentropy"
+    normalization: str = "batch"
+    label_smoothing: float = 0.0
+    optimizer: str = "adam"
+    adam_betas: List[float] = dataclasses.field(default_factory=lambda: [0.9, 0.999])
+    feature_dtype: str = "auto"
+    learning_rate: float = 0.005
+    learning_rate_min: float = 0.0001
+    learning_rate_factor: float = 1
+    learning_rate_warmup: int = 4000
+    scheduling: Optional[str] = None
+    patience: int = 5
+    decrease_factor: float = 0.5
+    weight_decay: float = 0.0
+    clip_grad_norm: Optional[float] = None
+    clip_grad_val: Optional[float] = None
+    minimize_metric: bool = True
+    max_updates: float = float("inf")
+    batch_size: int = 1
+    batch_type: str = "sentence"
+    batch_multiplier: int = 1
+    ctc_weight: float = 0.0
+
+
+def _check_options(name: str, choice: Any, valid_options: List[Any]) -> None:
+    """joeynmt/config.py:118-125"""
+    if choice not in valid_options:
+        valids = "{" + ", ".join([f"`{option}`" for option in valid_options]) + "}"
+        raise ConfigurationError(f"Invalid setting for `{name}`. Valid choices: {valids}.")
+
+
+def parse_train_args(cfg: Dict) -> TrainConfig:
+    """Parse and validate the `training` section (joeys2t_tpu/config.py:259)
+    for the train step; options of parts not ported yet raise
+    ``NotImplementedError``."""
+    normalization = cfg.get("normalization", "batch").lower()
+    _check_options("normalization", normalization, ["batch", "tokens", "none"])
+    loss_type = cfg.get("loss", "crossentropy")
+    _check_options("loss", loss_type, ["crossentropy", "crossentropy-ctc"])
+    optimizer = cfg.get("optimizer", "adam").lower()
+    _check_options("optimizer", optimizer, ["adam", "adamw", "adafactor", "adagrad",
+                                            "adadelta", "rmsprop", "sgd"])
+    early_stopping_metric = cfg.get("early_stopping_metric", "ppl").lower()
+    _check_options("early_stopping_metric", early_stopping_metric,
+                   ["acc", "loss", "ppl", "bleu", "chrf", "wer"])
+    batch_type = cfg.get("batch_type", "sentence").lower()
+    _check_options("batch_type", batch_type, ["sentence", "token"])
+    feature_dtype = str(cfg.get("feature_dtype", "auto")).lower()
+    _check_options("feature_dtype", feature_dtype, ["auto", "float32", "bfloat16"])
+    if cfg.get("clip_grad_val") is not None and cfg.get("clip_grad_norm") is not None:
+        raise ConfigurationError(
+            "You can only specify either clip_grad_val or clip_grad_norm.")
+
+    unported = {
+        "load_model": cfg.get("load_model") is not None,
+        "load_encoder": cfg.get("load_encoder") is not None,
+        "load_decoder": cfg.get("load_decoder") is not None,
+        "profile_dir": cfg.get("profile_dir") is not None,
+        "moment_dtype": cfg.get("moment_dtype") is not None,
+        "model_parallel": int(cfg.get("model_parallel", 1)) != 1,
+        "pipeline_parallel": int(cfg.get("pipeline_parallel", 1)) != 1,
+        f"optimizer {optimizer}": optimizer not in PORTED_OPTIMIZERS,
+    }
+    for option, is_set in unported.items():
+        if is_set:
+            raise NotImplementedError(f"training option `{option}` is not ported yet")
+
+    return TrainConfig(
+        normalization=normalization,
+        loss=loss_type,
+        label_smoothing=cfg.get("label_smoothing", 0.0),
+        optimizer=optimizer,
+        adam_betas=cfg.get("adam_betas", [0.9, 0.999]),
+        feature_dtype=feature_dtype,
+        learning_rate=cfg.get("learning_rate", 0.005),
+        learning_rate_min=cfg.get("learning_rate_min", 0.0001),
+        learning_rate_factor=cfg.get("learning_rate_factor", 1),
+        learning_rate_warmup=cfg.get("learning_rate_warmup", 4000),
+        scheduling=cfg.get("scheduling", None),  # None == constant
+        patience=cfg.get("patience", 5),
+        decrease_factor=cfg.get("decrease_factor", 0.5),
+        weight_decay=cfg.get("weight_decay", 0.0),
+        clip_grad_norm=cfg.get("clip_grad_norm", None),
+        clip_grad_val=cfg.get("clip_grad_val", None),
+        minimize_metric=early_stopping_metric in ["ppl", "loss", "wer"],
+        max_updates=cfg.get("updates", float("inf")),
+        batch_size=cfg["batch_size"],
+        batch_type=batch_type,
+        batch_multiplier=cfg.get("batch_multiplier", 1),
+        ctc_weight=cfg.get("ctc_weight", 0.0),
+    )
 
 
 def load_config(cfg_file: str = "configs/default.yaml") -> Dict:

@@ -14,7 +14,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from joeys2t_torch.models.modules import (NEG_INF, TransformerDecoderLayer, dense,
+from joeys2t_torch.models.modules import (NEG_INF, Dropout, TransformerDecoderLayer, dense,
                                           layer_norm, sinusoidal_pe, subsequent_mask)
 
 
@@ -35,7 +35,7 @@ class TransformerDecoder(nn.Module):
             TransformerDecoderLayer(hidden_size, ff_size, num_heads, dropout, alpha,
                                     layer_norm_position, activation, dtype, device)
             for _ in range(num_layers))
-        self.emb_dropout = nn.Dropout(emb_dropout)
+        self.emb_dropout = Dropout(emb_dropout)
         self.layer_norm = (nn.LayerNorm(hidden_size, eps=1e-6, device=device)
                            if layer_norm_position == "pre" else None)
         self.output_layer = nn.Linear(hidden_size, vocab_size, bias=False, device=device)

@@ -13,8 +13,9 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from joeys2t_torch.models.modules import (Conv1dSubsampler, TransformerEncoderLayer,
-                                          layer_norm, sinusoidal_pe)
+from joeys2t_torch.models.modules import (Conv1dSubsampler, Dropout,
+                                          TransformerEncoderLayer, layer_norm,
+                                          sinusoidal_pe)
 
 
 def lengths_to_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -40,7 +41,7 @@ class TransformerEncoder(nn.Module):
             TransformerEncoderLayer(hidden_size, ff_size, num_heads, dropout, alpha,
                                     layer_norm_position, activation, dtype, device)
             for _ in range(num_layers))
-        self.emb_dropout = nn.Dropout(emb_dropout)
+        self.emb_dropout = Dropout(emb_dropout)
         # final layer norm exists iff layer_norm == "pre" (joeynmt/encoders.py:223-226)
         self.layer_norm = (nn.LayerNorm(hidden_size, eps=1e-6, device=device)
                            if layer_norm_position == "pre" else None)

@@ -11,14 +11,22 @@ LayerNorm eps 1e-6 with LayerNorm and softmax in float32, matmuls in the
 module's compute ``dtype`` (bfloat16 on the card), residual scale ``alpha``.
 
 Attention routing: full-length attention with a key-padding mask goes
-through the flash-attention wrapper, and the per-step decode attention over
-the (B, H, S, D) caches through the decode-attention wrapper; both run the
-hand-written CUDA kernel on a CUDA tensor (or raise, for a head size or
-dtype the kernel does not take) and their plain version on a CPU tensor.
-Attention with a full (B, Tq, Tk) mask, such as causal decoder
-self-attention over a whole sequence, stays plain PyTorch, and so does
-key-masked attention on a CPU tensor at a head size the kernel does not
-take, as in the JAX module.
+through :class:`~joeys2t_torch.ops.flash_attention.FlashAttention`, forward
+and backward, with attention dropout inside the kernel in training mode; the
+per-step decode attention over the (B, H, S, D) caches goes through the
+decode-attention wrapper. Both run the hand-written CUDA kernels on a CUDA
+tensor (or raise, for a head size or dtype the kernels do not take) and
+their plain versions on a CPU tensor. Attention with a full (B, Tq, Tk)
+mask, such as causal decoder self-attention over a whole sequence, stays
+plain PyTorch, as the JAX module's einsum path (modules.py:102-123), and so
+does key-masked attention on a CPU tensor at a head size the kernel does not
+take.
+
+Dropout: in ``train()`` every dropout of the JAX modules fires at the same
+places, attention dropout included, and each draws from the generator the
+trainer hands the model (:func:`set_dropout_generator`), never from torch's
+global generator. The masks are not the JAX package's: the two frameworks'
+random bits differ.
 
 Unlike the functional JAX modules, ``step_self`` writes the new key/value
 into the caller's self-attention cache in place, and the decode steps take
@@ -36,6 +44,47 @@ from joeys2t_torch.ops.decode_attention import decode_attention
 from joeys2t_torch.ops.flash_attention import mha_flash_flat, supported
 
 NEG_INF = -1e9
+
+
+class Dropout(nn.Module):
+    """Dropout whose mask comes from ``generator`` (set by
+    :func:`set_dropout_generator`); a kept value is divided by the keep
+    probability, as flax's ``nn.Dropout`` does. Identity in eval mode or at
+    rate 0."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def active(self) -> bool:
+        """Whether this dropout fires; raises if it would but has no
+        generator."""
+        if not self.training or self.rate == 0.0:
+            return False
+        if self.generator is None:
+            raise RuntimeError("training-mode dropout needs a generator: call "
+                               "set_dropout_generator(model, generator)")
+        return True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.active():
+            return x
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=self.generator.device).to(x.device) >= self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros((), dtype=x.dtype,
+                                                                    device=x.device))
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
+
+
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Give every :class:`Dropout` of ``model`` the generator it draws from
+    in training mode (the trainer's; JAX's ``rngs={"dropout": ...}``)."""
+    for module in model.modules():
+        if isinstance(module, Dropout):
+            module.generator = generator
 
 
 def build_activation(activation: str = "relu") -> nn.Module:
@@ -103,7 +152,7 @@ class MultiHeadedAttention(nn.Module):
         self.v_layer = nn.Linear(size, size, device=device)
         self.q_layer = nn.Linear(size, size, device=device)
         self.output_layer = nn.Linear(size, size, device=device)
-        self.attn_dropout = nn.Dropout(dropout)
+        self.attn_dropout = Dropout(dropout)
 
     def _split_heads(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, size) -> (B, T, H, Dh)"""
@@ -135,12 +184,14 @@ class MultiHeadedAttention(nn.Module):
         key_mask_only = mask is None or (mask.dim() == 3 and mask.shape[1] == 1)
         if key_mask_only and (q.device.type != "cpu"
                               or supported(self.head_size, self.dtype)):
+            drop = self.attn_dropout.active()
             context = mha_flash_flat(
                 dense(self.q_layer, q, self.dtype), dense(self.k_layer, k, self.dtype),
                 dense(self.v_layer, k, self.dtype), self.num_heads,
                 None if mask is None else mask[:, 0, :],
                 1.0 / math.sqrt(self.head_size),
-                dropout_rate=self.dropout if self.training else 0.0)
+                dropout_rate=self.dropout if drop else 0.0,
+                generator=self.attn_dropout.generator if drop else None)
             return dense(self.output_layer, context, self.dtype)
         k_h, v_h = self.project_kv(k)
         q_h = self._split_heads(dense(self.q_layer, q, self.dtype))
@@ -190,8 +241,8 @@ class PositionwiseFeedForward(nn.Module):
         # indices 0 and 3 are the reference's pwff_layer names
         self.pwff_layer = nn.Sequential(
             nn.Linear(input_size, ff_size, device=device), build_activation(activation),
-            nn.Dropout(dropout), nn.Linear(ff_size, input_size, device=device),
-            nn.Dropout(dropout))
+            Dropout(dropout), nn.Linear(ff_size, input_size, device=device),
+            Dropout(dropout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x
@@ -220,7 +271,7 @@ class TransformerEncoderLayer(nn.Module):
         self.src_src_att = MultiHeadedAttention(num_heads, size, dropout, dtype, device)
         self.feed_forward = PositionwiseFeedForward(
             size, ff_size, dropout, alpha, layer_norm_position, activation, dtype, device)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         residual = x
@@ -251,7 +302,7 @@ class TransformerDecoderLayer(nn.Module):
             size, ff_size, dropout, alpha, layer_norm_position, activation, dtype, device)
         self.x_layer_norm = _layer_norm_module(size, device)
         self.dec_layer_norm = _layer_norm_module(size, device)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x, memory, src_mask, trg_mask) -> torch.Tensor:
         pre = self.layer_norm_position == "pre"

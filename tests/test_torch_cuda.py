@@ -1,6 +1,8 @@
 # coding: utf-8
-"""The port's CUDA kernels against their plain versions, and a small model
-on the card against the CPU. Needs a CUDA card and nvcc; skipped without
+"""The port's CUDA kernels against their plain versions (flash attention
+forward and backward, with and without dropout, and the dropout mask bit
+for bit; decode attention), and a small model on the card against the CPU,
+serving and one training update. Needs a CUDA card and nvcc; skipped without
 them. Run on a card with (the suite's conftest.py imports JAX, which the
 card's machine need not have):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py"""
@@ -42,8 +44,63 @@ def test_flash_kernel_matches_plain(card, dtype, tol, b, sq, sk, h, d):
     assert fa.flash_attention_fwd.launches == before + 1
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention_fwd(q, k, v, bias, d ** -0.5, h, dropout_rate=0.1)
+    # with dropout the kernel drops the same probabilities as the plain version
+    seed = torch.tensor([12345], dtype=torch.int32, device=card)
+    out, lse = fa.flash_attention_fwd(q, k, v, bias, d ** -0.5, h, 0.1, seed)
+    ref, _ = fa.flash_attention_plain(q, k, v, bias, d ** -0.5, h, 0.1, seed)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+
+
+def _rel_err(a, b):
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,sq,sk,h,d", [(3, 37, 70, 2, 64), (2, 47, 250, 4, 128),
+                                         (2, 130, 600, 4, 128), (2, 40, 33, 1, 256)])
+def test_flash_backward_kernel_matches_plain(card, dtype, tol, rate, b, sq, sk, h, d):
+    """dQ, dK, dV of the three backward kernels against the plain version,
+    row 0 with every key masked; the tolerance is relative to the largest
+    gradient (f32: summation order; bf16: one rounding of each output)."""
+    gen = torch.Generator().manual_seed(4)
+    q = torch.randn(b, sq, h * d, generator=gen).to(dtype).to(card)
+    k, v = (torch.randn(b, sk, h * d, generator=gen).to(dtype).to(card) for _ in range(2))
+    d_out = torch.randn(b, sq, h * d, generator=gen).to(dtype).to(card)
+    valid = torch.arange(sk)[None, :] < torch.randint(1, sk + 1, (b,), generator=gen)[:, None]
+    valid[0] = False
+    bias = torch.where(valid, 0.0, -1e9).float().to(card)
+    seed = torch.tensor([777], dtype=torch.int32, device=card)
+    sm = d ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, bias, sm, h, rate, seed)
+    before = fa.flash_attention_bwd.launches
+    grads = fa.flash_attention_bwd(q, k, v, bias, out, lse, d_out, sm, h, rate, seed)
+    refs = fa.flash_attention_bwd_plain(q, k, v, bias, out, lse, d_out, sm, h, rate, seed)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.dtype == dtype and bool(torch.isfinite(g.float()).all()), name
+        assert _rel_err(g, r) <= tol, (name, _rel_err(g, r))
+
+
+def test_dropout_mask_bits_match_plain(card):
+    """The kernels' keep mask, read out bit for bit: with V the identity in
+    each head band the forward's out is the dropped probability matrix, and
+    with dO the identity the backward's dV is its transpose."""
+    b, h, d = 3, 2, 128
+    sq = sk = d
+    gen = torch.Generator().manual_seed(5)
+    q, k = (torch.randn(b, sq, h * d, generator=gen).to(card) for _ in range(2))
+    eye = torch.eye(d, device=card).repeat(1, h)[None].expand(b, d, h * d).contiguous()
+    bias = torch.zeros(b, sk, device=card)
+    seed = torch.tensor([2024], dtype=torch.int32, device=card)
+    keep = fa.attention_keep(seed, b, h, sq, sk, 0.1, card)  # (B, H, Sq, Sk)
+    out, lse = fa.flash_attention_fwd(q, k, eye, bias, 1.0 / d, h, 0.1, seed)
+    fwd_keep = out.reshape(b, sq, h, d).permute(0, 2, 1, 3) != 0
+    _, _, dv = fa.flash_attention_bwd(q, k, eye, bias, out, lse, eye, 1.0 / d, h, 0.1, seed)
+    bwd_keep = dv.reshape(b, sk, h, d).permute(0, 2, 3, 1) != 0
+    assert torch.equal(fwd_keep, keep) and torch.equal(bwd_keep, keep)
+    assert 0.85 < keep.float().mean().item() < 0.95
 
 
 @pytest.mark.parametrize("mode", ["f32", "bf16", "channel", "position"])
@@ -71,6 +128,21 @@ def test_decode_kernel_matches_plain(card, mode):
                                     scale_layout=layout)
     torch.testing.assert_close(out.float(), ref.float(),
                                atol=1e-5 if qdt == torch.float32 else 1e-2, rtol=0)
+
+
+def test_train_update_card_matches_cpu(card):
+    """One f32 update at dropout 0 (two accumulated micro-batches) on the card
+    and on the CPU: loss, gradients and updated weights."""
+    from test_torch_train import one_update
+
+    cpu, gpu = one_update("cpu"), one_update(card)
+    assert fa.flash_attention_bwd.launches > 0
+    assert abs(gpu["loss"] - cpu["loss"]) <= 1e-5 * abs(cpu["loss"])
+    for name in cpu["grads"]:
+        err = (gpu["grads"][name] - cpu["grads"][name]).abs().max().item()
+        assert err <= 1e-4 * cpu["grad_norm"], name
+        err = (gpu["params"][name] - cpu["params"][name]).abs().max().item()
+        assert err <= 2 * cpu["lr"], name
 
 
 @pytest.mark.parametrize("heads,dtype", [(4, torch.bfloat16), (1, torch.float16)])

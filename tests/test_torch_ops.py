@@ -1,12 +1,15 @@
 # coding: utf-8
 """The port's kernel modules on the CPU against the JAX package: the plain
-versions of the flash-attention forward and of decode attention (what the
-wrappers run on CPU tensors; the CUDA kernels are held against them on the
-card by chip_smoke.py), and the device front end (fbank + CMVN).
+versions of the flash-attention forward and backward and of decode attention
+(what the wrappers run on CPU tensors; the CUDA kernels are held against
+them on the card by chip_smoke.py and tests/test_torch_cuda.py), the
+attention-dropout bits, and the device front end (fbank + CMVN).
 
 Inputs come from numpy with a fixed seed and go through both packages. The
 Pallas kernels run in interpret mode, as the JAX package's own tests run
 them."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -82,11 +85,140 @@ def test_flash_wrapper_on_cpu_runs_plain_version():
 
 
 def test_flash_dropout_raises_on_every_device():
-    """Dropout waits for the kernel's training slice; the CPU refuses it as
-    the card does, instead of dropping with torch's global generator."""
+    """Dropout needs a seed on every device (it never falls back to torch's
+    global generator); with one, the same seed drops the same
+    probabilities and another seed others."""
     q = torch.zeros(1, 4, 128)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="seed"):
         port_fa.flash_attention_fwd(q, q, q, torch.zeros(1, 4), 0.125, 2, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="generator"):
+        port_fa.mha_flash_flat(q, q, q, 2, None, 0.125, dropout_rate=0.1)
+    rng = np.random.RandomState(2)
+    q, k, v = (torch.tensor(rng.randn(2, 30, 128).astype(np.float32)) for _ in range(3))
+    bias = torch.zeros(2, 30)
+    seed = torch.tensor([99], dtype=torch.int32)
+    out1, lse1 = port_fa.flash_attention_fwd(q, k, v, bias, 0.125, 2, 0.3, seed)
+    out2, lse2 = port_fa.flash_attention_fwd(q, k, v, bias, 0.125, 2, 0.3, seed.clone())
+    out3, _ = port_fa.flash_attention_fwd(q, k, v, bias, 0.125, 2, 0.3, seed + 1)
+    ref, lse0 = port_fa.flash_attention_fwd(q, k, v, bias, 0.125, 2)
+    assert torch.equal(out1, out2) and not torch.equal(out1, out3)
+    assert torch.equal(lse1, lse0)  # dropout leaves the softmax statistics alone
+    assert (out1 - ref).abs().max() > 1e-3
+    # mha_flash_flat draws its seed from the caller's generator only
+    a = port_fa.mha_flash_flat(q, k, v, 2, None, 0.125, 0.3, torch.Generator().manual_seed(5))
+    b = port_fa.mha_flash_flat(q, k, v, 2, None, 0.125, 0.3, torch.Generator().manual_seed(5))
+    assert torch.equal(a, b)
+
+
+def _python_bits(seed, b, h, q, k):
+    """The hash with Python's unbounded ints, masked to 32 bits."""
+    def mix(x):
+        m = 0xFFFFFFFF
+        x ^= x >> 16
+        x = (x * 0x7FEB352D) & m
+        x ^= x >> 15
+        x = (x * 0x846CA68B) & m
+        return x ^ (x >> 16)
+    return mix(mix(mix(mix(mix(seed ^ 0x9E3779B9) ^ b) ^ h) ^ q) ^ k)
+
+
+def test_dropout_hash_fixed_values():
+    """The plain hash splits its 32-bit products into 16-bit halves, so the
+    int64 tensors never overflow; held against fixed values and Python ints."""
+    x = torch.tensor([0, 1, 2, 0xFFFFFFFF, 123456789, 0x9E3779B9])
+    assert [int(v) for v in port_fa.mix32(x)] == [
+        0x0, 0x688990C0, 0xD1132181, 0x6768824A, 0xA8F1DB88, 0x1FCE552]
+    cases = {(0, 0, 0, 0, 0): 0x0EAA7511, (12345, 1, 2, 3, 4): 0x11972835,
+             (2**31 - 2, 63, 3, 249, 749): 0xAC9807EB, (7, 5, 0, 46, 100): 0xF280E1D8}
+    rate = 0.1
+    thr = port_fa.dropout_threshold(rate)
+    assert thr == 429496730
+    for (seed, b, h, q, k), bits in cases.items():
+        assert _python_bits(seed, b, h, q, k) == bits
+        keep = port_fa.dropout_keep(torch.tensor([seed], dtype=torch.int32), torch.tensor(b),
+                                    torch.tensor(h), torch.tensor(q), torch.tensor(k), rate)
+        assert bool(keep) == (bits >= thr)
+    rng = np.random.RandomState(3)
+    for _ in range(200):
+        seed, b, h, q, k = (int(rng.randint(0, 2**31 - 1)), int(rng.randint(0, 512)),
+                            int(rng.randint(0, 16)), int(rng.randint(0, 3000)),
+                            int(rng.randint(0, 3000)))
+        keep = port_fa.dropout_keep(torch.tensor([seed], dtype=torch.int32), torch.tensor(b),
+                                    torch.tensor(h), torch.tensor(q), torch.tensor(k), 0.5)
+        assert bool(keep) == (_python_bits(seed, b, h, q, k) >= 2**31)
+
+
+def test_dropout_mask_statistics():
+    """Keep fraction within 4 sigma of 1 - r over 2**20 draws, and no
+    correlation (|r| < 4 / sqrt(n)) between heads, neighbouring rows,
+    neighbouring keys, batch rows or seeds."""
+    rate = 0.1
+    keep = port_fa.attention_keep(torch.tensor([31337], dtype=torch.int32), 4, 4, 256, 256,
+                                  rate).float()  # (B, H, Sq, Sk): 2**20 draws
+    n = keep.numel()
+    sigma = math.sqrt(rate * (1 - rate) / n)
+    assert abs(keep.mean().item() - (1 - rate)) < 4 * sigma
+
+    def corr(a, b):
+        a, b = a.flatten() - a.mean(), b.flatten() - b.mean()
+        return ((a * b).mean() / (a.std() * b.std())).item()
+
+    pairs = {"heads": (keep[:, 0], keep[:, 1]), "rows": (keep[:, :, :-1], keep[:, :, 1:]),
+             "keys": (keep[..., :-1], keep[..., 1:]), "batch": (keep[0], keep[1])}
+    other = port_fa.attention_keep(torch.tensor([31338], dtype=torch.int32), 4, 4, 256, 256,
+                                   rate).float()
+    pairs["seeds"] = (keep, other)
+    for name, (a, b) in pairs.items():
+        assert abs(corr(a, b)) < 4 / math.sqrt(a.numel()), name
+
+
+@pytest.mark.parametrize("sq,sk,heads,dim", [(40, 70, 2, 64), (20, 600, 1, 64)])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_flash_backward_plain_matches_pallas(sq, sk, heads, dim, dtype, tol):
+    """dQ, dK, dV of the plain backward against jax.vjp through the Pallas
+    kernels (interpret mode): ragged Sk, Sk > 512 (K4's route), and row 0
+    with every key masked, where both rebuild p = exp(s - lse) = 1."""
+    rng = np.random.RandomState(7)
+    b, e = 2, heads * dim
+    q, k, v = (0.5 * rng.randn(b, s, e).astype(np.float32) for s in (sq, sk, sk))
+    d_out = rng.randn(b, sq, e).astype(np.float32)
+    bias = _key_bias(rng, b, sk)
+    sm = 1.0 / np.sqrt(dim)
+    jdt = jnp.dtype(dtype)
+    _, vjp = jax.vjp(lambda q_, k_, v_: jax_fa.flash_attention_flat(
+        q_, k_, v_, jnp.asarray(bias), sm, heads), *(jnp.asarray(x, jdt) for x in (q, k, v)))
+    grads_j = vjp(jnp.asarray(d_out, jdt))
+    tdt = getattr(torch, dtype)
+    qt, kt, vt, dot = (torch.tensor(x).to(tdt) for x in (q, k, v, d_out))
+    bt = torch.tensor(bias)
+    out, lse = port_fa.flash_attention_fwd(qt, kt, vt, bt, sm, heads)
+    grads_t = port_fa.flash_attention_bwd(qt, kt, vt, bt, out, lse, dot, sm, heads)
+    for name, g_t, g_j in zip(("dq", "dk", "dv"), grads_t, grads_j):
+        assert g_t.dtype == tdt, name
+        np.testing.assert_allclose(g_t.float().numpy(), np.asarray(g_j, np.float32),
+                                   atol=tol, rtol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_autograd_matches_plain_forward(rate):
+    """FlashAttention on the CPU (the plain backward) against torch autograd
+    through the plain forward, same seed, f32 to 1e-5. Every row has a valid
+    key: at an all-masked row the Pallas backward's p = exp(s - lse) = 1 is
+    not the gradient of the forward's uniform 1/Sk."""
+    rng = np.random.RandomState(8)
+    b, sq, sk, heads, e = 3, 21, 45, 2, 128
+    q, k, v = (torch.tensor(rng.randn(b, s, e).astype(np.float32), requires_grad=True)
+               for s in (sq, sk, sk))
+    bias = torch.tensor(_key_bias(rng, b, sk, all_masked_row=False))
+    d_out = torch.tensor(rng.randn(b, sq, e).astype(np.float32))
+    seed = torch.tensor([4242], dtype=torch.int32)
+    out = port_fa.FlashAttention.apply(q, k, v, bias, 0.125, heads, rate, seed)
+    grads = torch.autograd.grad(out, (q, k, v), d_out)
+    ref = port_fa.flash_attention_plain(q, k, v, bias, 0.125, heads, rate, seed)[0]
+    refs = torch.autograd.grad(ref, (q, k, v), d_out)
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+    for g, r in zip(grads, refs):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
 
 
 # --------------------------------------------------------- decode attention
