@@ -8,10 +8,15 @@ Phases, each of which fails the run (non-zero exit, no result line) when it
 goes wrong:
 
 1. build: compile every CUDA kernel of the port from joeys2t_torch/csrc
-   (one nvcc per source, all started together), timed;
+   (one nvcc per source, all started together), timed; print each kernel's
+   registers and spills (ptxas) and HMMA instructions (cuobjdump -sass), and
+   the route (mma.sync tensor cores for bf16, SIMT for f32) and shared
+   memory of the flash kernels at every head size;
 2. kernels: hold each kernel against its plain PyTorch version on the card
    at the shapes of the serving path, and time the kernel, the plain
-   version and one PyTorch library call computing the same function;
+   version and one PyTorch library call computing the same function (CUDA
+   events after a device spin that outlasts the host's enqueueing), with the
+   roofline share and achieved TFLOP/s;
 3. serving: build the librispeech_100h model (configs/librispeech_100h.yaml,
    16 encoder / 8 decoder layers, hidden 512) with random weights from a
    seed and a synthetic 5000-token vocabulary, in bf16, and serve three
@@ -45,8 +50,9 @@ goes wrong:
 Phase 2 also holds the flash backward against its plain version at the
 training path's shapes (B=64 Sq=Sk=250; B=64 Sq=47 Sk=250; B=2 Sq=Sk=750),
 in f32 and bf16, at dropout 0 and 0.1, with the forward's dropped output
-against the plain one and the dropout mask read out of both kernels bit for
-bit, and times SDPA's backward beside it.
+against the plain one, two backward calls bit-identical, and the dropout
+mask read out of both kernels bit for bit in bf16 and f32, and times SDPA's
+backward beside it.
 
 Output: diagnostics, then one JSON line of kernel measurements, then the
 card's name and power limit as nvidia-smi reports them, and last
@@ -54,6 +60,8 @@ card's name and power limit as nvidia-smi reports them, and last
 JAX or of joeys2t_tpu.
 """
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -78,11 +86,15 @@ def check(cond: bool, msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back runs."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back runs. The card
+    first spins for 20 ms, long enough for the host to enqueue every run, so
+    the runs follow each other without gaps even where one run's host work
+    (Python, the launch) takes longer than its kernels."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(20e-3 * 2.0e9))  # ~20 ms at the H100's ~2 GHz clock
     start.record()
     for _ in range(iters):
         fn()
@@ -110,20 +122,80 @@ def speechlike(rng: np.random.RandomState, n: int) -> np.ndarray:
 
 
 # ------------------------------------------------------------------ phase 1
+def kernel_name(mangled: str) -> str:
+    """``flash_fwd_mma_kernel<128, 64, 1>`` from a mangled kernel name (the
+    mangled name itself where no demangler is installed)."""
+    for tool in ("cu++filt", "c++filt"):
+        path = shutil.which(tool) or shutil.which(tool, path="/usr/local/cuda/bin")
+        if path:
+            out = subprocess.run([path, mangled], capture_output=True, text=True).stdout
+            out = re.sub(r"\((int|bool)\)", "", out)  # cu++filt's casts of template values
+            m = re.search(r"(\w+<[^()]*>)\(", out)
+            return m.group(1) if m else out.strip()
+    return mangled
+
+
+def ptxas_report(log: str) -> dict:
+    """{mangled kernel: (registers, spill store bytes, spill load bytes)} from
+    the ``-Xptxas -v`` report that the build keeps beside each library."""
+    report, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn = m.group(1)
+            report[fn] = [0, 0, 0]
+        elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            report[fn][1:] = [int(m.group(1)), int(m.group(2))]
+        elif fn and (m := re.search(r"Used (\d+) registers", ln)):
+            report[fn][0] = int(m.group(1))
+    return report
+
+
+def hmma_counts(lib: Path):
+    """{mangled kernel: HMMA instructions} in the library's SASS, or None
+    without cuobjdump."""
+    tool = shutil.which("cuobjdump") or shutil.which("cuobjdump", path="/usr/local/cuda/bin")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\w+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and "HMMA" in ln:
+            counts[fn] += 1
+    return counts
+
+
 def build_phase():
     from joeys2t_torch.ops import cuda_build
+    from joeys2t_torch.ops import flash_attention as fa
 
     t0 = time.time()
     paths = cuda_build.build_all()
     print(f"[build] {len(paths)} kernels built in {time.time() - t0:.1f} s")
     for name, path in paths.items():
         log = path.with_suffix(".log")
-        lines = log.read_text().splitlines() if log.is_file() else []
-        regs = [ln.split(":", 1)[1].strip() for ln in lines if "registers" in ln]
-        spills = [ln.strip() for ln in lines if "spill" in ln and " 0 bytes spill" not in ln]
-        print(f"[build] {name}: {path.name}; ptxas per instantiation: {regs}")
-        for ln in spills:
-            print(f"[build] {name}: {ln}")
+        report = ptxas_report(log.read_text() if log.is_file() else "")
+        hmma = hmma_counts(path)
+        names = {fn: kernel_name(fn) for fn in report}
+        print(f"[build] {name}: {path.name}, {len(report)} kernels")
+        for fn, (regs, st, ld) in sorted(report.items(), key=lambda kv: names[kv[0]]):
+            count = "HMMA not measured (no cuobjdump)" if hmma is None else \
+                f"{hmma.get(fn, 0)} HMMA"
+            print(f"[build]   {names[fn]}: {regs} registers, spill {st}/{ld} bytes "
+                  f"(stores/loads), {count}")
+    for d in (64, 128, 192, 256):
+        for dtype in (torch.bfloat16, torch.float32):
+            info = fa.kernel_info(d, dtype)
+            print(f"[build] flash D={d} {str(dtype)[6:]}: route {info['route']}; dynamic "
+                  f"shared memory forward {info['smem_fwd']} B, dK/dV {info['smem_dkdv']} B, "
+                  f"dQ {info['smem_dq']} B")
+            check(info["route"] == ("mma.sync" if dtype == torch.bfloat16 else "simt"),
+                  f"flash D={d} {dtype} takes route {info['route']}")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -153,10 +225,13 @@ def flash_case(b, s, dtype, gen):
     plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, bias, sm, h), iters=5)
     library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask, scale=sm))
-    bound_ms, bound_by = bound(nbytes(q, k, v, bias, out, lse), 4 * b * s * s * e, dtype)
-    return dict(case=f"B={b} Sq=Sk={s} H={h} D={d} {str(dtype)[6:]}", max_abs_err=err,
-                tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    flops = 4 * b * s * s * e
+    bound_ms, bound_by = bound(nbytes(q, k, v, bias, out, lse), flops, dtype)
+    route = fa.kernel_info(d, dtype)["route"]
+    return dict(case=f"B={b} Sq=Sk={s} H={h} D={d} {str(dtype)[6:]} ({route})", route=route,
+                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, roofline=bound_ms / ms,
+                tflops=flops / ms / 1e9)
 
 
 def sdpa_backend(qh, kh, vh, mask, sm, rate):
@@ -197,9 +272,14 @@ def flash_bwd_case(b, sq, sk, dtype, rate, gen):
     out, lse = fa.flash_attention_fwd(q, k, v, bias, sm, h, rate, seed)
     ref_out, ref_lse = fa.flash_attention_plain(q, k, v, bias, sm, h, rate, seed)
     grads = fa.flash_attention_bwd(q, k, v, bias, out, lse, d_out, sm, h, rate, seed)
+    again = fa.flash_attention_bwd(q, k, v, bias, out, lse, d_out, sm, h, rate, seed)
     refs = fa.flash_attention_bwd_plain(q, k, v, bias, out, lse, d_out, sm, h, rate, seed)
     torch.cuda.synchronize()
-    # f32: summation order only; bf16: one rounding of each output
+    check(all(torch.equal(g, g2) for g, g2 in zip(grads, again)),
+          f"flash bwd {dtype} rate {rate} {b}x{sq}x{sk}: two calls differ")
+    del again
+    # f32: summation order only; bf16: rounding of each output and, on the
+    # tensor cores, of P_drop and dS before their products
     rel = 1e-5 if dtype == torch.float32 else 2e-2
     fwd_tol = 1e-4 if dtype == torch.float32 else 2e-2
     fwd_err = (out.float() - ref_out.float()).abs().max().item()
@@ -230,15 +310,19 @@ def flash_bwd_case(b, sq, sk, dtype, rate, gen):
         sdpa_fb_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), doh))
     del sdpa_out
     n_bytes = nbytes(q, k, v, bias, out, lse, d_out, *grads)
-    bound_ms, bound_by = bound(n_bytes, 10 * b * sq * sk * e, dtype)
-    return dict(case=f"B={b} Sq={sq} Sk={sk} H={h} D={d} {str(dtype)[6:]} dropout {rate}",
+    flops = 10 * b * sq * sk * e
+    bound_ms, bound_by = bound(n_bytes, flops, dtype)
+    route = fa.kernel_info(d, dtype)["route"]
+    return dict(case=f"B={b} Sq={sq} Sk={sk} H={h} D={d} {str(dtype)[6:]} dropout {rate} "
+                     f"({route})", route=route,
                 max_abs_err=max(errs), tol=min(tols), fwd_err=fwd_err, ms=ms,
                 plain_ms=plain_ms, fwd_ms=fwd_ms, library_ms=library_ms,
                 library=f"SDPA backward ({backend})", sdpa_fwd_bwd_ms=sdpa_fb_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, roofline=bound_ms / ms,
+                tflops=flops / ms / 1e9)
 
 
-def mask_bits_case():
+def mask_bits_case(dtype):
     """The kernels' keep mask read out bit for bit: with V the identity in
     each head band the forward's output is the dropped probability matrix,
     and with dO the identity the backward's dV is its transpose."""
@@ -246,8 +330,9 @@ def mask_bits_case():
 
     b, h, d = 8, 4, 128
     gen = torch.Generator().manual_seed(5)
-    q, k = (torch.randn(b, d, h * d, generator=gen).cuda() for _ in range(2))
-    eye = torch.eye(d, device="cuda").repeat(1, h)[None].expand(b, d, h * d).contiguous()
+    q, k = (torch.randn(b, d, h * d, generator=gen).to(dtype).cuda() for _ in range(2))
+    eye = (torch.eye(d, device="cuda").repeat(1, h)[None].expand(b, d, h * d).to(dtype)
+           .contiguous())
     bias = torch.zeros(b, d, device="cuda")
     seed = torch.tensor([2024], dtype=torch.int32, device="cuda")
     keep = fa.attention_keep(seed, b, h, d, d, 0.1, "cuda")
@@ -255,8 +340,8 @@ def mask_bits_case():
     _, _, dv = fa.flash_attention_bwd(q, k, eye, bias, out, lse, eye, 1.0 / d, h, 0.1, seed)
     fwd_keep = out.reshape(b, d, h, d).permute(0, 2, 1, 3) != 0
     bwd_keep = dv.reshape(b, d, h, d).permute(0, 2, 3, 1) != 0
-    check(torch.equal(fwd_keep, keep), "forward kernel's dropout mask differs from plain")
-    check(torch.equal(bwd_keep, keep), "backward kernel's dropout mask differs from plain")
+    check(torch.equal(fwd_keep, keep), f"{dtype} forward kernel's dropout mask differs")
+    check(torch.equal(bwd_keep, keep), f"{dtype} backward kernel's dropout mask differs")
     return keep.numel(), keep.float().mean().item()
 
 
@@ -300,11 +385,13 @@ def decode_case(kind, s, mode, gen):
         mask = bias.to(qdt)[:, None, None, :]
         library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q4, k, v, attn_mask=mask, scale=sm))
-    bound_ms, bound_by = bound(nbytes(q, k, v, bias, ks, vs, out), 4 * b * h * s * d, k.dtype)
+    flops = 4 * b * h * s * d
+    bound_ms, bound_by = bound(nbytes(q, k, v, bias, ks, vs, out), flops, k.dtype)
+    ms = time_ms(lambda: da.decode_attention(*args, **kw), iters=50)
     return dict(case=f"{kind} B={b} H={h} S={s} D={d} {mode}", max_abs_err=err, tol=tol,
-                ms=time_ms(lambda: da.decode_attention(*args, **kw), iters=50),
-                plain_ms=time_ms(lambda: da.decode_attention_plain(*args, **kw)),
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                ms=ms, plain_ms=time_ms(lambda: da.decode_attention_plain(*args, **kw)),
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                roofline=bound_ms / ms, tflops=flops / ms / 1e9)
 
 
 def kernel_phase():
@@ -320,7 +407,8 @@ def kernel_phase():
         print(f"[kernels] {c['case']}: err {c['max_abs_err']:.3g} (tol {c['tol']}), "
               f"kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, library "
               f"{c['library_ms'] if c['library_ms'] is None else round(c['library_ms'], 4)}"
-              f" ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+              f" ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}), roofline share "
+              f"{100 * c['roofline']:.1f} % ({c['bound_by']}), {c['tflops']:.1f} TFLOP/s")
     # the training path's shapes: encoder (250 frames), decoder cross (47
     # target positions), and 30 s utterances (K4's range); the headline first
     backward = [flash_bwd_case(b, sq, sk, dt, rate, gen)
@@ -331,10 +419,14 @@ def kernel_phase():
               f"{c['tol']:.3g}), fwd err {c['fwd_err']:.3g}; kernel {c['ms']:.4f} ms, plain "
               f"{c['plain_ms']:.4f} ms, {c['library']} {c['library_ms']:.4f} ms (fwd+bwd "
               f"{c['sdpa_fwd_bwd_ms']:.4f} ms), bound {c['bound_ms']:.4f} ms "
-              f"({c['bound_by']}); forward kernel with this dropout {c['fwd_ms']:.4f} ms")
-    n, kept = mask_bits_case()
-    print(f"[kernels] dropout mask bits of the forward and backward kernels identical to "
-          f"the plain version's: {n} of {n} (keep fraction {kept:.4f} at rate 0.1)")
+              f"({c['bound_by']}), roofline share {100 * c['roofline']:.1f} % "
+              f"({c['bound_by']}), {c['tflops']:.1f} TFLOP/s; forward kernel with this "
+              f"dropout {c['fwd_ms']:.4f} ms; two calls bit-identical")
+    for dtype in (torch.bfloat16, torch.float32):
+        n, kept = mask_bits_case(dtype)
+        print(f"[kernels] dropout mask bits of the {str(dtype)[6:]} forward and backward "
+              f"kernels identical to the plain version's: {n} of {n} (keep fraction "
+              f"{kept:.4f} at rate 0.1)")
     return flash, decode, backward
 
 
@@ -439,9 +531,9 @@ def breakdown_phase(asr, batch):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             _, wall = timed(lambda: transformer_greedy(asr.decode_model, asr.spec, enc,
                                                        mask, steps, device="cuda"))
-    kernels = {}
+    kernels = {}  # device work only: an annotated range (Optimizer.step) is no kernel
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation:
             n, t = kernels.get(ev.name, (0, 0.0))
             kernels[ev.name] = (n + 1, t + ev.time_range.elapsed_us())
     busy_us = sum(t for _, t in kernels.values())
@@ -660,9 +752,9 @@ def train_phase():
     # the card's busy share and top kernels over 8 profiled micro-batches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = sync_time(lambda: [tm.train_batch(b) for b in batches])
-    kernels = {}
+    kernels = {}  # device work only: an annotated range (Optimizer.step) is no kernel
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation:
             n, t = kernels.get(ev.name, (0, 0.0))
             kernels[ev.name] = (n + 1, t + ev.time_range.elapsed_us())
     if not kernels:

@@ -18,7 +18,8 @@ plain versions compute the same bits as the kernels. They are not the TPU's
 bits, which cannot be reproduced.
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
-launch the kernels or raise.
+launch the kernels or raise. bf16 runs on the tensor-core kernels
+(mma.sync), f32 on the SIMT kernels, its exact path (:func:`kernel_info`).
 """
 import ctypes
 from typing import Optional, Tuple
@@ -168,12 +169,14 @@ def _check_operands(q, named, num_heads):
     if not supported(d, q.dtype):
         raise ValueError(f"flash kernel takes head_dim in 64/128/192/256 and "
                          f"f32/bf16, got {d} and {q.dtype}")
-    for name, t, shape, dtype in named:
+    for name, t, shape, dtype in (("q", q, tuple(q.shape), q.dtype),) + tuple(named):
         if (tuple(t.shape) != shape or t.dtype != dtype or t.device != q.device
                 or not t.is_contiguous()):
             raise ValueError(f"{name}: expected contiguous {shape} {dtype} on "
                              f"{q.device}, got {tuple(t.shape)} {t.dtype} on "
                              f"{t.device}, contiguous={t.is_contiguous()}")
+        if t.data_ptr() % 16:  # the bf16 kernels copy 16-byte chunks
+            raise ValueError(f"{name}: data must start on a 16-byte boundary")
     return d
 
 
@@ -327,10 +330,29 @@ def mha_flash_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_flat(q, k, v, bias, sm_scale, num_heads, dropout_rate, seed)
 
 
+def kernel_info(head_dim: int, dtype: torch.dtype) -> dict:
+    """Which kernels a (head_dim, dtype) takes on the card: ``route``
+    "mma.sync" (bf16, tensor cores) or "simt" (f32, CUDA cores), and the
+    dynamic shared memory in bytes of the forward, dK/dV and dQ kernels.
+    Builds the library if needed."""
+    if not supported(head_dim, dtype):
+        raise ValueError(f"flash kernel takes head_dim in 64/128/192/256 and f32/bf16, "
+                         f"got {head_dim} and {dtype}")
+    info = (ctypes.c_int * 4)()
+    err = _library().flash_attention_info(head_dim, 0 if dtype == torch.float32 else 1,
+                                          info)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_info failed: cudaError {err}")
+    return {"route": "mma.sync" if info[0] else "simt", "smem_fwd": info[1],
+            "smem_dkdv": info[2], "smem_dq": info[3]}
+
+
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("flash_attention")
     if lib.flash_attention_fwd.argtypes is None:
         p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+        lib.flash_attention_info.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.flash_attention_info.restype = ctypes.c_int
         lib.flash_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f,
                                             i, p, u, f, p]
         lib.flash_attention_fwd.restype = ctypes.c_int

@@ -28,9 +28,15 @@ def card():
     return torch.device("cuda")
 
 
+# tile edges of the kernels (64-row q and k tiles, 32 or 16 in places):
+# every pair of these query and key lengths at head sizes 64 and 128
+EDGES = [(3, sq, sk, 2, d) for d in (64, 128) for sq in (1, 47, 63, 64, 65, 250, 750)
+         for sk in (1, 47, 63, 64, 65, 250, 750)]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("b,sq,sk,h,d", [(3, 37, 70, 2, 64), (2, 130, 600, 4, 128),
-                                         (2, 40, 33, 1, 256)])
+                                         (2, 40, 33, 1, 256), (2, 70, 90, 2, 192)] + EDGES)
 def test_flash_kernel_matches_plain(card, dtype, tol, b, sq, sk, h, d):
     gen = torch.Generator().manual_seed(0)
     q = torch.randn(b, sq, h * d, generator=gen).to(dtype).to(card)
@@ -51,18 +57,24 @@ def test_flash_kernel_matches_plain(card, dtype, tol, b, sq, sk, h, d):
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
 
 
-def _rel_err(a, b):
-    return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+def _rel_err(a, b, floor=1e-30):
+    return ((a.float() - b.float()).abs().max().item()
+            / max(b.float().abs().max().item(), floor))
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("b,sq,sk,h,d", [(3, 37, 70, 2, 64), (2, 47, 250, 4, 128),
-                                         (2, 130, 600, 4, 128), (2, 40, 33, 1, 256)])
+                                         (2, 130, 600, 4, 128), (2, 40, 33, 1, 256),
+                                         (2, 70, 90, 2, 192)] + EDGES)
 def test_flash_backward_kernel_matches_plain(card, dtype, tol, rate, b, sq, sk, h, d):
     """dQ, dK, dV of the three backward kernels against the plain version,
     row 0 with every key masked; the tolerance is relative to the largest
-    gradient (f32: summation order; bf16: one rounding of each output)."""
+    gradient (f32: summation order; bf16: bf16 rounding of each output and,
+    on the tensor cores, of P_drop and dS before their products). A gradient
+    that is zero but for rounding (Sk = 1: one key, so ds = 0 and dQ = dK = 0)
+    is held to the largest of the three gradients instead. A second
+    call gives the same gradients bit for bit (no atomics)."""
     gen = torch.Generator().manual_seed(4)
     q = torch.randn(b, sq, h * d, generator=gen).to(dtype).to(card)
     k, v = (torch.randn(b, sk, h * d, generator=gen).to(dtype).to(card) for _ in range(2))
@@ -78,20 +90,26 @@ def test_flash_backward_kernel_matches_plain(card, dtype, tol, rate, b, sq, sk, 
     refs = fa.flash_attention_bwd_plain(q, k, v, bias, out, lse, d_out, sm, h, rate, seed)
     torch.cuda.synchronize()
     assert fa.flash_attention_bwd.launches == before + 1
-    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+    again = fa.flash_attention_bwd(q, k, v, bias, out, lse, d_out, sm, h, rate, seed)
+    floor = max(r.float().abs().max().item() for r in refs) if sk == 1 else 1e-30
+    for name, g, r, g2 in zip(("dq", "dk", "dv"), grads, refs, again):
         assert g.dtype == dtype and bool(torch.isfinite(g.float()).all()), name
-        assert _rel_err(g, r) <= tol, (name, _rel_err(g, r))
+        assert _rel_err(g, r, floor) <= tol, (name, _rel_err(g, r, floor))
+        assert torch.equal(g, g2), f"{name} differs between two calls"
 
 
-def test_dropout_mask_bits_match_plain(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_mask_bits_match_plain(card, dtype):
     """The kernels' keep mask, read out bit for bit: with V the identity in
     each head band the forward's out is the dropped probability matrix, and
-    with dO the identity the backward's dV is its transpose."""
+    with dO the identity the backward's dV is its transpose. bf16 takes the
+    tensor-core kernels, f32 the SIMT ones."""
     b, h, d = 3, 2, 128
     sq = sk = d
     gen = torch.Generator().manual_seed(5)
-    q, k = (torch.randn(b, sq, h * d, generator=gen).to(card) for _ in range(2))
-    eye = torch.eye(d, device=card).repeat(1, h)[None].expand(b, d, h * d).contiguous()
+    q, k = (torch.randn(b, sq, h * d, generator=gen).to(dtype).to(card) for _ in range(2))
+    eye = (torch.eye(d, device=card).repeat(1, h)[None].expand(b, d, h * d).to(dtype)
+           .contiguous())
     bias = torch.zeros(b, sk, device=card)
     seed = torch.tensor([2024], dtype=torch.int32, device=card)
     keep = fa.attention_keep(seed, b, h, sq, sk, 0.1, card)  # (B, H, Sq, Sk)
@@ -101,6 +119,13 @@ def test_dropout_mask_bits_match_plain(card):
     bwd_keep = dv.reshape(b, sk, h, d).permute(0, 2, 3, 1) != 0
     assert torch.equal(fwd_keep, keep) and torch.equal(bwd_keep, keep)
     assert 0.85 < keep.float().mean().item() < 0.95
+
+
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+def test_flash_route(card, d):
+    """bf16 takes the tensor-core kernels, f32 the exact SIMT ones."""
+    assert fa.kernel_info(d, torch.bfloat16)["route"] == "mma.sync"
+    assert fa.kernel_info(d, torch.float32)["route"] == "simt"
 
 
 @pytest.mark.parametrize("mode", ["f32", "bf16", "channel", "position"])
