@@ -16,7 +16,11 @@ goes wrong:
    at the shapes of the serving path, and time the kernel, the plain
    version and one PyTorch library call computing the same function (CUDA
    events after a device spin that outlasts the host's enqueueing), with the
-   roofline share and achieved TFLOP/s;
+   roofline share and achieved TFLOP/s. Decode attention runs at the decode
+   loop's cross and self shapes in every dtype and int8 mode, with its
+   split-S plan printed and two calls bit-identical; kernel and SDPA are
+   timed on rotating input copies (> 100 MB, so L2 is cold) against a
+   bound that counts only the K/V rows the valid keys need;
 3. serving: build the librispeech_100h model (configs/librispeech_100h.yaml,
    16 encoder / 8 decoder layers, hidden 512) with random weights from a
    seed and a synthetic 5000-token vocabulary, in bf16, and serve three
@@ -25,7 +29,7 @@ goes wrong:
    counters, zeroed just before, must show that every attention of the
    path went through them; then where the time of the 64 x 10 s request
    goes (front end, encoder, decode loop) and the card's busy share in a
-   profiled decode loop;
+   profiled decode loop, with the decode kernel's device time and launches;
 4. card vs CPU: a small float32 model with the same seeded weights on the
    card and on the CPU must give the same encoder output (within 1e-4) and
    the same greedy tokens; and key-masked attention at a head size or dtype
@@ -345,18 +349,46 @@ def mask_bits_case(dtype):
     return keep.numel(), keep.float().mean().item()
 
 
-def decode_case(kind, s, mode, gen):
+def time_cold_ms(calls, iters: int = 50) -> float:
+    """``time_ms`` over a list of calls that each read their own copy of the
+    inputs, taken in turn, so that every call finds its inputs out of the
+    50 MB L2 cache, as the decode loop does (the copies total > 100 MB)."""
+    turn = iter(range(10 ** 9))
+    return time_ms(lambda: calls[next(turn) % len(calls)](), iters=iters)
+
+
+def cold_copies(tensors, total_bytes: float = 2.2 * 50e6, most: int = 600):
+    """Copies of ``tensors`` (None stays None) that together exceed
+    ``total_bytes``: at least 2, so no call reads what the previous one left
+    in L2."""
+    n = min(most, max(2, -(-int(total_bytes) // nbytes(*tensors))))
+    return [[None if t is None else t.clone() for t in tensors] for _ in range(n)]
+
+
+# the decode loop's shapes (H=4, D=128): the 64 x 10 s request's cross
+# attention (source tails 125-250 frames; the headline, first), the 30 s
+# request (B=1 S=750), the 45 s request's two chunks (500 and 625 of 750
+# frames), and the 97-slot self-attention ring buffer at steps 0, 48, 95
+DECODE_SHAPES = [("cross", 64, 250, "tails"), ("cross", 1, 750, None),
+                 ("cross", 2, 750, (500, 625)), ("self", 64, 97, 0), ("self", 64, 97, 48),
+                 ("self", 64, 97, 95), ("self", 1, 97, 48)]
+DECODE_MODES = ("bf16", "f32", "int8-channel", "int8-position")
+
+
+def decode_inputs(kind, b, s, valid_spec, mode, gen):
     from joeys2t_torch.ops import decode_attention as da
 
-    b, h, d = 64, 4, 128
+    h, d = 4, 128
     qdt = torch.float32 if mode == "f32" else torch.bfloat16
     q = torch.randn(b, h, d, generator=gen).to(qdt).cuda()
     kf, vf = (torch.randn(b, h, s, d, generator=gen).cuda() for _ in range(2))
-    if kind == "self":  # ring buffer at step 48: slots beyond it masked
-        valid = (torch.arange(s) <= 48)[None, :].expand(b, s)
+    pos = torch.arange(s)[None, :]
+    if kind == "self":  # ring buffer at step t: slots beyond it masked
+        valid = (pos <= valid_spec).expand(b, s)
+    elif valid_spec == "tails":
+        valid = pos < torch.randint(s // 2, s + 1, (b,), generator=gen)[:, None]
     else:
-        lengths = torch.randint(s // 2, s + 1, (b,), generator=gen)
-        valid = torch.arange(s)[None, :] < lengths[:, None]
+        valid = pos < torch.tensor(valid_spec or [s] * b)[:, None]
     bias = torch.where(valid, 0.0, -1e9).float().cuda().contiguous()
     ks = vs = layout = None
     if mode == "int8-channel":
@@ -369,29 +401,59 @@ def decode_case(kind, s, mode, gen):
         (k, ks), (v, vs) = da.quantize_per_position(kf), da.quantize_per_position(vf)
     else:
         k, v = kf.to(qdt), vf.to(qdt)
-    sm = d ** -0.5
-    args = (q, k, v, bias, ks, vs)
-    kw = dict(sm_scale=sm, scale_layout=layout)
+    return (q, k, v, bias, ks, vs), dict(sm_scale=d ** -0.5, scale_layout=layout), valid
+
+
+def decode_case(kind, b, s, valid_spec, mode, gen, timed):
+    """The kernel against the plain version (and a second call bit for bit);
+    when ``timed``, the kernel, SDPA and the plain version, the first two on
+    cold inputs. The bound counts the
+    bytes the work needs: the K/V rows (and "position" scales) of a row's
+    valid keys, or all S rows where every key is masked, plus q, the whole
+    bias, the "channel" scales and the output."""
+    from joeys2t_torch.ops import decode_attention as da
+
+    args, kw, valid = decode_inputs(kind, b, s, valid_spec, mode, gen)
+    q, k, v, bias, ks, vs = args
+    h, d = q.shape[1], q.shape[2]
     out = da.decode_attention(*args, **kw)
+    again = da.decode_attention(*args, **kw)
     ref = da.decode_attention_plain(*args, **kw)
     torch.cuda.synchronize()
+    name = f"{kind} B={b} H={h} S={s} D={d} {mode}" + (
+        f" step {valid_spec}" if kind == "self" else
+        f" lengths {list(valid_spec)}" if isinstance(valid_spec, tuple) else
+        " tails S/2..S" if valid_spec == "tails" else "")
     err = (out.float() - ref.float()).abs().max().item()
-    tol = 1e-5 if qdt == torch.float32 else 1e-2
-    check(bool(torch.isfinite(out.float()).all()), f"decode {kind} {mode}: non-finite output")
-    check(err <= tol, f"decode {kind} {mode}: max abs err {err} > {tol}")
+    tol = 1e-5 if q.dtype == torch.float32 else 1e-2
+    check(bool(torch.isfinite(out.float()).all()), f"decode {name}: non-finite output")
+    check(err <= tol, f"decode {name}: max abs err {err} > {tol}")
+    check(torch.equal(out, again), f"decode {name}: two calls differ")
+    splits, split_rows = da.decode_plan(b, h, s, da.num_sms(q.device))
+    case = dict(case=name, max_abs_err=err, tol=tol, splits=splits, split_rows=split_rows)
+    if not timed:
+        return case
+    needed = torch.where(valid.any(1), valid.sum(1), s).sum().item() * h  # rows over (b, h)
+    n_bytes = (needed * d * k.element_size() * 2 + nbytes(q, bias, out)
+               + (nbytes(ks, vs) if kw["scale_layout"] == "channel" else 0)
+               + (needed * 8 if kw["scale_layout"] == "position" else 0))
+    flops = 4 * needed * d
+    bound_ms, bound_by = bound(n_bytes, flops, k.dtype)
+    copies = cold_copies(args)
+    ms = time_cold_ms([lambda c=c: da.decode_attention(*c, **kw) for c in copies])
     library_ms = None
     if k.dtype != torch.int8:
-        q4 = q[:, :, None, :]
-        mask = bias.to(qdt)[:, None, None, :]
-        library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q4, k, v, attn_mask=mask, scale=sm))
-    flops = 4 * b * h * s * d
-    bound_ms, bound_by = bound(nbytes(q, k, v, bias, ks, vs, out), flops, k.dtype)
-    ms = time_ms(lambda: da.decode_attention(*args, **kw), iters=50)
-    return dict(case=f"{kind} B={b} H={h} S={s} D={d} {mode}", max_abs_err=err, tol=tol,
-                ms=ms, plain_ms=time_ms(lambda: da.decode_attention_plain(*args, **kw)),
+        sdpa = [(c[0][:, :, None, :], c[1], c[2], c[3].to(q.dtype)[:, None, None, :])
+                for c in copies]
+        library_ms = time_cold_ms([lambda c=c: torch.nn.functional.scaled_dot_product_attention(
+            c[0], c[1], c[2], attn_mask=c[3], scale=kw["sm_scale"]) for c in sdpa])
+        del sdpa
+    del copies
+    case.update(ms=ms, plain_ms=time_ms(lambda: da.decode_attention_plain(*args, **kw), iters=5),
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                roofline=bound_ms / ms, tflops=flops / ms / 1e9)
+                roofline=bound_ms / ms, tflops=flops / ms / 1e9, needed_rows=needed,
+                rows=b * h * s)
+    return case
 
 
 def kernel_phase():
@@ -401,9 +463,25 @@ def kernel_phase():
     # sent to its second (B, H, S, D) kernel
     flash = [flash_case(b, s, dt, gen) for b, s in ((64, 250), (2, 750), (64, 750))
              for dt in (torch.bfloat16, torch.float32)]
-    decode = [decode_case(kind, s, mode, gen) for kind, s in (("cross", 250), ("self", 97))
-              for mode in ("bf16", "f32", "int8-channel", "int8-position")]
-    for c in flash + decode:
+    # every decode shape in every mode is checked; bf16 is timed at each
+    # shape and every mode at the headline shape
+    decode = []
+    for i, (kind, b, s, spec) in enumerate(DECODE_SHAPES):
+        for mode in DECODE_MODES:
+            c = decode_case(kind, b, s, spec, mode, gen, mode == "bf16" or i == 0)
+            line = (f"[kernels] decode {c['case']}: plan {c['splits']} split(s) of "
+                    f"{c['split_rows']} rows, a cluster of {c['splits']} block(s) per (b, h), "
+                    f"grid ({c['splits']}, 4, {b}); err {c['max_abs_err']:.3g} (tol "
+                    f"{c['tol']}), two calls bit-identical")
+            if "ms" in c:
+                decode.append(c)
+                sdpa = "not measured" if c["library_ms"] is None else f"{c['library_ms']:.4f} ms"
+                line += (f"; cold L2: kernel {c['ms']:.4f} ms, SDPA {sdpa}; plain {c['plain_ms']:.4f} ms; bound "
+                         f"{c['bound_ms']:.4f} ms ({c['bound_by']}; {c['needed_rows']} of "
+                         f"{c['rows']} rows needed), roofline share "
+                         f"{100 * c['roofline']:.1f} %")
+            print(line)
+    for c in flash:
         print(f"[kernels] {c['case']}: err {c['max_abs_err']:.3g} (tol {c['tol']}), "
               f"kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, library "
               f"{c['library_ms'] if c['library_ms'] is None else round(c['library_ms'], 4)}"
@@ -529,8 +607,10 @@ def breakdown_phase(asr, batch):
               f"{t_dec / stats['decode_steps'] * 1e3:.3f} ms")
         steps = 16
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pstats = {}
             _, wall = timed(lambda: transformer_greedy(asr.decode_model, asr.spec, enc,
-                                                       mask, steps, device="cuda"))
+                                                       mask, steps, device="cuda",
+                                                       stats=pstats))
     kernels = {}  # device work only: an annotated range (Optimizer.step) is no kernel
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation:
@@ -546,6 +626,14 @@ def breakdown_phase(asr, batch):
           f"{launches / steps:.0f} kernels per step")
     for name, (n, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"[breakdown]   {t / 1e3:8.3f} ms {n:5d}x  {name[:110]}")
+    k5 = [(n, t) for name, (n, t) in kernels.items() if "decode_attention_kernel" in name]
+    k5_n, k5_us = sum(n for n, _ in k5), sum(t for _, t in k5)
+    check(k5_n == 2 * len(asr.decode_model.decoder.layers) * pstats["decode_steps"],
+          f"profiled decode: {k5_n} decode attention kernels in "
+          f"{pstats['decode_steps']} steps")
+    print(f"[breakdown] K5 (decode_attention_kernel) in the profiled decode: "
+          f"{k5_us / 1e3:.3f} ms of device time over {k5_n} launches ({k5_n // steps} a "
+          f"step, {k5_us / k5_n:.2f} us each), {100 * k5_us / busy_us:.1f} % of busy")
 
 
 # ------------------------------------------------------------------ phase 4

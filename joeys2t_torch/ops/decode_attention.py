@@ -18,9 +18,12 @@ even for f32 inputs (decode_attention.py:64); this port does not, and
 matches the JAX einsum path (models/modules.py ``_decode_einsum``) instead.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises. The kernel splits S over a cluster of blocks
+as :func:`decode_plan` says, and skips rows whose bias is at or below
+``NEG_INF / 2`` when the row has any other key.
 """
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -29,6 +32,30 @@ from joeys2t_torch.ops import cuda_build
 
 NEG_INF = -1e9
 _LAYOUTS = {None: 0, "channel": 1, "position": 2}
+MAX_SPLITS = 16  # the largest thread-block cluster Hopper launches
+SPLIT_ALIGN = 16  # a split starts on a multiple of this many rows
+MIN_SPLIT_GROUPS = 6  # a split takes at least this many SPLIT_ALIGN-row groups
+
+
+def decode_plan(b: int, h: int, s: int, num_sms: int) -> Tuple[int, int]:
+    """How the kernel splits the S rows of each (b, h) over one cluster of
+    blocks on a card of ``num_sms`` SMs: ``(splits, split_rows)``, every
+    split non-empty and starting on a multiple of ``SPLIT_ALIGN`` rows. One
+    split once the B*H blocks alone fill the card; below that, enough splits
+    for about two blocks an SM, at most ``MAX_SPLITS`` and with
+    ``MIN_SPLIT_GROUPS`` row groups a split or more (a shorter split saves
+    less time than its share of the cluster's merge costs)."""
+    pairs, groups = b * h, -(-s // SPLIT_ALIGN)
+    want = 1 if pairs >= num_sms else -(-2 * num_sms // pairs)
+    splits = max(1, min(MAX_SPLITS, -(-groups // MIN_SPLIT_GROUPS), want))
+    split_rows = -(-groups // splits) * SPLIT_ALIGN
+    return -(-s // split_rows), split_rows
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(device: torch.device) -> int:
+    """The SM count of a CUDA device, which :func:`decode_plan` plans for."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _resolve_layout(k: torch.Tensor, k_scale: Optional[torch.Tensor],
@@ -107,18 +134,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    ("v_scale", v_scale, scale_shape, torch.float32)]
     for name, t, shape, dtype in checks:
         if (t is None or tuple(t.shape) != shape or t.dtype != dtype
-                or t.device != q.device or not t.is_contiguous()):
+                or t.device != q.device or not t.is_contiguous()
+                or (name in ("k", "v") and t.data_ptr() % 16)):
             desc = "None" if t is None else f"{tuple(t.shape)} {t.dtype} on {t.device}"
-            raise ValueError(f"{name}: expected contiguous {shape} {dtype} on "
-                             f"{q.device}, got {desc}")
+            raise ValueError(f"{name}: expected contiguous {shape} {dtype} on {q.device} "
+                             f"(caches 16-byte aligned), got {desc}")
+    plan = decode_plan(b, h, s, num_sms(q.device))
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    err = _library().decode_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        k_scale.data_ptr() if int8 else None,
-        v_scale.data_ptr() if int8 else None,
-        out.data_ptr(), b, h, s, d, 0 if q.dtype == torch.float32 else 1,
-        int(int8), _LAYOUTS[layout], float(sm_scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    err = _launch(q, k, v, bias, k_scale, v_scale, out, layout, plan, sm_scale)
     if err != 0:
         raise RuntimeError(f"decode_attention_fwd launch failed: cudaError {err}")
     decode_attention.launches += 1
@@ -137,12 +160,27 @@ def quantize_per_position(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
+def _launch(q, k, v, bias, k_scale, v_scale, out, layout: Optional[str],
+            plan: Tuple[int, int], sm_scale: float) -> int:
+    """One launch of the kernel on checked tensors with the launch plan
+    ``(splits, split_rows)``; returns its cudaError_t (0 on success)."""
+    b, h, s, d = k.shape
+    int8 = layout is not None
+    return _library().decode_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        k_scale.data_ptr() if int8 else None,
+        v_scale.data_ptr() if int8 else None,
+        out.data_ptr(), b, h, s, d, 0 if q.dtype == torch.float32 else 1,
+        int(int8), _LAYOUTS[layout], plan[0], plan[1], float(sm_scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+
+
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("decode_attention")
     fn = lib.decode_attention_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
                        ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return lib

@@ -128,31 +128,129 @@ def test_flash_route(card, d):
     assert fa.kernel_info(d, torch.float32)["route"] == "simt"
 
 
-@pytest.mark.parametrize("mode", ["f32", "bf16", "channel", "position"])
-def test_decode_kernel_matches_plain(card, mode):
-    gen = torch.Generator().manual_seed(1)
-    b, h, s, d = 5, 2, 41, 128
-    qdt = torch.float32 if mode == "f32" else torch.bfloat16
-    q = torch.randn(b, h, d, generator=gen).to(qdt).to(card)
-    kf, vf = (torch.randn(b, h, s, d, generator=gen).to(card) for _ in range(2))
-    valid = torch.arange(s)[None, :] < torch.randint(1, s + 1, (b,), generator=gen)[:, None]
-    bias = torch.where(valid, 0.0, -1e9).float().to(card)
-    ks = vs = None
+DECODE_MASKS = ("self_prefix", "cross_tail", "holes", "all_masked_row", "last_key_only")
+
+
+def decode_valid(kind, b, s, gen):
+    """(B, S) bool, the keys each row attends to: the self-attention ring
+    buffer at step S // 2, padded source tails, interior holes, or a prefix
+    with row 0 fully masked or holding only its last key."""
+    pos = torch.arange(s)
+    if kind == "self_prefix":
+        return (pos <= s // 2)[None].expand(b, s).clone()
+    if kind == "cross_tail":
+        return pos[None] < torch.randint(1, s + 1, (b,), generator=gen)[:, None]
+    if kind == "holes":
+        valid = torch.rand(b, s, generator=gen) > 0.4
+        valid[:, s // 2] = True
+        return valid
+    valid = (pos < (s + 1) // 2)[None].expand(b, s).clone()
+    valid[0] = False
+    if kind == "last_key_only":
+        valid[0, -1] = True
+    return valid
+
+
+def decode_caches(mode, kf, vf, qdt):
+    """K, V and their scales for a mode: f32 or bf16 caches in q's dtype, or
+    int8 with "channel" (B, H, D) or "position" (B, H, S) scales."""
     if mode == "channel":
         ks, vs = (t.abs().amax(2) / 127.0 + 1e-8 for t in (kf, vf))
         k, v = (torch.clamp(torch.round(t / sc[:, :, None]), -127, 127).to(torch.int8)
                 for t, sc in ((kf, ks), (vf, vs)))
-    elif mode == "position":
+        return k, v, ks, vs
+    if mode == "position":
         (k, ks), (v, vs) = da.quantize_per_position(kf), da.quantize_per_position(vf)
-    else:
-        k, v = kf.to(qdt), vf.to(qdt)
-    layout = mode if mode in ("channel", "position") else None
-    out = da.decode_attention(q, k, v, bias, ks, vs, sm_scale=d ** -0.5,
-                              scale_layout=layout)
-    ref = da.decode_attention_plain(q, k, v, bias, ks, vs, sm_scale=d ** -0.5,
-                                    scale_layout=layout)
-    torch.testing.assert_close(out.float(), ref.float(),
-                               atol=1e-5 if qdt == torch.float32 else 1e-2, rtol=0)
+        return k, v, ks, vs
+    return kf.to(qdt), vf.to(qdt), None, None
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "channel", "position"])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("s", [1, 31, 64, 65, 97, 250, 750, 3000])
+@pytest.mark.parametrize("b,h", [(1, 1), (1, 4), (3, 2), (64, 4)])
+def test_decode_kernel_matches_plain(card, mode, d, s, b, h):
+    """The split-S kernel against the plain version under every mask kind
+    (tolerance 1e-5 in f32, 1e-2 with a bf16 q: summation order and the
+    output's rounding). Two calls give the same bits, and garbage written
+    into the masked rows of rows with a valid key (K and V +-1e4, or +-127 in
+    int8 with "position" scales of 1e3) leaves the output bit for bit: the
+    kernel does not read those rows."""
+    gen = torch.Generator(device=card).manual_seed(1)
+    mask_gen = torch.Generator().manual_seed(2)
+    qdt = torch.float32 if mode == "f32" else torch.bfloat16
+    q = torch.randn(b, h, d, generator=gen, device=card).to(qdt)
+    kf, vf = (torch.randn(b, h, s, d, generator=gen, device=card) for _ in range(2))
+    k, v, ks, vs = decode_caches(mode, kf, vf, qdt)
+    del kf, vf
+    kw = dict(sm_scale=d ** -0.5, scale_layout=mode if ks is not None else None)
+    tol = 1e-5 if qdt == torch.float32 else 1e-2
+    big = 127 if k.dtype == torch.int8 else 1e4
+    for kind in DECODE_MASKS:
+        valid = decode_valid(kind, b, s, mask_gen).to(card)
+        bias = torch.where(valid, 0.0, -1e9).float()
+        before = da.decode_attention.launches
+        out = da.decode_attention(q, k, v, bias, ks, vs, **kw)
+        again = da.decode_attention(q, k, v, bias, ks, vs, **kw)
+        ref = da.decode_attention_plain(q, k, v, bias, ks, vs, **kw)
+        torch.cuda.synchronize()
+        assert da.decode_attention.launches == before + 2
+        assert out.dtype == qdt and bool(torch.isfinite(out.float()).all()), kind
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0,
+                                   msg=lambda m, kind=kind: f"{kind}: {m}")
+        assert torch.equal(out, again), f"{kind}: two calls differ"
+        dirty = ~valid & valid.any(1, keepdim=True)  # masked keys of rows with a valid key
+        sign = torch.where(torch.rand(b, h, s, d, generator=gen, device=card) > 0.5, big, -big)
+        kg, vg = (torch.where(dirty[:, None, :, None], sign.to(t.dtype), t) for t in (k, v))
+        ksg, vsg = ks, vs
+        if mode == "position":
+            ksg, vsg = (torch.where(dirty[:, None, :], 1e3, t) for t in (ks, vs))
+        out_g = da.decode_attention(q, kg, vg, bias, ksg, vsg, **kw)
+        assert torch.equal(out_g, out), f"{kind}: garbage in masked rows changed the output"
+        del kg, vg, sign
+
+
+def legal_plans(s):
+    """Every launch plan (splits, split_rows) the C entry point takes for S
+    rows: 1-16 splits of any length, none empty (one split: S rows, and S
+    rounded up to 16)."""
+    plans = {(1, s), (1, -(-s // 16) * 16)}
+    for splits in range(2, min(16, s) + 1):
+        plans |= {(splits, rows) for rows in range(-(-s // splits), (s - 1) // (splits - 1) + 1)}
+    return sorted(plans)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "channel", "position"])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("s", [1, 17, 97, 250])
+def test_decode_kernel_every_plan(card, mode, d, s):
+    """Every plan the kernel takes, not only those of decode_plan (splits of
+    any length down to one row; at S=97 e.g. 7 splits of 14-16 rows, whole
+    splits of masked rows at the self-attention step S // 2), under every
+    mask kind, against the plain version with the tolerances above; and the
+    C entry point refuses the plans it does not take."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    mask_gen = torch.Generator().manual_seed(4)
+    b, h = 3, 2
+    qdt = torch.float32 if mode == "f32" else torch.bfloat16
+    q = torch.randn(b, h, d, generator=gen, device=card).to(qdt)
+    kf, vf = (torch.randn(b, h, s, d, generator=gen, device=card) for _ in range(2))
+    k, v, ks, vs = decode_caches(mode, kf, vf, qdt)
+    layout = mode if ks is not None else None
+    sm_scale, tol = d ** -0.5, (1e-5 if qdt == torch.float32 else 1e-2)
+    for kind in DECODE_MASKS:
+        bias = torch.where(decode_valid(kind, b, s, mask_gen).to(card), 0.0, -1e9).float()
+        ref = da.decode_attention_plain(q, k, v, bias, ks, vs, sm_scale=sm_scale,
+                                        scale_layout=layout)
+        for plan in legal_plans(s):
+            out = torch.full_like(ref, float("nan"))
+            assert da._launch(q, k, v, bias, ks, vs, out, layout, plan, sm_scale) == 0, plan
+            torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0,
+                                       msg=lambda m, kind=kind, plan=plan: f"{kind} {plan}: {m}")
+    refused = [(0, s), (17, 1), (1, 0), (1, s - 1), (2, s)]  # 0 or > 16 splits, short, empty
+    out = torch.empty_like(ref)
+    for plan in refused if s > 1 else refused[:3]:
+        assert da._launch(q, k, v, bias, ks, vs, out, layout, plan, sm_scale) == 1, plan
 
 
 def test_train_update_card_matches_cpu(card):

@@ -222,12 +222,37 @@ def test_flash_autograd_matches_plain_forward(rate):
 
 
 # --------------------------------------------------------- decode attention
-def _decode_inputs(mode, seed=0, b=3, h=2, s=33, d=64):
+DECODE_MODES = ["f32", "bf16", "channel", "position"]
+
+
+def _decode_valid(kind, rng, b, s):
+    """(B, S) bool, the keys each row attends to: the self-attention ring
+    buffer at step S // 2, padded source tails, interior holes, or a prefix
+    with row 0 fully masked."""
+    pos = np.arange(s)
+    if kind == "self_prefix":
+        return np.broadcast_to(pos <= s // 2, (b, s)).copy()
+    if kind == "cross_tail":
+        return pos[None] < rng.randint(1, s + 1, size=(b,))[:, None]
+    if kind == "holes":
+        valid = rng.rand(b, s) > 0.4
+        valid[:, s // 2] = True
+        return valid
+    assert kind == "all_masked_row", kind
+    valid = np.broadcast_to(pos < (s + 1) // 2, (b, s)).copy()
+    valid[0] = False
+    return valid
+
+
+def _decode_inputs(mode, seed=0, b=3, h=2, s=33, d=64, mask=None):
     rng = np.random.RandomState(seed)
     q = rng.randn(b, h, d).astype(np.float32)
     k = rng.randn(b, h, s, d).astype(np.float32)
     v = rng.randn(b, h, s, d).astype(np.float32)
-    bias = _key_bias(rng, b, s, all_masked_row=False)
+    if mask is None:
+        bias = _key_bias(rng, b, s, all_masked_row=False)
+    else:
+        bias = np.where(_decode_valid(mask, rng, b, s), 0.0, NEG_INF).astype(np.float32)
     ks = vs = None
     if mode == "channel":  # cross cache: one scale per (b, h, d)
         ks = np.abs(k).max(axis=2) / 127.0 + 1e-8
@@ -252,12 +277,26 @@ def _port_decode(q, k, v, bias, ks, vs, mode, dtype=torch.float32, sm=0.125):
         sm_scale=sm, scale_layout=None if mode in ("f32", "bf16") else mode)
 
 
-@pytest.mark.parametrize("mode", ["f32", "bf16", "channel", "position"])
+@pytest.mark.parametrize("mode", DECODE_MODES)
 def test_decode_plain_matches_pallas(mode):
     """Against the Pallas kernel in interpret mode. It rounds the scaled q to
     bf16 even for f32 inputs (decode_attention.py:64); the port does not, so
     the tolerance is that of a bf16 q."""
-    q, k, v, bias, ks, vs = _decode_inputs(mode)
+    _check_decode_against_pallas(mode)
+
+
+@pytest.mark.parametrize("mode", DECODE_MODES)
+@pytest.mark.parametrize("mask", ["self_prefix", "cross_tail", "holes", "all_masked_row"])
+def test_decode_plain_matches_pallas_on_masks(mode, mask):
+    """The masks the decode loop makes, and a row whose keys are all masked
+    (a near-uniform softmax over its -1e9 scores), against the Pallas
+    kernel: the plain version the CUDA kernel is held to agrees with it on
+    them."""
+    _check_decode_against_pallas(mode, mask)
+
+
+def _check_decode_against_pallas(mode, mask=None):
+    q, k, v, bias, ks, vs = _decode_inputs(mode, mask=mask)
     dtype = torch.bfloat16 if mode == "bf16" else torch.float32
     jdt = jnp.bfloat16 if mode == "bf16" else jnp.float32
     kv = (lambda x: jnp.asarray(x)) if k.dtype == np.int8 else (
@@ -308,13 +347,55 @@ def test_quantize_per_position_matches_jax():
     np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=1e-7)
 
 
-def test_decode_masked_positions_ignored():
-    q, k, v, bias, _, _ = _decode_inputs("f32", seed=5, s=16)
-    bias[:, 8:] = NEG_INF
-    out1 = _port_decode(q, k, v, bias, None, None, "f32")
-    k[:, :, 8:], v[:, :, 8:] = 99.0, -99.0
-    out2 = _port_decode(q, k, v, bias, None, None, "f32")
-    np.testing.assert_allclose(out1.numpy(), out2.numpy(), atol=1e-6)
+@pytest.mark.parametrize("mode", DECODE_MODES)
+@pytest.mark.parametrize("mask", ["self_prefix", "cross_tail", "holes"])
+def test_decode_masked_positions_ignored(mode, mask):
+    """Garbage in the masked slots of K and V (+-1e4, or +-127 in int8) and
+    of the "position" scales (1e3) leaves the output bit for bit when the
+    row has a valid key: exp(-1e9 + score - max) is exactly 0 in f32. The
+    CUDA kernel's skipping of masked rows rests on this."""
+    q, k, v, bias, ks, vs = _decode_inputs(mode, seed=5, s=40, mask=mask)
+    dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+    out1 = _port_decode(q, k, v, bias, ks, vs, mode, dtype)
+    masked = bias <= NEG_INF / 2
+    rng = np.random.RandomState(6)
+    big = 127 if k.dtype == np.int8 else 1e4
+    k, v = (np.where(masked[:, None, :, None], rng.choice([-big, big], size=t.shape),
+                     t).astype(t.dtype) for t in (k, v))
+    if mode == "position":
+        ks, vs = (np.where(masked[:, None, :], 1e3, t).astype(np.float32) for t in (ks, vs))
+    out2 = _port_decode(q, k, v, bias, ks, vs, mode, dtype)
+    np.testing.assert_array_equal(out1.float().numpy(), out2.float().numpy())
+
+
+@pytest.mark.parametrize("b,h,s", [(64, 4, 250), (64, 4, 97), (66, 4, 97), (33, 4, 250),
+                                   (1, 4, 750), (2, 4, 750), (1, 4, 97), (1, 1, 1),
+                                   (1, 1, 31), (3, 2, 3000), (7, 3, 65), (1, 1, 20000)])
+def test_decode_plan(b, h, s):
+    """The kernel's split of S over a cluster: one split once B*H fills the
+    card (B=64 H=4 serves 256 (b, h) pairs), at least 8 for the 30 s
+    request's B*H = 4 at S = 750, never more than 16 nor more than the
+    16-row groups, each split non-empty and the splits covering S (on the
+    H100 SXM's 132 SMs)."""
+    splits, rows = port_da.decode_plan(b, h, s, 132)
+    assert 1 <= splits <= min(16, -(-s // 16))
+    assert rows % 16 == 0 and (splits - 1) * rows < s <= splits * rows
+    if b * h >= 132:
+        assert splits == 1
+    if b * h == 4 and s == 750:
+        assert splits >= 8
+
+
+@pytest.mark.parametrize("sms", [16, 78, 114, 132])
+def test_decode_plan_follows_sm_count(sms):
+    """The plan is made for the card's SM count: one split from B*H = SMs
+    on, and below that more splits where there are more SMs to fill."""
+    assert port_da.decode_plan(sms, 1, 3000, sms) == (1, 3008)
+    splits = [port_da.decode_plan(b, 1, 3000, sms)[0] for b in (1, 2, 4, 8, sms - 1)]
+    assert splits == sorted(splits, reverse=True) and splits[-1] <= 3
+    assert port_da.decode_plan(8, 1, 3000, 2 * sms)[0] >= splits[3]
+    if sms == 16:
+        assert port_da.decode_plan(8, 1, 3000, 32)[0] > splits[3]
 
 
 # ---------------------------------------------------------------- front end
