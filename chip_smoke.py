@@ -49,7 +49,27 @@ goes wrong:
    micro-batches;
 6. training, card vs CPU: one float32 update of a small model at dropout 0
    on the card and on the CPU must agree (loss to 1e-5 relative, gradients
-   to 1e-4 of their global norm, weights to 2 * lr).
+   to 1e-4 of their global norm, weights to 2 * lr);
+7. CLI: the synthetic corpus (scripts/generate_synthetic_asr.py, 512 / 64 /
+   64 utterances, into build/chip_smoke) and configs/synthetic_asr.yaml at
+   full width in bf16, cut to 16 updates (2 epochs of 8 batches of 64), a
+   validation every 8 and greedy decoding, go through
+   ``joeys2t_torch.__main__.main`` in this process: ``train``, ``test -o``
+   and ``translate`` of 8 paths, each with the launch counters zeroed just
+   before and the plain attention versions disabled. The model directory,
+   finite losses, float32 weights, 2 WERs in validations.txt and the exact
+   launch counts the path implies must hold, ``python -m joeys2t_torch test``
+   must exit 0, and a float32 ``test`` of the trained checkpoint cut to 2 + 2
+   layers must give the same hypotheses on the card and on the CPU; then the
+   CLI's time per update, the host data pipeline's time a batch and share
+   of the training wall, trained audio-s/s beside phase 5's, and the
+   validation and test walls. During the three bf16 runs the inputs of the
+   first and of a later call of each kind to each kernel wrapper are kept
+   (``kernel_inputs``), and each kernel is then held against its plain
+   version on exactly those inputs: the CLI's own shapes (short utterances:
+   about 100-130 encoder and 50-65 target positions, across the flash
+   kernels' 64-wide tiles; B=8 in ``translate``), the flash kernels with
+   and without dropout.
 
 Phase 2 also holds the flash backward against its plain version at the
 training path's shapes (B=64 Sq=Sk=250; B=64 Sq=47 Sk=250; B=2 Sq=Sk=750),
@@ -63,7 +83,10 @@ card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; imports nothing of
 JAX or of joeys2t_tpu.
 """
+import collections
+import contextlib
 import json
+import logging
 import re
 import shutil
 import subprocess
@@ -836,6 +859,7 @@ def train_phase():
     fwd_ms, bwd_ms = 1e3 * np.mean(fwd_s), 1e3 * np.mean(bwd_s)
     print(f"[train] breakdown per micro-batch: forward+loss {fwd_ms:.2f} ms, backward "
           f"{bwd_ms:.2f} ms; optimizer (clip + AdamW) {opt_s * 1e3:.2f} ms per update")
+    train_batch_rate = sum(audio_s[4:]) / update_s[1]  # the second update's audio-s/s
 
     # the card's busy share and top kernels over 8 profiled micro-batches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -847,7 +871,7 @@ def train_phase():
             kernels[ev.name] = (n + 1, t + ev.time_range.elapsed_us())
     if not kernels:
         print("[train] device busy share: not measured (no device events recorded)")
-        return fwd_launches, bwd_launches
+        return fwd_launches, bwd_launches, train_batch_rate
     busy_us = sum(t for _, t in kernels.values())
     flash_bwd_us = sum(t for name, (_, t) in kernels.items() if "flash_bwd" in name)
     flash_fwd_us = sum(t for name, (_, t) in kernels.items() if "flash_fwd" in name)
@@ -859,7 +883,7 @@ def train_phase():
           f"({100 * flash_fwd_us / busy_us:.1f} %)")
     for name, (n, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]:
         print(f"[train]   {t / 1e3:8.3f} ms {n:5d}x  {name[:110]}")
-    return fwd_launches, bwd_launches
+    return fwd_launches, bwd_launches, train_batch_rate
 
 
 def train_card_vs_cpu_phase():
@@ -917,6 +941,377 @@ def train_card_vs_cpu_phase():
           f"weight err {param_err:.3g} (tol 2 lr = {2 * lr:.3g})")
 
 
+# ------------------------------------------------------------------ phase 7
+class LogLines(logging.Handler):
+    """Keeps the message of every record of the port's loggers."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+@contextlib.contextmanager
+def kernel_inputs(kept: dict, flash_calls=(0, 80), decode_calls=(0, 384)):
+    """While active, keeps card copies of the inputs that the main path gives
+    the kernel wrappers: for the flash forward and backward, those of the
+    first and the 81st call of each kind (batch size, self or cross, dtype,
+    dropout or not), the latter a later training batch of other lengths; for
+    decode attention, those of the first and the 385th call of each (batch
+    size, S, dtype), the latter some 24-48 greedy steps in, where a
+    self-attention ring buffer holds many valid keys. The copies are made
+    outside the wrappers and launch no kernel of the port."""
+    from joeys2t_torch.models import modules
+    from joeys2t_torch.ops import flash_attention as fa
+
+    forward, backward = fa.FlashAttention.__dict__["forward"], \
+        fa.FlashAttention.__dict__["backward"]
+    decode = modules.decode_attention
+    calls = collections.Counter()
+
+    def keep(key, args, which=(0,)):
+        n = calls[key]
+        calls[key] += 1
+        if n in which:
+            kept[key + (n,)] = [a.detach().clone() if torch.is_tensor(a) else a
+                                for a in args]
+
+    def flash_key(name, q, k, rate):
+        return (name, q.shape[0], q.shape[1] == k.shape[1], q.dtype, rate > 0)
+
+    def kept_forward(ctx, q, k, v, bias, sm_scale, num_heads, dropout_rate=0.0, seed=None):
+        keep(flash_key("flash_attention_fwd", q, k, dropout_rate),
+             (q, k, v, bias, sm_scale, num_heads, dropout_rate, seed), flash_calls)
+        return forward.__func__(ctx, q, k, v, bias, sm_scale, num_heads, dropout_rate, seed)
+
+    def kept_backward(ctx, d_out):
+        q, k, v, bias, out, lse, seed = ctx.saved_tensors
+        sm_scale, num_heads, rate = ctx.args
+        keep(flash_key("flash_attention_bwd", q, k, rate),
+             (q, k, v, bias, out, lse, d_out.contiguous(), sm_scale, num_heads, rate, seed),
+             flash_calls)
+        return backward.__func__(ctx, d_out)
+
+    def kept_decode(q, k, v, bias, k_scale=None, v_scale=None, **kw):
+        keep(("decode_attention", q.shape[0], k.shape[2], k.dtype),
+             (q, k, v, bias, k_scale, v_scale, kw), decode_calls)
+        return decode(q, k, v, bias, k_scale, v_scale, **kw)
+
+    fa.FlashAttention.forward = staticmethod(kept_forward)
+    fa.FlashAttention.backward = staticmethod(kept_backward)
+    modules.decode_attention = kept_decode
+    try:
+        yield kept
+    finally:
+        fa.FlashAttention.forward, fa.FlashAttention.backward = forward, backward
+        modules.decode_attention = decode
+
+
+def cli_kernel_checks(kept: dict) -> dict:
+    """Each kernel against its plain version on the inputs ``kernel_inputs``
+    kept from the main path; the flash kernels also without dropout where
+    the path ran them with it. Tolerances are phase 2's: the backward's
+    1e-5 (f32) / 2e-2 (bf16) of the largest reference value of each
+    gradient; the forward's 1e-4 / 2e-2 and decode's 1e-5 / 1e-2 absolute,
+    in units of the largest reference value where that exceeds 1 (phase 2's
+    inputs are of unit scale, the path's activations are not); the lse only
+    over rows with a valid key. Returns {kernel: [case, ...]}."""
+    from joeys2t_torch.ops import decode_attention as da
+    from joeys2t_torch.ops import flash_attention as fa
+
+    out = {"flash_attention_fwd": [], "flash_attention_bwd": [], "decode_attention": []}
+    cases = []
+    for key, args in kept.items():
+        name = key[0]
+        if name == "decode_attention":
+            q, k, v, bias, ks, vs, kw = args
+            cases.append((name, (q, k, v, bias, ks, vs), kw, bias))
+        else:
+            cases.append((name, tuple(args), {}, args[3]))
+            rate_at = 6 if name == "flash_attention_fwd" else 9
+            if args[rate_at] > 0:  # the same inputs without dropout
+                cases.append((name, tuple(args[:rate_at]) + (0.0, None), {}, args[3]))
+    for name, args, kw, bias in cases:
+        q, k = args[0], args[1]
+        f32 = q.dtype == torch.float32
+        unit = 1.0  # the least reference scale the tolerance is taken in
+        if name == "flash_attention_fwd":
+            got, ref = fa.flash_attention_fwd(*args), fa.flash_attention_plain(*args)
+            rows = (bias > -1e8).any(1)  # the lse of a row with no valid key is -1e9
+            pairs = [("out", got[0], ref[0]), ("lse", got[1][rows], ref[1][rows])]
+            rel, rate = (1e-4 if f32 else 2e-2), args[6]
+            shape = f"B={q.shape[0]} Sq={q.shape[1]} Sk={k.shape[1]} dropout {rate}"
+        elif name == "flash_attention_bwd":
+            got, ref = fa.flash_attention_bwd(*args), fa.flash_attention_bwd_plain(*args)
+            pairs = list(zip(("dq", "dk", "dv"), got, ref))
+            rel, rate, unit = (1e-5 if f32 else 2e-2), args[9], 0.0
+            shape = f"B={q.shape[0]} Sq={q.shape[1]} Sk={k.shape[1]} dropout {rate}"
+        else:
+            pairs = [("out", da.decode_attention(*args, **kw),
+                      da.decode_attention_plain(*args, **kw))]
+            rel = 1e-5 if f32 else 1e-2
+            valid = (bias > -1e8).sum(1)
+            shape = (f"B={q.shape[0]} S={k.shape[2]} valid keys {int(valid.min())}-"
+                     f"{int(valid.max())}")
+        torch.cuda.synchronize()
+        desc = f"{shape} {str(q.dtype)[6:]}"
+        worst = None  # the output nearest its tolerance: (err / tol, part, err, tol)
+        for part, g, r in pairs:
+            check(bool(torch.isfinite(g.float()).all()), f"{name} {desc}: non-finite {part}")
+            err = (g.float() - r.float()).abs().max().item()
+            tol = rel * max(unit, r.float().abs().max().item())
+            check(err <= tol, f"{name} on the CLI's inputs {desc}: {part} max abs err {err} "
+                  f"> {tol}")
+            ratio = err / tol if tol > 0 else 0.0
+            if worst is None or ratio > worst[0]:
+                worst = (ratio, part, err, tol)
+        out[name].append(dict(case=desc, output=worst[1], max_abs_err=worst[2], tol=worst[3]))
+    for name, found in out.items():
+        check(bool(found), f"the CLI's path gave {name} no input to check")
+        print(f"[cli] {name} against its plain version on the CLI's own inputs (the output "
+              f"nearest its tolerance): " + "; ".join(
+                  f"{c['case']} {c['output']} err {c['max_abs_err']:.3g} (tol {c['tol']:.3g})"
+                  for c in found))
+    return out
+
+
+def cli_run(argv, stdin: str = ""):
+    """``joeys2t_torch.__main__.main(argv)`` in this process with the kernels'
+    launch counters zeroed just before and read just after: (wall s, log
+    lines, stdout, {kernel: launches})."""
+    import io
+
+    from joeys2t_torch.__main__ import main as cli_main
+    from joeys2t_torch.ops import decode_attention as da
+    from joeys2t_torch.ops import flash_attention as fa
+
+    counters = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd": fa.flash_attention_bwd,
+                "decode_attention": da.decode_attention}
+    port_logs = logging.getLogger("joeys2t_torch")
+    levels = [(h, h.level) for h in port_logs.handlers]
+    for h, _ in levels:  # the port's console log: warnings only
+        h.setLevel(logging.WARNING)
+    log, stdout, stdin_before = LogLines(), io.StringIO(), sys.stdin
+    port_logs.addHandler(log)
+    sys.stdin = io.StringIO(stdin)
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            cli_main([str(a) for a in argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        sys.stdin = stdin_before
+        port_logs.removeHandler(log)
+        for h, level in levels:
+            h.setLevel(level)
+    return wall, log.lines, stdout.getvalue(), launches
+
+
+def generations(lines):
+    """(seconds, batches, decode steps) of every ``predict`` call logged."""
+    return [(float(m.group(1)), int(m.group(2)), int(m.group(3))) for m in (
+        re.search(r"Generation took ([\d.]+)\[sec\] over (\d+) batch\(es\), (\d+) decode",
+                  ln) for ln in lines) if m]
+
+
+def manifest_audio_s(tsv: Path, n: int = None) -> float:
+    """Audio seconds (10 ms frames) of the first ``n`` rows of a manifest."""
+    rows = tsv.read_text(encoding="utf-8").splitlines()[1:]
+    return sum(int(r.split("\t")[2]) for r in rows[:n]) / 100.0
+
+
+def generate_corpus(data: Path) -> None:
+    """Phase 7's corpus: 512 / 64 / 64 generated utterances into ``data``."""
+    subprocess.run([sys.executable, str(REPO / "scripts" / "generate_synthetic_asr.py"),
+                    "--out", str(data), "--train", "512", "--dev", "64", "--test", "64"],
+                   check=True, capture_output=True, timeout=600)
+
+
+def cli_config(data: Path, model_dir: Path) -> dict:
+    """configs/synthetic_asr.yaml as phase 7 cuts it: the corpus in ``data``,
+    16 updates (2 epochs of 8 batches of 64), a validation every 8, logging
+    every 4, greedy decoding; full width, bf16, on the card."""
+    from joeys2t_torch.config import load_config
+
+    cfg = load_config(REPO / "configs" / "synthetic_asr.yaml")
+    cfg["model_dir"] = str(model_dir)
+    for split in ("train", "dev", "test"):
+        cfg["data"][split] = str(data / split)
+    cfg["data"]["trg"]["voc_file"] = str(data / "char.txt")
+    cfg["testing"]["beam_size"] = 1  # beam search is not ported yet
+    cfg["training"].update(updates=16, validation_freq=8, logging_freq=4)
+    check(cfg["use_cuda"] and cfg["fp16"] and cfg["training"]["batch_size"] == 64
+          and cfg["model"]["encoder"]["num_layers"] == 16
+          and cfg["model"]["decoder"]["num_layers"] == 8, "unexpected synthetic_asr config")
+    return cfg
+
+
+def cli_phase(train_batch_rate: float):
+    """Phase 7: ``python -m joeys2t_torch {train,test,translate}`` on the
+    synthetic_asr transformer at full width in bf16, every attention through
+    the kernels with exact launch counts, then a float32 ``test`` of the
+    trained checkpoint at a cut depth on the card and on the CPU."""
+    from joeys2t_torch.config import dump_yaml
+    from joeys2t_torch.ops import decode_attention as da
+    from joeys2t_torch.ops import flash_attention as fa
+
+    work = REPO / "build" / "chip_smoke"
+    data = work / "synthetic_asr"
+    t0 = time.time()
+    generate_corpus(data)
+    print(f"[cli] corpus: 512 / 64 / 64 utterances in {time.time() - t0:.1f} s")
+    model_dir = work / "model"
+    cfg = cli_config(data, model_dir)
+    cfg_path = work / "cli.yaml"
+    cfg_path.write_text(dump_yaml(cfg), encoding="utf-8")
+    n_enc, n_dec = 16, 8
+    per_micro, per_step = n_enc + n_dec, 2 * n_dec
+
+    plain = (fa.flash_attention_plain, fa.flash_attention_bwd_plain,
+             da.decode_attention_plain)
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain attention version ran on the card's CLI path")
+
+    fa.flash_attention_plain = fa.flash_attention_bwd_plain = da.decode_attention_plain = \
+        refuse
+    kept = {}
+    try:
+        with kernel_inputs(kept):
+            train_wall, lines, _, train_n = cli_run(["train", cfg_path])
+            test_wall, test_lines, _, test_n = cli_run(["test", cfg_path, "-o",
+                                                        work / "out"])
+            feats = sorted((data / "feats").glob("test-*.npy"))[:8]
+            tr_wall, tr_lines, tr_out, tr_n = cli_run(
+                ["translate", cfg_path], stdin="".join(f"{p}\n" for p in feats))
+    finally:
+        fa.flash_attention_plain, fa.flash_attention_bwd_plain, \
+            da.decode_attention_plain = plain
+    checks = cli_kernel_checks(kept)
+    del kept
+
+    # the model directory
+    for name in ("config.yaml", "train.log", "trg_vocab.txt", "validations.txt",
+                 "8.ckpt", "16.ckpt", "8.hyps", "16.hyps", "best.hyps.dev",
+                 "best.hyps.test"):
+        check((model_dir / name).is_file(), f"train wrote no {name}")
+    for link in ("best.ckpt", "latest.ckpt"):
+        check((model_dir / link).is_symlink() and (model_dir / link).resolve().is_file(),
+              f"no {link} symlink")
+    valid = (model_dir / "validations.txt").read_text().splitlines()
+    wers = [float(m.group(1)) for m in (re.search(r"\twer: ([\d.]+)\t", v) for v in valid)
+            if m]
+    check(len(valid) == 2 and len(wers) == 2, f"validations.txt: {valid}")
+    losses = [float(m.group(1)) for m in (re.search(r"Batch Loss: +([-\d.einfa]+)", ln)
+                                          for ln in lines) if m]
+    check(len(losses) == 4 and all(np.isfinite(losses)), f"training losses {losses}")
+    from joeys2t_torch.checkpoints import load_checkpoint
+
+    state = load_checkpoint(model_dir / "latest.ckpt")["model_state"]
+    check(all(v.dtype == torch.float32 for v in state.values()),
+          "the trained weights are not float32")
+    for split in ("dev", "test"):
+        for name in (f"best.hyps.{split}", f"out.{split}"):
+            path = model_dir / name if name.startswith("best") else work / name
+            n = len(path.read_text(encoding="utf-8").splitlines())
+            check(n == 64, f"{name}: {n} hypotheses, expected 64")
+    hyps = tr_out.splitlines()
+    check(len(hyps) == 8 and hyps == (work / "out.test").read_text(
+        encoding="utf-8").splitlines()[:8], f"translate printed {tr_out!r}")
+
+    # launch counts: 24 forward + 24 backward per training micro-batch; per
+    # validation batch 24 eval-loss forward + 16 encoder forward; 16 encoder
+    # forward per test or translate batch; 16 decode launches per greedy step
+    loop = re.search(r"Training loop: (\d+) update\(s\) in ([\d.]+)\[sec\] besides "
+                     r"validation \(([\d.]+)\[sec\] per update\), ([\d.]+)\[sec\] "
+                     r"\(([\d.]+) %\) of it in the data pipeline \(read, collate, upload\); "
+                     r"validation ([\d.]+)\[sec\]; final checkpoint ([\d.]+)\[sec\]",
+                     "\n".join(lines))
+    check(loop is not None and int(loop.group(1)) == 16, "no training-loop summary")
+    gens = generations(lines)
+    check(len(gens) == 4, f"train logged {len(gens)} predict calls, expected 2 + 2")
+    valid_batches = sum(b for _, b, _ in gens[:2])
+    test_batches = sum(b for _, b, _ in gens[2:])
+    steps = sum(s for _, _, s in gens)
+    expected = {"flash_attention_fwd": per_micro * 16 + (per_micro + n_enc) * valid_batches
+                + n_enc * test_batches,
+                "flash_attention_bwd": per_micro * 16, "decode_attention": per_step * steps}
+    check(train_n == expected, f"train launches {train_n}, expected {expected}")
+    for name, run_lines, counts in (("test", test_lines, test_n),
+                                    ("translate", tr_lines, tr_n)):
+        g = generations(run_lines)
+        want = {"flash_attention_fwd": n_enc * sum(b for _, b, _ in g),
+                "flash_attention_bwd": 0,
+                "decode_attention": per_step * sum(s for _, _, s in g)}
+        check(counts == want, f"{name} launches {counts}, expected {want}")
+
+    sub = subprocess.run([sys.executable, "-m", "joeys2t_torch", "test", str(cfg_path)],
+                         cwd=REPO, capture_output=True, text=True, timeout=600)
+    check(sub.returncode == 0, f"python -m joeys2t_torch test exited {sub.returncode}: "
+          f"{sub.stderr[-2000:]}")
+
+    # card vs CPU: float32 test of the trained checkpoint cut to 2 + 2 layers
+    # on the first 8 dev utterances
+    cut = work / "cut"
+    cut.mkdir(exist_ok=True)
+    rows = (data / "dev.tsv").read_text(encoding="utf-8").splitlines()
+    (data / "dev8.tsv").write_text("\n".join(rows[:9]) + "\n", encoding="utf-8")
+    keep = re.compile(r"(encoder|decoder)\.layers\.(\d+)\.")
+    torch.save({"model_state": {k: v for k, v in state.items()
+                                if not keep.match(k) or int(keep.match(k).group(2)) < 2}},
+               cut / "best.ckpt")
+    shutil.copy(model_dir / "trg_vocab.txt", cut / "trg_vocab.txt")
+    cut_cfg = dict(cfg, fp16=False, model_dir=str(cut))
+    cut_cfg["data"] = dict(cfg["data"], dev=str(data / "dev8"))
+    del cut_cfg["data"]["test"]
+    cut_cfg["model"] = {**cfg["model"],
+                        "encoder": dict(cfg["model"]["encoder"], num_layers=2),
+                        "decoder": dict(cfg["model"]["decoder"], num_layers=2)}
+    outs = {}
+    for use_cuda in (True, False):
+        path = cut / f"cut_{use_cuda}.yaml"
+        path.write_text(dump_yaml(dict(cut_cfg, use_cuda=use_cuda)), encoding="utf-8")
+        cli_run(["test", path, "-o", cut / f"out_{use_cuda}"])
+        outs[use_cuda] = (cut / f"out_{use_cuda}.dev").read_text(encoding="utf-8")
+    check(outs[True] == outs[False] and len(outs[True].splitlines()) == 8,
+          f"float32 hypotheses differ between card and CPU:\n{outs[True]}\n{outs[False]}")
+
+    train_audio = manifest_audio_s(data / "train.tsv") * 2  # 16 updates = 2 epochs
+    dev_audio = manifest_audio_s(data / "dev.tsv")
+    train_s, per_update, data_s, _, valid_s, final_ckpt_s = (float(loop.group(i))
+                                                             for i in range(2, 8))
+    n_batches = 16 * cfg["training"].get("batch_multiplier", 1)
+    test_gen = generations(test_lines)[0]  # the dev set in `test`
+    print(f"[cli] train: 16 updates of 64 utterances (2 epochs), 2 validations, test "
+          f"after training; {train_wall:.2f} s wall in all; losses "
+          f"{[round(x, 4) for x in losses]}; WER {wers}; weights float32")
+    print(f"[cli] launches: train {train_n}, test {test_n}, translate {tr_n}; each as "
+          f"the path implies; plain attention never ran")
+    print(f"[cli] CLI training loop: {per_update * 1e3:.2f} ms per update, of which the "
+          f"host data pipeline (read, CMVN, SpecAugment, sampler filtering, collate, "
+          f"upload) {data_s / n_batches * 1e3:.2f} ms a batch, {100 * data_s / train_s:.2f} %"
+          f" of the loop's wall ({data_s:.3f} s of {train_s:.3f} s); "
+          f"{train_audio / train_s:.1f} trained audio-s/s through the CLI against "
+          f"{train_batch_rate:.1f} through train_batch (phase 5); final checkpoint "
+          f"{final_ckpt_s:.3f} s")
+    print(f"[cli] validation: {valid_s / 2:.3f} s wall per validation (64 utterances, "
+          f"{dev_audio:.1f} audio-s, eval loss + greedy); test: {test_wall:.3f} s wall "
+          f"(dev + test, 128 utterances), dev decode {test_gen[0]:.3f} s = "
+          f"{dev_audio / test_gen[0]:.1f} audio-s/s over {test_gen[2]} greedy steps; "
+          f"translate 8 paths {tr_wall:.3f} s")
+    print("[cli] `python -m joeys2t_torch test` exited 0; float32 test at 2 + 2 layers: "
+          "card and CPU hypotheses identical over 8 dev utterances")
+    return {name: train_n[name] + test_n[name] + tr_n[name] for name in train_n}, checks
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -933,8 +1328,10 @@ def main():
     del asr, batch
     card_vs_cpu_phase()
     torch.cuda.empty_cache()
-    train_fwd_launches, train_bwd_launches = train_phase()
+    train_fwd_launches, train_bwd_launches, train_batch_rate = train_phase()
     train_card_vs_cpu_phase()
+    torch.cuda.empty_cache()
+    cli_launches, cli_checks = cli_phase(train_batch_rate)
 
     def entry(name, source, replaces, also, cases, launches):
         head = cases[0]  # the main path's headline shape and dtype
@@ -943,20 +1340,21 @@ def main():
                     launches_by_path=launches, max_abs_err=head["max_abs_err"],
                     ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                     bound_by=head["bound_by"], library_ms=head["library_ms"],
-                    case=head["case"], cases=cases)
+                    case=head["case"], cases=cases, cli_checks=cli_checks[name])
 
     kernels = [
         entry("flash_attention_fwd", "joeys2t_torch/csrc/flash_attention.cu",
               "joeys2t_tpu/ops/flash_attention.py:492",
               "joeys2t_tpu/ops/flash_attention.py:262", flash,
-              {"serving": flash_launches, "train": train_fwd_launches}),
+              {"serving": flash_launches, "train": train_fwd_launches,
+               "cli": cli_launches["flash_attention_fwd"]}),
         entry("flash_attention_bwd", "joeys2t_torch/csrc/flash_attention.cu",
               "joeys2t_tpu/ops/flash_attention.py:562",
               "joeys2t_tpu/ops/flash_attention.py:306", backward,
-              {"train": train_bwd_launches}),
+              {"train": train_bwd_launches, "cli": cli_launches["flash_attention_bwd"]}),
         entry("decode_attention", "joeys2t_torch/csrc/decode_attention.cu",
               "joeys2t_tpu/ops/decode_attention.py:185", None, decode,
-              {"serving": decode_launches}),
+              {"serving": decode_launches, "cli": cli_launches["decode_attention"]}),
     ]
     print(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,98 @@
+# coding: utf-8
+"""
+Checkpoints (counterpart of joeys2t_tpu/checkpoints.py: ``save_checkpoint``
+:29, ``load_checkpoint`` :42, ``delete_ckpt`` :50, ``CheckpointManager`` :59).
+
+A checkpoint is ``torch.save`` of a dict with the JAX package's keys
+(joeys2t_tpu/training.py:582-592): ``model_state`` (the model's
+``state_dict``), ``optimizer_state`` (the torch optimizer's
+``state_dict``), ``scheduler_state``, ``train_iter_state`` (the sampler's
+bit-generator state) and ``stats_state``. Every value is a tensor or a
+plain Python type, so ``torch.load(weights_only=True)`` reads it.
+"""
+import heapq
+import math
+from pathlib import Path
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from joeys2t_torch.helpers import symlink_update
+from joeys2t_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
+
+
+def save_checkpoint(path: Path, state: Dict[str, Any]) -> None:
+    """Write ``state`` to a temporary file and rename it into place, so a
+    reader never sees a half-written checkpoint."""
+    path = Path(path)
+    tmp = path.with_suffix(".tmp")
+    torch.save(state, tmp)
+    tmp.replace(path)
+
+
+def load_checkpoint(path: Path, map_location="cpu") -> Dict[str, Any]:
+    """Read a checkpoint of tensors and plain Python values."""
+    path = Path(path)
+    if not path.is_file():
+        raise FileNotFoundError(f"Checkpoint {path} not found.")
+    return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def delete_ckpt(path: Path) -> None:
+    try:
+        logger.info("delete %s", path.as_posix())
+        path.unlink()
+    except FileNotFoundError as e:
+        logger.warning("Wanted to delete old checkpoint %s but file does not exist. (%s)",
+                       path, e)
+
+
+class CheckpointManager:
+    """The best ``keep_best_ckpts`` checkpoints on disk, and the
+    ``latest.ckpt`` / ``best.ckpt`` symlinks (joeynmt/training.py:149-218)."""
+
+    def __init__(self, model_dir: Path, keep_best_ckpts: int = 5,
+                 minimize_metric: bool = True):
+        self.model_dir = Path(model_dir)
+        self.keep_best_ckpts = keep_best_ckpts
+        self.minimize_metric = minimize_metric
+        # min-heap of (key, path) with key = -score for minimized metrics, so
+        # ckpt_queue[0] is the worst checkpoint kept
+        self.ckpt_queue: List[Tuple[float, Path]] = []
+
+    def save(self, steps: int, state: Dict[str, Any], new_best: bool,
+             score: float) -> Path:
+        model_path = self.model_dir / f"{steps}.ckpt"
+        save_checkpoint(model_path, state)
+        logger.info("Checkpoint saved in %s.", model_path)
+
+        symlink_target = Path(f"{steps}.ckpt")
+        prev_path = symlink_update(symlink_target, self.model_dir / "latest.ckpt")
+        best_path = self.model_dir / "best.ckpt"
+        if new_best:
+            prev_path = symlink_update(symlink_target, best_path)
+
+        if not (isinstance(score, float) and math.isnan(score)) and self.keep_best_ckpts > 0:
+            key = -score if self.minimize_metric else score
+            to_delete = None
+            if len(self.ckpt_queue) < self.keep_best_ckpts:
+                heapq.heappush(self.ckpt_queue, (key, model_path))
+            else:
+                to_delete = heapq.heappushpop(self.ckpt_queue, (key, model_path))
+            # a newcomer that is itself the worst stays as latest.ckpt's
+            # target until latest moves on; the best checkpoint is never deleted
+            if (to_delete is not None and to_delete[1] != model_path
+                    and to_delete[1].stem != best_path.resolve().stem):
+                delete_ckpt(to_delete[1])
+
+        # the previous symlink target goes once it is neither kept nor best;
+        # outside the scored branch so the final unscored save cleans up too
+        if self.keep_best_ckpts > 0 and prev_path is not None:
+            prev = self.model_dir / prev_path.name
+            if (prev.stem not in [c[1].stem for c in self.ckpt_queue]
+                    and prev.stem != best_path.resolve().stem
+                    and prev.stem != str(steps) and prev.exists()):
+                delete_ckpt(prev)
+        return model_path

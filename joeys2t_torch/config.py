@@ -1,25 +1,40 @@
 # coding: utf-8
 """
-Configuration: special symbols, the `training` section and the YAML config
-loader.
+Configuration: special symbols, the `training` and `testing` sections, the
+whole config, and the YAML config loader.
 
 Counterpart of joeys2t_tpu/config.py (``SpecialSymbols`` :28,
-``ConfigurationError`` :23, ``TrainConfig`` :45, ``load_config`` :210,
-``parse_train_args`` :259). ``TrainConfig`` keeps the fields the train step
-reads; the `training` options of the parts the port does not have yet
-(checkpoint loading, profiling, model and pipeline parallelism, optimizers
-other than adam/adamw, bf16 moments) raise ``NotImplementedError`` when set. The port depends on
-torch, numpy and the standard library only, so it reads the repository's
-configs with its own YAML reader: block mappings by indentation, ``- item``
-block lists, ``[a, b]`` flow lists, quoted and plain scalars resolved as
-PyYAML's safe loader resolves them (YAML 1.1 booleans, ints, floats, null),
-and ``#`` comments. Anchors, multi-line strings and flow mappings are
-rejected with an error rather than misread.
+``TrainConfig`` :45, ``TestConfig`` :113, ``BaseConfig`` :141,
+``parse_special_symbols`` :181, ``log_config`` :201, ``load_config`` :210,
+``parse_global_args`` :220, ``parse_train_args`` :259, ``parse_test_args``
+:360, ``set_validation_args`` :435). ``use_cuda`` (default True) selects the
+``cuda`` device and raises without one; ``use_cuda: False`` runs on the CPU.
+``fp16`` selects bfloat16 compute on float32 masters. The `training` options
+of the parts the port does not have yet (``load_encoder``/``load_decoder``,
+profiling, model and pipeline parallelism, optimizers other than
+adam/adamw, ``moment_dtype``) raise ``NotImplementedError`` when set.
+
+The port depends on torch, numpy and the standard library only, so it reads
+the repository's configs with its own YAML reader: block mappings by
+indentation, ``- item`` block lists, ``[a, b]`` flow lists, quoted and plain
+scalars resolved as PyYAML's safe loader resolves them (YAML 1.1 booleans,
+ints, floats, null), and ``#`` comments. Anchors, multi-line strings and
+flow mappings are rejected with an error rather than misread. ``dump_yaml``
+writes a config back in that subset.
 """
 import dataclasses
+import json
+import math
 import re
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from joeys2t_torch.helpers import resolve_device
+from joeys2t_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
 
 PORTED_OPTIMIZERS = ("adam", "adamw")
 
@@ -47,14 +62,20 @@ class SpecialSymbols:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The fields of the JAX package's ``TrainConfig`` (joeynmt/config.py:26-65,
-    defaults :252-353) that the train step reads."""
+    """`training` section (joeynmt/config.py:26-65, defaults :252-353)."""
 
+    load_model: Optional[Path] = None
+    reset_best_ckpt: bool = False
+    reset_scheduler: bool = False
+    reset_optimizer: bool = False
+    reset_iter_state: bool = False
     loss: str = "crossentropy"
     normalization: str = "batch"
     label_smoothing: float = 0.0
     optimizer: str = "adam"
     adam_betas: List[float] = dataclasses.field(default_factory=lambda: [0.9, 0.999])
+    # host->device dtype of float speech features; "auto" uploads bfloat16
+    # when the encoder computes in bfloat16 (it casts its input anyway)
     feature_dtype: str = "auto"
     learning_rate: float = 0.005
     learning_rate_min: float = 0.0001
@@ -66,12 +87,73 @@ class TrainConfig:
     weight_decay: float = 0.0
     clip_grad_norm: Optional[float] = None
     clip_grad_val: Optional[float] = None
+    keep_best_ckpts: int = 5
+    logging_freq: int = 100
+    validation_freq: int = 1000
+    print_valid_sents: List[int] = dataclasses.field(default_factory=lambda: [0, 1, 2])
+    early_stopping_metric: str = "ppl"
     minimize_metric: bool = True
+    shuffle: bool = True
+    epochs: int = 3
     max_updates: float = float("inf")
     batch_size: int = 1
     batch_type: str = "sentence"
     batch_multiplier: int = 1
     ctc_weight: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TestConfig:
+    """`testing` section (joeynmt/config.py:67-86, defaults :356-446)."""
+
+    __test__ = False  # the Test* name is domain jargon, not a pytest class
+
+    load_model: Optional[Path] = None
+    batch_size: int = 64
+    batch_type: str = "sentence"
+    max_output_length: int = -1
+    min_output_length: int = 1
+    eval_metrics: List[str] = dataclasses.field(default_factory=list)
+    sacrebleu_cfg: Dict = dataclasses.field(default_factory=dict)
+    beam_size: int = 1
+    beam_alpha: float = -1
+    n_best: int = 1
+    return_attention: bool = False
+    return_prob: str = "none"
+    generate_unk: bool = True
+    repetition_penalty: float = -1
+    no_repeat_ngram_size: int = -1
+
+
+@dataclasses.dataclass(frozen=True)
+class BaseConfig:
+    """Top-level parsed config (joeynmt/config.py:88-106)."""
+
+    name: str
+    model_dir: Path
+    device: torch.device
+    task: str = "MT"
+    joeynmt_version: Optional[str] = "2.3.0"
+    num_workers: int = 0
+    fp16: bool = False  # bfloat16 compute on float32 masters
+    seed: int = 42
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    test: TestConfig = dataclasses.field(default_factory=TestConfig)
+    data: Dict = dataclasses.field(default_factory=dict)
+    model: Dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.fp16 else torch.float32
+
+
+def _check_path(path, allow_empty: bool = True) -> Optional[Path]:
+    """An absolute path; one that must exist raises when it does not."""
+    if path is not None:
+        path = Path(path).absolute()
+        if not allow_empty and not path.exists():
+            raise FileNotFoundError(f"{path} not found.")
+    return path
 
 
 def _check_options(name: str, choice: Any, valid_options: List[Any]) -> None:
@@ -81,10 +163,62 @@ def _check_options(name: str, choice: Any, valid_options: List[Any]) -> None:
         raise ConfigurationError(f"Invalid setting for `{name}`. Valid choices: {valids}.")
 
 
-def parse_train_args(cfg: Dict) -> TrainConfig:
-    """Parse and validate the `training` section (joeys2t_tpu/config.py:259)
-    for the train step; options of parts not ported yet raise
-    ``NotImplementedError``."""
+def parse_special_symbols(cfg) -> SpecialSymbols:
+    """Apply special-symbol defaults (joeynmt/config.py:128-140)."""
+    if isinstance(cfg, SpecialSymbols):
+        return cfg
+    cfg = dict(cfg or {})
+    return SpecialSymbols(
+        unk_id=cfg.get("unk_id", 0), unk_token=cfg.get("unk_token", "<unk>"),
+        pad_id=cfg.get("pad_id", 1), pad_token=cfg.get("pad_token", "<pad>"),
+        bos_id=cfg.get("bos_id", 2), bos_token=cfg.get("bos_token", "<s>"),
+        eos_id=cfg.get("eos_id", 3), eos_token=cfg.get("eos_token", "</s>"),
+        sep_id=cfg.get("sep_id", None), sep_token=cfg.get("sep_token", None),
+        lang_tags=cfg.get("lang_tags", []))
+
+
+def log_config(cfg: Dict, prefix: str = "cfg") -> None:
+    """Echo the config to the log (joeynmt/config.py:143-156)."""
+    for k, v in cfg.items():
+        if isinstance(v, dict):
+            log_config(v, prefix=".".join([prefix, k]))
+        else:
+            logger.info("%34s : %s", ".".join([prefix, k]), v)
+
+
+def parse_global_args(cfg: Dict, rank: int = 0, mode: str = "train") -> BaseConfig:
+    """Parse and validate the whole config (joeynmt/config.py:176-249). The
+    device is ``cuda`` unless ``use_cuda`` is False; without a card the
+    default raises."""
+    del rank  # one process
+    task = cfg.get("task", cfg["data"].get("task", "MT")).upper()
+    _check_options("task", task, ["MT", "S2T"])
+    use_cuda = bool(cfg.get("use_cuda", cfg["training"].get("use_cuda", True)))
+    if use_cuda and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; set `use_cuda: False` in the "
+                           "config to run on the CPU")
+    device = resolve_device("cuda" if use_cuda else "cpu")
+    cfg["data"]["special_symbols"] = parse_special_symbols(
+        cfg["data"].get("special_symbols", {}))
+    return BaseConfig(
+        name=cfg["name"],
+        joeynmt_version=cfg.get("joeynmt_version", "2.3.0"),
+        task=task,
+        model_dir=_check_path(cfg["model_dir"]),
+        device=device,
+        num_workers=cfg.get("num_workers", cfg["training"].get("num_workers", 0)),
+        fp16=cfg.get("fp16", cfg["training"].get("fp16", False)),
+        seed=cfg.get("random_seed", 42),
+        train=parse_train_args(cfg["training"], mode),
+        test=parse_test_args(cfg["testing"], mode),
+        data=cfg["data"],
+        model=cfg["model"],
+    )
+
+
+def parse_train_args(cfg: Dict, mode: str = "train") -> TrainConfig:
+    """Parse and validate the `training` section (joeynmt/config.py:252-353);
+    options of parts not ported yet raise ``NotImplementedError``."""
     normalization = cfg.get("normalization", "batch").lower()
     _check_options("normalization", normalization, ["batch", "tokens", "none"])
     loss_type = cfg.get("loss", "crossentropy")
@@ -92,6 +226,11 @@ def parse_train_args(cfg: Dict) -> TrainConfig:
     optimizer = cfg.get("optimizer", "adam").lower()
     _check_options("optimizer", optimizer, ["adam", "adamw", "adafactor", "adagrad",
                                             "adadelta", "rmsprop", "sgd"])
+    keep_best_ckpts = int(cfg.get("keep_best_ckpts", 5))
+    if cfg.get("keep_last_ckpts") is not None:  # backward compatibility
+        keep_best_ckpts = int(cfg["keep_last_ckpts"])
+        logger.warning("`keep_last_ckpts` option is outdated. Please use "
+                       "`keep_best_ckpts`, instead.")
     early_stopping_metric = cfg.get("early_stopping_metric", "ppl").lower()
     _check_options("early_stopping_metric", early_stopping_metric,
                    ["acc", "loss", "ppl", "bleu", "chrf", "wer"])
@@ -102,9 +241,14 @@ def parse_train_args(cfg: Dict) -> TrainConfig:
     if cfg.get("clip_grad_val") is not None and cfg.get("clip_grad_norm") is not None:
         raise ConfigurationError(
             "You can only specify either clip_grad_val or clip_grad_norm.")
+    logging_freq = cfg.get("logging_freq", 100)
+    validation_freq = cfg.get("validation_freq", 1000)
+    if logging_freq > validation_freq:
+        raise ConfigurationError("`logging_freq` must be smaller than `validation_freq`.")
+    if validation_freq % logging_freq != 0:
+        raise ConfigurationError("`validation_freq` must be divisible by `logging_freq`.")
 
     unported = {
-        "load_model": cfg.get("load_model") is not None,
         "load_encoder": cfg.get("load_encoder") is not None,
         "load_decoder": cfg.get("load_decoder") is not None,
         "profile_dir": cfg.get("profile_dir") is not None,
@@ -118,6 +262,11 @@ def parse_train_args(cfg: Dict) -> TrainConfig:
             raise NotImplementedError(f"training option `{option}` is not ported yet")
 
     return TrainConfig(
+        load_model=_check_path(cfg.get("load_model", None), allow_empty=mode != "train"),
+        reset_best_ckpt=cfg.get("reset_best_ckpt", False),
+        reset_scheduler=cfg.get("reset_scheduler", False),
+        reset_optimizer=cfg.get("reset_optimizer", False),
+        reset_iter_state=cfg.get("reset_iter_state", False),
         normalization=normalization,
         loss=loss_type,
         label_smoothing=cfg.get("label_smoothing", 0.0),
@@ -134,13 +283,92 @@ def parse_train_args(cfg: Dict) -> TrainConfig:
         weight_decay=cfg.get("weight_decay", 0.0),
         clip_grad_norm=cfg.get("clip_grad_norm", None),
         clip_grad_val=cfg.get("clip_grad_val", None),
+        keep_best_ckpts=keep_best_ckpts,
+        logging_freq=logging_freq,
+        validation_freq=validation_freq,
+        print_valid_sents=cfg.get("print_valid_sents", [0, 1, 2]),
+        early_stopping_metric=early_stopping_metric,
         minimize_metric=early_stopping_metric in ["ppl", "loss", "wer"],
+        shuffle=cfg.get("shuffle", True),
+        epochs=cfg.get("epochs", 3),
         max_updates=cfg.get("updates", float("inf")),
         batch_size=cfg["batch_size"],
         batch_type=batch_type,
         batch_multiplier=cfg.get("batch_multiplier", 1),
         ctc_weight=cfg.get("ctc_weight", 0.0),
     )
+
+
+def parse_test_args(cfg: Dict, mode: str = "test") -> TestConfig:
+    """Parse and validate the `testing` section (joeynmt/config.py:356-446).
+    Beam search, BLEU/chrF and returned attention are accepted here and
+    raise where they would run."""
+    batch_size = cfg.get("batch_size", 64)
+    batch_type = cfg.get("batch_type", "sentence").lower()
+    _check_options("batch_type", batch_type, ["sentence", "token"])
+    if batch_size > 1000 and batch_type == "sentence":
+        logger.warning("WARNING: Are you sure you meant to work on huge batches like "
+                       "this? `batch_size` is > 1000 for sentence-batching. Consider "
+                       "decreasing it or switching to `batch_type: 'token'`.")
+    if "eval_metrics" in cfg:
+        eval_metrics = [s.strip().lower() for s in cfg["eval_metrics"]]
+    elif "eval_metric" in cfg:
+        eval_metrics = [cfg["eval_metric"].strip().lower()]
+        logger.warning("`eval_metric` option is obsolete. Please use `eval_metrics`, "
+                       "instead.")
+    else:
+        eval_metrics = []
+    for eval_metric in eval_metrics:
+        _check_options("eval_metric", eval_metric,
+                       ["bleu", "chrf", "token_accuracy", "sequence_accuracy", "wer"])
+    sacrebleu_cfg: Dict = cfg.get("sacrebleu_cfg", {})
+    if "sacrebleu" in cfg:
+        sacrebleu_cfg = cfg["sacrebleu"]
+        logger.warning("`sacrebleu` option is obsolete. Please use `sacrebleu_cfg`, "
+                       "instead.")
+    n_best = cfg.get("n_best", 1)
+    if n_best < 1:
+        raise ConfigurationError("N-best size must be > 0.")
+    beam_size = cfg.get("beam_size", 1)
+    if beam_size < 1:
+        raise ConfigurationError("Beam size must be > 0.")
+    if n_best > beam_size:
+        raise ConfigurationError("`n_best` must be smaller than or equal to `beam_size`.")
+    beam_alpha = cfg.get("beam_alpha", -1)
+    if "alpha" in cfg:
+        beam_alpha = cfg["alpha"]
+        logger.warning("`alpha` option is obsolete. Please use `beam_alpha`, instead.")
+    return_prob = cfg.get("return_prob", "none")
+    _check_options("return_prob", return_prob, ["hyp", "ref", "none"])
+    repetition_penalty: float = cfg.get("repetition_penalty", -1)
+    if 0 < repetition_penalty < 1:
+        raise ConfigurationError(
+            "Repetition penalty must be > 1. (-1 indicates no repetition penalty.)")
+    return TestConfig(
+        load_model=_check_path(cfg.get("load_model", None), allow_empty=mode == "train"),
+        batch_size=batch_size,
+        batch_type=batch_type,
+        max_output_length=cfg.get("max_output_length", -1),
+        min_output_length=cfg.get("min_output_length", 1),
+        eval_metrics=eval_metrics,
+        sacrebleu_cfg=sacrebleu_cfg,
+        beam_size=beam_size,
+        beam_alpha=beam_alpha,
+        n_best=n_best,
+        return_attention=cfg.get("return_attention", False),
+        return_prob=return_prob,
+        generate_unk=cfg.get("generate_unk", True),
+        repetition_penalty=repetition_penalty,
+        no_repeat_ngram_size=cfg.get("no_repeat_ngram_size", -1),
+    )
+
+
+def set_validation_args(args: TestConfig) -> TestConfig:
+    """Greedy-only overrides for in-training validation
+    (joeynmt/config.py:449-472)."""
+    return dataclasses.replace(args, beam_size=1, n_best=1, return_prob="none",
+                               generate_unk=True, repetition_penalty=-1,
+                               no_repeat_ngram_size=-1)
 
 
 def load_config(cfg_file: str = "configs/default.yaml") -> Dict:
@@ -152,6 +380,40 @@ def load_config(cfg_file: str = "configs/default.yaml") -> Dict:
     if "model_dir" not in cfg:
         cfg["model_dir"] = cfg["training"]["model_dir"]
     return cfg
+
+
+def _yaml_scalar(value: Any) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if math.isinf(value):
+            return ".inf" if value > 0 else "-.inf"
+        if math.isnan(value):
+            return ".nan"
+        text = repr(value)
+        # YAML 1.1 reads a float only with a dot: 1e-06 -> 1.0e-06
+        return text.replace("e", ".0e", 1) if "e" in text and "." not in text else text
+    return json.dumps(str(value))  # a JSON string is a double-quoted YAML scalar
+
+
+def dump_yaml(cfg: Dict, indent: int = 0) -> str:
+    """A config (nested dicts, lists of scalars, scalars) as YAML that
+    ``parse_yaml`` and PyYAML's safe loader both read back unchanged."""
+    lines = []
+    for key, value in cfg.items():
+        pad = " " * indent
+        if isinstance(value, dict):
+            lines.append(f"{pad}{key}:")
+            lines.append(dump_yaml(value, indent + 4).rstrip("\n"))
+        elif isinstance(value, (list, tuple)):
+            lines.append(f"{pad}{key}: [{', '.join(_yaml_scalar(v) for v in value)}]")
+        else:
+            lines.append(f"{pad}{key}: {_yaml_scalar(value)}")
+    return "\n".join(line for line in lines if line) + "\n"
 
 
 # ------------------------------------------------------------- YAML subset

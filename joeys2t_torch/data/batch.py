@@ -2,10 +2,11 @@
 """
 Mini-batch container (counterpart of joeys2t_tpu/data/batch.py ``Batch``
 :32), plain numpy on the host: the teacher-forcing shift, the target mask,
-``nseqs``/``ntokens``, ``pad_to_shape`` (:98) and ``normalize`` (:164).
-Prompts are not ported yet.
+``nseqs``/``ntokens``, ``pad_to_shape`` (:98), ``normalize`` (:164),
+``sort_by_src_length`` (:186) and ``score`` (:212). Prompts are not ported
+yet.
 """
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -146,6 +147,32 @@ class Batch:
         if n_accumulation > 1:
             norm_tensor = norm_tensor / n_accumulation
         return norm_tensor
+
+    def sort_by_src_length(self) -> List[int]:
+        """Sort the rows by source length, longest first (stable); returns
+        the reverse index that restores the original order."""
+        perm_index = np.argsort(-self.src_length, kind="stable")
+        rev_index = [0] * len(perm_index)
+        for new_pos, old_pos in enumerate(perm_index):
+            rev_index[int(old_pos)] = new_pos
+        for name in ("src", "src_length", "src_mask", "indices", "trg_input", "trg_mask",
+                     "trg_length", "trg"):
+            arr = getattr(self, name)
+            if arr is not None:
+                setattr(self, name, arr[perm_index])
+        return rev_index
+
+    @staticmethod
+    def score(log_probs: np.ndarray, trg: np.ndarray, pad_index: int) -> np.ndarray:
+        """The log-probabilities of the reference tokens, one array per row
+        (pads skipped)."""
+        if log_probs.shape[0] != trg.shape[0]:
+            raise ValueError("log_probs and trg differ in rows")
+        scores = [np.array([log_probs[i, j, ind] for j, ind in enumerate(trg[i])
+                            if ind != pad_index]) for i in range(log_probs.shape[0])]
+        out = np.empty(len(scores), dtype=object)
+        out[:] = scores
+        return out
 
     def __repr__(self) -> str:
         return (f"{self.__class__.__name__}(nseqs={self.nseqs}, "

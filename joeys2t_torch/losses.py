@@ -85,6 +85,25 @@ class XentCTCLoss(XentLoss):
                 f"ctc_weight={self.ctc_weight})")
 
 
+def loss_terms(loss_fn: XentLoss, logits: torch.Tensor, ctc_logits: Optional[torch.Tensor],
+               out_mask: torch.Tensor, trg: torch.Tensor, trg_length: torch.Tensor,
+               trg_mask: torch.Tensor):
+    """The sum-reduced (total, nll, ctc) losses of one batch, its count of
+    correct argmax tokens and its log-probabilities (the train step,
+    joeys2t_tpu/training.py:510, and the eval step,
+    joeys2t_tpu/prediction.py:145)."""
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    kwargs = dict(trg=trg)
+    if loss_fn.require_ctc_layer and ctc_logits is not None:
+        kwargs.update(trg_length=trg_length, src_mask=out_mask, ctc_logits=ctc_logits)
+    losses = loss_fn(log_probs, **kwargs)
+    total = losses[0]
+    nll = losses[1] if len(losses) > 1 else total
+    ctc = losses[2] if len(losses) > 2 else torch.zeros((), device=total.device)
+    n_correct = torch.sum(trg_mask[:, 0, :] & (log_probs.argmax(-1) == trg))
+    return total, nll, ctc, n_correct, log_probs
+
+
 def build_loss_function(train_args, spec) -> XentLoss:
     """The loss of the `training` section (joeys2t_tpu/prediction.py:50)."""
     if train_args.loss == "crossentropy-ctc":

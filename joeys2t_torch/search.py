@@ -3,27 +3,29 @@
 Greedy search over the KV cache (counterpart of joeys2t_tpu/search.py:
 ``_apply_token_bans`` :36, ``_cast_params_to_compute_dtype`` :106,
 ``_transformer_greedy_jit`` :126, ``transformer_greedy`` :266, ``greedy``
-:372).
+:372, ``search`` :795).
 
 The JAX ``lax.while_loop`` becomes a Python loop over a cache preallocated
 for ``max_output_length + 1`` positions. The stop rule is the JAX one: stop
 after ``max_output_length`` steps or once every row has emitted eos; rows
 that finished earlier emit pad with score 0 (docs/architecture.md:129-130).
 Checking "every row finished" reads one flag from the device per step.
-Repetition penalty, n-gram blocking, prompts and returned attention are not
-ported yet and raise.
+Repetition penalty, n-gram blocking, prompts, returned attention and beam
+search are not ported yet and raise.
 """
 import copy
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
+from joeys2t_torch.data.batch import Batch, round_up_to_bucket
 from joeys2t_torch.helpers import resolve_device
 from joeys2t_torch.models.model import ModelSpec, Seq2SeqModel
 
 NEG_INF = -1.0e9
 
-__all__ = ["greedy", "transformer_greedy"]
+__all__ = ["greedy", "search", "transformer_greedy"]
 
 
 def _apply_token_bans(log_probs: torch.Tensor, banned: torch.Tensor, eos_index: int,
@@ -57,7 +59,10 @@ def _cast_params_to_compute_dtype(model: Seq2SeqModel) -> Seq2SeqModel:
     decode_side = (model.trg_embed, model.decoder)
     if all(p.dtype == dtype for m in decode_side for p in m.parameters()):
         return model
-    trg_embed, decoder = (copy.deepcopy(m).to(dtype) for m in decode_side)
+    # the copies share the trainer's dropout generator rather than cloning it
+    memo = {id(g): g for m in decode_side for g in
+            (getattr(d, "generator", None) for d in m.modules()) if g is not None}
+    trg_embed, decoder = (copy.deepcopy(m, dict(memo)).to(dtype) for m in decode_side)
     return Seq2SeqModel(model.encoder, decoder, trg_embed).train(model.training)
 
 
@@ -152,3 +157,34 @@ def greedy(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torch.Tensor,
     return transformer_greedy(model, spec, encoder_output, src_mask,
                               max_output_length, device=device, **kwargs)
 
+
+def search(model: Seq2SeqModel, spec: ModelSpec, batch: Batch, max_output_length: int,
+           beam_size: int, beam_alpha: float, n_best: int = 1, device=None,
+           decode_model: Optional[Seq2SeqModel] = None, stats: Optional[Dict] = None,
+           **kwargs):
+    """Encode ``batch`` once, then decode it greedily (joeynmt/search.py:
+    828-912). A negative ``max_output_length`` becomes 1.5 times the longest
+    source, and the length is rounded up to a bucket, as the JAX package
+    rounds it for its compiled loops: hypotheses that never emit eos have
+    the same length in both. The encoder reads ``model``'s float32 masters;
+    the loop decodes from ``decode_model`` (``model`` with its decode side
+    cast to the compute dtype) when the caller cast it once for many
+    batches. Beam search is not ported yet and raises.
+
+    :return: (output ids (B, L), scores or None, None), numpy
+    """
+    del beam_alpha, n_best  # beam search only
+    if beam_size > 1:
+        raise NotImplementedError("beam search is not ported yet")
+    device = resolve_device(device)
+    with torch.inference_mode():
+        src = torch.from_numpy(np.ascontiguousarray(batch.src)).to(
+            device, getattr(model.encoder, "dtype", torch.float32))
+        src_length = torch.from_numpy(np.asarray(batch.src_length)).to(device, torch.long)
+        encoder_output, encoder_hidden, src_mask = model.encode(src, src_length)
+    if max_output_length < 0:  # adapt to the source length
+        max_output_length = int(np.max(batch.src_length) * 1.5)
+    max_output_length = round_up_to_bucket(max_output_length)
+    return greedy(decode_model if decode_model is not None else model, spec,
+                  encoder_output, encoder_hidden, src_mask, max_output_length,
+                  device=device, stats=stats, **kwargs)

@@ -13,13 +13,13 @@ Transcripts are the target tokens joined by spaces; detokenization
 (sentencepiece) comes with the tokenizer port.
 """
 import bisect
-import wave as wave_io
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from joeys2t_torch.data.audio_io import read_wav
 from joeys2t_torch.helpers import resolve_device
 from joeys2t_torch.ops.frontend import device_frontend
 from joeys2t_torch.search import _cast_params_to_compute_dtype, transformer_greedy
@@ -31,26 +31,6 @@ _WAVE_BUCKETS = [16000 * i for i in (1, 2, 3, 4, 5, 6, 8, 10, 12, 15, 20, 30)]
 def _bucket_samples(n: int) -> int:
     i = bisect.bisect_left(_WAVE_BUCKETS, n)
     return _WAVE_BUCKETS[i] if i < len(_WAVE_BUCKETS) else n
-
-
-def read_wav(path: Union[str, Path]) -> Tuple[np.ndarray, int]:
-    """A PCM wav file -> (float32 waveform in int16 scale, sample rate);
-    multi-channel audio is averaged to one channel."""
-    with wave_io.open(str(path), "rb") as w:
-        n_channels, sampwidth = w.getnchannels(), w.getsampwidth()
-        framerate = w.getframerate()
-        raw = w.readframes(w.getnframes())
-    if sampwidth == 2:
-        data = np.frombuffer(raw, dtype="<i2").astype(np.float32)
-    elif sampwidth == 1:
-        data = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128.0) * 256.0
-    elif sampwidth == 4:
-        data = np.frombuffer(raw, dtype="<i4").astype(np.float32) / 65536.0
-    else:
-        raise ValueError(f"Unsupported wav sample width: {sampwidth}")
-    if n_channels > 1:
-        data = data.reshape(-1, n_channels).mean(axis=1)
-    return data, framerate
 
 
 def split_at_low_energy(wave: np.ndarray, sample_rate: float,

@@ -1,0 +1,266 @@
+# coding: utf-8
+"""
+Tokenizers (counterpart of joeys2t_tpu/tokenizers.py): ``BasicTokenizer``
+:46 (word and char level), ``SpeechProcessor`` :315, ``EvaluationTokenizer``
+:371, ``_build_tokenizer`` :409 and ``build_tokenizer`` :442.
+
+``EvaluationTokenizer`` carries its own ``13a`` and ``none`` tokenizers,
+the behaviour of sacrebleu's (the mteval-v13a regexes), so the port needs
+no sacrebleu. Not ported yet, each raising ``NotImplementedError``: subword
+levels (``level: bpe``: SentencePiece, subword-nmt, fastBPE), moses
+pretokenization, and the ``intl``, ``zh`` and ``ja-mecab`` evaluation
+tokenizers.
+"""
+import re
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Union
+
+import numpy as np
+
+from joeys2t_torch.config import ConfigurationError
+from joeys2t_torch.data.audio_io import get_features
+from joeys2t_torch.data.augmentation import CMVN, SpecAugment
+from joeys2t_torch.helpers import remove_extra_spaces, remove_punctuation, unicode_normalize
+from joeys2t_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
+
+_SPACE = chr(32)  # ' '
+_MARKER = chr(9601)  # '▁', the space escape of char-level targets
+
+
+class BasicTokenizer:
+    """Word- or char-level text tokenizer."""
+
+    SPACE = _SPACE
+    SPACE_ESCAPE = _MARKER
+
+    def __init__(self, level: str = "word", lowercase: bool = False,
+                 normalize: bool = False, max_length: int = -1,
+                 min_length: int = -1, **kwargs):
+        self.level = level
+        self.lowercase = lowercase
+        self.normalize = normalize
+        self.max_length = max_length
+        self.min_length = min_length
+        self.pretokenizer = kwargs.get("pretokenizer", "none").lower()
+        if self.pretokenizer != "none":
+            raise NotImplementedError(
+                f"pretokenizer {self.pretokenizer!r} is not ported yet")
+        self.unk_token = self.eos_token = self.sep_token = None
+        self.specials: List[str] = []
+        self.lang_tags: List[str] = []
+
+    def pre_process(self, raw_input: str, allow_empty: bool = False) -> str:
+        """Clean one raw line: NFKC and space normalization, then
+        lowercasing."""
+        if not allow_empty and (not isinstance(raw_input, str) or not raw_input.strip()):
+            raise ValueError("Got an empty input sentence; tokenization needs "
+                             "non-empty text.")
+        text = raw_input
+        if self.normalize:
+            text = remove_extra_spaces(unicode_normalize(text))
+        if self.lowercase:
+            text = text.lower()
+        if not allow_empty and not text:
+            raise ValueError(f"{raw_input!r} is empty after pre-processing")
+        return text
+
+    def __call__(self, raw_input: Optional[str], is_train: bool = False
+                 ) -> Optional[List[str]]:
+        """Pieces of a clean line; in training, None when outside the length
+        window."""
+        if raw_input is None:
+            return None
+        if self.level == "char":
+            pieces = list(raw_input.replace(_SPACE, _MARKER))
+        else:
+            pieces = raw_input.split(_SPACE)
+        if is_train and not self._length_ok(len(pieces)):
+            return None
+        return pieces
+
+    def _length_ok(self, n: int) -> bool:
+        """Train-time filter window; a bound <= 0 disables that side."""
+        if self.max_length > 0 and n > self.max_length:
+            return False
+        return not (self.min_length > 0 and 0 < n < self.min_length)
+
+    def post_process(self, sequence: Union[List[str], str], generate_unk: bool = True,
+                     cut_at_sep: bool = True) -> str:
+        """Detokenize decoder output: drop the forced prompt prefix, strip
+        special tokens, rejoin to surface text."""
+        if isinstance(sequence, list):
+            if cut_at_sep and self.sep_token and self.sep_token in sequence:
+                sequence = sequence[sequence.index(self.sep_token) + 1:]
+            banned = set(self.specials) | ({self.unk_token} if not generate_unk else set())
+            sequence = [p for p in sequence if p not in banned] or [self.unk_token]
+            if self.level == "char":
+                sequence = "".join(sequence).replace(_MARKER, _SPACE)
+            else:
+                sequence = _SPACE.join(sequence)
+        if self.normalize:
+            sequence = remove_extra_spaces(sequence)
+        if not sequence:
+            raise ValueError("post-processing left an empty sequence")
+        return sequence
+
+    def set_vocab(self, vocab) -> None:
+        """Bind the special tokens' surface forms once the vocabulary
+        exists."""
+        self.unk_token = vocab.specials[vocab.unk_index]
+        self.eos_token = vocab.specials[vocab.eos_index]
+        self.sep_token = vocab.specials[vocab.sep_index] if vocab.sep_index else None
+        reserved = vocab.specials + vocab.lang_tags
+        self.specials = [t for t in reserved if t != self.unk_token]
+        self.lang_tags = vocab.lang_tags
+
+    def copy_cfg_file(self, model_dir: Path) -> None:
+        """Word and char tokenizers have no model file to keep."""
+
+    def __repr__(self):
+        return (f"{self.__class__.__name__}(level={self.level}, "
+                f"lowercase={self.lowercase}, normalize={self.normalize}, "
+                f"filter_by_length=({self.min_length}, {self.max_length}), "
+                f"pretokenizer={self.pretokenizer})")
+
+
+class SpeechProcessor:
+    """Feature lookup, length filter and truncation, CMVN and SpecAugment
+    for one speech entry."""
+
+    def __init__(self, level: str = "frame", num_freq: int = 80,
+                 normalize: bool = False, max_length: int = -1,
+                 min_length: int = -1, **kwargs):
+        self.level = level
+        self.num_freq = num_freq
+        self.normalize = normalize
+        self.max_length = max_length
+        self.min_length = min_length
+        self.specaugment: Optional[Callable] = (
+            SpecAugment(**kwargs["specaugment"]) if "specaugment" in kwargs else None)
+        self.cmvn: Optional[CMVN] = CMVN(**kwargs["cmvn"]) if "cmvn" in kwargs else None
+        self.root_path = ""  # set by the dataset
+
+    def __call__(self, line: str, is_train: bool = False) -> Optional[np.ndarray]:
+        """(frames, num_freq) features, or None when filtered. Too short
+        utterances are dropped even at test time (the subsampler cannot
+        convolve them); too long ones are dropped in training and truncated
+        otherwise. CMVN runs before or after SpecAugment as its ``before``
+        flag says."""
+        feats = get_features(self.root_path, line)
+        n_frames = feats.shape[0]
+        if feats.shape[1] != self.num_freq:
+            raise ValueError(f"{line}: {feats.shape[1]} features, expected "
+                             f"{self.num_freq}")
+        if 0 < n_frames < self.min_length:
+            return None
+        if self.max_length > 0 and n_frames > self.max_length:
+            if is_train:
+                return None
+            feats = feats[:self.max_length, :]
+        if self.cmvn and self.cmvn.before:
+            feats = self.cmvn(feats)
+        if is_train and self.specaugment:
+            feats = self.specaugment(feats)
+        if self.cmvn and not self.cmvn.before:
+            feats = self.cmvn(feats)
+        return feats
+
+    def set_vocab(self, vocab) -> None:
+        """Features have no vocabulary."""
+
+    def copy_cfg_file(self, model_dir: Path) -> None:
+        """Nothing to keep."""
+
+    def __repr__(self):
+        return (f"{self.__class__.__name__}(level={self.level}, "
+                f"normalize={self.normalize}, "
+                f"filter_by_length=({self.min_length}, {self.max_length}), "
+                f"cmvn={self.cmvn}, specaugment={self.specaugment})")
+
+
+# the regexes of sacrebleu's 13a tokenizer (mteval-v13a): symbols, then
+# period and comma unless both neighbours are digits, then a dash after a digit
+_13A_RULES = [
+    (re.compile(r"([\{-\~\[-\` -\&\(-\+\:-\@\/])"), r" \1 "),
+    (re.compile(r"([^0-9])([\.,])"), r"\1 \2 "),
+    (re.compile(r"([\.,])([^0-9])"), r" \1 \2"),
+    (re.compile(r"([0-9])(-)"), r"\1 \2 "),
+]
+
+
+def tokenize_13a(line: str) -> str:
+    """sacrebleu's ``13a`` tokenization of one line."""
+    line = line.replace("<skipped>", "").replace("-\n", "").replace("\n", " ")
+    if "&" in line:
+        line = (line.replace("&quot;", '"').replace("&amp;", "&")
+                .replace("&lt;", "<").replace("&gt;", ">"))
+    line = f" {line} "
+    for rule, repl in _13A_RULES:
+        line = rule.sub(repl, line)
+    return " ".join(line.split())
+
+
+_EVAL_TOKENIZERS = {"13a": tokenize_13a, "none": lambda line: line}
+
+
+class EvaluationTokenizer(BasicTokenizer):
+    """Evaluation tokenization for WER: ``13a`` or ``none``, then optional
+    lowercasing and removal of punctuation-only tokens."""
+
+    ALL_TOKENIZER_TYPES = ["none", "13a", "intl", "zh", "ja-mecab"]
+
+    def __init__(self, lowercase: bool = False, tokenize: str = "13a", **kwargs):
+        super().__init__(level="word", lowercase=lowercase, normalize=False,
+                         max_length=-1, min_length=-1)
+        if tokenize not in self.ALL_TOKENIZER_TYPES:
+            raise ConfigurationError(f"`{tokenize}` not supported.")
+        if tokenize not in _EVAL_TOKENIZERS:
+            raise NotImplementedError(f"the `{tokenize}` evaluation tokenizer is not "
+                                      f"ported yet")
+        self.tokenize = tokenize
+        self.tokenizer = _EVAL_TOKENIZERS[tokenize]
+        self.no_punc = kwargs.get("no_punc", False)
+
+    def __call__(self, raw_input: str, is_train: bool = False) -> List[str]:
+        text = self.tokenizer(raw_input)
+        if self.lowercase:
+            text = text.lower()
+        if self.no_punc:
+            text = remove_punctuation(text, space=_SPACE)
+        return text.split()
+
+    def __repr__(self):
+        return (f"{self.__class__.__name__}(level={self.level}, "
+                f"lowercase={self.lowercase}, tokenizer={self.tokenize}, "
+                f"no_punc={self.no_punc})")
+
+
+def _build_tokenizer(cfg: Dict):
+    """One side's tokenizer from its data-config section."""
+    level = cfg["level"]
+    extra = cfg.get("tokenizer_cfg", {})
+    common = dict(level=level, lowercase=cfg.get("lowercase", False),
+                  normalize=cfg.get("normalize", False),
+                  max_length=cfg.get("max_length", -1),
+                  min_length=cfg.get("min_length", -1))
+    if level in ("word", "char"):
+        return BasicTokenizer(**common, **extra)
+    if level == "bpe":
+        raise NotImplementedError("subword tokenizers (level: bpe) are not ported yet")
+    if level == "frame":
+        return SpeechProcessor(num_freq=cfg["num_freq"], **common, **extra)
+    raise ConfigurationError(f"{level}: Unknown tokenization level. "
+                             "Valid options: {'word', 'bpe', 'char'}.")
+
+
+def build_tokenizer(cfg: Dict, task: str) -> Dict:
+    """Both sides' tokenizers keyed by language (``src``/``trg`` for S2T)."""
+    src_lang = cfg["src"]["lang"] if task == "MT" else "src"
+    trg_lang = cfg["trg"]["lang"] if task == "MT" else "trg"
+    tokenizer = {src_lang: _build_tokenizer(cfg["src"]),
+                 trg_lang: _build_tokenizer(cfg["trg"])}
+    logger.info("%s Tokenizer: %s", src_lang, tokenizer[src_lang])
+    logger.info("%s Tokenizer: %s", trg_lang, tokenizer[trg_lang])
+    return tokenizer

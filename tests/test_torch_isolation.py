@@ -3,6 +3,7 @@
 its entry points refuse to fall back to the CPU on their own, its kernel
 wrappers import and run their plain versions without a CUDA toolchain, and
 its parameter names convert to and from the JAX parameter tree."""
+import copy
 import os
 import pkgutil
 import subprocess
@@ -15,11 +16,13 @@ import pytest
 import torch
 
 import joeys2t_torch
-from joeys2t_torch.config import SpecialSymbols
+from joeys2t_torch.config import SpecialSymbols, load_config
 from joeys2t_torch.convert import flax_params_to_state_dict
 from joeys2t_torch.models import build_model
+from joeys2t_torch import prediction
 from joeys2t_torch.search import greedy
 from joeys2t_torch.serving import Transcriber
+from joeys2t_torch.training import train
 from joeys2t_torch.vocabulary import Vocabulary
 from joeys2t_tpu.convert import torch_state_dict_to_flax
 from test_torch_model import CFG, TOKENS, jax_s2t
@@ -33,12 +36,17 @@ def _submodules():
 
 
 def test_port_imports_no_jax():
+    """Importing every submodule loads neither JAX nor the JAX package, nor
+    any package the card's machine lacks (pandas, sacrebleu, PyYAML,
+    sentencepiece, tensorboardX, matplotlib)."""
     mods = _submodules()
     assert "joeys2t_torch.ops.flash_attention" in mods and len(mods) >= 15
+    assert "joeys2t_torch.__main__" in mods and "joeys2t_torch.prediction" in mods
     code = ("import sys\n"
             f"for m in {mods!r}: __import__(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'joeys2t_tpu')]\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'joeys2t_tpu', 'pandas', 'sacrebleu', "
+            "'yaml', 'sentencepiece', 'tensorboardX', 'matplotlib')]\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True,
@@ -84,6 +92,14 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     out, _, _ = greedy(model, spec, enc, None, torch.ones(1, 1, 3, dtype=torch.bool), 4,
                        device="cpu")
     assert out.shape == (1, 4)
+    # the CLI's modes with `use_cuda` left at its default raise before they
+    # read any data
+    cfg = load_config(REPO / "configs" / "synthetic_asr.yaml")
+    assert "use_cuda" in cfg
+    del cfg["use_cuda"]
+    for mode in (train, prediction.test, prediction.translate):
+        with pytest.raises(RuntimeError, match="use_cuda"):
+            mode(copy.deepcopy(cfg))
 
 
 @pytest.mark.parametrize("heads,dtype", [(4, torch.bfloat16), (1, torch.float16),
