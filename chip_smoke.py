@@ -20,7 +20,12 @@ goes wrong:
    loop's cross and self shapes in every dtype and int8 mode, with its
    split-S plan printed and two calls bit-identical; kernel and SDPA are
    timed on rotating input copies (> 100 MB, so L2 is cold) against a
-   bound that counts only the K/V rows the valid keys need;
+   bound that counts only the K/V rows the valid keys need; and decode
+   attention with 5 query rows a cache row at the beam request's cross
+   shape (32 cache rows, 160 queries, S=250, bf16 and f32), bit-identical to
+   one query a row on the cache repeated 5 times, timed beside that call and
+   SDPA on the repeated cache, against two bounds (the shared cache read
+   once; once for each query);
 3. serving: build the librispeech_100h model (configs/librispeech_100h.yaml,
    16 encoder / 8 decoder layers, hidden 512) with random weights from a
    seed and a synthetic 5000-token vocabulary, in bf16, and serve three
@@ -30,9 +35,15 @@ goes wrong:
    path went through them; then where the time of the 64 x 10 s request
    goes (front end, encoder, decode loop) and the card's busy share in a
    profiled decode loop, with the decode kernel's device time and launches;
+   then one beam request at bench.py's beam shape (32 x 10 s, beam 5, length
+   penalty 1, 96 steps at most) with the counters zeroed and the plain
+   versions refused: 16 flash launches and 16 decode launches a step (8 of
+   them with 5 queries a cache row), its audio-s/s, ms a step, and busy
+   share and launches a step over a profiled 16-step slice of the beam loop;
 4. card vs CPU: a small float32 model with the same seeded weights on the
-   card and on the CPU must give the same encoder output (within 1e-4) and
-   the same greedy tokens; and key-masked attention at a head size or dtype
+   card and on the CPU must give the same encoder output (within 1e-4), the
+   same greedy tokens and the same beam-5 2-best hypotheses (scores within
+   1e-4); and key-masked attention at a head size or dtype
    the flash kernel does not take must raise on the card;
 5. training: the librispeech_100h model (``model:`` and ``training:`` of the
    config: bf16 compute on float32 masters, dropout 0.1, label smoothing 0.1,
@@ -52,8 +63,9 @@ goes wrong:
    to 1e-4 of their global norm, weights to 2 * lr);
 7. CLI: the synthetic corpus (scripts/generate_synthetic_asr.py, 512 / 64 /
    64 utterances, into build/chip_smoke) and configs/synthetic_asr.yaml at
-   full width in bf16, cut to 16 updates (2 epochs of 8 batches of 64), a
-   validation every 8 and greedy decoding, go through
+   full width in bf16, cut to 16 updates (2 epochs of 8 batches of 64) and a
+   validation every 8 (greedy, as always), with the config's beam 5 in
+   ``test`` and ``translate``, go through
    ``joeys2t_torch.__main__.main`` in this process: ``train``, ``test -o``
    and ``translate`` of 8 paths, each with the launch counters zeroed just
    before and the plain attention versions disabled. The model directory,
@@ -68,8 +80,16 @@ goes wrong:
    (``kernel_inputs``), and each kernel is then held against its plain
    version on exactly those inputs: the CLI's own shapes (short utterances:
    about 100-130 encoder and 50-65 target positions, across the flash
-   kernels' 64-wide tiles; B=8 in ``translate``), the flash kernels with
-   and without dropout.
+   kernels' 64-wide tiles; B=8 in ``translate``; decode attention also
+   with 5 queries a cache row), the flash kernels with and without dropout;
+8. speech translation: configs/synthetic_st.yaml at full width in bf16 (12
+   encoder / 6 decoder layers) on scripts/generate_synthetic_st.py's corpus
+   (512 / 64 / 64), cut to 16 updates and a validation every 8, its encoder
+   loaded from phase 7's best checkpoint through ``load_encoder`` (12 of
+   the 16 layers load, 4 are ignored), through ``train``, ``test -o`` and
+   ``translate``: BLEU in validations.txt, ``best.ckpt`` at the highest
+   BLEU, beam 5 in ``test`` and ``translate``, and exact launch counts with
+   the plain versions refused.
 
 Phase 2 also holds the flash backward against its plain version at the
 training path's shapes (B=64 Sq=Sk=250; B=64 Sq=47 Sk=250; B=2 Sq=Sk=750),
@@ -87,6 +107,7 @@ import collections
 import contextlib
 import json
 import logging
+import os
 import re
 import shutil
 import subprocess
@@ -146,6 +167,77 @@ def speechlike(rng: np.random.RandomState, n: int) -> np.ndarray:
     envelope = np.repeat(np.exp(rng.uniform(3, 9, size=n // 800 + 1)), 800)[:n]
     envelope[rng.rand(n // 800 + 1).repeat(800)[:n] < 0.15] = 1.0
     return (envelope * rng.randn(n)).astype(np.float32)
+
+
+def sync_time(fn):
+    """(fn's result, its wall time in s on the host clock, ending in a device
+    sync)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def profiled(fn):
+    """(wall s, {kernel name: (launches, device us)}) of ``fn`` under the
+    profiler: device work only, an annotated range (Optimizer.step) is no
+    kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = sync_time(fn)
+    kernels = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation:
+            n, t = kernels.get(ev.name, (0, 0.0))
+            kernels[ev.name] = (n + 1, t + ev.time_range.elapsed_us())
+    return wall, kernels
+
+
+def counters():
+    """{name: (object, attribute)} of the kernel wrappers' launch counters;
+    ``decode_attention_group`` counts the decode launches whose query rows
+    share a cache row (beam search's cross attention)."""
+    from joeys2t_torch.ops import decode_attention as da
+    from joeys2t_torch.ops import flash_attention as fa
+
+    return {"flash_attention_fwd": (fa.flash_attention_fwd, "launches"),
+            "flash_attention_bwd": (fa.flash_attention_bwd, "launches"),
+            "decode_attention": (da.decode_attention, "launches"),
+            "decode_attention_group": (da.decode_attention, "group_launches")}
+
+
+def zero_counters() -> None:
+    for obj, attr in counters().values():
+        setattr(obj, attr, 0)
+
+
+def read_counters() -> dict:
+    return {name: getattr(obj, attr) for name, (obj, attr) in counters().items()}
+
+
+@contextlib.contextmanager
+def plain_refused(path: str):
+    """While active, the plain attention versions raise: ``path`` must take
+    the kernels."""
+    from joeys2t_torch.ops import decode_attention as da
+    from joeys2t_torch.ops import flash_attention as fa
+
+    plain = (fa.flash_attention_plain, fa.flash_attention_bwd_plain,
+             da.decode_attention_plain)
+
+    def refuse(*_a, **_k):
+        raise AssertionError(f"a plain attention version ran on the card's {path}")
+
+    fa.flash_attention_plain = fa.flash_attention_bwd_plain = da.decode_attention_plain = \
+        refuse
+    try:
+        yield
+    finally:
+        fa.flash_attention_plain, fa.flash_attention_bwd_plain, \
+            da.decode_attention_plain = plain
 
 
 # ------------------------------------------------------------------ phase 1
@@ -479,6 +571,66 @@ def decode_case(kind, b, s, valid_spec, mode, gen, timed):
     return case
 
 
+# the beam request's cross attention (bench.py's beam shape): 32 utterances of
+# 10 s (source tails 125-250 frames), 5 beams each asking the shared cache
+BEAM_CROSS = (32, 5, 250)
+
+
+def decode_group_case(mode, gen):
+    """Decode attention with ``group`` 5 at the beam cross shape against the
+    plain version, bit for bit against group 1 on the cache, bias and
+    scales repeated 5 times, and two calls bit-identical; the kernel, the
+    expanded group-1 call and SDPA on the expanded cache timed on cold L2.
+    Two bounds: one pass over the shared cache (each input read once, the
+    bound proper) and one pass for each of the G queries of a row."""
+    from joeys2t_torch.ops import decode_attention as da
+
+    b, g, s = BEAM_CROSS
+    args, kw, valid = decode_inputs("cross", b, s, "tails", mode, gen)
+    _, k, v, bias, ks, vs = args
+    h, d = k.shape[1], k.shape[3]
+    q = torch.randn(b * g, h, d, generator=gen).to(args[0].dtype).cuda()
+    out = da.decode_attention(q, k, v, bias, ks, vs, group=g, **kw)
+    again = da.decode_attention(q, k, v, bias, ks, vs, group=g, **kw)
+    ref = da.decode_attention_plain(q, k, v, bias, ks, vs, group=g, **kw)
+
+    def expand(t):
+        return None if t is None else t.repeat_interleave(g, 0).contiguous()
+
+    flat = da.decode_attention(q, *map(expand, (k, v, bias, ks, vs)), **kw)
+    torch.cuda.synchronize()
+    name = f"cross group {g} B={b} ({b * g} query rows) H={h} S={s} D={d} {mode} tails S/2..S"
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = 1e-5 if q.dtype == torch.float32 else 1e-2
+    check(bool(torch.isfinite(out.float()).all()), f"decode {name}: non-finite output")
+    check(err <= tol, f"decode {name}: max abs err {err} > {tol}")
+    check(torch.equal(out, again), f"decode {name}: two calls differ")
+    check(torch.equal(out, flat), f"decode {name}: differs from group 1 on the expanded cache")
+    splits, split_rows = da.decode_plan(b * g, h, s, da.num_sms(q.device))
+    needed = torch.where(valid.any(1), valid.sum(1), s).sum().item() * h  # cache rows
+    flops = 4 * needed * g * d
+    fixed = nbytes(q, bias, out)
+    bound_ms, bound_by = bound(needed * d * k.element_size() * 2 + fixed, flops, k.dtype)
+    g_bound_ms, _ = bound(g * needed * d * k.element_size() * 2 + fixed, flops, k.dtype)
+    copies = cold_copies((q, k, v, bias))
+    ms = time_cold_ms([lambda c=c: da.decode_attention(*c, group=g, **kw) for c in copies])
+    del copies
+    flat_copies = cold_copies((q, expand(k), expand(v), expand(bias)))
+    flat_ms = time_cold_ms([lambda c=c: da.decode_attention(*c, **kw) for c in flat_copies])
+    sdpa = [(c[0][:, :, None, :], c[1], c[2], c[3].to(q.dtype)[:, None, None, :])
+            for c in flat_copies]
+    library_ms = time_cold_ms([lambda c=c: torch.nn.functional.scaled_dot_product_attention(
+        c[0], c[1], c[2], attn_mask=c[3], scale=kw["sm_scale"]) for c in sdpa])
+    del sdpa, flat_copies
+    plain_ms = time_ms(lambda: da.decode_attention_plain(q, k, v, bias, group=g, **kw),
+                       iters=5)
+    return dict(case=name, max_abs_err=err, tol=tol, splits=splits, split_rows=split_rows,
+                ms=ms, flat_ms=flat_ms, plain_ms=plain_ms, library_ms=library_ms,
+                library="SDPA on the expanded cache", bound_ms=bound_ms,
+                bound_by=bound_by, g_bound_ms=g_bound_ms, roofline=bound_ms / ms,
+                g_roofline=g_bound_ms / ms, tflops=flops / ms / 1e9)
+
+
 def kernel_phase():
     gen = torch.Generator().manual_seed(0)
     # B=64 S=250: the 64 x 10 s request; B=2 S=750: the 45 s request's two
@@ -504,6 +656,16 @@ def kernel_phase():
                          f"{c['rows']} rows needed), roofline share "
                          f"{100 * c['roofline']:.1f} %")
             print(line)
+    group = [decode_group_case(mode, gen) for mode in ("bf16", "f32")]
+    for c in group:
+        print(f"[kernels] decode {c['case']}: plan {c['splits']} split(s) of "
+              f"{c['split_rows']} rows; err {c['max_abs_err']:.3g} (tol {c['tol']}), two "
+              f"calls bit-identical, bit-identical to group 1 on the expanded cache; cold "
+              f"L2: kernel {c['ms']:.4f} ms, group 1 on the expanded cache "
+              f"{c['flat_ms']:.4f} ms, SDPA on the expanded cache {c['library_ms']:.4f} ms; "
+              f"plain {c['plain_ms']:.4f} ms; bound one pass {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']}), roofline share {100 * c['roofline']:.1f} %; bound one "
+              f"pass a query {c['g_bound_ms']:.4f} ms, share {100 * c['g_roofline']:.1f} %")
     for c in flash:
         print(f"[kernels] {c['case']}: err {c['max_abs_err']:.3g} (tol {c['tol']}), "
               f"kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, library "
@@ -528,7 +690,7 @@ def kernel_phase():
         print(f"[kernels] dropout mask bits of the {str(dtype)[6:]} forward and backward "
               f"kernels identical to the plain version's: {n} of {n} (keep fraction "
               f"{kept:.4f} at rate 0.1)")
-    return flash, decode, backward
+    return flash, decode, group, backward
 
 
 # ------------------------------------------------------------------ phase 3
@@ -600,63 +762,101 @@ def breakdown_phase(asr, batch):
     """Where the 64 x 10 s request's time goes: front end, encoder and decode
     loop on the host clock (each ending in a device sync), then the card's
     busy share and top kernels over a profiled 16-step decode."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from joeys2t_torch.ops.frontend import device_frontend
     from joeys2t_torch.search import transformer_greedy
 
     waves = torch.tensor(np.stack(batch)).cuda()
     lengths = torch.full((len(batch),), waves.shape[1], device="cuda")
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
     with torch.inference_mode():
-        (feats, flen), t_front = timed(lambda: device_frontend(waves, lengths))
-        (enc, _, mask), t_enc = timed(lambda: asr.model.encode(feats, flen))
+        (feats, flen), t_front = sync_time(lambda: device_frontend(waves, lengths))
+        (enc, _, mask), t_enc = sync_time(lambda: asr.model.encode(feats, flen))
         stats = {}
-        _, t_dec = timed(lambda: transformer_greedy(asr.decode_model, asr.spec, enc, mask,
-                                                    96, device="cuda", stats=stats))
+        _, t_dec = sync_time(lambda: transformer_greedy(asr.decode_model, asr.spec, enc,
+                                                        mask, 96, device="cuda",
+                                                        stats=stats))
         total = t_front + t_enc + t_dec
         print(f"[breakdown] 64 x 10 s: front end {t_front * 1e3:.2f} ms "
               f"({100 * t_front / total:.1f} %), encoder {t_enc * 1e3:.2f} ms "
               f"({100 * t_enc / total:.1f} %), decode {t_dec * 1e3:.2f} ms "
               f"({100 * t_dec / total:.1f} %) = {stats['decode_steps']} steps of "
               f"{t_dec / stats['decode_steps'] * 1e3:.3f} ms")
-        steps = 16
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            pstats = {}
-            _, wall = timed(lambda: transformer_greedy(asr.decode_model, asr.spec, enc,
-                                                       mask, steps, device="cuda",
-                                                       stats=pstats))
-    kernels = {}  # device work only: an annotated range (Optimizer.step) is no kernel
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation:
-            n, t = kernels.get(ev.name, (0, 0.0))
-            kernels[ev.name] = (n + 1, t + ev.time_range.elapsed_us())
-    busy_us = sum(t for _, t in kernels.values())
+        pstats = {}
+        wall, kernels = profiled(lambda: transformer_greedy(
+            asr.decode_model, asr.spec, enc, mask, 16, device="cuda", stats=pstats))
+    decode_profile("breakdown", "decode", asr, wall, kernels, pstats["decode_steps"])
+
+
+def decode_profile(tag, what, asr, wall, kernels, steps):
+    """The card's busy share, kernels a step, top kernels and K5's device
+    time in a profiled decode of ``steps`` steps; K5 must have launched 2 x
+    (decoder layers) times a step."""
     if not kernels:
-        print("[breakdown] device busy share: not measured (no device events recorded)")
+        print(f"[{tag}] device busy share: not measured (no device events recorded)")
         return
+    busy_us = sum(t for _, t in kernels.values())
     launches = sum(n for n, _ in kernels.values())
-    print(f"[breakdown] profiled {steps}-step decode: wall {wall * 1e3:.2f} ms, device "
+    print(f"[{tag}] profiled {steps}-step {what}: wall {wall * 1e3:.2f} ms, device "
           f"busy {busy_us / 1e3:.2f} ms ({100 * busy_us / (wall * 1e6):.1f} %), "
           f"{launches / steps:.0f} kernels per step")
     for name, (n, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]:
-        print(f"[breakdown]   {t / 1e3:8.3f} ms {n:5d}x  {name[:110]}")
+        print(f"[{tag}]   {t / 1e3:8.3f} ms {n:5d}x  {name[:110]}")
     k5 = [(n, t) for name, (n, t) in kernels.items() if "decode_attention_kernel" in name]
     k5_n, k5_us = sum(n for n, _ in k5), sum(t for _, t in k5)
-    check(k5_n == 2 * len(asr.decode_model.decoder.layers) * pstats["decode_steps"],
-          f"profiled decode: {k5_n} decode attention kernels in "
-          f"{pstats['decode_steps']} steps")
-    print(f"[breakdown] K5 (decode_attention_kernel) in the profiled decode: "
+    check(k5_n == 2 * len(asr.decode_model.decoder.layers) * steps,
+          f"profiled {what}: {k5_n} decode attention kernels in {steps} steps")
+    print(f"[{tag}] K5 (decode_attention_kernel) in the profiled {what}: "
           f"{k5_us / 1e3:.3f} ms of device time over {k5_n} launches ({k5_n // steps} a "
           f"step, {k5_us / k5_n:.2f} us each), {100 * k5_us / busy_us:.1f} % of busy")
+
+
+def beam_serving_phase(asr, batch):
+    """Phase 3's beam request at bench.py's beam shape: 32 x 10 s, beam 5,
+    length penalty 1, ``max_output_length`` 96, the best hypothesis, with
+    the launch counters zeroed just before and the plain attention versions
+    refused: 16 flash forward launches (the encoder) and 16 decode launches
+    a step (8 self-attentions over the 160-row ring buffers, 8 cross with 5
+    queries a cache row). Then the decode loop's ms a step, and the busy
+    share and launches a step over a profiled 16-step slice of the loop."""
+    from joeys2t_torch.ops.frontend import device_frontend
+    from joeys2t_torch.search import beam_search
+
+    waves = batch[:32]
+    n_enc, n_dec = len(asr.model.encoder.layers), len(asr.model.decoder.layers)
+    asr.transcribe(waves[:2], max_output_length=4, beam_size=5)  # warm-up
+    s0 = asr.stats["decode_steps"]
+    zero_counters()
+    with plain_refused("beam serving path"):
+        texts, wall = sync_time(lambda: asr.transcribe(waves, max_output_length=96,
+                                                       beam_size=5, beam_alpha=1.0))
+    launches = read_counters()
+    steps = asr.stats["decode_steps"] - s0
+    check(len(texts) == 32 and all(isinstance(t, str) for t in texts),
+          "beam request: not 32 transcripts")
+    check(1 <= steps <= 96, f"beam request: {steps} decode steps")
+    want = {"flash_attention_fwd": n_enc, "flash_attention_bwd": 0,
+            "decode_attention": 2 * n_dec * steps, "decode_attention_group": n_dec * steps}
+    check(launches == want, f"beam request launches {launches}, expected {want}")
+    print(f"[serving] 32 x 10 s beam 5 (alpha 1, n_best 1): {steps} decode steps, "
+          f"{wall:.3f} s wall, {320.0 / wall:.1f} audio-s/s; launches {launches} as the "
+          f"path implies, plain attention never ran")
+
+    wave_t = torch.tensor(np.stack(waves)).cuda()
+    lengths = torch.full((32,), wave_t.shape[1], device="cuda")
+    with torch.inference_mode():
+        feats, flen = device_frontend(wave_t, lengths)
+        enc, _, mask = asr.model.encode(feats, flen)
+        stats = {}
+        _, t_dec = sync_time(lambda: beam_search(asr.decode_model, asr.spec, enc, None,
+                                                 mask, 5, 96, 1.0, device="cuda",
+                                                 stats=stats))
+        print(f"[beam] decode loop: {stats['decode_steps']} steps of "
+              f"{t_dec / stats['decode_steps'] * 1e3:.3f} ms ({t_dec * 1e3:.2f} ms)")
+        pstats = {}
+        wall, kernels = profiled(lambda: beam_search(
+            asr.decode_model, asr.spec, enc, None, mask, 5, 16, 1.0, device="cuda",
+            stats=pstats))
+    decode_profile("beam", "beam loop", asr, wall, kernels, pstats["decode_steps"])
+    return launches
 
 
 # ------------------------------------------------------------------ phase 4
@@ -666,7 +866,7 @@ def card_vs_cpu_phase():
     from joeys2t_torch.ops.decode_attention import decode_attention
     from joeys2t_torch.ops.flash_attention import flash_attention_fwd
     from joeys2t_torch.ops.frontend import device_frontend
-    from joeys2t_torch.search import transformer_greedy
+    from joeys2t_torch.search import beam_search, transformer_greedy
     from joeys2t_torch.vocabulary import Vocabulary
 
     cfg = {"encoder": {"type": "transformer", "num_layers": 2, "num_heads": 2,
@@ -700,7 +900,9 @@ def card_vs_cpu_phase():
         for dev, (model, spec) in models.items():
             enc, _, mask = model.encode(feats.to(dev), flen.to(dev))
             tokens, _, _ = transformer_greedy(model, spec, enc, mask, 40, device=dev)
-            out[dev] = (enc.cpu(), mask.cpu(), tokens)
+            beams, beam_scores, _ = beam_search(model, spec, enc, None, mask, 5, 40, 1.0,
+                                                n_best=2, device=dev, return_prob="hyp")
+            out[dev] = (enc.cpu(), mask.cpu(), tokens, beams, beam_scores)
     check(flash_attention_fwd.launches - f0 == 2 and decode_attention.launches > d0,
           "the card run did not go through the kernels")
     valid = out["cpu"][1][:, 0, :, None]
@@ -709,9 +911,14 @@ def card_vs_cpu_phase():
     check(enc_err <= 1e-4, f"encoder output differs between card and CPU by {enc_err}")
     check(np.array_equal(out["cuda"][2], out["cpu"][2]),
           f"greedy tokens differ:\n{out['cuda'][2]}\n{out['cpu'][2]}")
+    check(np.array_equal(out["cuda"][3], out["cpu"][3]),
+          f"beam hypotheses differ:\n{out['cuda'][3]}\n{out['cpu'][3]}")
+    score_err = float(np.abs(out["cuda"][4] - out["cpu"][4]).max())
+    check(score_err <= 1e-4, f"beam scores differ between card and CPU by {score_err}")
     print(f"[card-vs-cpu] f32 2+2 layers hidden 256 D=128: front end err {feat_err:.3g}, "
           f"encoder err {enc_err:.3g} (tol 1e-4), greedy tokens identical "
-          f"({out['cpu'][2].shape[1]} steps)")
+          f"({out['cpu'][2].shape[1]} steps); beam 5 2-best hypotheses identical "
+          f"({out['cpu'][3].shape[1]} tokens), scores err {score_err:.3g} (tol 1e-4)")
 
     # no plain path on the card: key-masked attention at a head size or dtype
     # the flash kernel does not take raises instead of running plain PyTorch
@@ -751,18 +958,7 @@ def synthetic_batches(n, b, rng, vocab_size, min_frames=600, max_frames=1000, tr
     return out
 
 
-def sync_time(fn):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
-
-
 def train_phase():
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from joeys2t_torch.config import SpecialSymbols, load_config, parse_train_args
     from joeys2t_torch.losses import build_loss_function
     from joeys2t_torch.models import build_model
@@ -795,17 +991,10 @@ def train_phase():
                                                 min_rate=args.learning_rate_min)
     check(tm.current_lr == expected.step(0), f"initial lr {tm.current_lr}")
 
-    # the plain attention versions must not run on the training path
-    plain = (fa.flash_attention_plain, fa.flash_attention_bwd_plain)
-
-    def refuse(*_a, **_k):
-        raise AssertionError("plain attention ran on the card's training path")
-
-    fa.flash_attention_plain = fa.flash_attention_bwd_plain = refuse
     fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
     torch.cuda.reset_peak_memory_stats()
     micro_ms, update_s, losses, lrs = [], [], [], []
-    try:
+    with plain_refused("training path"):
         torch.cuda.synchronize()
         t_update = time.perf_counter()
         for i, batch in enumerate(batches):
@@ -823,8 +1012,6 @@ def train_phase():
                 update_s.append(time.perf_counter() - t_update)
                 t_update = time.perf_counter()
                 lrs.append(tm.current_lr)
-    finally:
-        fa.flash_attention_plain, fa.flash_attention_bwd_plain = plain
     fwd_launches, bwd_launches = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(all(np.isfinite(losses)), f"non-finite training loss {losses}")
@@ -862,13 +1049,7 @@ def train_phase():
     train_batch_rate = sum(audio_s[4:]) / update_s[1]  # the second update's audio-s/s
 
     # the card's busy share and top kernels over 8 profiled micro-batches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = sync_time(lambda: [tm.train_batch(b) for b in batches])
-    kernels = {}  # device work only: an annotated range (Optimizer.step) is no kernel
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation:
-            n, t = kernels.get(ev.name, (0, 0.0))
-            kernels[ev.name] = (n + 1, t + ev.time_range.elapsed_us())
+    wall, kernels = profiled(lambda: [tm.train_batch(b) for b in batches])
     if not kernels:
         print("[train] device busy share: not measured (no device events recorded)")
         return fwd_launches, bwd_launches, train_batch_rate
@@ -995,7 +1176,7 @@ def kernel_inputs(kept: dict, flash_calls=(0, 80), decode_calls=(0, 384)):
         return backward.__func__(ctx, d_out)
 
     def kept_decode(q, k, v, bias, k_scale=None, v_scale=None, **kw):
-        keep(("decode_attention", q.shape[0], k.shape[2], k.dtype),
+        keep(("decode_attention", q.shape[0], k.shape[2], k.dtype, kw.get("group", 1)),
              (q, k, v, bias, k_scale, v_scale, kw), decode_calls)
         return decode(q, k, v, bias, k_scale, v_scale, **kw)
 
@@ -1053,8 +1234,8 @@ def cli_kernel_checks(kept: dict) -> dict:
                       da.decode_attention_plain(*args, **kw))]
             rel = 1e-5 if f32 else 1e-2
             valid = (bias > -1e8).sum(1)
-            shape = (f"B={q.shape[0]} S={k.shape[2]} valid keys {int(valid.min())}-"
-                     f"{int(valid.max())}")
+            shape = (f"B={q.shape[0]} (group {kw.get('group', 1)}) S={k.shape[2]} valid "
+                     f"keys {int(valid.min())}-{int(valid.max())}")
         torch.cuda.synchronize()
         desc = f"{shape} {str(q.dtype)[6:]}"
         worst = None  # the output nearest its tolerance: (err / tol, part, err, tol)
@@ -1084,12 +1265,7 @@ def cli_run(argv, stdin: str = ""):
     import io
 
     from joeys2t_torch.__main__ import main as cli_main
-    from joeys2t_torch.ops import decode_attention as da
-    from joeys2t_torch.ops import flash_attention as fa
 
-    counters = {"flash_attention_fwd": fa.flash_attention_fwd,
-                "flash_attention_bwd": fa.flash_attention_bwd,
-                "decode_attention": da.decode_attention}
     port_logs = logging.getLogger("joeys2t_torch")
     levels = [(h, h.level) for h in port_logs.handlers]
     for h, _ in levels:  # the port's console log: warnings only
@@ -1098,15 +1274,10 @@ def cli_run(argv, stdin: str = ""):
     port_logs.addHandler(log)
     sys.stdin = io.StringIO(stdin)
     try:
-        for fn in counters.values():
-            fn.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        zero_counters()
         with contextlib.redirect_stdout(stdout):
-            cli_main([str(a) for a in argv])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in counters.items()}
+            _, wall = sync_time(lambda: cli_main([str(a) for a in argv]))
+        launches = read_counters()
     finally:
         sys.stdin = stdin_before
         port_logs.removeHandler(log)
@@ -1138,7 +1309,7 @@ def generate_corpus(data: Path) -> None:
 def cli_config(data: Path, model_dir: Path) -> dict:
     """configs/synthetic_asr.yaml as phase 7 cuts it: the corpus in ``data``,
     16 updates (2 epochs of 8 batches of 64), a validation every 8, logging
-    every 4, greedy decoding; full width, bf16, on the card."""
+    every 4; full width, bf16, beam 5, on the card."""
     from joeys2t_torch.config import load_config
 
     cfg = load_config(REPO / "configs" / "synthetic_asr.yaml")
@@ -1146,12 +1317,30 @@ def cli_config(data: Path, model_dir: Path) -> dict:
     for split in ("train", "dev", "test"):
         cfg["data"][split] = str(data / split)
     cfg["data"]["trg"]["voc_file"] = str(data / "char.txt")
-    cfg["testing"]["beam_size"] = 1  # beam search is not ported yet
     cfg["training"].update(updates=16, validation_freq=8, logging_freq=4)
     check(cfg["use_cuda"] and cfg["fp16"] and cfg["training"]["batch_size"] == 64
+          and cfg["testing"]["beam_size"] == 5
           and cfg["model"]["encoder"]["num_layers"] == 16
           and cfg["model"]["decoder"]["num_layers"] == 8, "unexpected synthetic_asr config")
     return cfg
+
+
+def cli_launches(n_enc: int, n_dec: int, updates: int, validations, decodes) -> dict:
+    """The launches a CLI run implies, from the ``predict`` calls it logged
+    (``generations``): per training update (one micro-batch) n_enc + n_dec
+    flash forward and as many backward; per validation batch the eval
+    loss's n_enc + n_dec forward and the encoder's n_enc; per ``test`` or
+    ``translate`` batch the encoder's n_enc; 2 n_dec decode launches a
+    step, greedy in validation, beam search in ``decodes``, where the n_dec
+    cross-attention launches a step have 5 query rows a cache row."""
+    per_micro = n_enc + n_dec
+    valid_batches = sum(b for _, b, _ in validations)
+    beam_steps = sum(s for _, _, s in decodes)
+    return {"flash_attention_fwd": per_micro * updates
+            + (per_micro + n_enc) * valid_batches + n_enc * sum(b for _, b, _ in decodes),
+            "flash_attention_bwd": per_micro * updates,
+            "decode_attention": 2 * n_dec * (sum(s for _, _, s in validations) + beam_steps),
+            "decode_attention_group": n_dec * beam_steps}
 
 
 def cli_phase(train_batch_rate: float):
@@ -1160,8 +1349,6 @@ def cli_phase(train_batch_rate: float):
     the kernels with exact launch counts, then a float32 ``test`` of the
     trained checkpoint at a cut depth on the card and on the CPU."""
     from joeys2t_torch.config import dump_yaml
-    from joeys2t_torch.ops import decode_attention as da
-    from joeys2t_torch.ops import flash_attention as fa
 
     work = REPO / "build" / "chip_smoke"
     data = work / "synthetic_asr"
@@ -1173,18 +1360,8 @@ def cli_phase(train_batch_rate: float):
     cfg_path = work / "cli.yaml"
     cfg_path.write_text(dump_yaml(cfg), encoding="utf-8")
     n_enc, n_dec = 16, 8
-    per_micro, per_step = n_enc + n_dec, 2 * n_dec
-
-    plain = (fa.flash_attention_plain, fa.flash_attention_bwd_plain,
-             da.decode_attention_plain)
-
-    def refuse(*_a, **_k):
-        raise AssertionError("a plain attention version ran on the card's CLI path")
-
-    fa.flash_attention_plain = fa.flash_attention_bwd_plain = da.decode_attention_plain = \
-        refuse
     kept = {}
-    try:
+    with plain_refused("CLI path"):
         with kernel_inputs(kept):
             train_wall, lines, _, train_n = cli_run(["train", cfg_path])
             test_wall, test_lines, _, test_n = cli_run(["test", cfg_path, "-o",
@@ -1192,9 +1369,6 @@ def cli_phase(train_batch_rate: float):
             feats = sorted((data / "feats").glob("test-*.npy"))[:8]
             tr_wall, tr_lines, tr_out, tr_n = cli_run(
                 ["translate", cfg_path], stdin="".join(f"{p}\n" for p in feats))
-    finally:
-        fa.flash_attention_plain, fa.flash_attention_bwd_plain, \
-            da.decode_attention_plain = plain
     checks = cli_kernel_checks(kept)
     del kept
 
@@ -1227,9 +1401,6 @@ def cli_phase(train_batch_rate: float):
     check(len(hyps) == 8 and hyps == (work / "out.test").read_text(
         encoding="utf-8").splitlines()[:8], f"translate printed {tr_out!r}")
 
-    # launch counts: 24 forward + 24 backward per training micro-batch; per
-    # validation batch 24 eval-loss forward + 16 encoder forward; 16 encoder
-    # forward per test or translate batch; 16 decode launches per greedy step
     loop = re.search(r"Training loop: (\d+) update\(s\) in ([\d.]+)\[sec\] besides "
                      r"validation \(([\d.]+)\[sec\] per update\), ([\d.]+)\[sec\] "
                      r"\(([\d.]+) %\) of it in the data pipeline \(read, collate, upload\); "
@@ -1238,19 +1409,11 @@ def cli_phase(train_batch_rate: float):
     check(loop is not None and int(loop.group(1)) == 16, "no training-loop summary")
     gens = generations(lines)
     check(len(gens) == 4, f"train logged {len(gens)} predict calls, expected 2 + 2")
-    valid_batches = sum(b for _, b, _ in gens[:2])
-    test_batches = sum(b for _, b, _ in gens[2:])
-    steps = sum(s for _, _, s in gens)
-    expected = {"flash_attention_fwd": per_micro * 16 + (per_micro + n_enc) * valid_batches
-                + n_enc * test_batches,
-                "flash_attention_bwd": per_micro * 16, "decode_attention": per_step * steps}
+    expected = cli_launches(n_enc, n_dec, 16, gens[:2], gens[2:])
     check(train_n == expected, f"train launches {train_n}, expected {expected}")
     for name, run_lines, counts in (("test", test_lines, test_n),
                                     ("translate", tr_lines, tr_n)):
-        g = generations(run_lines)
-        want = {"flash_attention_fwd": n_enc * sum(b for _, b, _ in g),
-                "flash_attention_bwd": 0,
-                "decode_attention": per_step * sum(s for _, _, s in g)}
+        want = cli_launches(n_enc, n_dec, 0, [], generations(run_lines))
         check(counts == want, f"{name} launches {counts}, expected {want}")
 
     sub = subprocess.run([sys.executable, "-m", "joeys2t_torch", "test", str(cfg_path)],
@@ -1305,11 +1468,114 @@ def cli_phase(train_batch_rate: float):
     print(f"[cli] validation: {valid_s / 2:.3f} s wall per validation (64 utterances, "
           f"{dev_audio:.1f} audio-s, eval loss + greedy); test: {test_wall:.3f} s wall "
           f"(dev + test, 128 utterances), dev decode {test_gen[0]:.3f} s = "
-          f"{dev_audio / test_gen[0]:.1f} audio-s/s over {test_gen[2]} greedy steps; "
+          f"{dev_audio / test_gen[0]:.1f} audio-s/s over {test_gen[2]} beam-5 steps; "
           f"translate 8 paths {tr_wall:.3f} s")
-    print("[cli] `python -m joeys2t_torch test` exited 0; float32 test at 2 + 2 layers: "
-          "card and CPU hypotheses identical over 8 dev utterances")
-    return {name: train_n[name] + test_n[name] + tr_n[name] for name in train_n}, checks
+    print("[cli] `python -m joeys2t_torch test` exited 0; float32 beam-5 test at 2 + 2 "
+          "layers: card and CPU hypotheses identical over 8 dev utterances")
+    launches = {name: train_n[name] + test_n[name] + tr_n[name] for name in train_n}
+    return launches, checks, model_dir / "best.ckpt"
+
+
+# ------------------------------------------------------------------ phase 8
+def st_config(data: Path, model_dir: Path, encoder_ckpt: Path) -> dict:
+    """configs/synthetic_st.yaml as phase 8 cuts it: the corpus in ``data``,
+    16 updates (2 epochs of 8 batches of 64), a validation every 8, logging
+    every 4, the encoder loaded from ``encoder_ckpt`` (the config's own
+    transfer recipe); full width (12 + 6 layers, hidden 512, 4 heads of
+    128), bf16, BLEU, beam 5, on the card."""
+    from joeys2t_torch.config import load_config
+
+    cfg = load_config(REPO / "configs" / "synthetic_st.yaml")
+    cfg["model_dir"] = str(model_dir)
+    for split in ("train", "dev", "test"):
+        cfg["data"][split] = str(data / split)
+    cfg["data"]["trg"]["voc_file"] = str(data / "trg_vocab.txt")
+    cfg["training"].update(updates=16, validation_freq=8, logging_freq=4,
+                           load_encoder=str(encoder_ckpt))
+    check(cfg["use_cuda"] and cfg["fp16"] and cfg["training"]["batch_size"] == 64
+          and cfg["testing"]["beam_size"] == 5 and cfg["testing"]["eval_metrics"] == ["bleu"]
+          and cfg["training"]["early_stopping_metric"] == "bleu"
+          and cfg["model"]["encoder"]["num_layers"] == 12
+          and cfg["model"]["decoder"]["num_layers"] == 6, "unexpected synthetic_st config")
+    return cfg
+
+
+def st_phase(encoder_ckpt: Path) -> dict:
+    """Phase 8: the speech-translation leg through ``python -m joeys2t_torch
+    {train,test,translate}`` at full width in bf16, its 12-layer encoder
+    loaded from phase 7's 16-layer ASR checkpoint (12 layers load, 4 are
+    ignored), BLEU in validation and early stopping, beam 5 in ``test`` and
+    ``translate``, every attention through the kernels with exact launch
+    counts. Cuts: the corpus (512 / 64 / 64 generated utterances) and 16
+    updates, as phase 7; the widths are the config's."""
+    from joeys2t_torch.config import dump_yaml
+
+    work = REPO / "build" / "chip_smoke"
+    data = work / "synthetic_st"
+    t0 = time.time()
+    subprocess.run([sys.executable, str(REPO / "scripts" / "generate_synthetic_st.py"),
+                    "--out", str(data), "--train", "512", "--dev", "64", "--test", "64"],
+                   check=True, capture_output=True, timeout=600)
+    print(f"[st] corpus: 512 / 64 / 64 utterances in {time.time() - t0:.1f} s")
+    model_dir = work / "st_model"
+    cfg_path = work / "st.yaml"
+    cfg_path.write_text(dump_yaml(st_config(data, model_dir, encoder_ckpt)),
+                        encoding="utf-8")
+    n_enc, n_dec = 12, 6
+    with plain_refused("speech-translation path"):
+        train_wall, lines, _, train_n = cli_run(["train", cfg_path])
+        test_wall, test_lines, _, test_n = cli_run(["test", cfg_path, "-o", work / "st_out"])
+        feats = sorted((data / "feats").glob("test-*.npy"))[:8]
+        tr_wall, tr_lines, tr_out, tr_n = cli_run(["translate", cfg_path],
+                                                  stdin="".join(f"{p}\n" for p in feats))
+    log = "\n".join(lines)
+    loaded = re.search(r"partial_load\(encoder\): (\d+) tensors loaded, (\d+) kept at init "
+                       r"\(missing in ckpt\), (\d+) ckpt tensors ignored \(not in model\); "
+                       r"(\d+) layers loaded, (\d+) layers ignored", log)
+    check(loaded is not None and loaded.group(4, 5) == ("12", "4") and loaded.group(2) == "0",
+          f"load_encoder: {loaded.group(0) if loaded else 'no partial_load line'}")
+    valid = (model_dir / "validations.txt").read_text().splitlines()
+    bleus = [float(m.group(1)) for m in (re.search(r"\tbleu: ([\d.]+)\t", v) for v in valid)
+             if m]
+    check(len(valid) == 2 and len(bleus) == 2, f"validations.txt: {valid}")
+    best = 8 * (1 + bleus.index(max(bleus)))  # the first of the highest scores
+    check(os.readlink(model_dir / "best.ckpt") == f"{best}.ckpt",
+          f"best.ckpt -> {os.readlink(model_dir / 'best.ckpt')}, BLEU {bleus}")
+    check("Beam search with beam_size=5" in "\n".join(test_lines), "test did not run beam 5")
+    losses = [float(m.group(1)) for m in (re.search(r"Batch Loss: +([-\d.einfa]+)", ln)
+                                          for ln in lines) if m]
+    check(len(losses) == 4 and all(np.isfinite(losses)), f"training losses {losses}")
+    for name in ("best.hyps.dev", "best.hyps.test"):
+        n = len((model_dir / name).read_text(encoding="utf-8").splitlines())
+        check(n == 64, f"{name}: {n} hypotheses, expected 64")
+    hyps = tr_out.splitlines()
+    check(len(hyps) == 8 and hyps == (work / "st_out.test").read_text(
+        encoding="utf-8").splitlines()[:8], f"translate printed {tr_out!r}")
+    gens = generations(lines)
+    check(len(gens) == 4, f"train logged {len(gens)} predict calls, expected 2 + 2")
+    expected = cli_launches(n_enc, n_dec, 16, gens[:2], gens[2:])
+    check(train_n == expected, f"st train launches {train_n}, expected {expected}")
+    for name, run_lines, counts in (("test", test_lines, test_n),
+                                    ("translate", tr_lines, tr_n)):
+        want = cli_launches(n_enc, n_dec, 0, [], generations(run_lines))
+        check(counts == want, f"st {name} launches {counts}, expected {want}")
+    loop = re.search(r"Training loop: 16 update\(s\) in ([\d.]+)\[sec\] besides validation "
+                     r"\(([\d.]+)\[sec\] per update\).*validation ([\d.]+)\[sec\]", log)
+    check(loop is not None, "no training-loop summary")
+    dev_gen = generations(test_lines)[0]
+    dev_audio = manifest_audio_s(data / "dev.tsv")
+    print(f"[st] train: 16 updates of 64 utterances, encoder from the ASR checkpoint "
+          f"({loaded.group(1)} tensors, {loaded.group(4)} layers loaded, "
+          f"{loaded.group(5)} layers ignored), 2 validations; {train_wall:.2f} s wall in "
+          f"all; {float(loop.group(2)) * 1e3:.2f} ms per update; losses "
+          f"{[round(x, 4) for x in losses]}; BLEU {bleus}, best.ckpt -> {best}.ckpt")
+    print(f"[st] validation {float(loop.group(3)) / 2:.3f} s wall each (eval loss + "
+          f"greedy); test {test_wall:.3f} s wall (dev + test, beam 5), dev decode "
+          f"{dev_gen[0]:.3f} s = {dev_audio / dev_gen[0]:.1f} audio-s/s over {dev_gen[2]} "
+          f"steps; translate 8 paths {tr_wall:.3f} s")
+    print(f"[st] launches: train {train_n}, test {test_n}, translate {tr_n}; each as the "
+          f"path implies; plain attention never ran")
+    return {name: train_n[name] + test_n[name] + tr_n[name] for name in train_n}
 
 
 def main():
@@ -1322,39 +1588,53 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
     build_phase()
-    flash, decode, backward = kernel_phase()
+    flash, decode, decode_group, backward = kernel_phase()
     flash_launches, decode_launches, asr, batch = serving_phase()
     breakdown_phase(asr, batch)
+    beam_launches = beam_serving_phase(asr, batch)
     del asr, batch
     card_vs_cpu_phase()
     torch.cuda.empty_cache()
     train_fwd_launches, train_bwd_launches, train_batch_rate = train_phase()
     train_card_vs_cpu_phase()
     torch.cuda.empty_cache()
-    cli_launches, cli_checks = cli_phase(train_batch_rate)
+    cli_counts, cli_checks, asr_ckpt = cli_phase(train_batch_rate)
+    st_counts = st_phase(asr_ckpt)
 
-    def entry(name, source, replaces, also, cases, launches):
+    def entry(name, source, replaces, also, cases, launches, checks):
         head = cases[0]  # the main path's headline shape and dtype
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     also_replaces=also, launches=sum(launches.values()),
                     launches_by_path=launches, max_abs_err=head["max_abs_err"],
                     ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                     bound_by=head["bound_by"], library_ms=head["library_ms"],
-                    case=head["case"], cases=cases, cli_checks=cli_checks[name])
+                    case=head["case"], cases=cases, cli_checks=checks)
 
+    def paths(name, **extra):
+        return dict(extra, serving_beam=beam_launches[name], cli=cli_counts[name],
+                    st=st_counts[name])
+
+    decode_checks = cli_checks["decode_attention"]
     kernels = [
         entry("flash_attention_fwd", "joeys2t_torch/csrc/flash_attention.cu",
               "joeys2t_tpu/ops/flash_attention.py:492",
               "joeys2t_tpu/ops/flash_attention.py:262", flash,
-              {"serving": flash_launches, "train": train_fwd_launches,
-               "cli": cli_launches["flash_attention_fwd"]}),
+              paths("flash_attention_fwd", serving=flash_launches, train=train_fwd_launches),
+              cli_checks["flash_attention_fwd"]),
         entry("flash_attention_bwd", "joeys2t_torch/csrc/flash_attention.cu",
               "joeys2t_tpu/ops/flash_attention.py:562",
               "joeys2t_tpu/ops/flash_attention.py:306", backward,
-              {"train": train_bwd_launches, "cli": cli_launches["flash_attention_bwd"]}),
+              paths("flash_attention_bwd", train=train_bwd_launches),
+              cli_checks["flash_attention_bwd"]),
         entry("decode_attention", "joeys2t_torch/csrc/decode_attention.cu",
               "joeys2t_tpu/ops/decode_attention.py:185", None, decode,
-              {"serving": decode_launches, "cli": cli_launches["decode_attention"]}),
+              paths("decode_attention", serving=decode_launches),
+              [c for c in decode_checks if "(group 1)" in c["case"]]),
+        entry("decode_attention (group 5: the beam-shared cross cache)",
+              "joeys2t_torch/csrc/decode_attention.cu",
+              "joeys2t_tpu/ops/decode_attention.py:185", None, decode_group,
+              paths("decode_attention_group"),
+              [c for c in decode_checks if "(group 1)" not in c["case"]]),
     ]
     print(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

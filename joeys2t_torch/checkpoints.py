@@ -1,7 +1,8 @@
 # coding: utf-8
 """
 Checkpoints (counterpart of joeys2t_tpu/checkpoints.py: ``save_checkpoint``
-:29, ``load_checkpoint`` :42, ``delete_ckpt`` :50, ``CheckpointManager`` :59).
+:29, ``load_checkpoint`` :42, ``delete_ckpt`` :50, ``CheckpointManager`` :59,
+``partial_load`` :150).
 
 A checkpoint is ``torch.save`` of a dict with the JAX package's keys
 (joeys2t_tpu/training.py:582-592): ``model_state`` (the model's
@@ -12,8 +13,9 @@ plain Python type, so ``torch.load(weights_only=True)`` reads it.
 """
 import heapq
 import math
+import re
 from pathlib import Path
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, Iterable, List, Set, Tuple
 
 import torch
 
@@ -38,6 +40,53 @@ def load_checkpoint(path: Path, map_location="cpu") -> Dict[str, Any]:
     if not path.is_file():
         raise FileNotFoundError(f"Checkpoint {path} not found.")
     return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def _layer_numbers(keys: Iterable[str], prefix: str) -> Set[int]:
+    pattern = re.compile(rf"{re.escape(prefix)}\.layers\.(\d+)\.")
+    return {int(m.group(1)) for m in map(pattern.match, keys) if m}
+
+
+def partial_load(state: Dict[str, torch.Tensor], ckpt_state: Dict[str, torch.Tensor],
+                 prefix: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, int]]:
+    """The model state ``state`` with its ``prefix`` part (``encoder`` or
+    ``decoder``) taken from another checkpoint's ``ckpt_state``
+    (joeynmt/training.py:294-309 ``load_encoder``/``load_decoder``), with the
+    JAX package's semantics, name by name: a tensor in both loads from the
+    checkpoint, one only in the model keeps its init (missing), one only in
+    the checkpoint is ignored (unexpected), and a shape mismatch raises. So a
+    16-layer ASR encoder loads into a 12-layer ST encoder: layers 0-11 load,
+    12-15 are ignored. Returns the merged state and the counts (tensors
+    loaded, missing, unexpected; layers loaded and ignored), which go to the
+    log."""
+    head = prefix + "."
+    source = {k: v for k, v in ckpt_state.items() if k.startswith(head)}
+    if not source:
+        logger.warning("No `%s` sub-tree found in the checkpoint.", prefix)
+        return state, {}
+    merged = dict(state)
+    stats = {"loaded": 0, "missing": 0}
+    for key, value in state.items():
+        if not key.startswith(head):
+            continue
+        if key not in source:
+            stats["missing"] += 1
+            continue
+        if tuple(source[key].shape) != tuple(value.shape):
+            raise ValueError(f"partial_load: shape mismatch at {key}: checkpoint "
+                             f"{tuple(source[key].shape)} vs model {tuple(value.shape)}")
+        merged[key] = source[key]
+        stats["loaded"] += 1
+    unexpected = [k for k in source if k not in state]
+    own_layers = _layer_numbers(state, prefix)
+    stats.update(unexpected=len(unexpected),
+                 layers_loaded=len(_layer_numbers(source, prefix) & own_layers),
+                 layers_ignored=len(_layer_numbers(unexpected, prefix) - own_layers))
+    logger.info("partial_load(%s): %d tensors loaded, %d kept at init (missing in ckpt), "
+                "%d ckpt tensors ignored (not in model); %d layers loaded, %d layers "
+                "ignored", prefix, stats["loaded"], stats["missing"], stats["unexpected"],
+                stats["layers_loaded"], stats["layers_ignored"])
+    return merged, stats
 
 
 def delete_ckpt(path: Path) -> None:

@@ -10,9 +10,12 @@ Counterpart of joeys2t_tpu/config.py (``SpecialSymbols`` :28,
 :360, ``set_validation_args`` :435). ``use_cuda`` (default True) selects the
 ``cuda`` device and raises without one; ``use_cuda: False`` runs on the CPU.
 ``fp16`` selects bfloat16 compute on float32 masters. The `training` options
-of the parts the port does not have yet (``load_encoder``/``load_decoder``,
-profiling, model and pipeline parallelism, optimizers other than
-adam/adamw, ``moment_dtype``) raise ``NotImplementedError`` when set.
+of the parts the port does not have yet (profiling, model and pipeline
+parallelism, optimizers other than adam/adamw, ``moment_dtype``) raise
+``NotImplementedError`` when set; :func:`check_ported` refuses the unported
+`testing` and `model` options before a run loads any data. The
+``JOEYS2T_BEAM_REORDER`` environment override of ``beam_reorder`` is not
+ported: the port reads no environment knobs.
 
 The port depends on torch, numpy and the standard library only, so it reads
 the repository's configs with its own YAML reader: block mappings by
@@ -65,6 +68,8 @@ class TrainConfig:
     """`training` section (joeynmt/config.py:26-65, defaults :252-353)."""
 
     load_model: Optional[Path] = None
+    load_encoder: Optional[Path] = None
+    load_decoder: Optional[Path] = None
     reset_best_ckpt: bool = False
     reset_scheduler: bool = False
     reset_optimizer: bool = False
@@ -123,6 +128,7 @@ class TestConfig:
     generate_unk: bool = True
     repetition_penalty: float = -1
     no_repeat_ngram_size: int = -1
+    beam_reorder: str = "auto"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,8 +255,6 @@ def parse_train_args(cfg: Dict, mode: str = "train") -> TrainConfig:
         raise ConfigurationError("`validation_freq` must be divisible by `logging_freq`.")
 
     unported = {
-        "load_encoder": cfg.get("load_encoder") is not None,
-        "load_decoder": cfg.get("load_decoder") is not None,
         "profile_dir": cfg.get("profile_dir") is not None,
         "moment_dtype": cfg.get("moment_dtype") is not None,
         "model_parallel": int(cfg.get("model_parallel", 1)) != 1,
@@ -261,8 +265,11 @@ def parse_train_args(cfg: Dict, mode: str = "train") -> TrainConfig:
         if is_set:
             raise NotImplementedError(f"training option `{option}` is not ported yet")
 
+    is_test = mode != "train"
     return TrainConfig(
-        load_model=_check_path(cfg.get("load_model", None), allow_empty=mode != "train"),
+        load_model=_check_path(cfg.get("load_model", None), allow_empty=is_test),
+        load_encoder=_check_path(cfg.get("load_encoder", None), allow_empty=is_test),
+        load_decoder=_check_path(cfg.get("load_decoder", None), allow_empty=is_test),
         reset_best_ckpt=cfg.get("reset_best_ckpt", False),
         reset_scheduler=cfg.get("reset_scheduler", False),
         reset_optimizer=cfg.get("reset_optimizer", False),
@@ -301,8 +308,8 @@ def parse_train_args(cfg: Dict, mode: str = "train") -> TrainConfig:
 
 def parse_test_args(cfg: Dict, mode: str = "test") -> TestConfig:
     """Parse and validate the `testing` section (joeynmt/config.py:356-446).
-    Beam search, BLEU/chrF and returned attention are accepted here and
-    raise where they would run."""
+    Returned attention, ``beam_reorder: lazy``, repetition penalty and
+    n-gram blocking are accepted here; :func:`check_ported` refuses them."""
     batch_size = cfg.get("batch_size", 64)
     batch_type = cfg.get("batch_type", "sentence").lower()
     _check_options("batch_type", batch_type, ["sentence", "token"])
@@ -344,6 +351,8 @@ def parse_test_args(cfg: Dict, mode: str = "test") -> TestConfig:
     if 0 < repetition_penalty < 1:
         raise ConfigurationError(
             "Repetition penalty must be > 1. (-1 indicates no repetition penalty.)")
+    beam_reorder = str(cfg.get("beam_reorder", "auto")).lower()
+    _check_options("beam_reorder", beam_reorder, ["auto", "lazy", "physical"])
     return TestConfig(
         load_model=_check_path(cfg.get("load_model", None), allow_empty=mode == "train"),
         batch_size=batch_size,
@@ -360,7 +369,38 @@ def parse_test_args(cfg: Dict, mode: str = "test") -> TestConfig:
         generate_unk=cfg.get("generate_unk", True),
         repetition_penalty=repetition_penalty,
         no_repeat_ngram_size=cfg.get("no_repeat_ngram_size", -1),
+        beam_reorder=beam_reorder,
     )
+
+
+def unported_model_options(model_cfg: Dict) -> List[str]:
+    """The options of a `model` section that the port does not have yet:
+    the int8 decode caches (set in `model` or in its `decoder`) and the tied
+    output layer."""
+    dec_cfg = model_cfg.get("decoder", {})
+    unported = [name for name in ("cache_cross_int8", "cache_self_int8")
+                if model_cfg.get(name, dec_cfg.get(name, False))]
+    if model_cfg.get("tied_softmax", False) and not model_cfg.get("tied_embeddings", False):
+        unported.append("tied_softmax")
+    return unported
+
+
+def check_ported(args: BaseConfig, save_attention: bool = False) -> None:
+    """Raise ``NotImplementedError`` for an option of the `testing` or
+    `model` section that the port does not have yet, so that ``train``,
+    ``test`` and ``translate`` refuse it before loading any data rather than
+    where it would first run (after training, for the closing test)."""
+    t = args.test
+    unported = {
+        "return_attention": t.return_attention or save_attention,
+        "beam_reorder: lazy": t.beam_reorder == "lazy",
+        "repetition_penalty": float(t.repetition_penalty) > 0,
+        "no_repeat_ngram_size": int(t.no_repeat_ngram_size) > 0,
+    }
+    names = [name for name, is_set in unported.items() if is_set]
+    names += unported_model_options(args.model)
+    if names:
+        raise NotImplementedError(f"options not ported yet: {names}")
 
 
 def set_validation_args(args: TestConfig) -> TestConfig:

@@ -1,10 +1,18 @@
 // Single-query (autoregressive decode) attention for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_kernel` of joeys2t_tpu/ops/decode_attention.py
-// (:42, launched by `decode_attention` at :185). Per (batch row b, head h):
-//   scores = (q * sm_scale) . K[b, h]^T + bias[b, :]      f32
-//   p      = softmax(scores)                             f32
-//   ctx    = p . V[b, h]                                 f32 accumulate
+// (:42, launched by `decode_attention` at :185). Per (query row r, head h),
+// with b = r / group the cache row it reads:
+//   scores = (q[r, h] * sm_scale) . K[b, h]^T + bias[b, :]   f32
+//   p      = softmax(scores)                                 f32
+//   ctx    = p . V[b, h]                                     f32 accumulate
+// `group` queries share one cache row: beam search keeps the cross-attention
+// cache at B rows and asks it K queries a row (the JAX einsum
+// "bkhd,bhsd->bkhs" of models/modules.py `step_cross`). Each query is one
+// (b, h) problem of the kernel below with its own blocks; the G blocks of a
+// cache row run close together in time, so the repeat reads of the row
+// mostly hit L2. With group = 1 the kernel is the one-query-per-row kernel,
+// index for index.
 // over (B, H, S, D) caches in f32, bf16 or int8. int8 caches carry scales that
 // fold exactly as the Pallas kernel folds them (:61-90):
 //   layout 1 "channel"  (B, H, D): into q before the scores (K) and into ctx
@@ -17,12 +25,13 @@
 // What bounds it: each cache element is read once and used for one
 // multiply-add, about 1 flop per byte against the H100's ridge of ~295, so
 // the kernel is bound by the bytes of K and V. Tensor cores would not help:
-// one query per (b, h) against a per-head cache is a matrix-vector product,
-// with no second query to share a cache row.
+// one query per (b, h) against a per-head cache is a matrix-vector product.
+// With group > 1 the G queries of a cache row could share one read of it
+// (G queries a block); here each reads it on its own, through L2.
 //
-// Design: one launch, grid (splits, H, B), 4 warps a block. The blocks of one
-// (b, h) split S into `splits` ranges of `split_rows` rows and form one
-// thread-block cluster; the kernel takes any such plan (the card tests sweep
+// Design: one launch, grid (splits, H, B * group), 4 warps a block. The blocks
+// of one (query row, h) split S into `splits` ranges of `split_rows` rows and
+// form one thread-block cluster; the kernel takes any such plan (the card tests sweep
 // them all at small S). The plan comes from ops/decode_attention.decode_plan,
 // with `split_rows` a multiple of 16: 1 split (and no cluster) once B*H fills
 // the card's SMs (132 on the H100 SXM), as at B=64 H=4; below that up to 16
@@ -40,7 +49,7 @@
 //    the step after that: up to 2 x 256 bytes a lane, 16 KB a warp, 64 KB a
 //    block at bf16 D=128, so up to ~128 KB an SM at B=64 H=4 (256 blocks on
 //    132 SMs); at B=1-2 S=750 (32-64 blocks, 96 rows each) a block's rows
-//    are all in flight at once. (252 registers a thread at bf16 D=128.)
+//    are all in flight at once. (250 registers a thread at bf16 D=128, no spills.)
 //  - Masked rows are not read: a row whose bias is at or below NEG_INF / 2 is
 //    skipped (its K, V and "position" scales are not loaded); its
 //    exp(score - max) is exactly 0 in f32 once the row has a valid key, so
@@ -169,15 +178,19 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                         const float* __restrict__ bias,
                         const float* __restrict__ k_scale,
                         const float* __restrict__ v_scale, TQ* __restrict__ out,
-                        int s_len, int split_rows, float sm_scale, int layout) {
+                        int s_len, int split_rows, int group, float sm_scale,
+                        int layout) {
   using G = Geometry<TKV, D>;
   constexpr int L = G::kLanes, R = G::kRows, E = G::kElems, NW = G::kWords,
                 U = G::kUnroll, kStride = kWarps * U * R;
   __shared__ float warp_part[kWarps][D + 2];  // acc (D), max, sum
   __shared__ float block_part[D + 2];
 
-  const int split = blockIdx.x, b = blockIdx.z;
-  const size_t bh = (size_t)b * gridDim.y + blockIdx.y;
+  // query row blockIdx.z reads cache row b; the q and out offset of the
+  // (query row, head) is recomputed where it is used, so that it holds no
+  // register through the main loop
+  const int split = blockIdx.x, b = blockIdx.z / group;
+  const size_t bh = (size_t)b * gridDim.y + blockIdx.y;  // caches and scales
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = threadIdx.x;
   const int slot = lane / L, col = (lane % L) * E;
   const int s0 = split * split_rows, s1 = min(s_len, s0 + split_rows);
@@ -192,7 +205,8 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   float qr[E];
 #pragma unroll
   for (int i = 0; i < E; ++i) {
-    float x = __fmul_rn(to_float(q[bh * D + col + i]), sm_scale);
+    float x = __fmul_rn(
+        to_float(q[((size_t)blockIdx.z * gridDim.y + blockIdx.y) * D + col + i]), sm_scale);
     if (layout == kChannel) x = __fmul_rn(x, __ldg(k_scale + bh * D + col + i));
     qr[i] = x;
   }
@@ -316,7 +330,7 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     }
     float x = ca / cl;
     if (layout == kChannel) x *= __ldg(v_scale + bh * D + c);
-    store(out + bh * D + c, x);
+    store(out + ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * D + c, x);
   }
   cluster.sync();  // rank 0 has read every block's shared memory
 }
@@ -324,9 +338,9 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 template <typename TQ, typename TKV, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* bias, const float* k_scale,
-                   const float* v_scale, void* out, int batch, int num_heads,
-                   int s_len, int splits, int split_rows, float sm_scale,
-                   int layout, cudaStream_t stream) {
+                   const float* v_scale, void* out, int batch, int group,
+                   int num_heads, int s_len, int splits, int split_rows,
+                   float sm_scale, int layout, cudaStream_t stream) {
   auto kernel = decode_attention_kernel<TQ, TKV, D>;
   if (splits > kPortableSplits) {  // per launch: the attribute is per device
     const cudaError_t err =
@@ -339,7 +353,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, num_heads, batch);
+  cfg.gridDim = dim3(splits, num_heads, batch * group);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
@@ -348,19 +362,21 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const TQ*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), bias, k_scale, v_scale, static_cast<TQ*>(out),
-      s_len, split_rows, sm_scale, layout);
+      s_len, split_rows, group, sm_scale, layout);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename TQ, typename TKV>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const float* bias, const float* k_scale,
-                     const float* v_scale, void* out, int batch, int num_heads,
-                     int s_len, int head_dim, int splits, int split_rows,
-                     float sm_scale, int layout, cudaStream_t stream) {
+                     const float* v_scale, void* out, int batch, int group,
+                     int num_heads, int s_len, int head_dim, int splits,
+                     int split_rows, float sm_scale, int layout,
+                     cudaStream_t stream) {
 #define DECODE_LAUNCH(D)                                                        \
-  launch<TQ, TKV, D>(q, k, v, bias, k_scale, v_scale, out, batch, num_heads,   \
-                     s_len, splits, split_rows, sm_scale, layout, stream)
+  launch<TQ, TKV, D>(q, k, v, bias, k_scale, v_scale, out, batch, group,       \
+                     num_heads, s_len, splits, split_rows, sm_scale, layout,   \
+                     stream)
   switch (head_dim) {
     case 64: return DECODE_LAUNCH(64);
     case 128: return DECODE_LAUNCH(128);
@@ -373,9 +389,10 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q (B, H, D); k/v (B, H, S, D); bias (B, S) f32; k_scale/v_scale f32 of
-// (B, H, D) for layout 1, (B, H, S) for layout 2, unused (may be null) for 0.
-// out (B, H, D) in q's type. q_dtype: 0 = float32, 1 = bfloat16; kv_int8: 1
+// q (B * group, H, D), query row r reading cache row r / group; k/v (B, H,
+// S, D); bias (B, S) f32; k_scale/v_scale f32 of (B, H, D) for layout 1,
+// (B, H, S) for layout 2, unused (may be null) for 0. out (B * group, H, D)
+// in q's type. q_dtype: 0 = float32, 1 = bfloat16; kv_int8: 1
 // when the caches are int8 (then layout must be 1 or 2), else 0 and the caches
 // have q's type. S is cut into `splits` (1-16) ranges of `split_rows` rows,
 // none of them empty. Every pointer is 16-byte aligned. Returns the
@@ -383,11 +400,12 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     const float* bias, const float* k_scale,
                                     const float* v_scale, void* out, int batch,
-                                    int num_heads, int s_len, int head_dim,
+                                    int group, int num_heads, int s_len, int head_dim,
                                     int q_dtype, int kv_int8, int layout,
                                     int splits, int split_rows, float sm_scale,
                                     void* stream) {
-  if (batch <= 0 || num_heads <= 0 || s_len <= 0 || layout < 0 || layout > 2 ||
+  if (batch <= 0 || group <= 0 || (long long)batch * group > 65535 ||
+      num_heads <= 0 || s_len <= 0 || layout < 0 || layout > 2 ||
       (kv_int8 != 0) != (layout != 0) || splits < 1 || splits > kMaxSplits ||
       split_rows < 1 || (long long)splits * split_rows < s_len ||
       (long long)(splits - 1) * split_rows >= s_len)
@@ -395,19 +413,19 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && !kv_int8)
     return (int)dispatch<float, float>(q, k, v, bias, k_scale, v_scale, out,
-                                       batch, num_heads, s_len, head_dim, splits,
-                                       split_rows, sm_scale, layout, st);
+                                       batch, group, num_heads, s_len, head_dim,
+                                       splits, split_rows, sm_scale, layout, st);
   if (q_dtype == 0 && kv_int8)
     return (int)dispatch<float, int8_t>(q, k, v, bias, k_scale, v_scale, out,
-                                        batch, num_heads, s_len, head_dim, splits,
-                                        split_rows, sm_scale, layout, st);
+                                        batch, group, num_heads, s_len, head_dim,
+                                        splits, split_rows, sm_scale, layout, st);
   if (q_dtype == 1 && !kv_int8)
     return (int)dispatch<__nv_bfloat16, __nv_bfloat16>(
-        q, k, v, bias, k_scale, v_scale, out, batch, num_heads, s_len, head_dim,
-        splits, split_rows, sm_scale, layout, st);
+        q, k, v, bias, k_scale, v_scale, out, batch, group, num_heads, s_len,
+        head_dim, splits, split_rows, sm_scale, layout, st);
   if (q_dtype == 1 && kv_int8)
     return (int)dispatch<__nv_bfloat16, int8_t>(
-        q, k, v, bias, k_scale, v_scale, out, batch, num_heads, s_len, head_dim,
-        splits, split_rows, sm_scale, layout, st);
+        q, k, v, bias, k_scale, v_scale, out, batch, group, num_heads, s_len,
+        head_dim, splits, split_rows, sm_scale, layout, st);
   return (int)cudaErrorInvalidValue;
 }

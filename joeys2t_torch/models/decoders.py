@@ -3,11 +3,14 @@
 Transformer decoder (counterpart of joeys2t_tpu/models/decoders.py
 ``TransformerDecoder`` :27): the full teacher-forced pass with the CTC head
 over the encoder output, and the KV-cached decode path (``init_cache`` and
-``decode_step``) that greedy search runs. Caches are (B, H, S, D): the
-cross-attention K/V are projected once per utterance, the self-attention
-K/V fill a preallocated buffer one slot per step. The positional encoding
-table and the cross-attention bias are built once per utterance, in
-``init_cache``, and the self-attention bias once per step for all layers.
+``decode_step``) that greedy and beam search run. Caches are (B, H, S, D):
+the cross-attention K/V are projected once per utterance, the
+self-attention K/V fill a preallocated buffer one slot per step. In beam
+search (``beam_k`` K > 1) the self buffers hold B*K rows, one per beam,
+while the cross K/V and their bias stay at B rows, shared by an
+utterance's beams. The positional encoding table and the cross-attention
+bias are built once per utterance, in ``init_cache``, and the
+self-attention bias once per step for all layers.
 """
 from typing import Dict, Optional
 
@@ -64,15 +67,16 @@ class TransformerDecoder(nn.Module):
         return dense(self.output_layer, x, self.dtype), x, ctc_out
 
     def init_cache(self, encoder_output: torch.Tensor, max_len: int,
-                   src_mask: Optional[torch.Tensor] = None) -> Dict[str, Dict]:
-        """Decode cache: per layer the cross K/V projected once and zeroed
-        self-attention buffers of ``max_len`` slots, all (B, H, S, Dh) in the
-        compute dtype; and, shared by every layer and step, the positional
-        encoding table (max_len, size) and the cross-attention bias (B, S)
-        f32 from ``src_mask`` (B, 1, S) bool."""
+                   src_mask: Optional[torch.Tensor] = None,
+                   beam_k: int = 1) -> Dict[str, Dict]:
+        """Decode cache: per layer the cross K/V projected once (B, H, S, Dh)
+        and zeroed self-attention buffers of ``max_len`` slots (B*beam_k, H,
+        max_len, Dh), all in the compute dtype; and, shared by every layer
+        and step, the positional encoding table (max_len, size) and the
+        cross-attention bias (B, S) f32 from ``src_mask`` (B, 1, S) bool."""
         b, s = encoder_output.shape[:2]
         device = encoder_output.device
-        shape = (b, self.num_heads, max_len, self.hidden_size // self.num_heads)
+        shape = (b * beam_k, self.num_heads, max_len, self.hidden_size // self.num_heads)
         cross_bias = torch.zeros((b, s), dtype=torch.float32, device=device)
         if src_mask is not None:
             cross_bias.masked_fill_(~src_mask[:, 0, :], NEG_INF)
@@ -88,10 +92,11 @@ class TransformerDecoder(nn.Module):
             }
         return cache
 
-    def decode_step(self, trg_embed_t: torch.Tensor, index: int,
-                    cache: Dict) -> torch.Tensor:
-        """One decode step at position ``index`` -> logits (B, 1, V); the
-        self-attention caches are updated in place."""
+    def decode_step(self, trg_embed_t: torch.Tensor, index: int, cache: Dict,
+                    beam_k: int = 1) -> torch.Tensor:
+        """One decode step at position ``index`` -> logits (B*beam_k, 1, V)
+        over a cache made with the same ``beam_k``; the self-attention
+        caches are updated in place."""
         x = (trg_embed_t + cache["pe"][index].to(trg_embed_t.dtype)).to(self.dtype)
         # slots 0..index are valid in every layer's self-attention buffer
         self_bias = torch.full((x.shape[0], cache["pe"].shape[0]), NEG_INF,
@@ -99,5 +104,5 @@ class TransformerDecoder(nn.Module):
         self_bias[:, :index + 1] = 0.0
         for i, layer in enumerate(self.layers):
             x = layer.decode_step(x, cache[f"layer_{i}"], index, self_bias,
-                                  cache["cross_bias"])
+                                  cache["cross_bias"], beam_k)
         return dense(self.output_layer, self._final(x), self.dtype)

@@ -10,7 +10,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from joeys2t_torch.config import ConfigurationError
+from joeys2t_torch.config import ConfigurationError, unported_model_options
 from joeys2t_torch.helpers import resolve_device
 from joeys2t_torch.models.decoders import TransformerDecoder
 from joeys2t_torch.models.embeddings import Embeddings
@@ -70,16 +70,17 @@ class Seq2SeqModel(nn.Module):
         return logits, ctc_logits, src_mask
 
     def init_cache(self, encoder_output: torch.Tensor, max_len: int,
-                   src_mask: Optional[torch.Tensor] = None) -> Dict:
+                   src_mask: Optional[torch.Tensor] = None, beam_k: int = 1) -> Dict:
         """Decode cache for ``max_len`` steps over ``encoder_output`` with
-        its source mask (B, 1, S)."""
-        return self.decoder.init_cache(encoder_output, max_len, src_mask)
+        its source mask (B, 1, S), for ``beam_k`` beams an utterance."""
+        return self.decoder.init_cache(encoder_output, max_len, src_mask, beam_k)
 
-    def decode_step(self, prev_tokens: torch.Tensor, index: int, cache: Dict
-                    ) -> torch.Tensor:
-        """One KV-cached decode step -> logits (B, 1, V); ``cache`` is
-        updated in place."""
-        return self.decoder.decode_step(self.trg_embed(prev_tokens), index, cache)
+    def decode_step(self, prev_tokens: torch.Tensor, index: int, cache: Dict,
+                    beam_k: int = 1) -> torch.Tensor:
+        """One KV-cached decode step -> logits (B*beam_k, 1, V) from
+        ``prev_tokens`` (B*beam_k, 1); ``cache`` is updated in place."""
+        return self.decoder.decode_step(self.trg_embed(prev_tokens), index, cache,
+                                        beam_k)
 
 
 def build_model(cfg: Dict, src_vocab=None, trg_vocab=None,
@@ -102,8 +103,13 @@ def build_model(cfg: Dict, src_vocab=None, trg_vocab=None,
         if side.get("type", "transformer") != "transformer":
             raise NotImplementedError(f"{side.get('type')} encoders/decoders are not "
                                       f"ported yet")
-    if cfg.get("tied_embeddings", False) or cfg.get("tied_softmax", False):
+    if cfg.get("tied_embeddings", False):
         raise ConfigurationError("tied embeddings need a source vocabulary (MT)")
+    if cfg.get("tied_softmax", False):
+        raise NotImplementedError("tied softmax is not ported yet")
+    unported = unported_model_options(cfg)
+    if unported:
+        raise NotImplementedError(f"model options not ported yet: {unported}")
     if not enc_cfg.get("subsample", False):
         raise NotImplementedError("speech encoders without subsampling are not "
                                   "ported yet")

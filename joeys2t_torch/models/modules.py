@@ -211,16 +211,18 @@ class MultiHeadedAttention(nn.Module):
         return self._step(q, cache_k, cache_v, bias)
 
     def step_cross(self, q: torch.Tensor, k_h: torch.Tensor, v_h: torch.Tensor,
-                   bias: torch.Tensor) -> torch.Tensor:
-        """One cross-attention decode step (B, 1, size) -> (B, 1, size)
+                   bias: torch.Tensor, beam_k: int = 1) -> torch.Tensor:
+        """One cross-attention decode step (B*K, 1, size) -> (B*K, 1, size)
         against the precomputed (B, H, S, Dh) K/V; ``bias`` (B, S) f32 is 0
-        at valid source frames and NEG_INF at padding."""
-        return self._step(q, k_h, v_h, bias)
+        at valid source frames and NEG_INF at padding. With ``beam_k`` K > 1
+        the K beams of each utterance share its cross cache, which is never
+        expanded to B*K rows."""
+        return self._step(q, k_h, v_h, bias, beam_k)
 
-    def _step(self, q, k_h, v_h, bias):
+    def _step(self, q, k_h, v_h, bias, group=1):
         q_h = self._split_heads(dense(self.q_layer, q, self.dtype))
         ctx = decode_attention(q_h[:, 0], k_h, v_h, bias,
-                               sm_scale=1.0 / math.sqrt(self.head_size))
+                               sm_scale=1.0 / math.sqrt(self.head_size), group=group)
         return dense(self.output_layer, ctx.reshape(q.shape[0], 1, self.size), self.dtype)
 
 
@@ -327,10 +329,12 @@ class TransformerDecoderLayer(nn.Module):
         return self.src_trg_att.project_kv(memory)
 
     def decode_step(self, x: torch.Tensor, cache: dict, index: int,
-                    self_bias: torch.Tensor, cross_bias: torch.Tensor) -> torch.Tensor:
-        """Single decode step (B, 1, size) -> (B, 1, size) with the cached
-        self/cross K/V and their (B, S) additive biases; the self-attention
-        cache is updated in place."""
+                    self_bias: torch.Tensor, cross_bias: torch.Tensor,
+                    beam_k: int = 1) -> torch.Tensor:
+        """Single decode step (B*K, 1, size) -> (B*K, 1, size) with the
+        cached self K/V (B*K rows) and cross K/V (B rows, shared by the K
+        beams of an utterance) and their additive biases; the
+        self-attention cache is updated in place."""
         pre = self.layer_norm_position == "pre"
         residual = x
         if pre:
@@ -345,7 +349,7 @@ class TransformerDecoderLayer(nn.Module):
         if pre:
             h1 = layer_norm(self.dec_layer_norm, h1, self.dtype)
         h2 = self.src_trg_att.step_cross(h1, cache["cross_k"], cache["cross_v"],
-                                         cross_bias)
+                                         cross_bias, beam_k)
         h2 = h2 + self.alpha * h1_residual
         if not pre:
             h2 = layer_norm(self.dec_layer_norm, h2, self.dtype)

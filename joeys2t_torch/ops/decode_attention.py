@@ -4,9 +4,12 @@ Single-position (autoregressive decode) attention: the hand-written CUDA
 kernel (``csrc/decode_attention.cu``) and its plain PyTorch version.
 
 Counterpart of joeys2t_tpu/ops/decode_attention.py. Per (batch row, head) one
-query attends over a (B, H, S, D) K/V cache in f32, bf16 or int8; int8 caches
-carry scales in one of two layouts, folded without materializing a
-dequantized cache:
+query attends over a (B, H, S, D) K/V cache in f32, bf16 or int8; with
+``group`` G > 1, G query rows share each cache row (q is (B*G, H, D), query
+row r reads cache row r // G), as beam search asks the beam-shared cross
+cache (the JAX einsum of models/modules.py ``step_cross`` with ``beam_k``).
+int8 caches carry scales in one of two layouts, folded without
+materializing a dequantized cache:
 
   - "channel" (B, H, D): the cross-attention cache; scales fold into q (K)
     and into the context (V);
@@ -78,43 +81,50 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None, *,
                            sm_scale: float = 1.0,
-                           scale_layout: Optional[str] = None) -> torch.Tensor:
-    """The kernel's math in plain PyTorch, all in f32; returns (B, H, D) in
+                           scale_layout: Optional[str] = None,
+                           group: int = 1) -> torch.Tensor:
+    """The kernel's math in plain PyTorch, all in f32; returns (B*G, H, D) in
     q's dtype."""
     layout = _resolve_layout(k, k_scale, scale_layout)
-    qf = q.float() * sm_scale
+    b, h, _, d = k.shape
+    qf = q.float().reshape(b, group, h, d) * sm_scale
     if layout == "channel":
-        qf = qf * k_scale.float()
-    scores = torch.einsum("bhd,bhsd->bhs", qf, k.float())
+        qf = qf * k_scale.float()[:, None]
+    scores = torch.einsum("bghd,bhsd->bghs", qf, k.float())
     if layout == "position":
-        scores = scores * k_scale.float()
-    p = torch.softmax(scores + bias.float()[:, None, :], dim=-1)
+        scores = scores * k_scale.float()[:, None]
+    p = torch.softmax(scores + bias.float()[:, None, None, :], dim=-1)
     if layout == "position":
-        p = p * v_scale.float()
-    ctx = torch.einsum("bhs,bhsd->bhd", p, v.float())
+        p = p * v_scale.float()[:, None]
+    ctx = torch.einsum("bghs,bhsd->bghd", p, v.float())
     if layout == "channel":
-        ctx = ctx * v_scale.float()
-    return ctx.to(q.dtype)
+        ctx = ctx * v_scale.float()[:, None]
+    return ctx.reshape(q.shape).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None, *,
                      sm_scale: float = 1.0,
-                     scale_layout: Optional[str] = None) -> torch.Tensor:
-    """Single-step attention context (B, H, D) with fused int8 dequant.
+                     scale_layout: Optional[str] = None,
+                     group: int = 1) -> torch.Tensor:
+    """Single-step attention context (B*G, H, D) with fused int8 dequant.
 
-    :param q: (B, H, D) f32 or bf16
+    :param q: (B*G, H, D) f32 or bf16; query row r reads cache row r // G
     :param k, v: (B, H, S, D) in q's dtype, or int8 with scales
     :param bias: (B, S) f32 additive mask, 0 or -1e9
     :param k_scale, v_scale: f32 (B, H, D) "channel" or (B, H, S) "position";
         inferred from the shape when ``scale_layout`` is None (ambiguous
         when S == D)
+    :param group: G, the query rows that share each cache row
     """
+    if group < 1 or q.shape[0] != k.shape[0] * group:
+        raise ValueError(f"q has {q.shape[0]} rows, expected {group} for each of the "
+                         f"{k.shape[0]} cache rows")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, bias, k_scale, v_scale,
                                       sm_scale=sm_scale,
-                                      scale_layout=scale_layout)
+                                      scale_layout=scale_layout, group=group)
     if q.device.type != "cuda":
         raise ValueError(f"decode attention runs on cpu or cuda, not {q.device}")
     b, h, s, d = k.shape
@@ -126,7 +136,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if int8 != (layout is not None):
         raise ValueError("int8 caches need scales and scales need int8 caches")
     kv_dtype = torch.int8 if int8 else q.dtype
-    checks = [("q", q, (b, h, d), q.dtype), ("k", k, (b, h, s, d), kv_dtype),
+    checks = [("q", q, (b * group, h, d), q.dtype), ("k", k, (b, h, s, d), kv_dtype),
               ("v", v, (b, h, s, d), kv_dtype), ("bias", bias, (b, s), torch.float32)]
     if int8:
         scale_shape = (b, h, d) if layout == "channel" else (b, h, s)
@@ -139,16 +149,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             desc = "None" if t is None else f"{tuple(t.shape)} {t.dtype} on {t.device}"
             raise ValueError(f"{name}: expected contiguous {shape} {dtype} on {q.device} "
                              f"(caches 16-byte aligned), got {desc}")
-    plan = decode_plan(b, h, s, num_sms(q.device))
-    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    err = _launch(q, k, v, bias, k_scale, v_scale, out, layout, plan, sm_scale)
+    plan = decode_plan(b * group, h, s, num_sms(q.device))
+    out = torch.empty((b * group, h, d), dtype=q.dtype, device=q.device)
+    err = _launch(q, k, v, bias, k_scale, v_scale, out, layout, plan, sm_scale, group)
     if err != 0:
         raise RuntimeError(f"decode_attention_fwd launch failed: cudaError {err}")
     decode_attention.launches += 1
+    if group > 1:
+        decode_attention.group_launches += 1
     return out
 
 
 decode_attention.launches = 0  # kernel launches; tests and smoke runs reset it
+decode_attention.group_launches = 0  # the launches among them with group > 1
 
 
 def quantize_per_position(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -161,7 +174,7 @@ def quantize_per_position(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _launch(q, k, v, bias, k_scale, v_scale, out, layout: Optional[str],
-            plan: Tuple[int, int], sm_scale: float) -> int:
+            plan: Tuple[int, int], sm_scale: float, group: int = 1) -> int:
     """One launch of the kernel on checked tensors with the launch plan
     ``(splits, split_rows)``; returns its cudaError_t (0 on success)."""
     b, h, s, d = k.shape
@@ -170,7 +183,7 @@ def _launch(q, k, v, bias, k_scale, v_scale, out, layout: Optional[str],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         k_scale.data_ptr() if int8 else None,
         v_scale.data_ptr() if int8 else None,
-        out.data_ptr(), b, h, s, d, 0 if q.dtype == torch.float32 else 1,
+        out.data_ptr(), b, group, h, s, d, 0 if q.dtype == torch.float32 else 1,
         int(int8), _LAYOUTS[layout], plan[0], plan[1], float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream)
 
@@ -180,7 +193,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.decode_attention_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
                        ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return lib

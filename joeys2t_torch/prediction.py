@@ -5,15 +5,17 @@ joeys2t_tpu/prediction.py: ``predict`` :175, ``prepare`` :419, ``evaluate``
 :475, ``test`` :573, ``translate`` :650).
 
 ``predict`` goes over a dataset in batches, optionally computes the
-teacher-forced loss, perplexity and accuracy, decodes greedily, restores
-the dataset's order, detokenizes and scores. Each batch's frames are padded
+teacher-forced loss, perplexity and accuracy, decodes (greedy or beam
+search, with ``n_best`` hypotheses an example), restores the dataset's
+order, detokenizes and scores. Each batch's frames are padded
 to the JAX package's bucket with the pad value, as its ``pad_to_shape``
 pads them, because the last valid outputs of the conv subsampler read those
 frames; rows are not padded to ``batch_size`` (eager PyTorch has no
 compiled shapes to reuse, and a padding row changes no real row). The
-decode side is cast to the compute dtype once per call. Not ported yet,
-each raising ``NotImplementedError``: beam search, attention plots
-(``--save-attention``), BLEU and chrF.
+decode side is cast to the compute dtype once per call. ``test`` and
+``translate`` refuse the options not ported yet (attention plots,
+``--save-attention``, and the rest that ``config.check_ported`` names)
+before loading any data.
 """
 import dataclasses
 import math
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from joeys2t_torch.checkpoints import load_checkpoint
-from joeys2t_torch.config import BaseConfig, TestConfig, parse_global_args
+from joeys2t_torch.config import BaseConfig, TestConfig, check_ported, parse_global_args
 from joeys2t_torch.data.batch import Batch
 from joeys2t_torch.data.datasets import SpeechStreamDataset, StreamDataset
 from joeys2t_torch.data.loader import load_data
@@ -134,7 +136,8 @@ def predict(model, spec, data, loss_fn=None, compute_loss: bool = False,
                 return_attention=args.return_attention, return_prob=args.return_prob,
                 generate_unk=args.generate_unk,
                 repetition_penalty=args.repetition_penalty,
-                no_repeat_ngram_size=args.no_repeat_ngram_size)
+                no_repeat_ngram_size=args.no_repeat_ngram_size,
+                beam_reorder=args.beam_reorder)
 
         all_outputs.extend(np.asarray(output)[sort_reverse_index])
         if ref_scores is not None:
@@ -270,9 +273,8 @@ def test(cfg: Dict, output_path: Optional[str] = None, prepared: Optional[Dict] 
          save_attention: bool = False, save_scores: bool = False) -> None:
     """Decode (or with ``return_prob: ref`` score) the dev and test sets and
     write ``<output_path>.{dev,test}`` (joeynmt/prediction.py:524-635)."""
-    if save_attention:
-        raise NotImplementedError("attention plots (--save-attention) are not ported yet")
     args = parse_global_args(cfg, rank=0, mode="test")
+    check_ported(args, save_attention=save_attention)
     if prepared is None:
         model, spec, loss_fn, _, dev_data, test_data = prepare(args, rank=0, mode="test")
         prepared = {"model": model, "spec": spec, "loss_fn": loss_fn, "dev": dev_data,
@@ -319,6 +321,7 @@ def translate(cfg: Dict, output_path: Optional[str] = None) -> None:
     """Decode the lines of stdin (feature or audio paths for S2T), or
     interactive input from a terminal (joeynmt/prediction.py:638-735)."""
     args = parse_global_args(cfg, rank=0, mode="test")
+    check_ported(args)
     model, spec, loss_fn, _, _, test_data = prepare(args, rank=0, mode="translate")
     expected = StreamDataset if args.task == "MT" else SpeechStreamDataset
     if not isinstance(test_data, expected):

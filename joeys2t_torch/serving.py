@@ -1,16 +1,17 @@
 # coding: utf-8
 """
 Raw-waveform ASR serving: wav in, text out, with the whole compute path
-(fbank, CMVN, encoder, KV-cached greedy decode) on the device (counterpart
-of joeys2t_tpu/serving.py ``Transcriber`` :80).
+(fbank, CMVN, encoder, KV-cached greedy or beam decode) on the device
+(counterpart of joeys2t_tpu/serving.py ``Transcriber`` :80).
 
 Usage:
     from joeys2t_torch.serving import Transcriber
     asr = Transcriber(model, spec, trg_vocab)        # runs on cuda
     texts = asr.transcribe([wave_a, "b.wav"])        # int16-scaled floats or wav files
+    texts = asr.transcribe([wave_a], beam_size=5, beam_alpha=1.0)
 
-Transcripts are the target tokens joined by spaces; detokenization
-(sentencepiece) comes with the tokenizer port.
+Transcripts are the target tokens after the target tokenizer's
+``post_process`` when one is given, else the tokens joined by spaces.
 """
 import bisect
 from pathlib import Path
@@ -22,7 +23,7 @@ import torch
 from joeys2t_torch.data.audio_io import read_wav
 from joeys2t_torch.helpers import resolve_device
 from joeys2t_torch.ops.frontend import device_frontend
-from joeys2t_torch.search import _cast_params_to_compute_dtype, transformer_greedy
+from joeys2t_torch.search import _cast_params_to_compute_dtype, beam_search, transformer_greedy
 
 # waveform-sample buckets: ~1s steps up to 30s at 16kHz, then exact length
 _WAVE_BUCKETS = [16000 * i for i in (1, 2, 3, 4, 5, 6, 8, 10, 12, 15, 20, 30)]
@@ -76,19 +77,21 @@ class Transcriber:
 
     The model moves to the device and into eval mode; the encoder runs on
     its float32 masters, and the decoder from a copy of the decode side in
-    the compute dtype, cast once here (``decode_model``).
+    the compute dtype, cast once here (``decode_model``). ``tokenizer``, the
+    target side's (a ``BasicTokenizer``), turns tokens into text.
 
     ``stats`` counts what the instance served: requests (calls of
     ``transcribe_batch``), utterances, audio seconds and decode steps."""
 
     sample_rate = 16000.0
 
-    def __init__(self, model, spec, trg_vocab, device=None):
+    def __init__(self, model, spec, trg_vocab, tokenizer=None, device=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.decode_model = _cast_params_to_compute_dtype(self.model)
         self.spec = spec
         self.trg_vocab = trg_vocab
+        self.tokenizer = tokenizer
         self.num_mel_bins = model.encoder.subsampler.conv_layers[0].weight.shape[1]
         self.stats = {"requests": 0, "utterances": 0, "audio_seconds": 0.0,
                       "decode_steps": 0}
@@ -132,12 +135,13 @@ class Transcriber:
 
     @torch.inference_mode()
     def transcribe_batch(self, waveforms, lengths, max_output_length: Optional[int] = None,
-                         beam_size: int = 1, **generate_kwargs) -> List[str]:
+                         beam_size: int = 1, beam_alpha: float = 1.0,
+                         **generate_kwargs) -> List[str]:
         """Batched path: ``waveforms`` (B, N) float32 padded to a common
         length (numpy or a tensor, on the host or the device), ``lengths``
-        the valid samples per row. Greedy only for now."""
-        if beam_size > 1:
-            raise NotImplementedError("beam search is not ported yet")
+        the valid samples per row. ``beam_size`` > 1 decodes with beam search
+        and the GNMT length penalty ``beam_alpha``, keeping the best
+        hypothesis; the default is greedy."""
         waveforms = torch.as_tensor(waveforms, dtype=torch.float32).to(self.device)
         lengths = torch.as_tensor(lengths).to(self.device)
         feats, frame_lengths = device_frontend(waveforms, lengths,
@@ -146,13 +150,23 @@ class Transcriber:
         enc, _, enc_mask = self.model.encode(feats, frame_lengths)
         if max_output_length is None:
             max_output_length = int(enc.shape[1] * 1.5) + 8
-        out, _, _ = transformer_greedy(self.decode_model, self.spec, enc, enc_mask,
-                                       max_output_length, device=self.device,
-                                       stats=self.stats, **generate_kwargs)
+        if beam_size > 1:
+            out, _, _ = beam_search(self.decode_model, self.spec, enc, None, enc_mask,
+                                    beam_size, max_output_length, alpha=beam_alpha,
+                                    n_best=1, device=self.device, stats=self.stats,
+                                    **generate_kwargs)
+        else:
+            out, _, _ = transformer_greedy(self.decode_model, self.spec, enc, enc_mask,
+                                           max_output_length, device=self.device,
+                                           stats=self.stats, **generate_kwargs)
         self.stats["requests"] += 1
         self.stats["utterances"] += len(out)
         self.stats["audio_seconds"] += float(lengths.sum()) / self.sample_rate
 
         pad_tok, eos_tok = self.trg_vocab.specials[1], self.trg_vocab.specials[3]
-        return [" ".join(t for t in tokens if t not in (pad_tok, eos_tok))
-                for tokens in self.trg_vocab.arrays_to_sentences(out)]
+        texts = []
+        for tokens in self.trg_vocab.arrays_to_sentences(out, cut_at_eos=True):
+            tokens = [t for t in tokens if t not in (pad_tok, eos_tok)]
+            texts.append(" ".join(tokens) if self.tokenizer is None
+                         else self.tokenizer.post_process(tokens))
+        return texts

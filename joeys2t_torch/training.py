@@ -21,9 +21,11 @@ loop, and on the card the thread did not shorten an update) and logs the
 share of the loop's wall that went to the pipeline; device metrics are read
 at the logging and validation boundaries only. Schedulers step where the JAX
 loop steps them: per update, per epoch (:694-696) or per validation
-(:916-918). Validation decodes greedily. Not ported yet: profiling, a
-TensorBoard writer, attention plots, ``load_encoder``/``load_decoder``,
-``freeze``, and the multihost, tensor- and pipeline-parallel paths.
+(:916-918). Validation decodes greedily. ``load_encoder``/``load_decoder``
+initialize the encoder or decoder from another checkpoint
+(``init_layers`` :630). Not ported yet: profiling, a TensorBoard writer,
+attention plots, ``freeze``, and the multihost, tensor- and
+pipeline-parallel paths.
 """
 import math
 import time
@@ -33,9 +35,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from joeys2t_torch.checkpoints import CheckpointManager, load_checkpoint
-from joeys2t_torch.config import (TestConfig, TrainConfig, log_config, parse_global_args,
-                                  set_validation_args)
+from joeys2t_torch.checkpoints import CheckpointManager, load_checkpoint, partial_load
+from joeys2t_torch.config import (TestConfig, TrainConfig, check_ported, log_config,
+                                  parse_global_args, set_validation_args)
 from joeys2t_torch.data.batch import Batch
 from joeys2t_torch.helpers import resolve_device, write_list_to_file
 from joeys2t_torch.losses import loss_terms
@@ -105,6 +107,10 @@ class TrainManager:
                 reset_scheduler=self.args.reset_scheduler,
                 reset_optimizer=self.args.reset_optimizer,
                 reset_iter_state=self.args.reset_iter_state)
+        for layer_name, load_path in (("encoder", self.args.load_encoder),
+                                      ("decoder", self.args.load_decoder)):
+            if load_path is not None:
+                self.init_layers(load_path, layer_name)
 
     @property
     def current_lr(self) -> float:
@@ -261,6 +267,14 @@ class TrainManager:
             self.train_iter_state = ckpt.get("train_iter_state")
         else:
             logger.info("Reset data iterator (random seed: {%d}).", self.seed)
+
+    def init_layers(self, path, layer: str) -> None:
+        """Initialize the ``encoder`` or ``decoder`` from the model state of
+        another checkpoint, for transfer such as ASR -> ST (:630-637)."""
+        logger.info("Loading %s layers from %s", layer, path)
+        state, _ = partial_load(self.model.state_dict(),
+                                load_checkpoint(path)["model_state"], layer)
+        self.model.load_state_dict(state, strict=True)
 
     # -------------------------------------------------------------- main loop
     def train_and_validate(self, train_data, valid_data) -> None:
@@ -505,6 +519,7 @@ def train(cfg: Dict, skip_test: bool = False) -> None:
     dev and test sets (joeynmt/training.py:829-895)."""
     log_config(cfg)
     args = parse_global_args(cfg, rank=0, mode="train")
+    check_ported(args)
     model, spec, loss_fn, train_data, dev_data, test_data = prepare(args, rank=0,
                                                                     mode="train")
     trainer = TrainManager(model, spec, loss_fn, args.train, seed=args.seed,

@@ -8,7 +8,10 @@ the model directory; ``test -o`` and ``translate`` read it. Then, in
 process: resuming from a checkpoint restores the model, optimizer,
 scheduler, statistics and sampler state, and one more update continues
 exactly as the trainer that wrote the checkpoint; and the loop steps each
-kind of scheduler where the JAX loop steps it."""
+kind of scheduler where the JAX loop steps it. The speech-translation leg
+(``configs/synthetic_st.yaml`` cut the same way, BLEU, beam 5) trains from
+the ASR model's encoder through ``load_encoder``. Unported options stop a
+run before it loads data."""
 import copy
 import dataclasses
 import os
@@ -203,3 +206,88 @@ def test_loop_steps_schedulers_where_jax_does(trained, tmp_path, scheduling, ste
     rates = [float(re.search(r"LR: ([\d.]+)", line).group(1)) for line in
              (tmp_path / "model" / "validations.txt").read_text().splitlines()]
     assert np.isclose(rates[-1], tm.current_lr, rtol=1e-6)
+
+
+@pytest.mark.parametrize("section,option", [
+    ("testing", {"beam_reorder": "lazy"}), ("testing", {"return_attention": True}),
+    ("testing", {"repetition_penalty": 1.2}), ("model", {"cache_self_int8": True})])
+@pytest.mark.parametrize("mode", ["train", "test", "translate"])
+def test_runs_refuse_unported_options_before_loading_data(tmp_path, mode, section,
+                                                          option):
+    """An option the port does not have stops ``train``, ``test`` and
+    ``translate`` at once: here the data does not even exist."""
+    from joeys2t_torch.prediction import test, translate
+    from joeys2t_torch.training import train
+
+    cfg = tiny_cfg(tmp_path / "no_data", tmp_path / "model")
+    cfg[section].update(option)
+    with pytest.raises(NotImplementedError):
+        {"train": train, "test": test, "translate": translate}[mode](cfg)
+
+
+def test_load_encoder_initializes_the_encoder(trained, tmp_path):
+    """``load_encoder`` takes the encoder of a checkpoint with more layers:
+    its first layer, subsampler and final norm load, the decoder keeps its
+    own init."""
+    tmp, _, cfg = trained
+    cfg = dict(copy.deepcopy(cfg), model_dir=str(tmp_path / "model"))
+    cfg["model"]["encoder"]["num_layers"] = 1
+    source = tmp / "model" / "best.ckpt"
+    cfg["training"]["load_encoder"] = str(source)
+    tm, _, _ = trainer(cfg)
+    saved = load_checkpoint(source)["model_state"]
+    state = tm.model.state_dict()
+    encoder = [k for k in state if k.startswith("encoder.")]
+    assert any(k.startswith("encoder.layers.0.") for k in encoder)
+    assert not any(k.startswith("encoder.layers.1.") for k in encoder)
+    for name in encoder:
+        assert torch.equal(state[name], saved[name]), name
+    decoder = [k for k in state if k.startswith("decoder.layers.")]
+    assert not any(torch.equal(state[k], saved[k]) for k in decoder if "weight" in k)
+
+
+def st_cfg(data_dir, model_dir, encoder_ckpt):
+    """``configs/synthetic_st.yaml`` at test size: its encoder as wide as
+    ``tiny_cfg``'s but of 1 layer, loaded from ``encoder_ckpt``; a 1-layer
+    decoder; 4 updates of 8 utterances, a validation every 2; BLEU and beam
+    5 as configured."""
+    from joeys2t_torch.config import load_config
+
+    cfg = load_config(REPO / "configs" / "synthetic_st.yaml")
+    cfg.update(use_cuda=False, fp16=False, model_dir=str(model_dir))
+    for split in ("train", "dev", "test"):
+        cfg["data"][split] = str(data_dir / split)
+    cfg["data"]["trg"]["voc_file"] = str(data_dir / "trg_vocab.txt")
+    cfg["testing"].update(batch_size=4)
+    cfg["training"].update(updates=4, validation_freq=2, logging_freq=1, batch_size=8,
+                           learning_rate_warmup=2, load_encoder=str(encoder_ckpt))
+    for side, layers in (("encoder", 1), ("decoder", 1)):
+        cfg["model"][side].update(num_layers=layers, hidden_size=32, ff_size=64,
+                                  num_heads=2)
+    cfg["model"]["encoder"]["conv_channels"] = 32
+    cfg["model"]["decoder"]["embeddings"]["embedding_dim"] = 32
+    return cfg
+
+
+def test_speech_translation_leg_trains_from_the_asr_encoder(trained, tmp_path):
+    tmp, _, _ = trained
+    data = tmp_path / "st"
+    subprocess.run([sys.executable, str(REPO / "scripts" / "generate_synthetic_st.py"),
+                    "--out", str(data), "--train", "24", "--dev", "8", "--test", "8"],
+                   check=True, capture_output=True, timeout=120)
+    cfg = st_cfg(data, tmp_path / "model", tmp / "model" / "best.ckpt")
+    assert cfg["testing"]["beam_size"] == 5 and cfg["testing"]["eval_metrics"] == ["bleu"]
+    (tmp_path / "st.yaml").write_text(dump_yaml(cfg), encoding="utf-8")
+    cli("train", tmp_path / "st.yaml")
+    model_dir = tmp_path / "model"
+    log = (model_dir / "train.log").read_text()
+    assert "partial_load(encoder)" in log and "1 layers loaded, 1 layers ignored" in log
+    lines = (model_dir / "validations.txt").read_text().splitlines()
+    bleus = [float(re.search(r"\tbleu: ([\d.]+)\t", line).group(1)) for line in lines]
+    assert len(bleus) == 2
+    # early stopping on BLEU: the best checkpoint has the highest score
+    best = 2 * (1 + bleus.index(max(bleus)))
+    assert os.readlink(model_dir / "best.ckpt") == f"{best}.ckpt"
+    assert "Beam search with beam_size=5" in log
+    for split in ("dev", "test"):
+        assert len((model_dir / f"best.hyps.{split}").read_text().splitlines()) == 8

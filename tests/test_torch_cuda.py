@@ -1,8 +1,9 @@
 # coding: utf-8
 """The port's CUDA kernels against their plain versions (flash attention
 forward and backward, with and without dropout, and the dropout mask bit
-for bit; decode attention), and a small model on the card against the CPU,
-serving and one training update. Needs a CUDA card and nvcc; skipped without
+for bit; decode attention, also with query rows sharing a cache row), and a
+small model on the card against the CPU (greedy and beam search, serving and
+one training update). Needs a CUDA card and nvcc; skipped without
 them. Run on a card with (the suite's conftest.py imports JAX, which the
 card's machine need not have):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py"""
@@ -14,7 +15,7 @@ from joeys2t_torch.config import SpecialSymbols
 from joeys2t_torch.models import build_model
 from joeys2t_torch.ops import decode_attention as da
 from joeys2t_torch.ops import flash_attention as fa
-from joeys2t_torch.search import transformer_greedy
+from joeys2t_torch.search import beam_search, transformer_greedy
 from joeys2t_torch.vocabulary import Vocabulary
 
 pytestmark = pytest.mark.cuda
@@ -210,6 +211,39 @@ def test_decode_kernel_matches_plain(card, mode, d, s, b, h):
         del kg, vg, sign
 
 
+@pytest.mark.parametrize("mode", ["f32", "bf16", "channel", "position"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 65, 250, 750])
+@pytest.mark.parametrize("b,h,group", [(1, 4, 5), (3, 2, 2), (32, 4, 5)])
+def test_decode_kernel_group_matches_expanded_cache(card, mode, d, s, b, h, group):
+    """``group`` G query rows a cache row (the beam-shared cross cache):
+    bit for bit the kernel with one query a row over the cache, bias and
+    scales repeated G times (the same plan, the same math per row), and
+    within the tolerances above of the plain version; group 1 of the
+    expanded cache stays the kernel it was."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    mask_gen = torch.Generator().manual_seed(6)
+    qdt = torch.float32 if mode == "f32" else torch.bfloat16
+    q = torch.randn(b * group, h, d, generator=gen, device=card).to(qdt)
+    kf, vf = (torch.randn(b, h, s, d, generator=gen, device=card) for _ in range(2))
+    k, v, ks, vs = decode_caches(mode, kf, vf, qdt)
+    kw = dict(sm_scale=d ** -0.5, scale_layout=mode if ks is not None else None)
+    tol = 1e-5 if qdt == torch.float32 else 1e-2
+
+    def expand(t):
+        return None if t is None else t.repeat_interleave(group, 0).contiguous()
+
+    for kind in DECODE_MASKS:
+        bias = torch.where(decode_valid(kind, b, s, mask_gen).to(card), 0.0, -1e9).float()
+        out = da.decode_attention(q, k, v, bias, ks, vs, group=group, **kw)
+        flat = da.decode_attention(q, *map(expand, (k, v, bias, ks, vs)), **kw)
+        ref = da.decode_attention_plain(q, k, v, bias, ks, vs, group=group, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, flat), f"{kind}: group {group} differs from the expanded cache"
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0,
+                                   msg=lambda m, kind=kind: f"{kind}: {m}")
+
+
 def legal_plans(s):
     """Every launch plan (splits, split_rows) the C entry point takes for S
     rows: 1-16 splits of any length, none empty (one split: S rows, and S
@@ -299,7 +333,12 @@ def test_small_model_card_matches_cpu(card):
             model, spec = build_model(cfg, trg_vocab=vocab, device=dev,
                                       generator=torch.Generator().manual_seed(3))
             enc, _, mask = model.encode(feats.to(dev), lengths.to(dev))
+            beam = beam_search(model, spec, enc, None, mask, 5, 20, 1.0, n_best=2,
+                               device=dev, return_prob="hyp")
             outs[str(dev)] = (enc.cpu() * mask.cpu()[:, 0, :, None],
-                              transformer_greedy(model, spec, enc, mask, 20, device=dev)[0])
+                              transformer_greedy(model, spec, enc, mask, 20, device=dev)[0],
+                              beam[0], beam[1])
     torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], atol=1e-4, rtol=0)
     np.testing.assert_array_equal(outs["cuda"][1], outs["cpu"][1])
+    np.testing.assert_array_equal(outs["cuda"][2], outs["cpu"][2])  # beam 5, 2-best
+    np.testing.assert_allclose(outs["cuda"][3], outs["cpu"][3], atol=1e-4, rtol=0)

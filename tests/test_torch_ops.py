@@ -338,6 +338,67 @@ def test_decode_plain_matches_einsum_path(mode):
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("mode", DECODE_MODES)
+def test_decode_group_matches_expanded_cache(mode):
+    """``group`` G: query row r reads cache row r // G, the same as one
+    query a row over the cache repeated G times."""
+    g = 3
+    q, k, v, bias, ks, vs = _decode_inputs(mode, seed=5, mask="cross_tail")
+    q = np.random.RandomState(6).randn(k.shape[0] * g, *q.shape[1:]).astype(np.float32)
+    dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+    kv_dtype = torch.int8 if k.dtype == np.int8 else dtype
+    args = [torch.tensor(x) for x in (k, v, bias)]
+    args[:2] = [a.to(kv_dtype) for a in args[:2]]
+    scales = [None if x is None else torch.tensor(x) for x in (ks, vs)]
+    layout = None if mode in ("f32", "bf16") else mode
+    qt = torch.tensor(q).to(dtype)
+    out = port_da.decode_attention(qt, *args, *scales, sm_scale=0.125, scale_layout=layout,
+                                   group=g)
+    expanded = [a.repeat_interleave(g, 0) for a in args]
+    ref = port_da.decode_attention(
+        qt, *expanded, *[None if x is None else x.repeat_interleave(g, 0) for x in scales],
+        sm_scale=0.125, scale_layout=layout)
+    assert out.shape == qt.shape and out.dtype == dtype
+    np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(), atol=1e-6,
+                               rtol=1e-6)
+    with pytest.raises(ValueError):
+        port_da.decode_attention(qt, *args, *scales, sm_scale=0.125, scale_layout=layout,
+                                 group=2)
+
+
+@pytest.mark.parametrize("mode", ["f32", "channel"])
+def test_decode_group_matches_beam_step_cross(mode):
+    """The plain version with ``group`` against the JAX beam path of
+    ``step_cross`` (``beam_k``: the einsum "bkhd,bhsd->bkhs" over the
+    beam-shared cross cache) at float32, projections included."""
+    beam_k = 4
+    _, k, v, bias, ks, vs = _decode_inputs(mode, seed=7, mask="cross_tail")
+    b, h, s, d = k.shape
+    x = np.random.RandomState(8).randn(b * beam_k, 1, h * d).astype(np.float32)
+    mha = JaxMHA(num_heads=h, size=h * d, dropout=0.0)
+    params = mha.init(
+        {"params": jax.random.PRNGKey(1)}, jnp.zeros((1, 2, h * d)),
+        jnp.zeros((1, 2, h * d)), jnp.zeros((1, 2, h * d)))["params"]
+    out_j = mha.apply(
+        {"params": params}, jnp.asarray(x), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(bias > NEG_INF / 2)[:, None, :],
+        None if ks is None else jnp.asarray(ks), None if vs is None else jnp.asarray(vs),
+        beam_k=beam_k, method="step_cross")[0]
+
+    def dense(name, t):
+        return (t @ torch.tensor(np.asarray(params[name]["kernel"]))
+                + torch.tensor(np.asarray(params[name]["bias"])))
+
+    q_h = dense("q_layer", torch.tensor(x)).reshape(b * beam_k, h, d)
+    ctx = port_da.decode_attention(
+        q_h, torch.tensor(k), torch.tensor(v), torch.tensor(bias),
+        None if ks is None else torch.tensor(ks), None if vs is None else torch.tensor(vs),
+        sm_scale=1.0 / np.sqrt(d), scale_layout=None if mode == "f32" else mode,
+        group=beam_k)
+    out_t = dense("output_layer", ctx.reshape(b * beam_k, 1, h * d))
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=1e-5, rtol=1e-5)
+
+
 def test_quantize_per_position_matches_jax():
     x = np.random.RandomState(4).randn(2, 3, 7, 64).astype(np.float32)
     q_j, s_j = jax_da.quantize_per_position(jnp.asarray(x))

@@ -68,9 +68,9 @@ def setup(tmp_path_factory):
     return tmp, corpus, cfg, params
 
 
-def jax_side(cfg, params, return_prob):
+def jax_side(cfg, params, return_prob, **testing):
     cfg = copy.deepcopy(cfg)
-    cfg["testing"]["return_prob"] = return_prob
+    cfg["testing"].update(return_prob=return_prob, **testing)
     args = jax_parse_global_args(cfg, mode="train")
     model, spec, _, loss_fn, _, dev, _ = jax_prepare(args, mode="train")
     return jax_predict(params, model, spec, dev, loss_fn=jax_loss_function(args.train, spec),
@@ -78,9 +78,9 @@ def jax_side(cfg, params, return_prob):
                        args=args.test)
 
 
-def port_side(cfg, params, return_prob):
+def port_side(cfg, params, return_prob, **testing):
     cfg = copy.deepcopy(cfg)
-    cfg["testing"]["return_prob"] = return_prob
+    cfg["testing"].update(return_prob=return_prob, **testing)
     args = parse_global_args(cfg, mode="train")
     model, spec, loss_fn, _, dev, _ = prepare(args, mode="train")
     model.load_state_dict(flax_params_to_state_dict(params))
@@ -113,6 +113,48 @@ def test_predict_matches_jax(setup, return_prob):
     for a, b in zip(seq_scores, ref[4]):
         np.testing.assert_allclose(np.asarray(a, np.float64), np.asarray(b, np.float64),
                                    rtol=1e-5, atol=1e-5)
+
+
+BEAM = {"beam_size": 5, "beam_alpha": 1.0, "max_output_length": 12}
+
+
+@pytest.mark.parametrize("n_best", [1, 2])
+def test_predict_beam_matches_jax(setup, n_best):
+    """Beam 5 with ``n_best`` hypotheses and their scores: token for token
+    and to 1e-5 relative, with the 1-best scored."""
+    _, _, cfg, params = setup
+    ref = jax_side(cfg, params, "hyp", n_best=n_best, **BEAM)
+    (scores, refs, hyps, decoded, seq_scores, _), stats = port_side(
+        cfg, params, "hyp", n_best=n_best, **BEAM)
+    assert decoded == ref[3] and hyps == ref[2] and refs == ref[1]
+    assert len(decoded) == 8 * n_best and scores["wer"] == ref[0]["wer"]
+    assert 0 < stats["decode_steps"] <= 2 * 16  # 12 rounds up to the bucket 16
+    assert len(seq_scores) == 8 * n_best
+    np.testing.assert_allclose(np.asarray(seq_scores, np.float64),
+                               np.asarray(ref[4], np.float64), rtol=1e-5)
+
+
+@pytest.mark.parametrize("n_best", [1, 2])
+def test_beam_test_writes_the_files_jax_writes(setup, n_best):
+    """``test -o`` with beam 5 and ``n_best`` hypotheses an example from a
+    converted JAX checkpoint writes the JAX ``test``'s files."""
+    tmp, _, cfg, params = setup
+    jax_dir, port_dir = tmp / f"jax_beam{n_best}", tmp / f"port_beam{n_best}"
+    jax_dir.mkdir()
+    port_dir.mkdir()
+    jax_save_checkpoint(jax_dir / "best.ckpt", {"model_state": params})
+    torch.save({"model_state": flax_params_to_state_dict(params)}, port_dir / "best.ckpt")
+    for out_dir in (jax_dir, port_dir):
+        run_cfg = dict(copy.deepcopy(cfg), model_dir=str(out_dir))
+        run_cfg["testing"].update(n_best=n_best, **BEAM)
+        (jax_test if out_dir == jax_dir else port_test)(
+            run_cfg, output_path=str(out_dir / "out"))
+    names = sorted(p.name for p in jax_dir.glob("out*"))
+    assert names == sorted(p.name for p in port_dir.glob("out*"))
+    assert len(names) == 2 * n_best  # dev and test, one file per rank
+    for name in names:
+        assert (port_dir / name).read_text(encoding="utf-8") == \
+            (jax_dir / name).read_text(encoding="utf-8"), name
 
 
 def test_converted_jax_checkpoint_tests_like_jax(setup):

@@ -1,7 +1,7 @@
 # coding: utf-8
-"""The port's Transcriber (wav -> fbank + CMVN -> encoder -> greedy ->
-text) against the JAX package's Transcriber on the same weights and
-waveforms, on the CPU. Model size as in test_torch_model.py."""
+"""The port's Transcriber (wav -> fbank + CMVN -> encoder -> greedy or
+beam search -> text) against the JAX package's Transcriber on the same
+weights and waveforms, on the CPU. Model size as in test_torch_model.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,7 +14,9 @@ from joeys2t_tpu.serving import Transcriber as JaxTranscriber
 from joeys2t_tpu.serving import split_at_low_energy as jax_split
 from test_torch_model import TOKENS, jax_s2t, port_from_jax
 from joeys2t_torch.config import SpecialSymbols
+from joeys2t_torch.tokenizers import BasicTokenizer
 from joeys2t_torch.vocabulary import Vocabulary
+from joeys2t_tpu.tokenizers import BasicTokenizer as JaxBasicTokenizer
 
 
 def speechlike(rng, n):
@@ -114,7 +116,30 @@ def test_split_at_low_energy_matches_jax():
             jax_split(wave, 16000, chunk, search)
 
 
-def test_beam_search_not_ported(transcribers):
-    _, port_asr = transcribers
-    with pytest.raises(NotImplementedError):
-        port_asr.transcribe_batch(np.zeros((1, 16000), np.float32), [16000], beam_size=5)
+@pytest.mark.parametrize("level", [None, "char"])
+def test_transcribe_beam_matches_jax(transcribers, level):
+    """Beam 5 with length penalty 1 through both Transcribers; with a target
+    tokenizer both detokenize with its ``post_process``."""
+    jax_asr, port_asr = transcribers
+    tokenizers = (None, None)
+    if level is not None:
+        tokenizers = (JaxBasicTokenizer(level=level), BasicTokenizer(level=level))
+        tokenizers[0].set_vocab(jax_asr.trg_vocab)
+        tokenizers[1].set_vocab(port_asr.trg_vocab)
+    rng = np.random.RandomState(5)
+    waves = [speechlike(rng, n) for n in (16000, 24000, 31000)]
+    batch = np.zeros((3, 32000), np.float32)
+    for i, w in enumerate(waves):
+        batch[i, :len(w)] = w
+    lengths = np.array([len(w) for w in waves])
+    jax_asr.tokenizer, port_asr.tokenizer = tokenizers
+    try:
+        ours = port_asr.transcribe_batch(batch, lengths, max_output_length=12, beam_size=5,
+                                         beam_alpha=1.0)
+        theirs = jax_asr.transcribe_batch(batch, lengths, max_output_length=12,
+                                          beam_size=5, beam_alpha=1.0)
+    finally:
+        jax_asr.tokenizer = port_asr.tokenizer = None
+    assert ours == theirs and len(ours) == 3 and all(ours)
+    if level == "char":
+        assert all(" " not in t for t in ours)

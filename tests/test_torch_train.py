@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from joeys2t_torch import optim as port_optim
-from joeys2t_torch.config import SpecialSymbols, parse_train_args
+from joeys2t_torch.config import ConfigurationError, SpecialSymbols, parse_train_args
 from joeys2t_torch.convert import flax_params_to_state_dict
 from joeys2t_torch.data.batch import Batch
 from joeys2t_torch.losses import build_loss_function
@@ -291,7 +291,7 @@ def test_optimizer_update_matches_optax(name, wd):
 
 def test_unported_options_raise():
     for extra in ({"optimizer": "sgd"}, {"moment_dtype": "bfloat16"},
-                  {"model_parallel": 2}, {"load_encoder": "x.ckpt"}):
+                  {"model_parallel": 2}):
         with pytest.raises(NotImplementedError):
             parse_train_args(dict(TRAINING, **extra))
     vocab = Vocabulary(TOKENS, SpecialSymbols())
@@ -301,6 +301,86 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         TrainManager(model, spec, build_loss_function(args, spec), args, model_cfg=frozen,
                      device="cpu")
+
+
+@pytest.mark.parametrize("option,error", [
+    ({"cache_cross_int8": True}, NotImplementedError),
+    ({"cache_self_int8": True}, NotImplementedError),
+    ({"decoder": {"cache_cross_int8": True}}, NotImplementedError),
+    ({"tied_softmax": True}, NotImplementedError),
+    ({"tied_embeddings": True}, ConfigurationError),
+    ({"tied_embeddings": True, "tied_softmax": True}, ConfigurationError),
+])
+def test_unported_model_options_raise(option, error):
+    """The int8 decode caches and the tied output layer are not ported and
+    raise rather than be ignored; tied embeddings need a source vocabulary,
+    which a speech model has not."""
+    cfg = model_cfg()
+    for key, value in option.items():
+        if isinstance(value, dict):
+            cfg[key] = dict(cfg[key], **value)
+        else:
+            cfg[key] = value
+    with pytest.raises(error):
+        build_model(cfg, trg_vocab=Vocabulary(TOKENS, SpecialSymbols()), device="cpu")
+
+
+# ------------------------------------------------------------- partial load
+def _encoder_states(num_layers, hidden=64):
+    """(JAX params, port state dict) of a speech model with ``num_layers``
+    encoder layers of width ``hidden``, every tensor drawn from a seed: the
+    port model's, converted to JAX's tree by ``torch_state_dict_to_flax``."""
+    from joeys2t_tpu.convert import torch_state_dict_to_flax
+
+    cfg = model_cfg()
+    for side in ("encoder", "decoder"):
+        cfg[side] = dict(cfg[side], hidden_size=hidden, ff_size=hidden)
+    cfg["encoder"].update(num_layers=num_layers, conv_channels=hidden)
+    cfg["decoder"]["embeddings"] = dict(cfg["decoder"]["embeddings"], embedding_dim=hidden)
+    model, _ = build_model(cfg, trg_vocab=Vocabulary(TOKENS, SpecialSymbols()), device="cpu")
+    gen = torch.Generator().manual_seed(num_layers + hidden)
+    state = {k: torch.randn(v.shape, generator=gen) for k, v in model.state_dict().items()}
+    return torch_state_dict_to_flax({k: v.numpy() for k, v in state.items()}), state
+
+
+@pytest.mark.parametrize("src_layers,dst_layers,prefix", [
+    (16, 12, "encoder"), (2, 3, "encoder"), (16, 12, "decoder")])
+def test_partial_load_matches_jax(src_layers, dst_layers, prefix):
+    """Loading the encoder (or decoder) of a checkpoint: the tensors in both
+    load, the model's own extra layers keep their init, the checkpoint's
+    extra layers are ignored, the rest of the model is untouched."""
+    from joeys2t_torch.checkpoints import partial_load
+    from joeys2t_tpu.checkpoints import partial_load as jax_partial_load
+
+    src_params, src_state = _encoder_states(src_layers)
+    dst_params, dst_state = _encoder_states(dst_layers)
+    merged, stats = partial_load(dst_state, src_state, prefix)
+    ref = flax_params_to_state_dict(jax_partial_load(dst_params, src_params, prefix))
+    assert sorted(merged) == sorted(ref) == sorted(dst_state)
+    for name, value in merged.items():
+        assert torch.equal(value, ref[name]), name
+    per_layer = sum(k.startswith("encoder.layers.0.") for k in dst_state)
+    if prefix == "encoder":
+        assert stats["layers_loaded"] == min(src_layers, dst_layers)
+        assert stats["layers_ignored"] == max(0, src_layers - dst_layers)
+        assert stats["missing"] == per_layer * max(0, dst_layers - src_layers)
+        assert stats["unexpected"] == per_layer * max(0, src_layers - dst_layers)
+        changed = {k for k in merged if not torch.equal(merged[k], dst_state[k])}
+        assert changed and all(k.startswith("encoder.") for k in changed)
+    else:  # the decoders are alike: all of it loads
+        assert stats["missing"] == stats["unexpected"] == stats["layers_ignored"] == 0
+
+
+def test_partial_load_shape_mismatch_raises():
+    from joeys2t_torch.checkpoints import partial_load
+    from joeys2t_tpu.checkpoints import partial_load as jax_partial_load
+
+    src_params, src_state = _encoder_states(2, hidden=32)
+    dst_params, dst_state = _encoder_states(2, hidden=64)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        partial_load(dst_state, src_state, "encoder")
+    with pytest.raises(ValueError, match="shape mismatch"):
+        jax_partial_load(dst_params, src_params, "encoder")
 
 
 # -------------------------------------------------------------------- batch
