@@ -89,7 +89,31 @@ goes wrong:
    the 16 layers load, 4 are ignored), through ``train``, ``test -o`` and
    ``translate``: BLEU in validations.txt, ``best.ckpt`` at the highest
    BLEU, beam 5 in ``test`` and ``translate``, and exact launch counts with
-   the plain versions refused.
+   the plain versions refused;
+9. int8 serving: phase 3's librispeech_100h model with ``cache_cross_int8``
+   and ``cache_self_int8`` serves greedy 64 x 10 s and beam 5 over 32 x 10 s
+   with exact launch counts, every decode launch int8 (channel scales on the
+   cross caches, position scales on the self ring buffers), the kernel held
+   against its plain version on the path's own inputs, audio-s/s and K5's
+   device ms a step beside phase 3's, the share of words equal to the bf16
+   requests'; then a small float32 int8 model gives the same tokens and
+   beams on the card and the CPU;
+10. SentencePiece targets: phase 7's config and corpus with ``level: bpe,
+    tokenizer_type: sentencepiece`` on a unigram model written by
+    ``joeys2t_torch.tools.spm_fixture`` through ``train`` (8 updates),
+    ``test -o`` and ``translate``, then ``load_model_dir`` and
+    ``Transcriber.from_hub``: detokenized text, the model file in the model
+    directory, exact launch counts, each kernel against its plain version;
+11. Conformer: configs/synthetic_asr_conformer.yaml (read by the port's own
+    YAML reader) at full width through ``train`` (16 updates), ``test -o``
+    and ``translate``, exact launch counts, each kernel against its plain
+    version on the path's inputs, a float32 cut ``test`` identical on card
+    and CPU, ms an update beside phase 7's.
+
+Phases 9-11 run after phase 8, each with the counters zeroed just before
+its runs and the plain versions refused. Phase 2 also holds decode attention
+with int8 channel scales and ``group`` 5 bit for bit against group 1, and
+times int8 cases against SDPA on the dequantized cache.
 
 Phase 2 also holds the flash backward against its plain version at the
 training path's shapes (B=64 Sq=Sk=250; B=64 Sq=47 Sk=250; B=2 Sq=Sk=750),
@@ -199,14 +223,18 @@ def profiled(fn):
 def counters():
     """{name: (object, attribute)} of the kernel wrappers' launch counters;
     ``decode_attention_group`` counts the decode launches whose query rows
-    share a cache row (beam search's cross attention)."""
+    share a cache row (beam search's cross attention), and
+    ``decode_attention_int8_{channel,position}`` those on int8 caches with
+    channel scales (cross) or position scales (self)."""
     from joeys2t_torch.ops import decode_attention as da
     from joeys2t_torch.ops import flash_attention as fa
 
     return {"flash_attention_fwd": (fa.flash_attention_fwd, "launches"),
             "flash_attention_bwd": (fa.flash_attention_bwd, "launches"),
             "decode_attention": (da.decode_attention, "launches"),
-            "decode_attention_group": (da.decode_attention, "group_launches")}
+            "decode_attention_group": (da.decode_attention, "group_launches"),
+            "decode_attention_int8_channel": (da.decode_attention, "channel_launches"),
+            "decode_attention_int8_position": (da.decode_attention, "position_launches")}
 
 
 def zero_counters() -> None:
@@ -519,10 +547,23 @@ def decode_inputs(kind, b, s, valid_spec, mode, gen):
     return (q, k, v, bias, ks, vs), dict(sm_scale=d ** -0.5, scale_layout=layout), valid
 
 
+def sdpa_inputs(args, layout):
+    """SDPA's arguments for one decode call ``(q, k, v, bias, k_scale,
+    v_scale)``: int8 caches dequantized to q's dtype beforehand (SDPA takes no
+    int8), so SDPA's time is that of one pass over a bf16 cache."""
+    q, k, v, bias, ks, vs = args
+    if layout == "channel":
+        k, v = (t.float() * sc[:, :, None, :] for t, sc in ((k, ks), (v, vs)))
+    elif layout == "position":
+        k, v = (t.float() * sc[..., None] for t, sc in ((k, ks), (v, vs)))
+    return (q[:, :, None, :], k.to(q.dtype), v.to(q.dtype),
+            bias.to(q.dtype)[:, None, None, :])
+
+
 def decode_case(kind, b, s, valid_spec, mode, gen, timed):
     """The kernel against the plain version (and a second call bit for bit);
-    when ``timed``, the kernel, SDPA and the plain version, the first two on
-    cold inputs. The bound counts the
+    when ``timed``, the kernel, SDPA (on the dequantized cache for int8) and
+    the plain version, the first two on cold inputs. The bound counts the
     bytes the work needs: the K/V rows (and "position" scales) of a row's
     valid keys, or all S rows where every key is masked, plus q, the whole
     bias, the "channel" scales and the output."""
@@ -556,14 +597,10 @@ def decode_case(kind, b, s, valid_spec, mode, gen, timed):
     bound_ms, bound_by = bound(n_bytes, flops, k.dtype)
     copies = cold_copies(args)
     ms = time_cold_ms([lambda c=c: da.decode_attention(*c, **kw) for c in copies])
-    library_ms = None
-    if k.dtype != torch.int8:
-        sdpa = [(c[0][:, :, None, :], c[1], c[2], c[3].to(q.dtype)[:, None, None, :])
-                for c in copies]
-        library_ms = time_cold_ms([lambda c=c: torch.nn.functional.scaled_dot_product_attention(
-            c[0], c[1], c[2], attn_mask=c[3], scale=kw["sm_scale"]) for c in sdpa])
-        del sdpa
-    del copies
+    sdpa = [sdpa_inputs(c, kw["scale_layout"]) for c in copies]
+    library_ms = time_cold_ms([lambda c=c: torch.nn.functional.scaled_dot_product_attention(
+        c[0], c[1], c[2], attn_mask=c[3], scale=kw["sm_scale"]) for c in sdpa])
+    del sdpa, copies
     case.update(ms=ms, plain_ms=time_ms(lambda: da.decode_attention_plain(*args, **kw), iters=5),
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                 roofline=bound_ms / ms, tflops=flops / ms / 1e9, needed_rows=needed,
@@ -580,9 +617,10 @@ def decode_group_case(mode, gen):
     """Decode attention with ``group`` 5 at the beam cross shape against the
     plain version, bit for bit against group 1 on the cache, bias and
     scales repeated 5 times, and two calls bit-identical; the kernel, the
-    expanded group-1 call and SDPA on the expanded cache timed on cold L2.
-    Two bounds: one pass over the shared cache (each input read once, the
-    bound proper) and one pass for each of the G queries of a row."""
+    expanded group-1 call and SDPA on the expanded (for int8: also
+    dequantized) cache timed on cold L2. Two bounds: one pass over the
+    shared cache (each input read once, the bound proper) and one pass for
+    each of the G queries of a row."""
     from joeys2t_torch.ops import decode_attention as da
 
     b, g, s = BEAM_CROSS
@@ -609,21 +647,20 @@ def decode_group_case(mode, gen):
     splits, split_rows = da.decode_plan(b * g, h, s, da.num_sms(q.device))
     needed = torch.where(valid.any(1), valid.sum(1), s).sum().item() * h  # cache rows
     flops = 4 * needed * g * d
-    fixed = nbytes(q, bias, out)
+    fixed = nbytes(q, bias, out, ks, vs)
     bound_ms, bound_by = bound(needed * d * k.element_size() * 2 + fixed, flops, k.dtype)
     g_bound_ms, _ = bound(g * needed * d * k.element_size() * 2 + fixed, flops, k.dtype)
-    copies = cold_copies((q, k, v, bias))
+    copies = cold_copies((q, k, v, bias, ks, vs))
     ms = time_cold_ms([lambda c=c: da.decode_attention(*c, group=g, **kw) for c in copies])
     del copies
-    flat_copies = cold_copies((q, expand(k), expand(v), expand(bias)))
+    flat_copies = cold_copies((q, *map(expand, (k, v, bias, ks, vs))))
     flat_ms = time_cold_ms([lambda c=c: da.decode_attention(*c, **kw) for c in flat_copies])
-    sdpa = [(c[0][:, :, None, :], c[1], c[2], c[3].to(q.dtype)[:, None, None, :])
-            for c in flat_copies]
+    sdpa = [sdpa_inputs(c, kw["scale_layout"]) for c in flat_copies]
     library_ms = time_cold_ms([lambda c=c: torch.nn.functional.scaled_dot_product_attention(
         c[0], c[1], c[2], attn_mask=c[3], scale=kw["sm_scale"]) for c in sdpa])
     del sdpa, flat_copies
-    plain_ms = time_ms(lambda: da.decode_attention_plain(q, k, v, bias, group=g, **kw),
-                       iters=5)
+    plain_ms = time_ms(lambda: da.decode_attention_plain(q, k, v, bias, ks, vs, group=g,
+                                                         **kw), iters=5)
     return dict(case=name, max_abs_err=err, tol=tol, splits=splits, split_rows=split_rows,
                 ms=ms, flat_ms=flat_ms, plain_ms=plain_ms, library_ms=library_ms,
                 library="SDPA on the expanded cache", bound_ms=bound_ms,
@@ -643,20 +680,25 @@ def kernel_phase():
     decode = []
     for i, (kind, b, s, spec) in enumerate(DECODE_SHAPES):
         for mode in DECODE_MODES:
-            c = decode_case(kind, b, s, spec, mode, gen, mode == "bf16" or i == 0)
+            # int8 with position scales is also timed at the self shape the
+            # int8 serving path gives it (phase 9): the ring buffer half full
+            timed = mode == "bf16" or i == 0 or (mode == "int8-position"
+                                                 and (kind, b, spec) == ("self", 64, 48))
+            c = decode_case(kind, b, s, spec, mode, gen, timed)
             line = (f"[kernels] decode {c['case']}: plan {c['splits']} split(s) of "
                     f"{c['split_rows']} rows, a cluster of {c['splits']} block(s) per (b, h), "
                     f"grid ({c['splits']}, 4, {b}); err {c['max_abs_err']:.3g} (tol "
                     f"{c['tol']}), two calls bit-identical")
             if "ms" in c:
                 decode.append(c)
-                sdpa = "not measured" if c["library_ms"] is None else f"{c['library_ms']:.4f} ms"
-                line += (f"; cold L2: kernel {c['ms']:.4f} ms, SDPA {sdpa}; plain {c['plain_ms']:.4f} ms; bound "
+                sdpa = ("SDPA on the dequantized cache" if "int8" in mode else "SDPA")
+                line += (f"; cold L2: kernel {c['ms']:.4f} ms, {sdpa} {c['library_ms']:.4f} ms; "
+                         f"plain {c['plain_ms']:.4f} ms; bound "
                          f"{c['bound_ms']:.4f} ms ({c['bound_by']}; {c['needed_rows']} of "
                          f"{c['rows']} rows needed), roofline share "
                          f"{100 * c['roofline']:.1f} %")
             print(line)
-    group = [decode_group_case(mode, gen) for mode in ("bf16", "f32")]
+    group = [decode_group_case(mode, gen) for mode in ("bf16", "f32", "int8-channel")]
     for c in group:
         print(f"[kernels] decode {c['case']}: plan {c['splits']} split(s) of "
               f"{c['split_rows']} rows; err {c['max_abs_err']:.3g} (tol {c['tol']}), two "
@@ -726,7 +768,7 @@ def serving_phase():
     flash_attention_fwd.launches = 0
     decode_attention.launches = 0
     asr.stats.update(requests=0, utterances=0, audio_seconds=0.0, decode_steps=0)
-    total_wall, total_audio = 0.0, 0.0
+    total_wall, total_audio, served = 0.0, 0.0, {}
     for name, run, seconds, batches in requests:
         f0, d0 = flash_attention_fwd.launches, decode_attention.launches
         s0 = asr.stats["decode_steps"]
@@ -748,6 +790,7 @@ def serving_phase():
               f"{2 * n_dec * steps}")
         total_wall += wall
         total_audio += seconds
+        served[name] = (texts, wall, steps)
         print(f"[serving] {name}: {len(texts)} transcripts, {steps} decode steps, "
               f"{wall:.3f} s wall, {seconds / wall:.1f} audio-s/s")
     check(asr.stats["requests"] == 3, f"{asr.stats['requests']} requests served")
@@ -755,13 +798,14 @@ def serving_phase():
           "serving cast the caller's float32 master weights")
     print(f"[serving] total: {total_audio:.0f} audio-s in {total_wall:.3f} s = "
           f"{total_audio / total_wall:.1f} audio-s/s")
-    return flash_attention_fwd.launches, decode_attention.launches, asr, batch
+    return flash_attention_fwd.launches, decode_attention.launches, asr, batch, served
 
 
 def breakdown_phase(asr, batch):
     """Where the 64 x 10 s request's time goes: front end, encoder and decode
     loop on the host clock (each ending in a device sync), then the card's
-    busy share and top kernels over a profiled 16-step decode."""
+    busy share and top kernels over a profiled 16-step decode; returns K5's
+    device ms a step there."""
     from joeys2t_torch.ops.frontend import device_frontend
     from joeys2t_torch.search import transformer_greedy
 
@@ -783,16 +827,17 @@ def breakdown_phase(asr, batch):
         pstats = {}
         wall, kernels = profiled(lambda: transformer_greedy(
             asr.decode_model, asr.spec, enc, mask, 16, device="cuda", stats=pstats))
-    decode_profile("breakdown", "decode", asr, wall, kernels, pstats["decode_steps"])
+    return decode_profile("breakdown", "decode", asr, wall, kernels, pstats["decode_steps"])
 
 
 def decode_profile(tag, what, asr, wall, kernels, steps):
     """The card's busy share, kernels a step, top kernels and K5's device
     time in a profiled decode of ``steps`` steps; K5 must have launched 2 x
-    (decoder layers) times a step."""
+    (decoder layers) times a step. Returns K5's device ms a step (None when
+    the profiler recorded no device events)."""
     if not kernels:
         print(f"[{tag}] device busy share: not measured (no device events recorded)")
-        return
+        return None
     busy_us = sum(t for _, t in kernels.values())
     launches = sum(n for n, _ in kernels.values())
     print(f"[{tag}] profiled {steps}-step {what}: wall {wall * 1e3:.2f} ms, device "
@@ -807,6 +852,7 @@ def decode_profile(tag, what, asr, wall, kernels, steps):
     print(f"[{tag}] K5 (decode_attention_kernel) in the profiled {what}: "
           f"{k5_us / 1e3:.3f} ms of device time over {k5_n} launches ({k5_n // steps} a "
           f"step, {k5_us / k5_n:.2f} us each), {100 * k5_us / busy_us:.1f} % of busy")
+    return k5_us / 1e3 / steps
 
 
 def beam_serving_phase(asr, batch):
@@ -826,19 +872,20 @@ def beam_serving_phase(asr, batch):
     s0 = asr.stats["decode_steps"]
     zero_counters()
     with plain_refused("beam serving path"):
-        texts, wall = sync_time(lambda: asr.transcribe(waves, max_output_length=96,
-                                                       beam_size=5, beam_alpha=1.0))
+        texts, request_wall = sync_time(lambda: asr.transcribe(
+            waves, max_output_length=96, beam_size=5, beam_alpha=1.0))
     launches = read_counters()
     steps = asr.stats["decode_steps"] - s0
     check(len(texts) == 32 and all(isinstance(t, str) for t in texts),
           "beam request: not 32 transcripts")
     check(1 <= steps <= 96, f"beam request: {steps} decode steps")
     want = {"flash_attention_fwd": n_enc, "flash_attention_bwd": 0,
-            "decode_attention": 2 * n_dec * steps, "decode_attention_group": n_dec * steps}
+            "decode_attention": 2 * n_dec * steps, "decode_attention_group": n_dec * steps,
+            "decode_attention_int8_channel": 0, "decode_attention_int8_position": 0}
     check(launches == want, f"beam request launches {launches}, expected {want}")
     print(f"[serving] 32 x 10 s beam 5 (alpha 1, n_best 1): {steps} decode steps, "
-          f"{wall:.3f} s wall, {320.0 / wall:.1f} audio-s/s; launches {launches} as the "
-          f"path implies, plain attention never ran")
+          f"{request_wall:.3f} s wall, {320.0 / request_wall:.1f} audio-s/s; launches "
+          f"{launches} as the path implies, plain attention never ran")
 
     wave_t = torch.tensor(np.stack(waves)).cuda()
     lengths = torch.full((32,), wave_t.shape[1], device="cuda")
@@ -855,18 +902,18 @@ def beam_serving_phase(asr, batch):
         wall, kernels = profiled(lambda: beam_search(
             asr.decode_model, asr.spec, enc, None, mask, 5, 16, 1.0, device="cuda",
             stats=pstats))
-    decode_profile("beam", "beam loop", asr, wall, kernels, pstats["decode_steps"])
-    return launches
+    k5_ms = decode_profile("beam", "beam loop", asr, wall, kernels, pstats["decode_steps"])
+    return launches, (texts, request_wall, steps), k5_ms
 
 
 # ------------------------------------------------------------------ phase 4
-def card_vs_cpu_phase():
+def small_models(**flags):
+    """The same seeded float32 model (2 + 2 layers, hidden 256, head dim 128,
+    a 200-token vocabulary, the model ``flags`` on top) on the CPU and on the
+    card, and the front end's features of 4 speech-like waveforms on the CPU."""
     from joeys2t_torch.config import SpecialSymbols
     from joeys2t_torch.models import build_model
-    from joeys2t_torch.ops.decode_attention import decode_attention
-    from joeys2t_torch.ops.flash_attention import flash_attention_fwd
     from joeys2t_torch.ops.frontend import device_frontend
-    from joeys2t_torch.search import beam_search, transformer_greedy
     from joeys2t_torch.vocabulary import Vocabulary
 
     cfg = {"encoder": {"type": "transformer", "num_layers": 2, "num_heads": 2,
@@ -875,7 +922,7 @@ def card_vs_cpu_phase():
                        "conv_channels": 256, "in_channels": 80, "layer_norm": "pre"},
            "decoder": {"type": "transformer", "num_layers": 2, "num_heads": 2,
                        "embeddings": {"embedding_dim": 256, "scale": True},
-                       "hidden_size": 256, "ff_size": 1024, "layer_norm": "pre"}}
+                       "hidden_size": 256, "ff_size": 1024, "layer_norm": "pre"}, **flags}
     vocab = Vocabulary([f"w{i}" for i in range(196)], SpecialSymbols())
     models = {dev: build_model(cfg, trg_vocab=vocab, device=dev,
                                generator=torch.Generator().manual_seed(1))
@@ -888,17 +935,28 @@ def card_vs_cpu_phase():
     waves = np.zeros((4, 80000), np.float32)
     for i, n in enumerate(lengths):
         waves[i, :n] = speechlike(rng, n)
-    feats, flen = device_frontend(torch.tensor(waves), torch.tensor(lengths))
-    feats_gpu, flen_gpu = device_frontend(torch.tensor(waves).cuda(),
-                                          torch.tensor(lengths).cuda())
-    feat_err = (feats_gpu.cpu() - feats).abs().max().item()
-    check(torch.equal(flen_gpu.cpu(), flen), "frame lengths differ between devices")
-    check(feat_err <= 1e-3, f"front end differs between devices by {feat_err}")
+    return models, waves, lengths, device_frontend(torch.tensor(waves), torch.tensor(lengths))
+
+
+def decode_on_both(models, feats, flen, cpu_encoder_output: bool = False):
+    """Encoder output, greedy tokens (40 steps) and beam-5 2-best hypotheses
+    with their scores of ``small_models``'s pair on each device; the card run
+    must go through the kernels. With ``cpu_encoder_output`` both devices
+    decode from the CPU's encoder output (each device still encodes). Returns
+    (encoder error on valid frames, largest beam-score difference, the CPU's
+    outputs) after checking masks, tokens and hypotheses equal."""
+    from joeys2t_torch.ops.decode_attention import decode_attention
+    from joeys2t_torch.ops.flash_attention import flash_attention_fwd
+    from joeys2t_torch.search import beam_search, transformer_greedy
+
     out = {}
     f0, d0 = flash_attention_fwd.launches, decode_attention.launches
     with torch.inference_mode():
+        cpu_enc = models["cpu"][0].encode(feats, flen)[0] if cpu_encoder_output else None
         for dev, (model, spec) in models.items():
             enc, _, mask = model.encode(feats.to(dev), flen.to(dev))
+            if cpu_encoder_output:
+                enc = cpu_enc.to(dev)
             tokens, _, _ = transformer_greedy(model, spec, enc, mask, 40, device=dev)
             beams, beam_scores, _ = beam_search(model, spec, enc, None, mask, 5, 40, 1.0,
                                                 n_best=2, device=dev, return_prob="hyp")
@@ -908,17 +966,29 @@ def card_vs_cpu_phase():
     valid = out["cpu"][1][:, 0, :, None]
     enc_err = ((out["cuda"][0] - out["cpu"][0]) * valid).abs().max().item()
     check(torch.equal(out["cuda"][1], out["cpu"][1]), "encoder masks differ")
-    check(enc_err <= 1e-4, f"encoder output differs between card and CPU by {enc_err}")
     check(np.array_equal(out["cuda"][2], out["cpu"][2]),
           f"greedy tokens differ:\n{out['cuda'][2]}\n{out['cpu'][2]}")
     check(np.array_equal(out["cuda"][3], out["cpu"][3]),
           f"beam hypotheses differ:\n{out['cuda'][3]}\n{out['cpu'][3]}")
-    score_err = float(np.abs(out["cuda"][4] - out["cpu"][4]).max())
+    return enc_err, float(np.abs(out["cuda"][4] - out["cpu"][4]).max()), out["cpu"]
+
+
+def card_vs_cpu_phase():
+    from joeys2t_torch.ops.frontend import device_frontend
+
+    models, waves, lengths, (feats, flen) = small_models()
+    feats_gpu, flen_gpu = device_frontend(torch.tensor(waves).cuda(),
+                                          torch.tensor(lengths).cuda())
+    feat_err = (feats_gpu.cpu() - feats).abs().max().item()
+    check(torch.equal(flen_gpu.cpu(), flen), "frame lengths differ between devices")
+    check(feat_err <= 1e-3, f"front end differs between devices by {feat_err}")
+    enc_err, score_err, cpu = decode_on_both(models, feats, flen)
+    check(enc_err <= 1e-4, f"encoder output differs between card and CPU by {enc_err}")
     check(score_err <= 1e-4, f"beam scores differ between card and CPU by {score_err}")
     print(f"[card-vs-cpu] f32 2+2 layers hidden 256 D=128: front end err {feat_err:.3g}, "
           f"encoder err {enc_err:.3g} (tol 1e-4), greedy tokens identical "
-          f"({out['cpu'][2].shape[1]} steps); beam 5 2-best hypotheses identical "
-          f"({out['cpu'][3].shape[1]} tokens), scores err {score_err:.3g} (tol 1e-4)")
+          f"({cpu[2].shape[1]} steps); beam 5 2-best hypotheses identical "
+          f"({cpu[3].shape[1]} tokens), scores err {score_err:.3g} (tol 1e-4)")
 
     # no plain path on the card: key-masked attention at a head size or dtype
     # the flash kernel does not take raises instead of running plain PyTorch
@@ -1190,7 +1260,8 @@ def kernel_inputs(kept: dict, flash_calls=(0, 80), decode_calls=(0, 384)):
         modules.decode_attention = decode
 
 
-def cli_kernel_checks(kept: dict) -> dict:
+def cli_kernel_checks(kept: dict, names=("flash_attention_fwd", "flash_attention_bwd",
+                                          "decode_attention"), tag: str = "cli") -> dict:
     """Each kernel against its plain version on the inputs ``kernel_inputs``
     kept from the main path; the flash kernels also without dropout where
     the path ran them with it. Tolerances are phase 2's: the backward's
@@ -1198,11 +1269,12 @@ def cli_kernel_checks(kept: dict) -> dict:
     gradient; the forward's 1e-4 / 2e-2 and decode's 1e-5 / 1e-2 absolute,
     in units of the largest reference value where that exceeds 1 (phase 2's
     inputs are of unit scale, the path's activations are not); the lse only
-    over rows with a valid key. Returns {kernel: [case, ...]}."""
+    over rows with a valid key. Every kernel of ``names`` must have had an
+    input. Returns {kernel: [case, ...]}."""
     from joeys2t_torch.ops import decode_attention as da
     from joeys2t_torch.ops import flash_attention as fa
 
-    out = {"flash_attention_fwd": [], "flash_attention_bwd": [], "decode_attention": []}
+    out = {name: [] for name in names}
     cases = []
     for key, args in kept.items():
         name = key[0]
@@ -1235,7 +1307,8 @@ def cli_kernel_checks(kept: dict) -> dict:
             rel = 1e-5 if f32 else 1e-2
             valid = (bias > -1e8).sum(1)
             shape = (f"B={q.shape[0]} (group {kw.get('group', 1)}) S={k.shape[2]} valid "
-                     f"keys {int(valid.min())}-{int(valid.max())}")
+                     f"keys {int(valid.min())}-{int(valid.max())}"
+                     + (f" int8 {kw['scale_layout']}" if k.dtype == torch.int8 else ""))
         torch.cuda.synchronize()
         desc = f"{shape} {str(q.dtype)[6:]}"
         worst = None  # the output nearest its tolerance: (err / tol, part, err, tol)
@@ -1243,16 +1316,16 @@ def cli_kernel_checks(kept: dict) -> dict:
             check(bool(torch.isfinite(g.float()).all()), f"{name} {desc}: non-finite {part}")
             err = (g.float() - r.float()).abs().max().item()
             tol = rel * max(unit, r.float().abs().max().item())
-            check(err <= tol, f"{name} on the CLI's inputs {desc}: {part} max abs err {err} "
-                  f"> {tol}")
+            check(err <= tol, f"{name} on the {tag} path's inputs {desc}: {part} max abs "
+                  f"err {err} > {tol}")
             ratio = err / tol if tol > 0 else 0.0
             if worst is None or ratio > worst[0]:
                 worst = (ratio, part, err, tol)
         out[name].append(dict(case=desc, output=worst[1], max_abs_err=worst[2], tol=worst[3]))
     for name, found in out.items():
-        check(bool(found), f"the CLI's path gave {name} no input to check")
-        print(f"[cli] {name} against its plain version on the CLI's own inputs (the output "
-              f"nearest its tolerance): " + "; ".join(
+        check(bool(found), f"the {tag} path gave {name} no input to check")
+        print(f"[{tag}] {name} against its plain version on the path's own inputs (the "
+              f"output nearest its tolerance): " + "; ".join(
                   f"{c['case']} {c['output']} err {c['max_abs_err']:.3g} (tol {c['tol']:.3g})"
                   for c in found))
     return out
@@ -1340,7 +1413,38 @@ def cli_launches(n_enc: int, n_dec: int, updates: int, validations, decodes) -> 
             + (per_micro + n_enc) * valid_batches + n_enc * sum(b for _, b, _ in decodes),
             "flash_attention_bwd": per_micro * updates,
             "decode_attention": 2 * n_dec * (sum(s for _, _, s in validations) + beam_steps),
-            "decode_attention_group": n_dec * beam_steps}
+            "decode_attention_group": n_dec * beam_steps,
+            "decode_attention_int8_channel": 0, "decode_attention_int8_position": 0}
+
+
+def cut_test_on_both(cfg: dict, state: dict, model_dir: Path, data: Path, cut: Path) -> None:
+    """A float32 ``test`` of the trained checkpoint ``state`` cut to 2 + 2
+    layers on the first 8 dev utterances of ``data``, on the card and on the
+    CPU: the hypotheses must be identical."""
+    from joeys2t_torch.config import dump_yaml
+
+    cut.mkdir(exist_ok=True)
+    rows = (data / "dev.tsv").read_text(encoding="utf-8").splitlines()
+    (data / "dev8.tsv").write_text("\n".join(rows[:9]) + "\n", encoding="utf-8")
+    keep = re.compile(r"(encoder|decoder)\.layers\.(\d+)\.")
+    torch.save({"model_state": {k: v for k, v in state.items()
+                                if not keep.match(k) or int(keep.match(k).group(2)) < 2}},
+               cut / "best.ckpt")
+    shutil.copy(model_dir / "trg_vocab.txt", cut / "trg_vocab.txt")
+    cut_cfg = dict(cfg, fp16=False, model_dir=str(cut))
+    cut_cfg["data"] = dict(cfg["data"], dev=str(data / "dev8"))
+    del cut_cfg["data"]["test"]
+    cut_cfg["model"] = {**cfg["model"],
+                        "encoder": dict(cfg["model"]["encoder"], num_layers=2),
+                        "decoder": dict(cfg["model"]["decoder"], num_layers=2)}
+    outs = {}
+    for use_cuda in (True, False):
+        path = cut / f"cut_{use_cuda}.yaml"
+        path.write_text(dump_yaml(dict(cut_cfg, use_cuda=use_cuda)), encoding="utf-8")
+        cli_run(["test", path, "-o", cut / f"out_{use_cuda}"])
+        outs[use_cuda] = (cut / f"out_{use_cuda}.dev").read_text(encoding="utf-8")
+    check(outs[True] == outs[False] and len(outs[True].splitlines()) == 8,
+          f"float32 hypotheses differ between card and CPU:\n{outs[True]}\n{outs[False]}")
 
 
 def cli_phase(train_batch_rate: float):
@@ -1421,32 +1525,7 @@ def cli_phase(train_batch_rate: float):
     check(sub.returncode == 0, f"python -m joeys2t_torch test exited {sub.returncode}: "
           f"{sub.stderr[-2000:]}")
 
-    # card vs CPU: float32 test of the trained checkpoint cut to 2 + 2 layers
-    # on the first 8 dev utterances
-    cut = work / "cut"
-    cut.mkdir(exist_ok=True)
-    rows = (data / "dev.tsv").read_text(encoding="utf-8").splitlines()
-    (data / "dev8.tsv").write_text("\n".join(rows[:9]) + "\n", encoding="utf-8")
-    keep = re.compile(r"(encoder|decoder)\.layers\.(\d+)\.")
-    torch.save({"model_state": {k: v for k, v in state.items()
-                                if not keep.match(k) or int(keep.match(k).group(2)) < 2}},
-               cut / "best.ckpt")
-    shutil.copy(model_dir / "trg_vocab.txt", cut / "trg_vocab.txt")
-    cut_cfg = dict(cfg, fp16=False, model_dir=str(cut))
-    cut_cfg["data"] = dict(cfg["data"], dev=str(data / "dev8"))
-    del cut_cfg["data"]["test"]
-    cut_cfg["model"] = {**cfg["model"],
-                        "encoder": dict(cfg["model"]["encoder"], num_layers=2),
-                        "decoder": dict(cfg["model"]["decoder"], num_layers=2)}
-    outs = {}
-    for use_cuda in (True, False):
-        path = cut / f"cut_{use_cuda}.yaml"
-        path.write_text(dump_yaml(dict(cut_cfg, use_cuda=use_cuda)), encoding="utf-8")
-        cli_run(["test", path, "-o", cut / f"out_{use_cuda}"])
-        outs[use_cuda] = (cut / f"out_{use_cuda}.dev").read_text(encoding="utf-8")
-    check(outs[True] == outs[False] and len(outs[True].splitlines()) == 8,
-          f"float32 hypotheses differ between card and CPU:\n{outs[True]}\n{outs[False]}")
-
+    cut_test_on_both(cfg, state, model_dir, data, work / "cut")
     train_audio = manifest_audio_s(data / "train.tsv") * 2  # 16 updates = 2 epochs
     dev_audio = manifest_audio_s(data / "dev.tsv")
     train_s, per_update, data_s, _, valid_s, final_ckpt_s = (float(loop.group(i))
@@ -1473,7 +1552,7 @@ def cli_phase(train_batch_rate: float):
     print("[cli] `python -m joeys2t_torch test` exited 0; float32 beam-5 test at 2 + 2 "
           "layers: card and CPU hypotheses identical over 8 dev utterances")
     launches = {name: train_n[name] + test_n[name] + tr_n[name] for name in train_n}
-    return launches, checks, model_dir / "best.ckpt"
+    return launches, checks, model_dir / "best.ckpt", per_update
 
 
 # ------------------------------------------------------------------ phase 8
@@ -1578,6 +1657,312 @@ def st_phase(encoder_ckpt: Path) -> dict:
     return {name: train_n[name] + test_n[name] + tr_n[name] for name in train_n}
 
 
+# ------------------------------------------------------------------ phase 9
+def token_share(texts, reference) -> float:
+    """Share of the reference transcripts' words that the other transcripts
+    repeat at the same position."""
+    same = total = 0
+    for a, b in zip(texts, reference):
+        a, b = a.split(), b.split()
+        same += sum(x == y for x, y in zip(a, b))
+        total += max(len(a), len(b))
+    return same / max(total, 1)
+
+
+def int8_phase(batch, bf16):
+    """Phase 9: the librispeech_100h model of phase 3 (the same seeded
+    weights, bf16) with ``cache_cross_int8`` and ``cache_self_int8``, served
+    through ``Transcriber``: greedy 64 x 10 s (96 steps) and beam 5 over 32
+    x 10 s (length penalty 1), each with the counters zeroed just before and
+    the plain versions refused: 16 decode launches a step, all int8 (8 with
+    channel scales on the cross caches, 8 with position scales on the self
+    ring buffers; in beam the 8 cross launches take 5 queries a cache row),
+    and 16 flash launches (the encoder). Decode attention is then held
+    against its plain version on the inputs of a first and a later call of
+    each kind; audio-s/s and K5's device ms a step (16 profiled steps) stand
+    beside phase 3's bf16 requests, with the share of words equal to theirs
+    (reported, not checked: int8 changes the numerics). Last, a small float32
+    model with both int8 caches gives the same greedy tokens and beam-5
+    2-best hypotheses on the card and on the CPU. ``bf16`` holds phase 3's
+    {request: (texts, wall s, steps, K5 ms a step)}."""
+    from joeys2t_torch.config import SpecialSymbols, load_config
+    from joeys2t_torch.models import build_model
+    from joeys2t_torch.ops.frontend import device_frontend
+    from joeys2t_torch.search import beam_search, transformer_greedy
+    from joeys2t_torch.serving import Transcriber
+    from joeys2t_torch.vocabulary import Vocabulary
+
+    cfg = dict(load_config(REPO / "configs" / "librispeech_100h.yaml")["model"],
+               cache_cross_int8=True, cache_self_int8=True)
+    vocab = Vocabulary([f"w{i}" for i in range(4996)], SpecialSymbols())
+    model, spec = build_model(cfg, trg_vocab=vocab, compute_dtype=torch.bfloat16,
+                              device="cuda", generator=torch.Generator().manual_seed(0))
+    asr = Transcriber(model, spec, vocab, device="cuda")
+    n_enc, n_dec = len(model.encoder.layers), len(model.decoder.layers)
+    asr.transcribe(batch[:2], max_output_length=4)  # warm-up
+    asr.transcribe(batch[:2], max_output_length=4, beam_size=5)
+    requests = [("greedy 64 x 10 s", 64, {}), ("beam 5 32 x 10 s", 32,
+                                               dict(beam_size=5, beam_alpha=1.0))]
+    kept, results = {}, {}
+    for name, n, kw in requests:
+        s0 = asr.stats["decode_steps"]
+        zero_counters()
+        with plain_refused(f"int8 {name} path"), kernel_inputs(kept):
+            texts, wall = sync_time(lambda: asr.transcribe(batch[:n], max_output_length=96,
+                                                           **kw))
+        launches = read_counters()
+        steps = asr.stats["decode_steps"] - s0
+        check(len(texts) == n and all(isinstance(t, str) for t in texts),
+              f"int8 {name}: not {n} transcripts")
+        check(1 <= steps <= 96, f"int8 {name}: {steps} decode steps")
+        want = {"flash_attention_fwd": n_enc, "flash_attention_bwd": 0,
+                "decode_attention": 2 * n_dec * steps,
+                "decode_attention_group": n_dec * steps if kw else 0,
+                "decode_attention_int8_channel": n_dec * steps,
+                "decode_attention_int8_position": n_dec * steps}
+        check(launches == want, f"int8 {name} launches {launches}, expected {want}")
+        results[name] = (texts, wall, steps, launches)
+    checks = cli_kernel_checks(kept, names=("flash_attention_fwd", "decode_attention"),
+                               tag="int8")
+    for kind in ("channel", "position"):
+        check(any(f"int8 {kind}" in c["case"] for c in checks["decode_attention"]),
+              f"no int8 {kind} decode input was checked")
+    del kept
+
+    waves = torch.tensor(np.stack(batch)).cuda()
+    with torch.inference_mode():
+        for name, n, kw in requests:
+            feats, flen = device_frontend(waves[:n], torch.full((n,), waves.shape[1],
+                                                                device="cuda"))
+            enc, _, mask = asr.model.encode(feats, flen)
+            pstats = {}
+            if kw:
+                run = lambda: beam_search(asr.decode_model, spec, enc, None, mask, 5, 16,  # noqa: E731
+                                          1.0, device="cuda", stats=pstats)
+            else:
+                run = lambda: transformer_greedy(asr.decode_model, spec, enc, mask, 16,  # noqa: E731
+                                                 device="cuda", stats=pstats)
+            wall, kernels = profiled(run)
+            k5_ms = decode_profile("int8", f"int8 {name.split()[0]} loop", asr, wall, kernels,
+                                   pstats["decode_steps"])
+            texts, wall, steps, launches = results[name]
+            ref_texts, ref_wall, ref_steps, ref_k5 = bf16[name]
+            audio = 10.0 * n
+            print(f"[int8] {name}: {steps} steps, {wall:.3f} s wall = {audio / wall:.1f} "
+                  f"audio-s/s (bf16 caches, phase 3: {audio / ref_wall:.1f}); K5 "
+                  f"{'not measured' if k5_ms is None else f'{k5_ms:.4f}'} ms a step "
+                  f"(bf16: {'not measured' if ref_k5 is None else f'{ref_k5:.4f}'}); "
+                  f"{100 * token_share(texts, ref_texts):.1f} % of the words equal the "
+                  f"bf16 request's; launches {launches} as the path implies, plain "
+                  f"attention never ran")
+    del asr, model, waves
+
+    # both devices decode from the CPU's encoder output: the card's differs in
+    # its last bits, and each such difference can round a cross-cache value
+    # one int8 step the other way; so can the decode step's own projections,
+    # which is what the score tolerance allows for (one step of one cached
+    # value moved a beam score by 3.5e-4 in the CPU tests against JAX)
+    models, _, _, (feats, flen) = small_models(cache_cross_int8=True, cache_self_int8=True)
+    c0 = read_counters()
+    _, score_err, cpu = decode_on_both(models, feats, flen, cpu_encoder_output=True)
+    c1 = read_counters()
+    check(all(c1[k] > c0[k] for k in ("decode_attention_int8_channel",
+                                       "decode_attention_int8_position")),
+          "the small int8 model's card run did not launch the int8 decode kernels")
+    check(score_err <= 1e-3, f"int8 beam scores differ between card and CPU by {score_err}")
+    print(f"[int8] card vs CPU, f32 2+2 layers hidden 256 with both int8 caches, from one "
+          f"encoder output: greedy tokens identical ({cpu[2].shape[1]} steps), beam 5 "
+          f"2-best hypotheses identical, scores err {score_err:.3g} (tol 1e-3)")
+    return {name: r[3] for name, r in results.items()}, checks
+
+
+# ----------------------------------------------------------------- phase 10
+def check_cli_leg(tag: str, runs: dict, n_enc: int, n_dec: int, updates: int,
+                  validations: int) -> dict:
+    """The exact launches of a leg's ``train``, ``test`` and ``translate``
+    (``runs``: name -> (wall, log lines, stdout, launches)), by
+    ``cli_launches`` from the ``predict`` calls each logged. Returns the
+    launches of the three runs summed."""
+    gens = generations(runs["train"][1])
+    check(len(gens) == validations + 2,
+          f"{tag} train logged {len(gens)} predict calls, expected {validations} + 2")
+    want = cli_launches(n_enc, n_dec, updates, gens[:validations], gens[validations:])
+    check(runs["train"][3] == want, f"{tag} train launches {runs['train'][3]}, "
+          f"expected {want}")
+    for name in ("test", "translate"):
+        want = cli_launches(n_enc, n_dec, 0, [], generations(runs[name][1]))
+        check(runs[name][3] == want, f"{tag} {name} launches {runs[name][3]}, "
+              f"expected {want}")
+    return {name: sum(r[3][name] for r in runs.values()) for name in runs["train"][3]}
+
+
+def update_ms(lines) -> float:
+    """ms an update of a ``train`` run, from its ``Training loop`` line."""
+    loop = re.search(r"Training loop: \d+ update\(s\) in [\d.]+\[sec\] besides "
+                     r"validation \(([\d.]+)\[sec\] per update\)", "\n".join(lines))
+    check(loop is not None, "no training-loop summary")
+    return float(loop.group(1)) * 1e3
+
+
+def spm_phase(data: Path) -> dict:
+    """Phase 10: configs/synthetic_asr.yaml at full width in bf16 with its
+    targets switched to ``level: bpe, tokenizer_type: sentencepiece``, on
+    phase 7's corpus, the SentencePiece model a unigram model of 300 pieces
+    that ``joeys2t_torch.tools.spm_fixture`` draws from the (lowercased)
+    train transcripts, the ``voc_file`` its pieces: ``train`` (cut to 8
+    updates and one validation, fewer than phase 7's 16 and 2), ``test -o``
+    and ``translate`` of 8 paths with the config's beam 5, then
+    ``load_model_dir`` of the model directory and ``Transcriber.from_hub``
+    serving 8 speech-like waveforms. The model file must be in the model
+    directory, every hypothesis detokenized text (no '▁'; empty where the
+    model emitted space pieces alone), the hub's
+    ``generate`` equal to ``translate``, the launch counts exact with the
+    plain versions refused, and each kernel equal to its plain version on
+    the inputs the path gave it."""
+    from joeys2t_torch.config import dump_yaml
+    from joeys2t_torch.hub_interface import load_model_dir
+    from joeys2t_torch.serving import Transcriber
+    from joeys2t_torch.tokenizers import SentencePieceTokenizer
+    from joeys2t_torch.tools import spm_fixture
+
+    work = REPO / "build" / "chip_smoke"
+    model_dir = work / "spm_model"
+    rows = (data / "train.tsv").read_text(encoding="utf-8").splitlines()
+    col = rows[0].split("\t").index("trg")
+    pieces = spm_fixture.corpus_pieces([r.split("\t")[col].lower() for r in rows[1:]], 300)
+    model_file = spm_fixture.write_model(work / "spm_unigram300.model", pieces, "unigram")
+    cfg = cli_config(data, model_dir)
+    cfg["data"]["trg"].update(level="bpe", tokenizer_type="sentencepiece",
+                              voc_file=str(spm_fixture.write_vocab(work / "spm_vocab.txt",
+                                                                   pieces)),
+                              tokenizer_cfg={"model_file": str(model_file)})
+    cfg["training"].update(updates=8, validation_freq=8)
+    cfg_path = work / "spm.yaml"
+    cfg_path.write_text(dump_yaml(cfg), encoding="utf-8")
+    n_enc, n_dec = 16, 8
+    feats = sorted((data / "feats").glob("test-*.npy"))[:8]
+    kept, runs = {}, {}
+    with plain_refused("SentencePiece CLI path"), kernel_inputs(kept):
+        runs["train"] = cli_run(["train", cfg_path])
+        runs["test"] = cli_run(["test", cfg_path, "-o", work / "spm_out"])
+        runs["translate"] = cli_run(["translate", cfg_path],
+                                    stdin="".join(f"{p}\n" for p in feats))
+        launches = check_cli_leg("spm", runs, n_enc, n_dec, 8, 1)
+
+        hub = load_model_dir(model_dir)
+        zero_counters()
+        generated = hub.generate([str(p) for p in feats])
+        hub_n = read_counters()
+        asr = Transcriber.from_hub(hub)
+        rng = np.random.RandomState(10)
+        waves = [speechlike(rng, n) for n in (32000, 40000, 24000, 48000) * 2]
+        s0 = asr.stats["decode_steps"]
+        zero_counters()
+        texts, wall = sync_time(lambda: asr.transcribe(waves, max_output_length=48))
+        serve_n = read_counters()
+    checks = cli_kernel_checks(kept, tag="spm")
+    del kept
+    steps = asr.stats["decode_steps"] - s0
+    want = {"flash_attention_fwd": n_enc, "flash_attention_bwd": 0,
+            "decode_attention": 2 * n_dec * steps, "decode_attention_group": 0,
+            "decode_attention_int8_channel": 0, "decode_attention_int8_position": 0}
+    check(serve_n == want, f"spm serving launches {serve_n}, expected {want}")
+    check(hub_n["flash_attention_fwd"] == n_enc and hub_n["decode_attention_group"] > 0,
+          f"hub generate launches {hub_n}")
+    check((model_dir / model_file.name).read_bytes() == model_file.read_bytes(),
+          "train did not copy the SentencePiece model into the model directory")
+    translated = runs["translate"][2].splitlines()
+    check(generated == translated and len(translated) == 8,
+          f"hub generate {generated} differs from translate {translated}")
+    hyps = [h for split in ("dev", "test")
+            for h in (work / f"spm_out.{split}").read_text(encoding="utf-8").splitlines()]
+    for name, out in (("test", hyps), ("translate", translated), ("Transcriber", texts)):
+        # an empty transcript is text too: the 8-update model may emit space
+        # pieces alone
+        check(all(isinstance(t, str) and "▁" not in t for t in out),
+              f"spm {name}: not detokenized text: {out[:3]}")
+    check(isinstance(asr.tokenizer, SentencePieceTokenizer) and asr.norm_means
+          and asr.norm_vars, "Transcriber.from_hub took no SentencePiece tokenizer or "
+          "not the config's CMVN flags")
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "decode_attention",
+                 "decode_attention_group"):
+        launches[name] += hub_n[name] + serve_n[name]
+    print(f"[spm] train (8 updates, 1 validation) {runs['train'][0]:.2f} s, "
+          f"{update_ms(runs['train'][1]):.2f} ms an update; test {runs['test'][0]:.2f} s; "
+          f"translate 8 paths {runs['translate'][0]:.2f} s; {len(pieces) - 3} "
+          f"SentencePiece pieces, model copied into the model directory; e.g. "
+          f"{translated[0][:60]!r}")
+    print(f"[spm] load_model_dir -> generate equals translate; Transcriber.from_hub: 8 "
+          f"waveforms, {steps} greedy steps, {wall:.3f} s; e.g. {texts[0][:60]!r}; "
+          f"launches {launches} as the path implies, plain attention never ran")
+    return launches, checks
+
+
+# ----------------------------------------------------------------- phase 11
+def conformer_phase(data: Path, transformer_update_ms: float) -> dict:
+    """Phase 11: configs/synthetic_asr_conformer.yaml, read by the port's
+    YAML reader, at full width in bf16 (16 conformer layers of hidden 512,
+    depthwise kernel 31, macaron "paper", LayerScale 0.1; 8 decoder layers)
+    on phase 7's corpus through ``train`` (16 updates, a validation every 8,
+    phase 7's cuts), ``test -o`` and ``translate`` of 8 paths (beam 5):
+    exact launch counts (24 flash forward and 24 backward a micro-batch)
+    with the plain versions refused, each kernel equal to its plain version
+    on the path's inputs, and a float32 ``test`` of the trained checkpoint
+    cut to 2 + 2 layers identical on the card and on the CPU; ms an update
+    beside phase 7's transformer."""
+    from joeys2t_torch.checkpoints import load_checkpoint
+    from joeys2t_torch.config import dump_yaml, load_config
+
+    work = REPO / "build" / "chip_smoke"
+    model_dir = work / "conformer_model"
+    cfg = load_config(REPO / "configs" / "synthetic_asr_conformer.yaml")
+    cfg["model_dir"] = str(model_dir)
+    for split in ("train", "dev", "test"):
+        cfg["data"][split] = str(data / split)
+    cfg["data"]["trg"]["voc_file"] = str(data / "char.txt")
+    cfg["training"].update(updates=16, validation_freq=8, logging_freq=4)
+    enc = cfg["model"]["encoder"]
+    check(cfg["fp16"] and enc["type"] == "conformer" and enc["num_layers"] == 16
+          and enc["hidden_size"] == 512 and enc["depthwise_conv_kernel_size"] == 31
+          and enc["macaron"] == "paper" and enc["layerscale"] == 0.1
+          and cfg["model"]["decoder"]["num_layers"] == 8
+          and cfg["data"]["src"]["tokenizer_cfg"]["specaugment"]["time_mask_t"] == 40,
+          "unexpected synthetic_asr_conformer config")
+    cfg_path = work / "conformer.yaml"
+    cfg_path.write_text(dump_yaml(cfg), encoding="utf-8")
+    feats = sorted((data / "feats").glob("test-*.npy"))[:8]
+    kept, runs = {}, {}
+    with plain_refused("Conformer CLI path"), kernel_inputs(kept):
+        runs["train"] = cli_run(["train", cfg_path])
+        runs["test"] = cli_run(["test", cfg_path, "-o", work / "conformer_out"])
+        runs["translate"] = cli_run(["translate", cfg_path],
+                                    stdin="".join(f"{p}\n" for p in feats))
+    launches = check_cli_leg("conformer", runs, 16, 8, 16, 2)
+    checks = cli_kernel_checks(kept, tag="conformer")
+    del kept
+    valid = (model_dir / "validations.txt").read_text().splitlines()
+    check(len(valid) == 2, f"conformer validations.txt: {valid}")
+    losses = [float(m.group(1)) for m in (re.search(r"Batch Loss: +([-\d.einfa]+)", ln)
+                                          for ln in runs["train"][1]) if m]
+    check(len(losses) == 4 and all(np.isfinite(losses)), f"conformer losses {losses}")
+    state = load_checkpoint(model_dir / "latest.ckpt")["model_state"]
+    check(all(v.dtype == torch.float32 for v in state.values())
+          and "encoder.layers.15.ls_conv" in state, "conformer checkpoint")
+    for split in ("dev", "test"):
+        n = len((work / f"conformer_out.{split}").read_text(encoding="utf-8").splitlines())
+        check(n == 64, f"conformer out.{split}: {n} hypotheses")
+    cut_test_on_both(cfg, state, model_dir, data, work / "conformer_cut")
+    ms = update_ms(runs["train"][1])
+    print(f"[conformer] train: 16 updates, 2 validations, {runs['train'][0]:.2f} s wall; "
+          f"{ms:.2f} ms an update (the transformer of phase 7: "
+          f"{transformer_update_ms * 1e3:.2f}); losses {[round(x, 4) for x in losses]}; "
+          f"test {runs['test'][0]:.2f} s (beam 5), translate 8 paths "
+          f"{runs['translate'][0]:.2f} s")
+    print(f"[conformer] launches {launches} as the path implies, plain attention never "
+          f"ran; float32 test at 2 + 2 layers: card and CPU hypotheses identical")
+    return launches, checks
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1587,34 +1972,76 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
+    marks = [("start", t_start)]
+
+    def mark(name):
+        marks.append((name, time.time()))
+        print(f"[timing] {name}: {marks[-1][1] - marks[-2][1]:.1f} s")
+
     build_phase()
+    mark("phase 1")
     flash, decode, decode_group, backward = kernel_phase()
-    flash_launches, decode_launches, asr, batch = serving_phase()
-    breakdown_phase(asr, batch)
-    beam_launches = beam_serving_phase(asr, batch)
-    del asr, batch
+    mark("phase 2")
+    flash_launches, decode_launches, asr, batch, served = serving_phase()
+    greedy_k5_ms = breakdown_phase(asr, batch)
+    beam_launches, beam_served, beam_k5_ms = beam_serving_phase(asr, batch)
+    bf16 = {"greedy 64 x 10 s": served["64 x 10 s"] + (greedy_k5_ms,),
+            "beam 5 32 x 10 s": beam_served + (beam_k5_ms,)}
+    del asr
+    mark("phase 3")
     card_vs_cpu_phase()
+    mark("phase 4")
     torch.cuda.empty_cache()
     train_fwd_launches, train_bwd_launches, train_batch_rate = train_phase()
     train_card_vs_cpu_phase()
+    mark("phases 5-6")
     torch.cuda.empty_cache()
-    cli_counts, cli_checks, asr_ckpt = cli_phase(train_batch_rate)
+    cli_counts, cli_checks, asr_ckpt, cli_update_s = cli_phase(train_batch_rate)
+    mark("phase 7")
     st_counts = st_phase(asr_ckpt)
+    mark("phase 8")
+    torch.cuda.empty_cache()
+    int8_counts, int8_checks = int8_phase(batch, bf16)
+    mark("phase 9")
+    del batch
+    torch.cuda.empty_cache()
+    corpus = REPO / "build" / "chip_smoke" / "synthetic_asr"
+    spm_counts, spm_checks = spm_phase(corpus)
+    mark("phase 10")
+    conformer_counts, conformer_checks = conformer_phase(corpus, cli_update_s)
+    mark("phase 11")
 
     def entry(name, source, replaces, also, cases, launches, checks):
         head = cases[0]  # the main path's headline shape and dtype
+        # of the checks on the paths' own inputs, the count and the case
+        # nearest its tolerance (each was printed above)
+        worst = max(checks, key=lambda c: c["max_abs_err"] / c["tol"] if c["tol"] else 0.0)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     also_replaces=also, launches=sum(launches.values()),
                     launches_by_path=launches, max_abs_err=head["max_abs_err"],
                     ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                     bound_by=head["bound_by"], library_ms=head["library_ms"],
-                    case=head["case"], cases=cases, cli_checks=checks)
+                    case=head["case"], cases=cases,
+                    path_checks=dict(worst, n_cases=len(checks)))
 
     def paths(name, **extra):
         return dict(extra, serving_beam=beam_launches[name], cli=cli_counts[name],
-                    st=st_counts[name])
+                    st=st_counts[name], int8_greedy=int8_counts["greedy 64 x 10 s"][name],
+                    int8_beam=int8_counts["beam 5 32 x 10 s"][name],
+                    spm=spm_counts[name], conformer=conformer_counts[name])
 
+    def int8_paths(name):
+        return {"int8_greedy": int8_counts["greedy 64 x 10 s"][name],
+                "int8_beam": int8_counts["beam 5 32 x 10 s"][name]}
+
+    def mode_cases(cases, mode):
+        return [c for c in cases if f" {mode}" in c["case"]]
+
+    for later in (spm_checks, conformer_checks):  # phases 10 and 11 on their own inputs
+        for name, cases in later.items():
+            cli_checks[name] = cli_checks[name] + cases
     decode_checks = cli_checks["decode_attention"]
+    int8_decode_checks = int8_checks["decode_attention"]
     kernels = [
         entry("flash_attention_fwd", "joeys2t_torch/csrc/flash_attention.cu",
               "joeys2t_tpu/ops/flash_attention.py:492",
@@ -1635,6 +2062,18 @@ def main():
               "joeys2t_tpu/ops/decode_attention.py:185", None, decode_group,
               paths("decode_attention_group"),
               [c for c in decode_checks if "(group 1)" not in c["case"]]),
+        entry("decode_attention (int8 with channel scales: the cross caches)",
+              "joeys2t_torch/csrc/decode_attention.cu",
+              "joeys2t_tpu/ops/decode_attention.py:185", None,
+              mode_cases(decode, "int8-channel") + mode_cases(decode_group, "int8-channel"),
+              int8_paths("decode_attention_int8_channel"),
+              [c for c in int8_decode_checks if "int8 channel" in c["case"]]),
+        entry("decode_attention (int8 with position scales: the self caches)",
+              "joeys2t_torch/csrc/decode_attention.cu",
+              "joeys2t_tpu/ops/decode_attention.py:185", None,
+              [c for c in mode_cases(decode, "int8-position") if c["case"].startswith("self")],
+              int8_paths("decode_attention_int8_position"),
+              [c for c in int8_decode_checks if "int8 position" in c["case"]]),
     ]
     print(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -19,11 +19,12 @@ ported: the port reads no environment knobs.
 
 The port depends on torch, numpy and the standard library only, so it reads
 the repository's configs with its own YAML reader: block mappings by
-indentation, ``- item`` block lists, ``[a, b]`` flow lists, quoted and plain
+indentation, ``- item`` block lists, ``[a, b]`` flow lists and ``{a: 1}``
+flow mappings (nested, and continued over several lines), quoted and plain
 scalars resolved as PyYAML's safe loader resolves them (YAML 1.1 booleans,
-ints, floats, null), and ``#`` comments. Anchors, multi-line strings and
-flow mappings are rejected with an error rather than misread. ``dump_yaml``
-writes a config back in that subset.
+ints, floats, null), and ``#`` comments. Anchors and multi-line strings are
+rejected with an error rather than misread. ``dump_yaml`` writes a config
+back in that subset.
 """
 import dataclasses
 import json
@@ -373,18 +374,6 @@ def parse_test_args(cfg: Dict, mode: str = "test") -> TestConfig:
     )
 
 
-def unported_model_options(model_cfg: Dict) -> List[str]:
-    """The options of a `model` section that the port does not have yet:
-    the int8 decode caches (set in `model` or in its `decoder`) and the tied
-    output layer."""
-    dec_cfg = model_cfg.get("decoder", {})
-    unported = [name for name in ("cache_cross_int8", "cache_self_int8")
-                if model_cfg.get(name, dec_cfg.get(name, False))]
-    if model_cfg.get("tied_softmax", False) and not model_cfg.get("tied_embeddings", False):
-        unported.append("tied_softmax")
-    return unported
-
-
 def check_ported(args: BaseConfig, save_attention: bool = False) -> None:
     """Raise ``NotImplementedError`` for an option of the `testing` or
     `model` section that the port does not have yet, so that ``train``,
@@ -396,9 +385,10 @@ def check_ported(args: BaseConfig, save_attention: bool = False) -> None:
         "beam_reorder: lazy": t.beam_reorder == "lazy",
         "repetition_penalty": float(t.repetition_penalty) > 0,
         "no_repeat_ngram_size": int(t.no_repeat_ngram_size) > 0,
+        "tied_softmax": bool(args.model.get("tied_softmax", False)
+                             and not args.model.get("tied_embeddings", False)),
     }
     names = [name for name, is_set in unported.items() if is_set]
-    names += unported_model_options(args.model)
     if names:
         raise NotImplementedError(f"options not ported yet: {names}")
 
@@ -505,6 +495,21 @@ def _strip_comment(line: str) -> str:
     return line.rstrip()
 
 
+def _flow_depth(text: str) -> int:
+    """Open ``[``/``{`` minus closed ``]``/``}`` outside quotes."""
+    depth, quote = 0, None
+    for ch in text:
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch in "[{":
+            depth += 1
+        elif ch in "]}":
+            depth -= 1
+    return depth
+
+
 def _split_flow(body: str) -> List[str]:
     items, depth, quote, cur = [], 0, None, ""
     for ch in body:
@@ -512,9 +517,9 @@ def _split_flow(body: str) -> List[str]:
             quote = None if ch == quote else quote
         elif ch in "'\"":
             quote = ch
-        elif ch == "[":
+        elif ch in "[{":
             depth += 1
-        elif ch == "]":
+        elif ch in "]}":
             depth -= 1
         elif ch == "," and depth == 0:
             items.append(cur.strip())
@@ -531,18 +536,28 @@ def _value(text: str) -> Any:
         if not text.endswith("]"):
             raise ConfigurationError(f"unterminated flow list: {text}")
         return [_value(item) for item in _split_flow(text[1:-1])]
+    if text.startswith("{"):
+        if not text.endswith("}"):
+            raise ConfigurationError(f"unterminated flow mapping: {text}")
+        out = {}
+        for item in _split_flow(text[1:-1]):
+            kv = _split_key(item)
+            if kv is None:
+                raise ConfigurationError(f"not a key: value pair in a flow mapping: {item}")
+            key = kv[0][1:-1] if kv[0][:1] in ("'", '"') else _scalar(kv[0])
+            out[key] = _value(kv[1]) if kv[1] else None
+        return out
     return _scalar(text)
 
 
 def _split_key(text: str) -> Optional[Tuple[str, str]]:
-    """``key: value`` -> (key, value text), or None when not a mapping line."""
+    """``key: value`` -> (key, value text), or None when not a mapping line.
+    A quoted key keeps its quotes, so that the caller can tell it from a
+    plain one."""
     m = re.match(r"""^("[^"]*"|'[^']*'|[^'"\[\]{}#:][^:#]*?)\s*:(\s+(.*))?$""", text)
     if m is None:
         return None
-    key = m.group(1)
-    if key[:1] in "'\"":
-        key = key[1:-1]
-    return key, (m.group(3) or "")
+    return m.group(1), (m.group(3) or "")
 
 
 def parse_yaml(text: str) -> Any:
@@ -552,7 +567,11 @@ def parse_yaml(text: str) -> Any:
         if raw.lstrip().startswith(("---", "...")) and not raw.startswith(" "):
             continue
         line = _strip_comment(raw.replace("\t", "    "))
-        if line.strip():
+        if not line.strip():
+            continue
+        if lines and _flow_depth(lines[-1][1]) > 0:  # a flow collection goes on
+            lines[-1] = (lines[-1][0], f"{lines[-1][1]} {line.strip()}")
+        else:
             lines.append((len(line) - len(line.lstrip(" ")), line.strip()))
     value, pos = _block(lines, 0, lines[0][0] if lines else 0)
     if pos != len(lines):
@@ -584,6 +603,7 @@ def _block(lines, pos: int, indent: int):
         if kv is None:
             raise ConfigurationError(f"cannot parse YAML line: {lines[pos][1]}")
         key, rest = kv
+        key = key[1:-1] if key[:1] in ("'", '"') else key
         pos += 1
         if rest:
             out[key] = _value(rest)

@@ -13,7 +13,12 @@ back the JAX tree. Mapping (JAX tree path -> port name):
   */subsampler/conv_N                 -> *.subsampler.conv_layers.N
   */kernel (Dense (in, out))          -> *.weight (out, in)
   */kernel (Conv (k, in, out))        -> *.weight (out, in, k)
+  */pointwise_conv{1,2}/kernel        -> *.pointwise_conv{1,2}.weight (out, in, 1)
+  */depthwise_conv/kernel (k, 1, C)   -> *.depthwise_conv.weight (C, 1, k)
   */scale (LayerNorm)                 -> *.weight
+  */batch_norm_{scale,bias,mean,var}  -> *.batch_norm.{weight,bias,running_mean,
+                                         running_var} (the conformer's frozen BN)
+  */ls_{ff1,att,conv,ff2}             -> *.ls_{ff1,att,conv,ff2} (LayerScale)
 
 ``jax_checkpoint_to_port`` turns a checkpoint that ``python -m joeys2t_tpu
 train`` wrote (a pickle, joeys2t_tpu/checkpoints.py:29) into a port
@@ -35,6 +40,10 @@ def _flatten(tree: Dict, prefix=()):
             yield prefix + (key,), value
 
 
+_BATCH_NORM = {"batch_norm_scale": "weight", "batch_norm_bias": "bias",
+               "batch_norm_mean": "running_mean", "batch_norm_var": "running_var"}
+
+
 def flax_params_to_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
     """JAX parameter tree (nested dicts of arrays) -> port ``state_dict``
     of float32 CPU tensors."""
@@ -52,12 +61,18 @@ def flax_params_to_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
             else:
                 names.append(part)
         leaf = path[-1]
-        if leaf == "kernel":
+        if leaf == "kernel" and names[-1].startswith("pointwise_conv"):
+            value = value.T[:, :, None]  # Dense (in, out) -> Conv1d (out, in, 1)
+            leaf = "weight"
+        elif leaf == "kernel":
             value = value.T if value.ndim == 2 else np.transpose(value, (2, 1, 0))
             leaf = "weight"
         elif leaf in ("embedding", "scale"):
             leaf = "weight"
-        elif leaf != "bias":
+        elif leaf in _BATCH_NORM:
+            names.append("batch_norm")
+            leaf = _BATCH_NORM[leaf]
+        elif leaf != "bias" and not leaf.startswith("ls_"):
             raise ValueError(f"no port parameter for {'/'.join(path)}")
         out[".".join(names + [leaf])] = torch.tensor(np.ascontiguousarray(value))
     return out

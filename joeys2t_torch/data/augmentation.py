@@ -90,12 +90,18 @@ class CMVN:
                 f"norm_vars={self.norm_vars}, before={self.before})")
 
 
-def cmvn(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Cepstral mean and variance normalization of padded (B, T, F) features
-    over each utterance's valid frames; padded frames come out zero."""
+def cmvn(x: torch.Tensor, lengths: torch.Tensor, norm_means: bool = True,
+         norm_vars: bool = True) -> torch.Tensor:
+    """Cepstral mean (``norm_means``) and variance (``norm_vars``)
+    normalization of padded (B, T, F) features over each utterance's valid
+    frames; padded frames come out zero."""
     mask = (torch.arange(x.shape[1], device=x.device)[None, :]
             < lengths[:, None]).to(x.dtype)[..., None]  # (B, T, 1)
     n = lengths.to(x.dtype)[:, None, None]
     mean = torch.sum(x * mask, dim=1, keepdim=True) / n
     var = torch.sum(x**2 * mask, dim=1, keepdim=True) / n - mean**2
-    return (x - mean) / torch.sqrt(torch.clamp(var, min=1e-10)) * mask
+    if norm_means:
+        x = x - mean
+    if norm_vars:
+        x = x / torch.sqrt(torch.clamp(var, min=1e-10))
+    return x * mask

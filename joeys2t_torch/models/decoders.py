@@ -11,6 +11,13 @@ while the cross K/V and their bias stay at B rows, shared by an
 utterance's beams. The positional encoding table and the cross-attention
 bias are built once per utterance, in ``init_cache``, and the
 self-attention bias once per step for all layers.
+
+With ``cache_cross_int8`` the cross K/V are stored in int8 with one f32
+scale per (b, h, channel), taken over the valid source frames only; with
+``cache_self_int8`` the self buffers are int8 with one f32 scale per (b, h,
+slot), each slot quantized as it is written (joeys2t_tpu/models/decoders.py
+:172-227). Decode attention reads them in its "channel" and "position"
+layouts.
 """
 from typing import Dict, Optional
 
@@ -21,6 +28,17 @@ from joeys2t_torch.models.modules import (NEG_INF, Dropout, TransformerDecoderLa
                                           layer_norm, sinusoidal_pe, subsequent_mask)
 
 
+def _quantize_per_channel(x: torch.Tensor, src_mask: Optional[torch.Tensor]):
+    """(B, H, S, D) -> int8 values and (B, H, D) f32 scales, the abs-max over
+    the valid frames of ``src_mask`` (B, 1, S) only: padded frames would
+    inflate the scale and cost the real ones precision."""
+    xf = x.float()
+    xs = xf if src_mask is None else xf.masked_fill(~src_mask[:, 0, None, :, None], 0.0)
+    scale = xs.abs().amax(dim=2) / 127.0 + 1e-8
+    q = torch.clamp(torch.round(xf / scale[:, :, None, :]), -127, 127)
+    return q.to(torch.int8).contiguous(), scale.contiguous()
+
+
 class TransformerDecoder(nn.Module):
     """Masked transformer decoder with an optional CTC output layer."""
 
@@ -28,8 +46,11 @@ class TransformerDecoder(nn.Module):
                  ff_size: int = 2048, dropout: float = 0.1, emb_dropout: float = 0.1,
                  vocab_size: int = 1, layer_norm_position: str = "post",
                  activation: str = "relu", alpha: float = 1.0, ctc_layer: bool = False,
+                 cache_cross_int8: bool = False, cache_self_int8: bool = False,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
+        self.cache_cross_int8 = cache_cross_int8
+        self.cache_self_int8 = cache_self_int8
         self.num_heads = num_heads
         self.hidden_size = hidden_size
         self.layer_norm_position = layer_norm_position
@@ -71,9 +92,10 @@ class TransformerDecoder(nn.Module):
                    beam_k: int = 1) -> Dict[str, Dict]:
         """Decode cache: per layer the cross K/V projected once (B, H, S, Dh)
         and zeroed self-attention buffers of ``max_len`` slots (B*beam_k, H,
-        max_len, Dh), all in the compute dtype; and, shared by every layer
-        and step, the positional encoding table (max_len, size) and the
-        cross-attention bias (B, S) f32 from ``src_mask`` (B, 1, S) bool."""
+        max_len, Dh), in the compute dtype or int8 with their scales; and,
+        shared by every layer and step, the positional encoding table
+        (max_len, size) and the cross-attention bias (B, S) f32 from
+        ``src_mask`` (B, 1, S) bool."""
         b, s = encoder_output.shape[:2]
         device = encoder_output.device
         shape = (b * beam_k, self.num_heads, max_len, self.hidden_size // self.num_heads)
@@ -84,12 +106,23 @@ class TransformerDecoder(nn.Module):
                  "cross_bias": cross_bias}
         for i, layer in enumerate(self.layers):
             ck, cv = layer.precompute_cross_kv(encoder_output)  # (B, S, H, D)
-            cache[f"layer_{i}"] = {
-                "cross_k": ck.transpose(1, 2).contiguous(),
-                "cross_v": cv.transpose(1, 2).contiguous(),
-                "self_k": torch.zeros(shape, dtype=self.dtype, device=encoder_output.device),
-                "self_v": torch.zeros(shape, dtype=self.dtype, device=encoder_output.device),
-            }
+            ck, cv = ck.transpose(1, 2), cv.transpose(1, 2)
+            if self.cache_cross_int8:
+                (ck, ck_s), (cv, cv_s) = (_quantize_per_channel(x, src_mask) for x in (ck, cv))
+                entry = {"cross_k": ck, "cross_k_scale": ck_s,
+                         "cross_v": cv, "cross_v_scale": cv_s}
+            else:
+                entry = {"cross_k": ck.contiguous(), "cross_v": cv.contiguous()}
+            if self.cache_self_int8:
+                entry.update(
+                    self_k=torch.zeros(shape, dtype=torch.int8, device=device),
+                    self_v=torch.zeros(shape, dtype=torch.int8, device=device),
+                    self_k_scale=torch.zeros(shape[:3], dtype=torch.float32, device=device),
+                    self_v_scale=torch.zeros(shape[:3], dtype=torch.float32, device=device))
+            else:
+                entry.update(self_k=torch.zeros(shape, dtype=self.dtype, device=device),
+                             self_v=torch.zeros(shape, dtype=self.dtype, device=device))
+            cache[f"layer_{i}"] = entry
         return cache
 
     def decode_step(self, trg_embed_t: torch.Tensor, index: int, cache: Dict,

@@ -1,7 +1,8 @@
 # coding: utf-8
 """
-Transformer encoder with the Conv1d/GLU audio subsampler (counterpart of
-joeys2t_tpu/models/encoders.py ``TransformerEncoder`` :29).
+Transformer and Conformer encoders with the Conv1d/GLU audio subsampler
+(counterpart of joeys2t_tpu/models/encoders.py ``TransformerEncoder`` :29,
+``ConformerEncoder`` :174).
 
 The JAX encoder pads the subsampled sequence to a multiple of 128 for the
 TPU kernel's lanes; the CUDA flash kernel masks any key length itself, so
@@ -13,8 +14,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from joeys2t_torch.models.modules import (Conv1dSubsampler, Dropout,
-                                          TransformerEncoderLayer, layer_norm,
+from joeys2t_torch.models.modules import (ConformerEncoderLayer, Conv1dSubsampler, Dropout,
+                                          TransformerEncoderLayer, dense, layer_norm,
                                           sinusoidal_pe)
 
 
@@ -67,4 +68,47 @@ class TransformerEncoder(nn.Module):
             x = layer(x, mask)
         if self.layer_norm is not None:
             x = layer_norm(self.layer_norm, x, self.dtype)
+        return x, None, mask
+
+
+class ConformerEncoder(nn.Module):
+    """Conformer encoder: it always subsamples, then adds the sinusoidal
+    positional encoding, projects (``linear``), applies the embedding
+    dropout and the layers; no final norm (each layer ends with its own)."""
+
+    def __init__(self, hidden_size: int = 512, ff_size: int = 2048, num_layers: int = 8,
+                 num_heads: int = 4, dropout: float = 0.1, emb_dropout: float = 0.1,
+                 layer_norm_position: str = "pre", alpha: float = 1.0,
+                 depthwise_conv_kernel_size: int = 31, in_channels: int = 80,
+                 conv_channels: int = 512, conv_kernel_sizes: Sequence[int] = (3, 3),
+                 dtype: torch.dtype = torch.float32, conv_norm_type: str = "layernorm",
+                 macaron: str = "reference", layerscale_init: float = 0.0, device=None):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.dtype = dtype
+        self.layers = nn.ModuleList(
+            ConformerEncoderLayer(hidden_size, ff_size, num_heads, dropout,
+                                  depthwise_conv_kernel_size, alpha, layer_norm_position,
+                                  dtype, conv_norm_type, macaron, layerscale_init, device)
+            for _ in range(num_layers))
+        self.linear = nn.Linear(hidden_size, hidden_size, device=device)
+        self.emb_dropout = Dropout(emb_dropout)
+        self.subsampler = Conv1dSubsampler(in_channels, conv_channels, hidden_size,
+                                           conv_kernel_sizes, dtype, device)
+
+    @property
+    def output_size(self) -> int:
+        return self.hidden_size
+
+    def forward(self, src_embed: torch.Tensor, src_length: torch.Tensor,
+                mask: Optional[torch.Tensor] = None):
+        """(B, T, E) fbank features -> (output (B, T', H), None, mask (B, 1,
+        T')); the mask always comes from the subsampled lengths."""
+        del mask
+        x, src_length = self.subsampler(src_embed, src_length)
+        mask = lengths_to_mask(src_length, x.shape[1])
+        x = x + sinusoidal_pe(x.shape[1], x.shape[2], x.device).to(x.dtype)[None]
+        x = self.emb_dropout(dense(self.linear, x, self.dtype)).to(self.dtype)
+        for layer in self.layers:
+            x = layer(x, mask)
         return x, None, mask

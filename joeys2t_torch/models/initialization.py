@@ -59,7 +59,11 @@ def initialize_model(model: nn.Module, cfg: Dict, src_padding_idx: int,
     """Initialize every parameter of ``model`` in place per the `model`
     config section (joeynmt/initialization.py:79-236): embeddings, biases
     and weight matrices by their initializers, LayerNorm scales to one, and
-    the padding row of each embedding to zero."""
+    the padding row of each embedding to zero. As in the JAX package, the
+    conformer's parameters outside those rules keep their constants:
+    LayerScale vectors (``ls_*``) the encoder's ``layerscale``, the frozen
+    BatchNorm's weight and bias one and zero, its running mean and variance
+    (buffers) zero and one."""
     gain = float(cfg.get("init_gain", 1.0))
     init = cfg.get("initializer", "xavier_uniform")
     if init == "xavier":
@@ -76,8 +80,16 @@ def initialize_model(model: nn.Module, cfg: Dict, src_padding_idx: int,
     bias_fn = _make_init(cfg.get("bias_initializer", "zeros"),
                          cfg.get("bias_init_weight", 0.01), gain)
 
+    layerscale = float(cfg.get("encoder", {}).get("layerscale", 0.0))
     for name, p in sorted(model.named_parameters()):
         shape = tuple(p.shape)
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf.startswith("ls_"):
+            p.fill_(layerscale)
+            continue
+        if ".batch_norm." in name:
+            p.fill_(1.0 if leaf == "weight" else 0.0)
+            continue
         if "embed" in name and name.endswith("lut.weight"):
             value = embed_fn(shape, generator)
             value[src_padding_idx if "src_embed" in name else trg_padding_idx] = 0.0
@@ -88,4 +100,7 @@ def initialize_model(model: nn.Module, cfg: Dict, src_padding_idx: int,
         else:
             value = torch.ones(shape)  # LayerNorm scale
         p.copy_(value)
+    for name, b in model.named_buffers():
+        if name.endswith("running_mean") or name.endswith("running_var"):
+            b.fill_(1.0 if name.endswith("running_var") else 0.0)
     return model

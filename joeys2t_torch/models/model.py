@@ -1,8 +1,8 @@
 # coding: utf-8
 """
 Model facade and builder (counterpart of joeys2t_tpu/models/model.py:
-``ModelSpec`` :28, ``Seq2SeqModel`` :56, ``build_model`` :236), for the
-transformer speech-to-text branch.
+``ModelSpec`` :28, ``Seq2SeqModel`` :56, ``build_model`` :236), for
+speech-to-text with a transformer or conformer encoder.
 """
 import dataclasses
 from typing import Dict, Optional, Tuple
@@ -10,11 +10,11 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from joeys2t_torch.config import ConfigurationError, unported_model_options
+from joeys2t_torch.config import ConfigurationError
 from joeys2t_torch.helpers import resolve_device
 from joeys2t_torch.models.decoders import TransformerDecoder
 from joeys2t_torch.models.embeddings import Embeddings
-from joeys2t_torch.models.encoders import TransformerEncoder
+from joeys2t_torch.models.encoders import ConformerEncoder, TransformerEncoder
 from joeys2t_torch.models.initialization import initialize_model
 
 
@@ -44,7 +44,7 @@ class Seq2SeqModel(nn.Module):
     """Encoder-decoder speech-to-text model: the source is fbank features,
     with no source embedding (joeynmt/model.py:396)."""
 
-    def __init__(self, encoder: TransformerEncoder, decoder: TransformerDecoder,
+    def __init__(self, encoder: nn.Module, decoder: TransformerDecoder,
                  trg_embed: Embeddings):
         super().__init__()
         self.encoder = encoder
@@ -88,7 +88,8 @@ def build_model(cfg: Dict, src_vocab=None, trg_vocab=None,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[Seq2SeqModel, ModelSpec]:
     """Build and initialize the model of the `model` config section
-    (joeynmt/model.py:366-506), transformer speech-to-text only.
+    (joeynmt/model.py:366-506): speech-to-text with a transformer or
+    conformer encoder and a transformer decoder.
 
     Parameters are float32 (the JAX package's master weights) on ``device``
     (``cuda`` unless given), drawn by
@@ -99,18 +100,16 @@ def build_model(cfg: Dict, src_vocab=None, trg_vocab=None,
     if src_vocab is not None:
         raise NotImplementedError("text-to-text (MT) models are not ported yet")
     enc_cfg, dec_cfg = cfg["encoder"], cfg["decoder"]
-    for side in (enc_cfg, dec_cfg):
-        if side.get("type", "transformer") != "transformer":
-            raise NotImplementedError(f"{side.get('type')} encoders/decoders are not "
-                                      f"ported yet")
+    enc_type = enc_cfg.get("type", "transformer")
+    if enc_type not in ("transformer", "conformer"):
+        raise NotImplementedError(f"{enc_type} encoders are not ported yet")
+    if dec_cfg.get("type", "transformer") != "transformer":
+        raise NotImplementedError(f"{dec_cfg.get('type')} decoders are not ported yet")
     if cfg.get("tied_embeddings", False):
         raise ConfigurationError("tied embeddings need a source vocabulary (MT)")
     if cfg.get("tied_softmax", False):
         raise NotImplementedError("tied softmax is not ported yet")
-    unported = unported_model_options(cfg)
-    if unported:
-        raise NotImplementedError(f"model options not ported yet: {unported}")
-    if not enc_cfg.get("subsample", False):
+    if enc_type == "transformer" and not enc_cfg.get("subsample", False):
         raise NotImplementedError("speech encoders without subsampling are not "
                                   "ported yet")
     if int(enc_cfg.get("num_experts", 0)) > 0:
@@ -120,16 +119,24 @@ def build_model(cfg: Dict, src_vocab=None, trg_vocab=None,
     enc_dropout = enc_cfg.get("dropout", 0.0)
     dec_dropout = dec_cfg.get("dropout", 0.0)
     with torch.device("meta"):
-        encoder = TransformerEncoder(
+        common = dict(
             hidden_size=enc_cfg["hidden_size"], ff_size=enc_cfg["ff_size"],
             num_layers=enc_cfg["num_layers"], num_heads=enc_cfg["num_heads"],
             dropout=enc_dropout,
             emb_dropout=enc_cfg["embeddings"].get("dropout", enc_dropout),
             layer_norm_position=enc_cfg.get("layer_norm", "pre"),
-            activation=enc_cfg.get("activation", "relu"), subsample=True,
             in_channels=enc_cfg["in_channels"], conv_channels=enc_cfg["conv_channels"],
             conv_kernel_sizes=tuple(enc_cfg.get("conv_kernel_sizes", [3, 3])),
             dtype=compute_dtype)
+        if enc_type == "conformer":
+            encoder = ConformerEncoder(
+                depthwise_conv_kernel_size=enc_cfg.get("depthwise_conv_kernel_size", 31),
+                conv_norm_type=enc_cfg.get("conv_norm", "layernorm"),
+                macaron=enc_cfg.get("macaron", "reference"),
+                layerscale_init=float(enc_cfg.get("layerscale", 0.0)), **common)
+        else:
+            encoder = TransformerEncoder(activation=enc_cfg.get("activation", "relu"),
+                                         subsample=True, **common)
         decoder = TransformerDecoder(
             num_layers=dec_cfg["num_layers"], num_heads=dec_cfg["num_heads"],
             hidden_size=dec_cfg["hidden_size"], ff_size=dec_cfg["ff_size"],
@@ -138,6 +145,10 @@ def build_model(cfg: Dict, src_vocab=None, trg_vocab=None,
             vocab_size=len(trg_vocab),
             layer_norm_position=dec_cfg.get("layer_norm", "post"),
             activation=dec_cfg.get("activation", "relu"), ctc_layer=True,
+            cache_cross_int8=bool(cfg.get("cache_cross_int8",
+                                          dec_cfg.get("cache_cross_int8", False))),
+            cache_self_int8=bool(cfg.get("cache_self_int8",
+                                         dec_cfg.get("cache_self_int8", False))),
             dtype=compute_dtype)
         trg_embed = Embeddings(
             len(trg_vocab), dec_cfg["embeddings"]["embedding_dim"],

@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from joeys2t_torch.ops.decode_attention import decode_attention
+from joeys2t_torch.ops.decode_attention import decode_attention, quantize_per_position
 from joeys2t_torch.ops.flash_attention import mha_flash_flat, supported
 
 NEG_INF = -1e9
@@ -200,29 +200,45 @@ class MultiHeadedAttention(nn.Module):
         return self._attend(q_h, k_h, v_h, mask)
 
     def step_self(self, q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
-                  index: int, bias: torch.Tensor) -> torch.Tensor:
+                  index: int, bias: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
+                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One self-attention decode step (B, 1, size) -> (B, 1, size); writes
         this step's key/value into slot ``index`` of the (B, H, S_max, Dh)
         caches in place. ``bias`` (B, S_max) f32 is 0 at slots 0..index and
-        NEG_INF beyond."""
+        NEG_INF beyond. int8 caches come with (B, H, S_max) f32 scales: the
+        new slot is quantized on its own (``quantize_per_position``), its
+        values and scale written in place, and the attention folds the
+        scales in the "position" layout."""
         k_h, v_h = self.project_kv(q)  # (B, 1, H, Dh)
+        if cache_k.dtype == torch.int8:
+            for cache, scale, x in ((cache_k, k_scale, k_h), (cache_v, v_scale, v_h)):
+                x_q, x_s = quantize_per_position(x[:, 0])  # (B, H, Dh), (B, H)
+                cache[:, :, index] = x_q
+                scale[:, :, index] = x_s
+            return self._step(q, cache_k, cache_v, bias, k_scale=k_scale,
+                              v_scale=v_scale, layout="position")
         cache_k[:, :, index] = k_h[:, 0].to(cache_k.dtype)
         cache_v[:, :, index] = v_h[:, 0].to(cache_v.dtype)
         return self._step(q, cache_k, cache_v, bias)
 
     def step_cross(self, q: torch.Tensor, k_h: torch.Tensor, v_h: torch.Tensor,
-                   bias: torch.Tensor, beam_k: int = 1) -> torch.Tensor:
+                   bias: torch.Tensor, beam_k: int = 1,
+                   k_scale: Optional[torch.Tensor] = None,
+                   v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One cross-attention decode step (B*K, 1, size) -> (B*K, 1, size)
         against the precomputed (B, H, S, Dh) K/V; ``bias`` (B, S) f32 is 0
         at valid source frames and NEG_INF at padding. With ``beam_k`` K > 1
         the K beams of each utterance share its cross cache, which is never
-        expanded to B*K rows."""
-        return self._step(q, k_h, v_h, bias, beam_k)
+        expanded to B*K rows. int8 K/V come with (B, H, Dh) f32 scales, folded
+        in the "channel" layout."""
+        return self._step(q, k_h, v_h, bias, beam_k, k_scale, v_scale,
+                          None if k_scale is None else "channel")
 
-    def _step(self, q, k_h, v_h, bias, group=1):
+    def _step(self, q, k_h, v_h, bias, group=1, k_scale=None, v_scale=None, layout=None):
         q_h = self._split_heads(dense(self.q_layer, q, self.dtype))
-        ctx = decode_attention(q_h[:, 0], k_h, v_h, bias,
-                               sm_scale=1.0 / math.sqrt(self.head_size), group=group)
+        ctx = decode_attention(q_h[:, 0], k_h, v_h, bias, k_scale, v_scale,
+                               sm_scale=1.0 / math.sqrt(self.head_size),
+                               scale_layout=layout, group=group)
         return dense(self.output_layer, ctx.reshape(q.shape[0], 1, self.size), self.dtype)
 
 
@@ -333,14 +349,16 @@ class TransformerDecoderLayer(nn.Module):
                     beam_k: int = 1) -> torch.Tensor:
         """Single decode step (B*K, 1, size) -> (B*K, 1, size) with the
         cached self K/V (B*K rows) and cross K/V (B rows, shared by the K
-        beams of an utterance) and their additive biases; the
-        self-attention cache is updated in place."""
+        beams of an utterance) and their additive biases, int8 with their
+        scales where the cache holds ``*_scale`` entries; the self-attention
+        cache is updated in place."""
         pre = self.layer_norm_position == "pre"
         residual = x
         if pre:
             x = layer_norm(self.x_layer_norm, x, self.dtype)
         h1 = self.trg_trg_att.step_self(x, cache["self_k"], cache["self_v"], index,
-                                        self_bias)
+                                        self_bias, cache.get("self_k_scale"),
+                                        cache.get("self_v_scale"))
         h1 = h1 + self.alpha * residual
         if not pre:
             h1 = layer_norm(self.x_layer_norm, h1, self.dtype)
@@ -349,11 +367,180 @@ class TransformerDecoderLayer(nn.Module):
         if pre:
             h1 = layer_norm(self.dec_layer_norm, h1, self.dtype)
         h2 = self.src_trg_att.step_cross(h1, cache["cross_k"], cache["cross_v"],
-                                         cross_bias, beam_k)
+                                         cross_bias, beam_k, cache.get("cross_k_scale"),
+                                         cache.get("cross_v_scale"))
         h2 = h2 + self.alpha * h1_residual
         if not pre:
             h2 = layer_norm(self.dec_layer_norm, h2, self.dtype)
         return self.feed_forward(h2)
+
+
+class _Pointwise(nn.Module):
+    """A kernel-size-1 convolution over (B, T, Cin), computed as a matmul;
+    the weight keeps torch's Conv1d layout (Cout, Cin, 1), the reference's
+    ``pointwise_conv`` naming."""
+
+    def __init__(self, in_channels: int, out_channels: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 1, device=device))
+        self.bias = nn.Parameter(torch.empty(out_channels, device=device))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return F.linear(x.to(dtype), self.weight[:, :, 0].to(dtype), self.bias.to(dtype))
+
+
+class _FrozenBatchNorm(nn.Module):
+    """BatchNorm1d in its inference form, with frozen running statistics
+    (buffers, so no optimizer updates or decays them) in training too:
+    (x - mean) / sqrt(var + 1e-5) * weight + bias in float32."""
+
+    def __init__(self, channels: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(channels, device=device))
+        self.bias = nn.Parameter(torch.empty(channels, device=device))
+        self.register_buffer("running_mean", torch.empty(channels, device=device))
+        self.register_buffer("running_var", torch.empty(channels, device=device))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        inv = torch.rsqrt(self.running_var.float() + 1e-5)
+        return ((x.float() - self.running_mean.float()) * inv * self.weight.float()
+                + self.bias.float()).to(dtype)
+
+
+def _depthwise_conv(conv: nn.Conv1d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``conv`` (groups = channels, "same" padding) over (B, T, C) in
+    ``dtype``; a float32 convolution on the card keeps full float32 (cuDNN
+    would take TF32 by default)."""
+    args = (x.to(dtype).transpose(1, 2), conv.weight.to(dtype), conv.bias.to(dtype), 1,
+            conv.padding, 1, conv.groups)
+    if dtype == torch.float32 and x.is_cuda:
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            return F.conv1d(*args).transpose(1, 2)
+    return F.conv1d(*args).transpose(1, 2)
+
+
+class ConvolutionModule(nn.Module):
+    """Conformer convolution block (joeys2t_tpu/models/modules.py:765):
+    LayerNorm, pointwise conv to 2C, GLU, depthwise conv ("same" padding),
+    ``norm_type`` "layernorm" or "batchnorm" (the inference form with frozen
+    running statistics, for converted reference checkpoints), hard-swish,
+    pointwise conv, dropout. The depthwise conv is ``F.conv1d`` with
+    ``groups`` = C, as the JAX module takes ``nn.Conv`` outside any kernel."""
+
+    def __init__(self, hidden_size: int, channels: int, depthwise_kernel_size: int,
+                 dropout: float, dtype: torch.dtype = torch.float32,
+                 norm_type: str = "layernorm", device=None):
+        super().__init__()
+        if (depthwise_kernel_size - 1) % 2:
+            raise ValueError("the depthwise kernel size must be odd for 'same' padding")
+        if norm_type not in {"layernorm", "batchnorm"}:
+            raise ValueError(f"norm_type {norm_type!r}")
+        self.dtype = dtype
+        self.norm_type = norm_type
+        self.layer_norm = _layer_norm_module(hidden_size, device)
+        self.pointwise_conv1 = _Pointwise(hidden_size, 2 * channels, device)
+        self.depthwise_conv = nn.Conv1d(channels, channels, depthwise_kernel_size,
+                                        padding=(depthwise_kernel_size - 1) // 2,
+                                        groups=channels, device=device)
+        if norm_type == "batchnorm":
+            self.batch_norm = _FrozenBatchNorm(channels, device)
+        else:
+            self.norm = _layer_norm_module(channels, device)
+        self.pointwise_conv2 = _Pointwise(channels, hidden_size, device)
+        self.dropout = Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.pointwise_conv1(layer_norm(self.layer_norm, x, self.dtype), self.dtype)
+        a, b = x.chunk(2, dim=-1)
+        x = _depthwise_conv(self.depthwise_conv, a * torch.sigmoid(b), self.dtype)
+        if self.norm_type == "batchnorm":
+            x = self.batch_norm(x, self.dtype)
+        else:
+            x = layer_norm(self.norm, x, self.dtype)
+        return self.dropout(self.pointwise_conv2(F.hardswish(x), self.dtype))
+
+
+class ConformerEncoderLayer(nn.Module):
+    """Conformer block (joeys2t_tpu/models/modules.py:843): half-step
+    feed-forward, self-attention, convolution module, half-step
+    feed-forward. ``macaron`` "reference" is the reference implementation's
+    form (its feed-forward already holds the residual: x <- 1.5 x + 0.5
+    ff(LN(x)), and pre-norm normalizes the last feed-forward's input
+    twice); "paper" is arXiv:2005.08100's (x <- x + 0.5 ff(LN(x)), then a
+    block-final LayerNorm), which takes pre-norm only. ``layerscale_init`` > 0
+    (paper form only) scales each sublayer's delta by a learned per-channel
+    vector ``ls_ff1``, ``ls_att``, ``ls_conv``, ``ls_ff2`` starting at that
+    constant. Self-attention is the port's ``MultiHeadedAttention``: the
+    flash kernels, forward and backward."""
+
+    def __init__(self, size: int = 512, ff_size: int = 2048, num_heads: int = 4,
+                 dropout: float = 0.1, depthwise_conv_kernel_size: int = 31,
+                 alpha: float = 1.0, layer_norm_position: str = "pre",
+                 dtype: torch.dtype = torch.float32, conv_norm_type: str = "layernorm",
+                 macaron: str = "reference", layerscale_init: float = 0.0, device=None):
+        super().__init__()
+        if layer_norm_position not in {"pre", "post"} or macaron not in {"reference",
+                                                                          "paper"}:
+            raise ValueError(f"layer_norm {layer_norm_position!r}, macaron {macaron!r}")
+        if macaron == "paper" and layer_norm_position != "pre":
+            raise ValueError("macaron='paper' requires layer_norm='pre'")
+        if layerscale_init > 0.0 and macaron != "paper":
+            raise ValueError("layerscale needs macaron='paper' (separable sublayer delta)")
+        self.alpha = alpha
+        self.layer_norm_position = layer_norm_position
+        self.macaron = macaron
+        self.layerscale_init = layerscale_init
+        self.dtype = dtype
+        if layerscale_init > 0.0:
+            for name in ("ls_ff1", "ls_att", "ls_conv", "ls_ff2"):
+                setattr(self, name, nn.Parameter(torch.empty(size, device=device)))
+        self.initial_feed_forward, self.final_feed_forward = (
+            PositionwiseFeedForward(size, ff_size, dropout, alpha, layer_norm_position,
+                                    dtype=dtype, device=device) for _ in range(2))
+        self.src_att_layer_norm = _layer_norm_module(size, device)
+        self.final_layer_norm = _layer_norm_module(size, device)
+        self.src_src_att = MultiHeadedAttention(num_heads, size, dropout, dtype, device)
+        self.conv_module = ConvolutionModule(size, size, depthwise_conv_kernel_size, dropout,
+                                             dtype, conv_norm_type, device)
+        self.src_att_dropout = Dropout(dropout)
+
+    def _scaled(self, name: str, delta: torch.Tensor) -> torch.Tensor:
+        return getattr(self, name).to(delta.dtype) * delta if self.layerscale_init > 0 \
+            else delta
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        pre, paper = self.layer_norm_position == "pre", self.macaron == "paper"
+        residual = x
+        x = self.initial_feed_forward(x)
+        if paper:  # the feed-forward returns core + alpha x: take the core's half step
+            x = residual + self._scaled("ls_ff1", 0.5 * (x - self.alpha * residual))
+        else:
+            x = 0.5 * x + residual
+
+        residual = x
+        if pre:
+            x = layer_norm(self.src_att_layer_norm, x, self.dtype)
+        x = self._scaled("ls_att", self.src_att_dropout(self.src_src_att(x, x, x, mask)))
+        x = x + self.alpha * residual
+        if not pre:
+            x = layer_norm(self.src_att_layer_norm, x, self.dtype)
+
+        residual = x
+        x = self._scaled("ls_conv", self.conv_module(x)) + self.alpha * residual
+
+        residual = x
+        if pre and not paper:  # the reference normalizes the last FF's input twice
+            x = layer_norm(self.final_layer_norm, x, self.dtype)
+        x = self.final_feed_forward(x)
+        if paper:
+            x = residual + self._scaled("ls_ff2", 0.5 * (x - self.alpha * residual))
+            return layer_norm(self.final_layer_norm, x, self.dtype)
+        x = 0.5 * x + residual
+        if not pre:
+            x = layer_norm(self.final_layer_norm, x, self.dtype)
+        return x
 
 
 def subsequent_mask(size: int, device=None) -> torch.Tensor:

@@ -157,11 +157,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     decode_attention.launches += 1
     if group > 1:
         decode_attention.group_launches += 1
+    if layout == "channel":
+        decode_attention.channel_launches += 1
+    elif layout == "position":
+        decode_attention.position_launches += 1
     return out
 
 
 decode_attention.launches = 0  # kernel launches; tests and smoke runs reset it
 decode_attention.group_launches = 0  # the launches among them with group > 1
+decode_attention.channel_launches = 0  # ... on int8 caches with channel scales
+decode_attention.position_launches = 0  # ... on int8 caches with position scales
 
 
 def quantize_per_position(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

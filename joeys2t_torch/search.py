@@ -19,8 +19,8 @@ penalty ``((5 + step + 1) / 6) ** alpha`` in float32, selection as
 ``jax.lax.top_k`` makes it (ties to the lower index, through a stable
 sort), the finished store merged from 2K candidates, unfilled n-best slots
 as ``[unk]`` with score -1. The cross-attention cache stays at B rows,
-shared by an utterance's beams; the self-attention caches are reordered
-physically after each selection (JAX's ``beam_reorder: physical``; its
+shared by an utterance's beams; the self-attention caches, with their
+scales when int8, are reordered physically after each selection (JAX's ``beam_reorder: physical``; its
 default ``auto`` takes the ancestry map, the same math, which is not ported,
 so ``auto`` reorders physically and ``lazy`` raises). Repetition penalty,
 n-gram blocking, prompts and returned attention are not ported yet and
@@ -197,9 +197,12 @@ def _transformer_beam(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torc
     k, v, l1 = beam_size, spec.trg_vocab_size, max_output_length + 1
     device = encoder_output.device
     cache = model.init_cache(encoder_output, l1, src_mask, beam_k=k)
-    # the self-attention buffers, and a spare of each to reorder into
+    # the self-attention buffers (with their scales when int8), and a spare
+    # of each to reorder into; the cross caches and their scales stay as
+    # they are, shared by an utterance's beams
     buffers = [(cache[name], key) for name in cache if name.startswith("layer_")
-               for key in ("self_k", "self_v")]
+               for key in ("self_k", "self_v", "self_k_scale", "self_v_scale")
+               if key in cache[name]]
     spares = [torch.empty_like(layer[key]) for layer, key in buffers]
 
     alive_seq = torch.full((b * k, l1), spec.pad_index, dtype=torch.long, device=device)

@@ -10,6 +10,9 @@ Usage:
     texts = asr.transcribe([wave_a, "b.wav"])        # int16-scaled floats or wav files
     texts = asr.transcribe([wave_a], beam_size=5, beam_alpha=1.0)
 
+    from joeys2t_torch.hub_interface import load_model_dir
+    asr = Transcriber.from_hub(load_model_dir("models/my_asr"))  # a trained model dir
+
 Transcripts are the target tokens after the target tokenizer's
 ``post_process`` when one is given, else the tokens joined by spaces.
 """
@@ -80,13 +83,17 @@ class Transcriber:
     the compute dtype, cast once here (``decode_model``). ``tokenizer``, the
     target side's (a ``BasicTokenizer``), turns tokens into text.
 
+    ``norm_means``/``norm_vars`` are the CMVN the model was trained with.
     ``stats`` counts what the instance served: requests (calls of
     ``transcribe_batch``), utterances, audio seconds and decode steps."""
 
     sample_rate = 16000.0
 
-    def __init__(self, model, spec, trg_vocab, tokenizer=None, device=None):
+    def __init__(self, model, spec, trg_vocab, tokenizer=None, device=None,
+                 norm_means: bool = True, norm_vars: bool = True):
         self.device = resolve_device(device)
+        self.norm_means = norm_means
+        self.norm_vars = norm_vars
         self.model = model.to(self.device).eval()
         self.decode_model = _cast_params_to_compute_dtype(self.model)
         self.spec = spec
@@ -95,6 +102,21 @@ class Transcriber:
         self.num_mel_bins = model.encoder.subsampler.conv_layers[0].weight.shape[1]
         self.stats = {"requests": 0, "utterances": 0, "audio_seconds": 0.0,
                       "decode_steps": 0}
+
+    @classmethod
+    def from_hub(cls, hub) -> "Transcriber":
+        """Serve the model of a ``TranslatorHubInterface``
+        (``hub_interface.load_model_dir``) on its device, with its target
+        tokenizer (a SentencePiece model detokenizes the text) and its
+        source side's CMVN flags."""
+        if hub.args.task != "S2T":
+            raise ValueError("Transcriber requires an S2T model")
+        data = hub.dataset
+        cmvn = getattr(data.tokenizer.get(data.src_lang), "cmvn", None)
+        return cls(hub.model, hub.spec, data.trg_vocab,
+                   tokenizer=data.tokenizer.get(data.trg_lang), device=hub.args.device,
+                   norm_means=bool(getattr(cmvn, "norm_means", True)),
+                   norm_vars=bool(getattr(cmvn, "norm_vars", True)))
 
     def _load(self, w) -> np.ndarray:
         if isinstance(w, (str, Path)):
@@ -146,7 +168,9 @@ class Transcriber:
         lengths = torch.as_tensor(lengths).to(self.device)
         feats, frame_lengths = device_frontend(waveforms, lengths,
                                                sample_rate=self.sample_rate,
-                                               num_mel_bins=self.num_mel_bins)
+                                               num_mel_bins=self.num_mel_bins,
+                                               norm_means=self.norm_means,
+                                               norm_vars=self.norm_vars)
         enc, _, enc_mask = self.model.encode(feats, frame_lengths)
         if max_output_length is None:
             max_output_length = int(enc.shape[1] * 1.5) + 8

@@ -1,32 +1,47 @@
 # coding: utf-8
 """
 Tokenizers (counterpart of joeys2t_tpu/tokenizers.py): ``BasicTokenizer``
-:46 (word and char level), ``SpeechProcessor`` :315, ``EvaluationTokenizer``
-:371, ``_build_tokenizer`` :409 and ``build_tokenizer`` :442.
+:46 (word and char level), ``SentencePieceTokenizer`` :192,
+``SubwordNMTTokenizer`` :253 and ``FastBPETokenizer`` :302 (``level: bpe``,
+on the port's own ``spm`` and ``bpe`` modules, so no sentencepiece or
+subword-nmt package is needed), ``SpeechProcessor`` :315,
+``EvaluationTokenizer`` :371, ``_build_tokenizer`` :409 and
+``build_tokenizer`` :442.
+
+The text classes share one ``__call__``/``post_process`` skeleton;
+subclasses plug in ``_segment`` (text -> pieces) and ``_join`` (pieces ->
+text), and whether the ``<sep>`` prompt cut keeps the separator. Subword
+sampling in training (SentencePiece ``alpha``, BPE ``dropout``) draws from
+``rng``, a ``random.Random`` that each tokenizer owns, seeded with 42
+(``rng.seed`` reseeds it); the JAX package draws from the global ``random``
+module instead.
 
 ``EvaluationTokenizer`` carries its own ``13a`` and ``none`` tokenizers,
 the behaviour of sacrebleu's (the mteval-v13a regexes), so the port needs
-no sacrebleu. Not ported yet, each raising ``NotImplementedError``: subword
-levels (``level: bpe``: SentencePiece, subword-nmt, fastBPE), moses
+no sacrebleu. Not ported yet, each raising ``NotImplementedError``: moses
 pretokenization, and the ``intl``, ``zh`` and ``ja-mecab`` evaluation
 tokenizers.
 """
+import random
 import re
+import shutil
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 
+from joeys2t_torch.bpe import BPE
 from joeys2t_torch.config import ConfigurationError
 from joeys2t_torch.data.audio_io import get_features
 from joeys2t_torch.data.augmentation import CMVN, SpecAugment
 from joeys2t_torch.helpers import remove_extra_spaces, remove_punctuation, unicode_normalize
+from joeys2t_torch.spm import MiniSentencePiece
 from joeys2t_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 
 _SPACE = chr(32)  # ' '
-_MARKER = chr(9601)  # '▁', the space escape of char-level targets
+_MARKER = chr(9601)  # '▁', the space escape of char-level and SentencePiece pieces
 
 
 class BasicTokenizer:
@@ -34,6 +49,9 @@ class BasicTokenizer:
 
     SPACE = _SPACE
     SPACE_ESCAPE = _MARKER
+    # whether the prompt cut keeps the <sep> token (subword models keep it;
+    # it is a special token, dropped with the others)
+    _PROMPT_KEEPS_SEP = False
 
     def __init__(self, level: str = "word", lowercase: bool = False,
                  normalize: bool = False, max_length: int = -1,
@@ -43,6 +61,7 @@ class BasicTokenizer:
         self.normalize = normalize
         self.max_length = max_length
         self.min_length = min_length
+        self.rng = random.Random(42)
         self.pretokenizer = kwargs.get("pretokenizer", "none").lower()
         if self.pretokenizer != "none":
             raise NotImplementedError(
@@ -72,13 +91,16 @@ class BasicTokenizer:
         window."""
         if raw_input is None:
             return None
-        if self.level == "char":
-            pieces = list(raw_input.replace(_SPACE, _MARKER))
-        else:
-            pieces = raw_input.split(_SPACE)
+        pieces = self._segment(raw_input, is_train)
         if is_train and not self._length_ok(len(pieces)):
             return None
         return pieces
+
+    def _segment(self, text: str, is_train: bool) -> List[str]:
+        del is_train  # word and char segmentation draw nothing
+        if self.level == "char":
+            return list(text.replace(_SPACE, _MARKER))
+        return text.split(_SPACE)
 
     def _length_ok(self, n: int) -> bool:
         """Train-time filter window; a bound <= 0 disables that side."""
@@ -89,21 +111,25 @@ class BasicTokenizer:
     def post_process(self, sequence: Union[List[str], str], generate_unk: bool = True,
                      cut_at_sep: bool = True) -> str:
         """Detokenize decoder output: drop the forced prompt prefix, strip
-        special tokens, rejoin to surface text."""
+        special tokens, rejoin to surface text. A hypothesis of SentencePiece
+        space pieces alone comes out as the empty string, an empty
+        transcript; the JAX package asserts there (joeys2t_tpu/tokenizers.py
+        :140) and stops the run that decoded it."""
         if isinstance(sequence, list):
             if cut_at_sep and self.sep_token and self.sep_token in sequence:
-                sequence = sequence[sequence.index(self.sep_token) + 1:]
+                start = sequence.index(self.sep_token)
+                sequence = sequence[start + (0 if self._PROMPT_KEEPS_SEP else 1):]
             banned = set(self.specials) | ({self.unk_token} if not generate_unk else set())
-            sequence = [p for p in sequence if p not in banned] or [self.unk_token]
-            if self.level == "char":
-                sequence = "".join(sequence).replace(_MARKER, _SPACE)
-            else:
-                sequence = _SPACE.join(sequence)
+            sequence = self._join([p for p in sequence if p not in banned]
+                                  or [self.unk_token])
         if self.normalize:
             sequence = remove_extra_spaces(sequence)
-        if not sequence:
-            raise ValueError("post-processing left an empty sequence")
         return sequence
+
+    def _join(self, pieces: List[str]) -> str:
+        if self.level == "char":
+            return "".join(pieces).replace(_MARKER, _SPACE)
+        return _SPACE.join(pieces)
 
     def set_vocab(self, vocab) -> None:
         """Bind the special tokens' surface forms once the vocabulary
@@ -118,11 +144,115 @@ class BasicTokenizer:
     def copy_cfg_file(self, model_dir: Path) -> None:
         """Word and char tokenizers have no model file to keep."""
 
-    def __repr__(self):
-        return (f"{self.__class__.__name__}(level={self.level}, "
-                f"lowercase={self.lowercase}, normalize={self.normalize}, "
+    def _describe(self) -> str:
+        return (f"level={self.level}, lowercase={self.lowercase}, "
+                f"normalize={self.normalize}, "
                 f"filter_by_length=({self.min_length}, {self.max_length}), "
-                f"pretokenizer={self.pretokenizer})")
+                f"pretokenizer={self.pretokenizer}")
+
+    def __repr__(self):
+        return f"{self.__class__.__name__}({self._describe()})"
+
+
+class SentencePieceTokenizer(BasicTokenizer):
+    """SentencePiece unigram or BPE pieces from a ``model_file``, read by the
+    port's ``MiniSentencePiece``; with ``alpha`` > 0 training samples a
+    segmentation (subword regularization)."""
+
+    _PROMPT_KEEPS_SEP = True
+
+    def __init__(self, level: str = "bpe", lowercase: bool = False,
+                 normalize: bool = False, max_length: int = -1,
+                 min_length: int = -1, **kwargs):
+        super().__init__(level, lowercase, normalize, max_length, min_length, **kwargs)
+        if self.level != "bpe":
+            raise ConfigurationError(f"SentencePiece takes level bpe, not {self.level}")
+        self.model_file = Path(kwargs["model_file"])
+        if not self.model_file.is_file():
+            raise FileNotFoundError(f"model file {self.model_file} not found.")
+        self.spm = MiniSentencePiece.from_file(self.model_file, rng=self.rng)
+        self.nbest_size: int = kwargs.get("nbest_size", 5)
+        self.alpha: float = kwargs.get("alpha", 0.0)
+
+    def _segment(self, text: str, is_train: bool) -> List[str]:
+        if is_train and self.alpha > 0:
+            return self.spm.sample_encode_as_pieces(text, nbest_size=self.nbest_size,
+                                                    alpha=self.alpha)
+        return self.spm.encode(text, out_type=str)
+
+    def _join(self, pieces: List[str]) -> str:
+        return self.spm.decode(pieces).replace(_MARKER, _SPACE).strip()
+
+    def set_vocab(self, vocab) -> None:
+        super().set_vocab(vocab)
+        self.spm.SetVocabulary(vocab._tokens)  # pylint: disable=protected-access
+
+    def copy_cfg_file(self, model_dir: Path) -> None:
+        """Keep the SentencePiece model beside the config in ``model_dir``."""
+        dest = Path(model_dir) / self.model_file.name
+        if dest.is_file():
+            logger.warning("%s already exists. Stop copying.", dest.as_posix())
+            return
+        shutil.copy2(self.model_file, dest.as_posix())
+
+    def __repr__(self):
+        return (f"{self.__class__.__name__}({self._describe()}, "
+                f"tokenizer={self.spm.__class__.__name__}, "
+                f"nbest_size={self.nbest_size}, alpha={self.alpha})")
+
+
+class SubwordNMTTokenizer(BasicTokenizer):
+    """subword-nmt BPE from a ``codes`` file through the port's ``bpe``
+    module; ``dropout`` applies in training, ``glossaries`` stay whole."""
+
+    _PROMPT_KEEPS_SEP = True
+
+    def __init__(self, level: str = "bpe", lowercase: bool = False,
+                 normalize: bool = False, max_length: int = -1,
+                 min_length: int = -1, **kwargs):
+        super().__init__(level, lowercase, normalize, max_length, min_length, **kwargs)
+        if self.level != "bpe":
+            raise ConfigurationError(f"subword-nmt takes level bpe, not {self.level}")
+        self.codes = Path(kwargs["codes"])
+        if not self.codes.is_file():
+            raise FileNotFoundError(f"codes file {self.codes} not found.")
+        self.separator: str = kwargs.get("separator", "@@")
+        self.dropout: float = kwargs.get("dropout", 0.0)
+        self.bpe = BPE.from_file(self.codes, separator=self.separator, rng=self.rng)
+        self.bpe.glossaries = list(kwargs.get("glossaries") or [])
+
+    def _segment(self, text: str, is_train: bool) -> List[str]:
+        dropout = self.dropout if is_train else 0.0
+        return self.bpe.process_line(text, dropout).strip().split()
+
+    def _join(self, pieces: List[str]) -> str:
+        text = _SPACE.join(pieces).replace(self.separator + _SPACE, "")
+        return text[:-len(self.separator)] if text.endswith(self.separator) else text
+
+    def set_vocab(self, vocab) -> None:
+        super().set_vocab(vocab)
+        self.bpe.vocab = (set(vocab._tokens)  # pylint: disable=protected-access
+                          - set(vocab.specials) - set(vocab.lang_tags))
+
+    def copy_cfg_file(self, model_dir: Path) -> None:
+        """Keep the codes file beside the config in ``model_dir``."""
+        shutil.copy2(self.codes, (Path(model_dir) / self.codes.name).as_posix())
+
+    def __repr__(self):
+        return (f"{self.__class__.__name__}({self._describe()}, "
+                f"separator={self.separator}, dropout={self.dropout})")
+
+
+class FastBPETokenizer(SubwordNMTTokenizer):
+    """fastBPE codes, which have subword-nmt's format: the separator '@@'
+    and no dropout."""
+
+    def __init__(self, level: str = "bpe", lowercase: bool = False,
+                 normalize: bool = False, max_length: int = -1,
+                 min_length: int = -1, **kwargs):
+        kwargs.setdefault("separator", "@@")
+        super().__init__(level, lowercase, normalize, max_length, min_length, **kwargs)
+        self.dropout = 0.0
 
 
 class SpeechProcessor:
@@ -237,6 +367,13 @@ class EvaluationTokenizer(BasicTokenizer):
                 f"no_punc={self.no_punc})")
 
 
+_BPE_BACKENDS = {
+    "sentencepiece": (SentencePieceTokenizer, "model_file"),
+    "subword-nmt": (SubwordNMTTokenizer, "codes"),
+    "fastbpe": (FastBPETokenizer, "codes"),
+}
+
+
 def _build_tokenizer(cfg: Dict):
     """One side's tokenizer from its data-config section."""
     level = cfg["level"]
@@ -248,7 +385,14 @@ def _build_tokenizer(cfg: Dict):
     if level in ("word", "char"):
         return BasicTokenizer(**common, **extra)
     if level == "bpe":
-        raise NotImplementedError("subword tokenizers (level: bpe) are not ported yet")
+        backend = cfg.get("tokenizer_type", cfg.get("bpe_type", "sentencepiece"))
+        if backend not in _BPE_BACKENDS:
+            raise ConfigurationError(f"{backend}: Unknown tokenizer type. "
+                                     "Valid options: {'sentencepiece', 'subword-nmt'}.")
+        cls, required_key = _BPE_BACKENDS[backend]
+        if required_key not in extra:
+            raise ConfigurationError(f"{backend} needs `{required_key}` in tokenizer_cfg")
+        return cls(**common, **extra)
     if level == "frame":
         return SpeechProcessor(num_freq=cfg["num_freq"], **common, **extra)
     raise ConfigurationError(f"{level}: Unknown tokenization level. "

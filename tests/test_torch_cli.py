@@ -210,7 +210,7 @@ def test_loop_steps_schedulers_where_jax_does(trained, tmp_path, scheduling, ste
 
 @pytest.mark.parametrize("section,option", [
     ("testing", {"beam_reorder": "lazy"}), ("testing", {"return_attention": True}),
-    ("testing", {"repetition_penalty": 1.2}), ("model", {"cache_self_int8": True})])
+    ("testing", {"repetition_penalty": 1.2}), ("model", {"tied_softmax": True})])
 @pytest.mark.parametrize("mode", ["train", "test", "translate"])
 def test_runs_refuse_unported_options_before_loading_data(tmp_path, mode, section,
                                                           option):

@@ -15,7 +15,7 @@ import pytest
 import torch
 import yaml
 
-from joeys2t_torch.config import ConfigurationError, SpecialSymbols, parse_yaml
+from joeys2t_torch.config import SpecialSymbols, parse_yaml
 from joeys2t_torch.convert import flax_params_to_state_dict
 from joeys2t_torch.models import build_model
 from joeys2t_torch.models.modules import (Conv1dSubsampler, MultiHeadedAttention,
@@ -262,16 +262,11 @@ def test_vocabulary_matches_jax():
 
 
 def test_yaml_reader_matches_pyyaml():
-    """The port reads configs without PyYAML; every repository config it
-    accepts parses exactly as yaml.safe_load does."""
-    checked = 0
-    for path in sorted(glob.glob("configs/*.yaml")):
+    """The port reads configs without PyYAML; every repository config, flow
+    mappings over several lines included, parses exactly as yaml.safe_load
+    does."""
+    paths = sorted(glob.glob("configs/*.yaml"))
+    for path in paths:
         text = open(path, encoding="utf-8").read()
-        try:
-            ours = parse_yaml(text)
-        except ConfigurationError:
-            assert "{" in text  # flow mappings are rejected, not misread
-            continue
-        assert ours == yaml.safe_load(text), path
-        checked += 1
-    assert checked >= 15
+        assert parse_yaml(text) == yaml.safe_load(text), path
+    assert len(paths) >= 20

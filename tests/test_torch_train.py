@@ -83,12 +83,13 @@ def port_batch(src, lengths, trg, trg_len):
     return Batch(src, lengths, None, trg, trg_len, None, np.arange(3), 1, 3, task="S2T")
 
 
-def one_update(device, state=None):
-    """One update of the port (two micro-batches) on ``device``: the
-    accumulated gradients before clipping, the weights after the update,
-    the loss and the learning rates before and after."""
+def one_update(device, state=None, cfg=None):
+    """One update of the port (two micro-batches) on ``device`` of the model
+    ``cfg`` (``model_cfg()`` unless given): the accumulated gradients before
+    clipping, the weights (and buffers) after the update, the loss and the
+    learning rates before and after."""
     vocab = Vocabulary(TOKENS, SpecialSymbols())
-    model, spec = build_model(model_cfg(), trg_vocab=vocab, device=device,
+    model, spec = build_model(cfg or model_cfg(), trg_vocab=vocab, device=device,
                               generator=torch.Generator().manual_seed(3))
     if state is not None:
         model.load_state_dict(state)
@@ -110,11 +111,11 @@ def one_update(device, state=None):
                               for g in seen["grads"].values()))
     return dict(loss=sum(out["loss"].item() for out in losses), grads=seen["grads"],
                 grad_norm=grad_norm, lr=lrs[0], lrs=lrs,
-                params={n: p.detach().cpu().clone() for n, p in model.named_parameters()},
+                params={n: p.detach().cpu().clone() for n, p in model.state_dict().items()},
                 dtypes={p.dtype for p in model.parameters()})
 
 
-def jax_update():
+def jax_update(cfg=None):
     """The same update through the JAX package."""
     import jax
     import jax.numpy as jnp
@@ -131,7 +132,7 @@ def jax_update():
     from joeys2t_tpu.training import TrainManager as JaxTrainManager
     from joeys2t_tpu.vocabulary import Vocabulary as JaxVocabulary
 
-    cfg = model_cfg()
+    cfg = cfg or model_cfg()
     model, spec = jax_build_model(cfg, trg_vocab=JaxVocabulary(TOKENS, JaxSymbols()))
     params = jax.jit(model.init)({"params": jax.random.PRNGKey(0)}, jnp.zeros((2, 40, 80)),
                                  jnp.zeros((2, 4), jnp.int32), jnp.full((2,), 40), None,
@@ -304,17 +305,17 @@ def test_unported_options_raise():
 
 
 @pytest.mark.parametrize("option,error", [
-    ({"cache_cross_int8": True}, NotImplementedError),
-    ({"cache_self_int8": True}, NotImplementedError),
-    ({"decoder": {"cache_cross_int8": True}}, NotImplementedError),
+    ({"encoder": {"type": "recurrent"}}, NotImplementedError),
+    ({"encoder": {"num_experts": 2}}, NotImplementedError),
+    ({"decoder": {"type": "recurrent"}}, NotImplementedError),
     ({"tied_softmax": True}, NotImplementedError),
     ({"tied_embeddings": True}, ConfigurationError),
     ({"tied_embeddings": True, "tied_softmax": True}, ConfigurationError),
 ])
 def test_unported_model_options_raise(option, error):
-    """The int8 decode caches and the tied output layer are not ported and
-    raise rather than be ignored; tied embeddings need a source vocabulary,
-    which a speech model has not."""
+    """Recurrent encoders and decoders, mixture-of-experts layers and the
+    tied output layer are not ported and raise rather than be ignored; tied
+    embeddings need a source vocabulary, which a speech model has not."""
     cfg = model_cfg()
     for key, value in option.items():
         if isinstance(value, dict):
