@@ -56,7 +56,7 @@ goes wrong:
    each (16 encoder self-attentions, 8 decoder cross-attentions) with the
    plain attention versions disabled; then the time per micro-batch and
    update, trained audio-s/s, a forward / backward / optimizer breakdown,
-   peak memory, and the card's busy share and top kernels over 8 profiled
+   peak memory, and the card's busy share and top kernels over 4 profiled
    micro-batches;
 6. training, card vs CPU: one float32 update of a small model at dropout 0
    on the card and on the CPU must agree (loss to 1e-5 relative, gradients
@@ -71,7 +71,7 @@ goes wrong:
    before and the plain attention versions disabled. The model directory,
    finite losses, float32 weights, 2 WERs in validations.txt and the exact
    launch counts the path implies must hold, ``python -m joeys2t_torch test``
-   must exit 0, and a float32 ``test`` of the trained checkpoint cut to 2 + 2
+   (8 dev utterances) must exit 0, and a float32 ``test`` of the trained checkpoint cut to 2 + 2
    layers must give the same hypotheses on the card and on the CPU; then the
    CLI's time per update, the host data pipeline's time a batch and share
    of the training wall, trained audio-s/s beside phase 5's, and the
@@ -100,20 +100,43 @@ goes wrong:
    beams on the card and the CPU;
 10. SentencePiece targets: phase 7's config and corpus with ``level: bpe,
     tokenizer_type: sentencepiece`` on a unigram model written by
-    ``joeys2t_torch.tools.spm_fixture`` through ``train`` (8 updates),
+    ``joeys2t_torch.tools.spm_fixture`` through ``train`` (4 updates),
     ``test -o`` and ``translate``, then ``load_model_dir`` and
     ``Transcriber.from_hub``: detokenized text, the model file in the model
     directory, exact launch counts, each kernel against its plain version;
 11. Conformer: configs/synthetic_asr_conformer.yaml (read by the port's own
-    YAML reader) at full width through ``train`` (16 updates), ``test -o``
+    YAML reader) at full width through ``train`` (8 updates), ``test -o``
     and ``translate``, exact launch counts, each kernel against its plain
     version on the path's inputs, a float32 cut ``test`` identical on card
-    and CPU, ms an update beside phase 7's.
+    and CPU, ms an update beside phase 7's;
+12. MT: configs/synthetic_mt.yaml at full width in bf16 (8 + 8 layers,
+    hidden 512, tied softmax) on scripts/generate_synthetic_mt.py's corpus
+    (4096 / 64 / 64 pairs) through ``train`` (16 updates of 192 sentences, a
+    validation every 8), ``test -o`` and ``translate`` (beam 5), then
+    ``load_model_dir`` -> ``generate`` equal to ``translate``, and forced
+    prompts: a config copy with a sep token and two language tags, prompt
+    files beside the corpus, 4 updates, ``score`` (beam 5) and ``generate``
+    (greedy) with the repetition penalty and n-gram blocking; exact launch
+    counts with the plain versions refused, each kernel against its plain
+    version on the path's inputs, a float32 cut ``test`` identical on card
+    and CPU; ms an update, the host pipeline's share, test sentences/s;
+13. head dim 16: configs/transformer_reverse.yaml as configured (float32, 4
+    heads of 16, tied embeddings and softmax) on test/data/reverse/ (dev cut
+    to 100 sentences), cut to 32 updates and one validation, then ``test``
+    and ``translate``: every attention on the D=16 kernels, exact launch
+    counts, each kernel against its plain version on the path's inputs.
 
-Phases 9-11 run after phase 8, each with the counters zeroed just before
+Phases 9-13 run after phase 8, each with the counters zeroed just before
 its runs and the plain versions refused. Phase 2 also holds decode attention
 with int8 channel scales and ``group`` 5 bit for bit against group 1, and
 times int8 cases against SDPA on the dequantized cache.
+
+Phase 2 also holds the kernels at the MT shapes (flash forward and
+backward at B=192, Sq=Sk 1, 7, 33, 61 and cross 81 x 61, bf16 and f32,
+dropout 0 and 0.1, zero-length rows included; decode attention over the
+61-row cross cache with 1 and 5 queries a row and the 81-slot self ring
+buffer) and at head dim 16 (flash at B=12 S=26 and B=192 S=61, decode at
+B=12 over 26 and 31 rows, every dtype and int8 mode), timed beside SDPA.
 
 Phase 2 also holds the flash backward against its plain version at the
 training path's shapes (B=64 Sq=Sk=250; B=64 Sq=47 Sk=250; B=2 Sq=Sk=750),
@@ -335,7 +358,7 @@ def build_phase():
                 f"{hmma.get(fn, 0)} HMMA"
             print(f"[build]   {names[fn]}: {regs} registers, spill {st}/{ld} bytes "
                   f"(stores/loads), {count}")
-    for d in (64, 128, 192, 256):
+    for d in (16, 64, 128, 192, 256):
         for dtype in (torch.bfloat16, torch.float32):
             info = fa.kernel_info(d, dtype)
             print(f"[build] flash D={d} {str(dtype)[6:]}: route {info['route']}; dynamic "
@@ -346,39 +369,61 @@ def build_phase():
 
 
 # ------------------------------------------------------------------ phase 2
-def flash_case(b, s, dtype, gen):
+def out_tol(ref, f32: bool, scaled: bool) -> float:
+    """The forward's tolerance: 1e-4 (f32) or 2e-2 (bf16) absolute, and for
+    the token-length cases (``scaled``) in units of the largest reference
+    value where that exceeds 1: with few keys an output is no average (at
+    Sk = 1 the kept value times 1 / (1 - rate)), and bf16 rounds it to its
+    own ulp."""
+    tol = 1e-4 if f32 else 2e-2
+    return tol * max(1.0, ref.float().abs().max().item()) if scaled else tol
+
+
+def flash_case(b, sq, sk, dtype, gen, d=128, timed=True, scaled=False):
+    """The forward kernel against its plain version (output and lse; two
+    calls bit-identical), and when ``timed`` the kernel, the plain version
+    and SDPA on the same inputs. Key lengths are drawn from Sk/2..Sk; row 0
+    of a batch of more than 2 has every key masked."""
     from joeys2t_torch.ops import flash_attention as fa
 
-    h, d = 4, 128
+    h = 4
     e = h * d
-    q, k, v = (torch.randn(b, s, e, generator=gen).to(dtype).cuda() for _ in range(3))
-    lengths = torch.randint(s // 2, s + 1, (b,), generator=gen)
-    valid = torch.arange(s)[None, :] < lengths[:, None]
+    q = torch.randn(b, sq, e, generator=gen).to(dtype).cuda()
+    k, v = (torch.randn(b, sk, e, generator=gen).to(dtype).cuda() for _ in range(2))
+    lengths = torch.randint(sk // 2, sk + 1, (b,), generator=gen)
+    valid = torch.arange(sk)[None, :] < lengths[:, None]
     if b > 2:
         valid[0] = False  # a row with every key masked
     bias = torch.where(valid, 0.0, -1e9).float().cuda()
     sm = d ** -0.5
     out, lse = fa.flash_attention_fwd(q, k, v, bias, sm, h)
+    again = fa.flash_attention_fwd(q, k, v, bias, sm, h)
     ref, ref_lse = fa.flash_attention_plain(q, k, v, bias, sm, h)
     torch.cuda.synchronize()
+    name = (f"B={b} Sq=Sk={sq}" if sq == sk else f"B={b} Sq={sq} Sk={sk}") + \
+        f" H={h} D={d} {str(dtype)[6:]} ({fa.kernel_info(d, dtype)['route']})"
     err = max((out.float() - ref.float()).abs().max().item(),
               (lse - ref_lse).abs().max().item())
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    check(bool(torch.isfinite(out.float()).all()), f"flash {dtype} {b}x{s}: non-finite output")
-    check(err <= tol, f"flash {dtype} B={b} S={s}: max abs err {err} > {tol}")
-    qh, kh, vh = (t.view(b, s, h, d).transpose(1, 2).contiguous() for t in (q, k, v))
+    tol = out_tol(ref, dtype == torch.float32, scaled)
+    check(bool(torch.isfinite(out.float()).all()), f"flash {name}: non-finite output")
+    check(err <= tol, f"flash {name}: max abs err {err} > {tol}")
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+          f"flash {name}: two calls differ")
+    case = dict(case=name, route=fa.kernel_info(d, dtype)["route"], max_abs_err=err, tol=tol)
+    if not timed:
+        return case
+    qh = q.view(b, sq, h, d).transpose(1, 2).contiguous()
+    kh, vh = (t.view(b, sk, h, d).transpose(1, 2).contiguous() for t in (k, v))
     mask = bias.to(dtype)[:, None, None, :]
     ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, bias, sm, h))
     plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, bias, sm, h), iters=5)
     library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask, scale=sm))
-    flops = 4 * b * s * s * e
+    flops = 4 * b * sq * sk * e
     bound_ms, bound_by = bound(nbytes(q, k, v, bias, out, lse), flops, dtype)
-    route = fa.kernel_info(d, dtype)["route"]
-    return dict(case=f"B={b} Sq=Sk={s} H={h} D={d} {str(dtype)[6:]} ({route})", route=route,
-                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, roofline=bound_ms / ms,
-                tflops=flops / ms / 1e9)
+    case.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, roofline=bound_ms / ms, tflops=flops / ms / 1e9)
+    return case
 
 
 def sdpa_backend(qh, kh, vh, mask, sm, rate):
@@ -401,12 +446,13 @@ def sdpa_backend(qh, kh, vh, mask, sm, rate):
     fail("no SDPA backend runs forward and backward with an additive mask")
 
 
-def flash_bwd_case(b, sq, sk, dtype, rate, gen):
+def flash_bwd_case(b, sq, sk, dtype, rate, gen, d=128, timed=True, scaled=False):
     """The backward kernels against the plain backward; with dropout also the
-    forward kernel against the plain forward (the same keep bits)."""
+    forward kernel against the plain forward (the same keep bits); timed
+    (kernel, plain, SDPA's backward) when ``timed``."""
     from joeys2t_torch.ops import flash_attention as fa
 
-    h, d = 4, 128
+    h = 4
     e = h * d
     q = torch.randn(b, sq, e, generator=gen).to(dtype).cuda()
     k, v = (torch.randn(b, sk, e, generator=gen).to(dtype).cuda() for _ in range(2))
@@ -428,17 +474,26 @@ def flash_bwd_case(b, sq, sk, dtype, rate, gen):
     # f32: summation order only; bf16: rounding of each output and, on the
     # tensor cores, of P_drop and dS before their products
     rel = 1e-5 if dtype == torch.float32 else 2e-2
-    fwd_tol = 1e-4 if dtype == torch.float32 else 2e-2
+    fwd_tol = out_tol(ref_out, dtype == torch.float32, scaled)
     fwd_err = (out.float() - ref_out.float()).abs().max().item()
     check(fwd_err <= fwd_tol, f"flash fwd dropout {rate} {dtype} {b}x{sq}x{sk}: "
           f"err {fwd_err} > {fwd_tol}")
     errs, tols = [], []
+    # at Sk = 1 (one key: ds = 0, so dQ = dK = 0 but for rounding) each
+    # gradient is held to the largest of the three
+    floor = max(r.float().abs().max().item() for r in refs) if sk == 1 else 0.0
     for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
         check(bool(torch.isfinite(g.float()).all()), f"flash bwd {name}: non-finite")
         errs.append((g.float() - r.float()).abs().max().item())
-        tols.append(rel * r.float().abs().max().item())
-        check(errs[-1] <= tols[-1], f"flash bwd {name} {dtype} rate {rate} {b}x{sq}x{sk}: "
-              f"max abs err {errs[-1]} > {tols[-1]} ({rel} of the largest value)")
+        tols.append(rel * max(floor, r.float().abs().max().item()))
+        check(errs[-1] <= tols[-1], f"flash bwd {name} {dtype} rate {rate} {b}x{sq}x{sk} "
+              f"D={d}: max abs err {errs[-1]} > {tols[-1]} ({rel} of the largest value)")
+    route = fa.kernel_info(d, dtype)["route"]
+    case = dict(case=f"B={b} Sq={sq} Sk={sk} H={h} D={d} {str(dtype)[6:]} dropout {rate} "
+                     f"({route})", route=route, max_abs_err=max(errs), tol=min(tols),
+                fwd_err=fwd_err)
+    if not timed:
+        return case
     ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, bias, out, lse, d_out, sm, h,
                                                 rate, seed))
     plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
@@ -459,14 +514,11 @@ def flash_bwd_case(b, sq, sk, dtype, rate, gen):
     n_bytes = nbytes(q, k, v, bias, out, lse, d_out, *grads)
     flops = 10 * b * sq * sk * e
     bound_ms, bound_by = bound(n_bytes, flops, dtype)
-    route = fa.kernel_info(d, dtype)["route"]
-    return dict(case=f"B={b} Sq={sq} Sk={sk} H={h} D={d} {str(dtype)[6:]} dropout {rate} "
-                     f"({route})", route=route,
-                max_abs_err=max(errs), tol=min(tols), fwd_err=fwd_err, ms=ms,
-                plain_ms=plain_ms, fwd_ms=fwd_ms, library_ms=library_ms,
+    case.update(ms=ms, plain_ms=plain_ms, fwd_ms=fwd_ms, library_ms=library_ms,
                 library=f"SDPA backward ({backend})", sdpa_fwd_bwd_ms=sdpa_fb_ms,
                 bound_ms=bound_ms, bound_by=bound_by, roofline=bound_ms / ms,
                 tflops=flops / ms / 1e9)
+    return case
 
 
 def mask_bits_case(dtype):
@@ -518,10 +570,10 @@ DECODE_SHAPES = [("cross", 64, 250, "tails"), ("cross", 1, 750, None),
 DECODE_MODES = ("bf16", "f32", "int8-channel", "int8-position")
 
 
-def decode_inputs(kind, b, s, valid_spec, mode, gen):
+def decode_inputs(kind, b, s, valid_spec, mode, gen, d=128):
     from joeys2t_torch.ops import decode_attention as da
 
-    h, d = 4, 128
+    h = 4
     qdt = torch.float32 if mode == "f32" else torch.bfloat16
     q = torch.randn(b, h, d, generator=gen).to(qdt).cuda()
     kf, vf = (torch.randn(b, h, s, d, generator=gen).cuda() for _ in range(2))
@@ -529,7 +581,7 @@ def decode_inputs(kind, b, s, valid_spec, mode, gen):
     if kind == "self":  # ring buffer at step t: slots beyond it masked
         valid = (pos <= valid_spec).expand(b, s)
     elif valid_spec == "tails":
-        valid = pos < torch.randint(s // 2, s + 1, (b,), generator=gen)[:, None]
+        valid = pos < torch.randint(s // 2, s + 1, (b,), generator=gen).clamp(min=1)[:, None]
     else:
         valid = pos < torch.tensor(valid_spec or [s] * b)[:, None]
     bias = torch.where(valid, 0.0, -1e9).float().cuda().contiguous()
@@ -560,18 +612,20 @@ def sdpa_inputs(args, layout):
             bias.to(q.dtype)[:, None, None, :])
 
 
-def decode_case(kind, b, s, valid_spec, mode, gen, timed):
+def decode_case(kind, b, s, valid_spec, mode, gen, timed, d=128, cold=True):
     """The kernel against the plain version (and a second call bit for bit);
     when ``timed``, the kernel, SDPA (on the dequantized cache for int8) and
-    the plain version, the first two on cold inputs. The bound counts the
+    the plain version, the first two on cold inputs unless not ``cold``
+    (inputs of a few KB: hundreds of copies would time the copying, and a
+    call that small is launch-bound either way). The bound counts the
     bytes the work needs: the K/V rows (and "position" scales) of a row's
     valid keys, or all S rows where every key is masked, plus q, the whole
     bias, the "channel" scales and the output."""
     from joeys2t_torch.ops import decode_attention as da
 
-    args, kw, valid = decode_inputs(kind, b, s, valid_spec, mode, gen)
+    args, kw, valid = decode_inputs(kind, b, s, valid_spec, mode, gen, d)
     q, k, v, bias, ks, vs = args
-    h, d = q.shape[1], q.shape[2]
+    h = q.shape[1]
     out = da.decode_attention(*args, **kw)
     again = da.decode_attention(*args, **kw)
     ref = da.decode_attention_plain(*args, **kw)
@@ -595,12 +649,14 @@ def decode_case(kind, b, s, valid_spec, mode, gen, timed):
                + (needed * 8 if kw["scale_layout"] == "position" else 0))
     flops = 4 * needed * d
     bound_ms, bound_by = bound(n_bytes, flops, k.dtype)
-    copies = cold_copies(args)
+    copies = cold_copies(args) if cold else [args]
     ms = time_cold_ms([lambda c=c: da.decode_attention(*c, **kw) for c in copies])
     sdpa = [sdpa_inputs(c, kw["scale_layout"]) for c in copies]
     library_ms = time_cold_ms([lambda c=c: torch.nn.functional.scaled_dot_product_attention(
         c[0], c[1], c[2], attn_mask=c[3], scale=kw["sm_scale"]) for c in sdpa])
     del sdpa, copies
+    if not cold:
+        case["case"] += " (warm L2)"
     case.update(ms=ms, plain_ms=time_ms(lambda: da.decode_attention_plain(*args, **kw), iters=5),
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                 roofline=bound_ms / ms, tflops=flops / ms / 1e9, needed_rows=needed,
@@ -613,7 +669,7 @@ def decode_case(kind, b, s, valid_spec, mode, gen, timed):
 BEAM_CROSS = (32, 5, 250)
 
 
-def decode_group_case(mode, gen):
+def decode_group_case(mode, gen, shape=BEAM_CROSS):
     """Decode attention with ``group`` 5 at the beam cross shape against the
     plain version, bit for bit against group 1 on the cache, bias and
     scales repeated 5 times, and two calls bit-identical; the kernel, the
@@ -623,7 +679,7 @@ def decode_group_case(mode, gen):
     each of the G queries of a row."""
     from joeys2t_torch.ops import decode_attention as da
 
-    b, g, s = BEAM_CROSS
+    b, g, s = shape
     args, kw, valid = decode_inputs("cross", b, s, "tails", mode, gen)
     _, k, v, bias, ks, vs = args
     h, d = k.shape[1], k.shape[3]
@@ -668,12 +724,113 @@ def decode_group_case(mode, gen):
                 g_roofline=g_bound_ms / ms, tflops=flops / ms / 1e9)
 
 
+def print_flash(c):
+    line = f"[kernels] {c['case']}: err {c['max_abs_err']:.3g} (tol {c['tol']}), two calls " \
+        "bit-identical"
+    if "ms" in c:
+        line += (f", kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, library "
+                 f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+                 f"({c['bound_by']}), roofline share {100 * c['roofline']:.1f} % "
+                 f"({c['bound_by']}), {c['tflops']:.1f} TFLOP/s")
+    print(line)
+
+
+def print_flash_bwd(c):
+    line = (f"[kernels] flash bwd {c['case']}: err {c['max_abs_err']:.3g} (tol "
+            f"{c['tol']:.3g}), fwd err {c['fwd_err']:.3g}; two calls bit-identical")
+    if "ms" in c:
+        line += (f"; kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, {c['library']} "
+                 f"{c['library_ms']:.4f} ms (fwd+bwd {c['sdpa_fwd_bwd_ms']:.4f} ms), bound "
+                 f"{c['bound_ms']:.4f} ms ({c['bound_by']}), roofline share "
+                 f"{100 * c['roofline']:.1f} % ({c['bound_by']}), {c['tflops']:.1f} "
+                 f"TFLOP/s; forward kernel with this dropout {c['fwd_ms']:.4f} ms")
+    print(line)
+
+
+def print_decode(c, b):
+    line = (f"[kernels] decode {c['case']}: plan {c['splits']} split(s) of "
+            f"{c['split_rows']} rows, a cluster of {c['splits']} block(s) per (b, h), "
+            f"grid ({c['splits']}, 4, {b}); err {c['max_abs_err']:.3g} (tol "
+            f"{c['tol']}), two calls bit-identical")
+    if "ms" in c:
+        sdpa = "SDPA on the dequantized cache" if "int8" in c["case"] else "SDPA"
+        cache = "warm" if "(warm L2)" in c["case"] else "cold"
+        line += (f"; {cache} L2: kernel {c['ms']:.4f} ms, {sdpa} {c['library_ms']:.4f} ms; "
+                 f"plain {c['plain_ms']:.4f} ms; bound "
+                 f"{c['bound_ms']:.4f} ms ({c['bound_by']}; {c['needed_rows']} of "
+                 f"{c['rows']} rows needed), roofline share "
+                 f"{100 * c['roofline']:.1f} %")
+    print(line)
+
+
+def print_group(c):
+    print(f"[kernels] decode {c['case']}: plan {c['splits']} split(s) of "
+          f"{c['split_rows']} rows; err {c['max_abs_err']:.3g} (tol {c['tol']}), two "
+          f"calls bit-identical, bit-identical to group 1 on the expanded cache; cold "
+          f"L2: kernel {c['ms']:.4f} ms, group 1 on the expanded cache "
+          f"{c['flat_ms']:.4f} ms, SDPA on the expanded cache {c['library_ms']:.4f} ms; "
+          f"plain {c['plain_ms']:.4f} ms; bound one pass {c['bound_ms']:.4f} ms "
+          f"({c['bound_by']}), roofline share {100 * c['roofline']:.1f} %; bound one "
+          f"pass a query {c['g_bound_ms']:.4f} ms, share {100 * c['g_roofline']:.1f} %")
+
+
+# phase 12's MT shapes (configs/synthetic_mt.yaml: H=4, D=128, 192 sentences
+# a training batch, sources of <= 60 tokens + eos, targets of <= 80):
+# encoder self-attention at token lengths (every key tile partial, wholly
+# padded rows where a row's length is 0) and decoder cross-attention; the
+# decode loop's cross cache (128 sentences a test batch, 5 beams) and its
+# self ring buffer of max_output_length + 1 = 81 slots
+MT_FLASH = ((1, 1), (7, 7), (33, 33), (61, 61), (81, 61))
+MT_TIMED = ((61, 61), (81, 61))
+MT_CROSS = (128, 5, 61)
+# phase 13's head dim 16 (configs/transformer_reverse.yaml: 4 heads of 16,
+# 12 sentences of <= 25 tokens + eos, a ring buffer of 30 + 1 slots), and a
+# 64-wide model at the MT batch shape
+D16_FLASH = ((12, 26), (192, 61))
+D16_DECODE = (("cross", 12, 26, "tails"), ("self", 12, 31, 15))
+
+
+def mt_kernel_cases(gen):
+    """Phase 2's cases at the MT shapes and at head dim 16: (flash, backward,
+    decode, group) lists, printed."""
+    dtypes = (torch.bfloat16, torch.float32)
+    flash = [flash_case(192, sq, sk, dt, gen, scaled=True,
+                        timed=(sq, sk) in MT_TIMED and dt == torch.bfloat16)
+             for sq, sk in MT_FLASH for dt in dtypes]
+    flash += [flash_case(b, s, s, dt, gen, d=16, scaled=True) for b, s in D16_FLASH
+              for dt in dtypes]
+    backward = [flash_bwd_case(192, sq, sk, dt, rate, gen, scaled=True,
+                               timed=rate > 0 and (sq, sk) in MT_TIMED
+                               and dt == torch.bfloat16)
+                for sq, sk in MT_FLASH for rate in (0.1, 0.0) for dt in dtypes]
+    backward += [flash_bwd_case(b, s, s, dt, rate, gen, d=16, scaled=True, timed=rate > 0)
+                 for b, s in D16_FLASH for rate in (0.1, 0.0) for dt in dtypes]
+    decode = []
+    for mode in DECODE_MODES:
+        for kind, b, s, spec, d in (("cross", MT_CROSS[0], MT_CROSS[2], "tails", 128),
+                                    ("self", MT_CROSS[0] * MT_CROSS[1], 81, 40, 128),
+                                    *((*shape, 16) for shape in D16_DECODE)):
+            c = decode_case(kind, b, s, spec, mode, gen,
+                            d == 16 or (kind == "cross" and mode != "f32") or mode == "bf16", d,
+                            cold=d != 16)
+            print_decode(c, b)
+            decode.append(c)
+    group = [decode_group_case(mode, gen, MT_CROSS) for mode in ("bf16", "f32", "int8-channel")]
+    for c in flash:
+        print_flash(c)
+    for c in backward:
+        print_flash_bwd(c)
+    for c in group:
+        print_group(c)
+    return flash, backward, decode, group
+
+
 def kernel_phase():
     gen = torch.Generator().manual_seed(0)
     # B=64 S=250: the 64 x 10 s request; B=2 S=750: the 45 s request's two
     # 20-25 s chunks; B=64 S=750: a full batch in the range the TPU package
     # sent to its second (B, H, S, D) kernel
-    flash = [flash_case(b, s, dt, gen) for b, s in ((64, 250), (2, 750), (64, 750))
+    flash = [flash_case(b, s, s, dt, gen) for b, s in ((64, 250), (2, 750), (64, 750))
              for dt in (torch.bfloat16, torch.float32)]
     # every decode shape in every mode is checked; bf16 is timed at each
     # shape and every mode at the headline shape
@@ -685,54 +842,27 @@ def kernel_phase():
             timed = mode == "bf16" or i == 0 or (mode == "int8-position"
                                                  and (kind, b, spec) == ("self", 64, 48))
             c = decode_case(kind, b, s, spec, mode, gen, timed)
-            line = (f"[kernels] decode {c['case']}: plan {c['splits']} split(s) of "
-                    f"{c['split_rows']} rows, a cluster of {c['splits']} block(s) per (b, h), "
-                    f"grid ({c['splits']}, 4, {b}); err {c['max_abs_err']:.3g} (tol "
-                    f"{c['tol']}), two calls bit-identical")
             if "ms" in c:
                 decode.append(c)
-                sdpa = ("SDPA on the dequantized cache" if "int8" in mode else "SDPA")
-                line += (f"; cold L2: kernel {c['ms']:.4f} ms, {sdpa} {c['library_ms']:.4f} ms; "
-                         f"plain {c['plain_ms']:.4f} ms; bound "
-                         f"{c['bound_ms']:.4f} ms ({c['bound_by']}; {c['needed_rows']} of "
-                         f"{c['rows']} rows needed), roofline share "
-                         f"{100 * c['roofline']:.1f} %")
-            print(line)
+            print_decode(c, b)
     group = [decode_group_case(mode, gen) for mode in ("bf16", "f32", "int8-channel")]
     for c in group:
-        print(f"[kernels] decode {c['case']}: plan {c['splits']} split(s) of "
-              f"{c['split_rows']} rows; err {c['max_abs_err']:.3g} (tol {c['tol']}), two "
-              f"calls bit-identical, bit-identical to group 1 on the expanded cache; cold "
-              f"L2: kernel {c['ms']:.4f} ms, group 1 on the expanded cache "
-              f"{c['flat_ms']:.4f} ms, SDPA on the expanded cache {c['library_ms']:.4f} ms; "
-              f"plain {c['plain_ms']:.4f} ms; bound one pass {c['bound_ms']:.4f} ms "
-              f"({c['bound_by']}), roofline share {100 * c['roofline']:.1f} %; bound one "
-              f"pass a query {c['g_bound_ms']:.4f} ms, share {100 * c['g_roofline']:.1f} %")
+        print_group(c)
     for c in flash:
-        print(f"[kernels] {c['case']}: err {c['max_abs_err']:.3g} (tol {c['tol']}), "
-              f"kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, library "
-              f"{c['library_ms'] if c['library_ms'] is None else round(c['library_ms'], 4)}"
-              f" ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}), roofline share "
-              f"{100 * c['roofline']:.1f} % ({c['bound_by']}), {c['tflops']:.1f} TFLOP/s")
+        print_flash(c)
     # the training path's shapes: encoder (250 frames), decoder cross (47
     # target positions), and 30 s utterances (K4's range); the headline first
     backward = [flash_bwd_case(b, sq, sk, dt, rate, gen)
                 for b, sq, sk in ((64, 250, 250), (64, 47, 250), (2, 750, 750))
                 for rate in (0.1, 0.0) for dt in (torch.bfloat16, torch.float32)]
     for c in backward:
-        print(f"[kernels] flash bwd {c['case']}: err {c['max_abs_err']:.3g} (tol "
-              f"{c['tol']:.3g}), fwd err {c['fwd_err']:.3g}; kernel {c['ms']:.4f} ms, plain "
-              f"{c['plain_ms']:.4f} ms, {c['library']} {c['library_ms']:.4f} ms (fwd+bwd "
-              f"{c['sdpa_fwd_bwd_ms']:.4f} ms), bound {c['bound_ms']:.4f} ms "
-              f"({c['bound_by']}), roofline share {100 * c['roofline']:.1f} % "
-              f"({c['bound_by']}), {c['tflops']:.1f} TFLOP/s; forward kernel with this "
-              f"dropout {c['fwd_ms']:.4f} ms; two calls bit-identical")
+        print_flash_bwd(c)
     for dtype in (torch.bfloat16, torch.float32):
         n, kept = mask_bits_case(dtype)
         print(f"[kernels] dropout mask bits of the {str(dtype)[6:]} forward and backward "
               f"kernels identical to the plain version's: {n} of {n} (keep fraction "
               f"{kept:.4f} at rate 0.1)")
-    return flash, decode, group, backward
+    return flash, decode, group, backward, mt_kernel_cases(gen)
 
 
 # ------------------------------------------------------------------ phase 3
@@ -996,14 +1126,14 @@ def card_vs_cpu_phase():
 
     x = torch.randn(2, 5, 64, device="cuda")
     key_mask = torch.ones(2, 1, 5, dtype=torch.bool, device="cuda")
-    for heads, dtype in ((4, torch.bfloat16), (1, torch.float16)):
+    for heads, dtype in ((2, torch.bfloat16), (1, torch.float16)):
         mha = MultiHeadedAttention(heads, 64, dtype=dtype, device="cuda").eval()
         try:
             mha(x, x, x, key_mask)
             fail(f"attention with head size {64 // heads} in {dtype} ran on the card")
         except ValueError:
             pass
-    print("[card-vs-cpu] head size 16 bf16 and head size 64 f16 attention raise on the card")
+    print("[card-vs-cpu] head size 32 bf16 and head size 64 f16 attention raise on the card")
 
 
 # ------------------------------------------------------------ phases 5, 6
@@ -1118,17 +1248,19 @@ def train_phase():
           f"{bwd_ms:.2f} ms; optimizer (clip + AdamW) {opt_s * 1e3:.2f} ms per update")
     train_batch_rate = sum(audio_s[4:]) / update_s[1]  # the second update's audio-s/s
 
-    # the card's busy share and top kernels over 8 profiled micro-batches
-    wall, kernels = profiled(lambda: [tm.train_batch(b) for b in batches])
+    # the card's busy share and top kernels over 4 profiled micro-batches
+    profiled_batches = batches[:4]
+    wall, kernels = profiled(lambda: [tm.train_batch(b) for b in profiled_batches])
     if not kernels:
         print("[train] device busy share: not measured (no device events recorded)")
         return fwd_launches, bwd_launches, train_batch_rate
     busy_us = sum(t for _, t in kernels.values())
     flash_bwd_us = sum(t for name, (_, t) in kernels.items() if "flash_bwd" in name)
     flash_fwd_us = sum(t for name, (_, t) in kernels.items() if "flash_fwd" in name)
-    print(f"[train] profiled 8 micro-batches: wall {wall * 1e3:.2f} ms, device busy "
+    print(f"[train] profiled 4 micro-batches: wall {wall * 1e3:.2f} ms, device busy "
           f"{busy_us / 1e3:.2f} ms ({100 * busy_us / (wall * 1e6):.1f} %), "
-          f"{sum(n for n, _ in kernels.values()) / 8:.0f} kernels per micro-batch; flash "
+          f"{sum(n for n, _ in kernels.values()) / len(profiled_batches):.0f} kernels per "
+          f"micro-batch; flash "
           f"backward kernels {flash_bwd_us / 1e3:.2f} ms ({100 * flash_bwd_us / busy_us:.1f} %"
           f" of busy), flash forward {flash_fwd_us / 1e3:.2f} ms "
           f"({100 * flash_fwd_us / busy_us:.1f} %)")
@@ -1398,14 +1530,16 @@ def cli_config(data: Path, model_dir: Path) -> dict:
     return cfg
 
 
-def cli_launches(n_enc: int, n_dec: int, updates: int, validations, decodes) -> dict:
+def cli_launches(n_enc: int, n_dec: int, updates: int, validations, decodes,
+                 beam: bool = True) -> dict:
     """The launches a CLI run implies, from the ``predict`` calls it logged
     (``generations``): per training update (one micro-batch) n_enc + n_dec
     flash forward and as many backward; per validation batch the eval
     loss's n_enc + n_dec forward and the encoder's n_enc; per ``test`` or
     ``translate`` batch the encoder's n_enc; 2 n_dec decode launches a
-    step, greedy in validation, beam search in ``decodes``, where the n_dec
-    cross-attention launches a step have 5 query rows a cache row."""
+    step, greedy in validation, beam search in ``decodes`` (greedy where
+    not ``beam``), where the n_dec cross-attention launches a beam step
+    have 5 query rows a cache row."""
     per_micro = n_enc + n_dec
     valid_batches = sum(b for _, b, _ in validations)
     beam_steps = sum(s for _, _, s in decodes)
@@ -1413,7 +1547,7 @@ def cli_launches(n_enc: int, n_dec: int, updates: int, validations, decodes) -> 
             + (per_micro + n_enc) * valid_batches + n_enc * sum(b for _, b, _ in decodes),
             "flash_attention_bwd": per_micro * updates,
             "decode_attention": 2 * n_dec * (sum(s for _, _, s in validations) + beam_steps),
-            "decode_attention_group": n_dec * beam_steps,
+            "decode_attention_group": n_dec * beam_steps if beam else 0,
             "decode_attention_int8_channel": 0, "decode_attention_int8_position": 0}
 
 
@@ -1520,7 +1654,14 @@ def cli_phase(train_batch_rate: float):
         want = cli_launches(n_enc, n_dec, 0, [], generations(run_lines))
         check(counts == want, f"{name} launches {counts}, expected {want}")
 
-    sub = subprocess.run([sys.executable, "-m", "joeys2t_torch", "test", str(cfg_path)],
+    # the same config in a fresh interpreter, on 8 dev utterances
+    rows = (data / "dev.tsv").read_text(encoding="utf-8").splitlines()
+    (data / "dev8.tsv").write_text("\n".join(rows[:9]) + "\n", encoding="utf-8")
+    sub_cfg = dict(cfg, data={k: v for k, v in cfg["data"].items() if k != "test"})
+    sub_cfg["data"]["dev"] = str(data / "dev8")
+    sub_path = work / "cli_dev8.yaml"
+    sub_path.write_text(dump_yaml(sub_cfg), encoding="utf-8")
+    sub = subprocess.run([sys.executable, "-m", "joeys2t_torch", "test", str(sub_path)],
                          cwd=REPO, capture_output=True, text=True, timeout=600)
     check(sub.returncode == 0, f"python -m joeys2t_torch test exited {sub.returncode}: "
           f"{sub.stderr[-2000:]}")
@@ -1549,8 +1690,9 @@ def cli_phase(train_batch_rate: float):
           f"(dev + test, 128 utterances), dev decode {test_gen[0]:.3f} s = "
           f"{dev_audio / test_gen[0]:.1f} audio-s/s over {test_gen[2]} beam-5 steps; "
           f"translate 8 paths {tr_wall:.3f} s")
-    print("[cli] `python -m joeys2t_torch test` exited 0; float32 beam-5 test at 2 + 2 "
-          "layers: card and CPU hypotheses identical over 8 dev utterances")
+    print("[cli] `python -m joeys2t_torch test` (8 dev utterances) exited 0; float32 "
+          "beam-5 test at 2 + 2 layers: card and CPU hypotheses identical over 8 dev "
+          "utterances")
     launches = {name: train_n[name] + test_n[name] + tr_n[name] for name in train_n}
     return launches, checks, model_dir / "best.ckpt", per_update
 
@@ -1778,7 +1920,7 @@ def int8_phase(batch, bf16):
 
 # ----------------------------------------------------------------- phase 10
 def check_cli_leg(tag: str, runs: dict, n_enc: int, n_dec: int, updates: int,
-                  validations: int) -> dict:
+                  validations: int, beam: bool = True) -> dict:
     """The exact launches of a leg's ``train``, ``test`` and ``translate``
     (``runs``: name -> (wall, log lines, stdout, launches)), by
     ``cli_launches`` from the ``predict`` calls each logged. Returns the
@@ -1786,11 +1928,12 @@ def check_cli_leg(tag: str, runs: dict, n_enc: int, n_dec: int, updates: int,
     gens = generations(runs["train"][1])
     check(len(gens) == validations + 2,
           f"{tag} train logged {len(gens)} predict calls, expected {validations} + 2")
-    want = cli_launches(n_enc, n_dec, updates, gens[:validations], gens[validations:])
+    want = cli_launches(n_enc, n_dec, updates, gens[:validations], gens[validations:],
+                        beam)
     check(runs["train"][3] == want, f"{tag} train launches {runs['train'][3]}, "
           f"expected {want}")
     for name in ("test", "translate"):
-        want = cli_launches(n_enc, n_dec, 0, [], generations(runs[name][1]))
+        want = cli_launches(n_enc, n_dec, 0, [], generations(runs[name][1]), beam)
         check(runs[name][3] == want, f"{tag} {name} launches {runs[name][3]}, "
               f"expected {want}")
     return {name: sum(r[3][name] for r in runs.values()) for name in runs["train"][3]}
@@ -1809,7 +1952,7 @@ def spm_phase(data: Path) -> dict:
     targets switched to ``level: bpe, tokenizer_type: sentencepiece``, on
     phase 7's corpus, the SentencePiece model a unigram model of 300 pieces
     that ``joeys2t_torch.tools.spm_fixture`` draws from the (lowercased)
-    train transcripts, the ``voc_file`` its pieces: ``train`` (cut to 8
+    train transcripts, the ``voc_file`` its pieces: ``train`` (cut to 4
     updates and one validation, fewer than phase 7's 16 and 2), ``test -o``
     and ``translate`` of 8 paths with the config's beam 5, then
     ``load_model_dir`` of the model directory and ``Transcriber.from_hub``
@@ -1836,7 +1979,7 @@ def spm_phase(data: Path) -> dict:
                               voc_file=str(spm_fixture.write_vocab(work / "spm_vocab.txt",
                                                                    pieces)),
                               tokenizer_cfg={"model_file": str(model_file)})
-    cfg["training"].update(updates=8, validation_freq=8)
+    cfg["training"].update(updates=4, validation_freq=4)
     cfg_path = work / "spm.yaml"
     cfg_path.write_text(dump_yaml(cfg), encoding="utf-8")
     n_enc, n_dec = 16, 8
@@ -1847,7 +1990,7 @@ def spm_phase(data: Path) -> dict:
         runs["test"] = cli_run(["test", cfg_path, "-o", work / "spm_out"])
         runs["translate"] = cli_run(["translate", cfg_path],
                                     stdin="".join(f"{p}\n" for p in feats))
-        launches = check_cli_leg("spm", runs, n_enc, n_dec, 8, 1)
+        launches = check_cli_leg("spm", runs, n_enc, n_dec, 4, 1)
 
         hub = load_model_dir(model_dir)
         zero_counters()
@@ -1887,7 +2030,7 @@ def spm_phase(data: Path) -> dict:
     for name in ("flash_attention_fwd", "flash_attention_bwd", "decode_attention",
                  "decode_attention_group"):
         launches[name] += hub_n[name] + serve_n[name]
-    print(f"[spm] train (8 updates, 1 validation) {runs['train'][0]:.2f} s, "
+    print(f"[spm] train (4 updates, 1 validation) {runs['train'][0]:.2f} s, "
           f"{update_ms(runs['train'][1]):.2f} ms an update; test {runs['test'][0]:.2f} s; "
           f"translate 8 paths {runs['translate'][0]:.2f} s; {len(pieces) - 3} "
           f"SentencePiece pieces, model copied into the model directory; e.g. "
@@ -1903,8 +2046,8 @@ def conformer_phase(data: Path, transformer_update_ms: float) -> dict:
     """Phase 11: configs/synthetic_asr_conformer.yaml, read by the port's
     YAML reader, at full width in bf16 (16 conformer layers of hidden 512,
     depthwise kernel 31, macaron "paper", LayerScale 0.1; 8 decoder layers)
-    on phase 7's corpus through ``train`` (16 updates, a validation every 8,
-    phase 7's cuts), ``test -o`` and ``translate`` of 8 paths (beam 5):
+    on phase 7's corpus through ``train`` (8 updates and one validation,
+    half of phase 7's), ``test -o`` and ``translate`` of 8 paths (beam 5):
     exact launch counts (24 flash forward and 24 backward a micro-batch)
     with the plain versions refused, each kernel equal to its plain version
     on the path's inputs, and a float32 ``test`` of the trained checkpoint
@@ -1920,7 +2063,7 @@ def conformer_phase(data: Path, transformer_update_ms: float) -> dict:
     for split in ("train", "dev", "test"):
         cfg["data"][split] = str(data / split)
     cfg["data"]["trg"]["voc_file"] = str(data / "char.txt")
-    cfg["training"].update(updates=16, validation_freq=8, logging_freq=4)
+    cfg["training"].update(updates=8, validation_freq=8, logging_freq=4)
     enc = cfg["model"]["encoder"]
     check(cfg["fp16"] and enc["type"] == "conformer" and enc["num_layers"] == 16
           and enc["hidden_size"] == 512 and enc["depthwise_conv_kernel_size"] == 31
@@ -1937,14 +2080,14 @@ def conformer_phase(data: Path, transformer_update_ms: float) -> dict:
         runs["test"] = cli_run(["test", cfg_path, "-o", work / "conformer_out"])
         runs["translate"] = cli_run(["translate", cfg_path],
                                     stdin="".join(f"{p}\n" for p in feats))
-    launches = check_cli_leg("conformer", runs, 16, 8, 16, 2)
+    launches = check_cli_leg("conformer", runs, 16, 8, 8, 1)
     checks = cli_kernel_checks(kept, tag="conformer")
     del kept
     valid = (model_dir / "validations.txt").read_text().splitlines()
-    check(len(valid) == 2, f"conformer validations.txt: {valid}")
+    check(len(valid) == 1, f"conformer validations.txt: {valid}")
     losses = [float(m.group(1)) for m in (re.search(r"Batch Loss: +([-\d.einfa]+)", ln)
                                           for ln in runs["train"][1]) if m]
-    check(len(losses) == 4 and all(np.isfinite(losses)), f"conformer losses {losses}")
+    check(len(losses) == 2 and all(np.isfinite(losses)), f"conformer losses {losses}")
     state = load_checkpoint(model_dir / "latest.ckpt")["model_state"]
     check(all(v.dtype == torch.float32 for v in state.values())
           and "encoder.layers.15.ls_conv" in state, "conformer checkpoint")
@@ -1953,13 +2096,305 @@ def conformer_phase(data: Path, transformer_update_ms: float) -> dict:
         check(n == 64, f"conformer out.{split}: {n} hypotheses")
     cut_test_on_both(cfg, state, model_dir, data, work / "conformer_cut")
     ms = update_ms(runs["train"][1])
-    print(f"[conformer] train: 16 updates, 2 validations, {runs['train'][0]:.2f} s wall; "
+    print(f"[conformer] train: 8 updates, 1 validation, {runs['train'][0]:.2f} s wall; "
           f"{ms:.2f} ms an update (the transformer of phase 7: "
           f"{transformer_update_ms * 1e3:.2f}); losses {[round(x, 4) for x in losses]}; "
           f"test {runs['test'][0]:.2f} s (beam 5), translate 8 paths "
           f"{runs['translate'][0]:.2f} s")
     print(f"[conformer] launches {launches} as the path implies, plain attention never "
           f"ran; float32 test at 2 + 2 layers: card and CPU hypotheses identical")
+    return launches, checks
+
+
+# ----------------------------------------------------------------- phase 12
+def loop_stats(lines) -> tuple:
+    """(updates, loop s, s an update, data pipeline s, its share of the loop
+    %) from the ``Training loop`` line of a ``train`` run."""
+    loop = re.search(r"Training loop: (\d+) update\(s\) in ([\d.]+)\[sec\] besides "
+                     r"validation \(([\d.]+)\[sec\] per update\), ([\d.]+)\[sec\] "
+                     r"\(([\d.]+) %\) of it in the data pipeline", "\n".join(lines))
+    check(loop is not None, "no training-loop summary")
+    return (int(loop.group(1)),) + tuple(float(loop.group(i)) for i in range(2, 6))
+
+
+def mt_corpus(data: Path) -> None:
+    """Phase 12's corpus: 4096 / 64 / 64 sentence pairs into ``data``."""
+    subprocess.run([sys.executable, str(REPO / "scripts" / "generate_synthetic_mt.py"),
+                    "--out", str(data), "--train", "4096", "--dev", "64", "--test", "64"],
+                   check=True, capture_output=True, timeout=600)
+
+
+def mt_config(data: Path, model_dir: Path) -> dict:
+    """configs/synthetic_mt.yaml as phase 12 cuts it: the corpus in ``data``,
+    16 updates of 192 sentences, a validation every 8, logging every 4; full
+    width, bf16, tied softmax, beam 5, on the card."""
+    from joeys2t_torch.config import load_config
+
+    cfg = load_config(REPO / "configs" / "synthetic_mt.yaml")
+    cfg["model_dir"] = str(model_dir)
+    for split in ("train", "dev", "test"):
+        cfg["data"][split] = str(data / split)
+    cfg["training"].update(updates=16, validation_freq=8, logging_freq=4)
+    m = cfg["model"]
+    check(cfg["use_cuda"] and cfg["fp16"] and cfg["task"] == "MT"
+          and cfg["data"]["dataset_type"] == "plain"
+          and cfg["training"]["batch_size"] == 192 and cfg["testing"]["beam_size"] == 5
+          and m["tied_softmax"] and m["encoder"]["num_layers"] == 8
+          and m["decoder"]["num_layers"] == 8 and m["encoder"]["hidden_size"] == 512
+          and m["encoder"]["num_heads"] == 4, "unexpected synthetic_mt config")
+    return cfg
+
+
+def cut_mt_test_on_both(cfg: dict, state: dict, model_dir: Path, data: Path,
+                        cut: Path) -> None:
+    """A float32 ``test`` of the trained checkpoint ``state`` cut to 2 + 2
+    layers on the first 8 dev sentences of ``data``, on the card and on the
+    CPU: the hypotheses must be identical."""
+    from joeys2t_torch.config import dump_yaml
+
+    cut.mkdir(exist_ok=True)
+    for side in ("src", "trg"):
+        lines = (data / f"dev.{side}").read_text(encoding="utf-8").splitlines()[:8]
+        (data / f"dev8.{side}").write_text("\n".join(lines) + "\n", encoding="utf-8")
+        shutil.copy(model_dir / f"{side}_vocab.txt", cut / f"{side}_vocab.txt")
+    keep = re.compile(r"(encoder|decoder)\.layers\.(\d+)\.")
+    torch.save({"model_state": {k: v for k, v in state.items()
+                                if not keep.match(k) or int(keep.match(k).group(2)) < 2}},
+               cut / "best.ckpt")
+    cut_cfg = dict(cfg, fp16=False, model_dir=str(cut))
+    cut_cfg["data"] = {k: v for k, v in cfg["data"].items() if k not in ("train", "test")}
+    cut_cfg["data"]["dev"] = str(data / "dev8")
+    cut_cfg["model"] = {**cfg["model"],
+                        "encoder": dict(cfg["model"]["encoder"], num_layers=2),
+                        "decoder": dict(cfg["model"]["decoder"], num_layers=2)}
+    outs = {}
+    for use_cuda in (True, False):
+        path = cut / f"cut_{use_cuda}.yaml"
+        path.write_text(dump_yaml(dict(cut_cfg, use_cuda=use_cuda)), encoding="utf-8")
+        cli_run(["test", path, "-o", cut / f"out_{use_cuda}"])
+        outs[use_cuda] = (cut / f"out_{use_cuda}.dev").read_text(encoding="utf-8")
+    check(outs[True] == outs[False] and len(outs[True].splitlines()) == 8,
+          f"float32 MT hypotheses differ between card and CPU:\n{outs[True]}\n{outs[False]}")
+
+
+def mt_prompt_leg(cfg: dict, data: Path, work: Path, n_enc: int, n_dec: int) -> dict:
+    """Forced prompts on phase 12's model shape: a copy of the config with a
+    sep token and two language tags, prompt files written beside the
+    corpus (``<en>`` before each source, ``<de>`` and the reference's first
+    word before each target), ``train`` (4 updates, one validation), then
+    ``load_model_dir`` -> ``score`` (beam 5) and ``generate`` (greedy) of 8
+    sentences with their prompts, the repetition penalty and n-gram
+    blocking: every hypothesis starts with its forced prompt and <sep>, the
+    text has none of it, the launches are as the path implies."""
+    from joeys2t_torch.config import dump_yaml
+    from joeys2t_torch.hub_interface import load_model_dir
+
+    pdata = work / "synthetic_mt_prompts"
+    pdata.mkdir(exist_ok=True)
+    for split in ("train", "dev", "test"):
+        for side in ("src", "trg"):
+            shutil.copy(data / f"{split}.{side}", pdata / f"{split}.{side}")
+        trg = (data / f"{split}.trg").read_text(encoding="utf-8").splitlines()
+        (pdata / f"{split}.src_prompt").write_text("<en>\n" * len(trg), encoding="utf-8")
+        (pdata / f"{split}.trg_prompt").write_text(
+            "".join(f"<de> {t.split()[0]}\n" for t in trg), encoding="utf-8")
+    pcfg = json.loads(json.dumps(cfg))
+    pcfg["model_dir"] = str(work / "mt_prompt_model")
+    for split in ("train", "dev", "test"):
+        pcfg["data"][split] = str(pdata / split)
+    pcfg["data"]["special_symbols"].update(sep_token="<sep>", sep_id=4,
+                                           lang_tags=["<en>", "<de>"])
+    pcfg["training"].update(updates=4, validation_freq=4, logging_freq=4)
+    path = work / "mt_prompt.yaml"
+    path.write_text(dump_yaml(pcfg), encoding="utf-8")
+    train_wall, lines, _, train_n = cli_run(["train", path, "--skip-test"])
+    gens = generations(lines)
+    want = cli_launches(n_enc, n_dec, 4, gens, [])
+    check(len(gens) == 1 and train_n == want, f"prompted train launches {train_n}, "
+          f"expected {want}")
+    srcs = (pdata / "test.src").read_text(encoding="utf-8").splitlines()[:8]
+    refs = (pdata / "test.trg").read_text(encoding="utf-8").splitlines()[:8]
+    src_prompt, trg_prompt = ["<en>"] * 8, [f"<de> {r.split()[0]}" for r in refs]
+    hub = load_model_dir(pcfg["model_dir"])
+    controls = dict(repetition_penalty=1.2, no_repeat_ngram_size=3)
+    zero_counters()
+    scored = hub.score(srcs, src_prompt=src_prompt, trg_prompt=trg_prompt, **controls)
+    beam_n = read_counters()
+    zero_counters()
+    greedy = hub.generate(srcs, src_prompt=src_prompt, trg_prompt=trg_prompt, beam_size=1,
+                          **controls)
+    greedy_n = read_counters()
+    vocab = hub.dataset.trg_vocab
+    for out, prompt in zip(scored, trg_prompt):
+        forced = vocab.arrays_to_sentences([[vocab.lookup(t) for t in prompt.split()]
+                                            + [vocab.sep_index]])[0]
+        check(out.tokens[0][:3] == forced, f"beam hypothesis {out.tokens[0]} does not "
+              f"start with its prompt {forced}")
+        check("<sep>" not in out.translation[0] and "<de>" not in out.translation[0],
+              f"the prompt was not cut from {out.translation[0]!r}")
+    check(len(greedy) == 8 and all("<sep>" not in g for g in greedy),
+          f"greedy prompted hypotheses {greedy}")
+    for name, n, group in (("beam", beam_n, True), ("greedy", greedy_n, False)):
+        steps = n["decode_attention"] // (2 * n_dec)
+        check(n["flash_attention_fwd"] == n_enc and n["flash_attention_bwd"] == 0
+              and steps > 2 and n["decode_attention"] == 2 * n_dec * steps
+              and n["decode_attention_group"] == (n_dec * steps if group else 0),
+              f"prompted {name} launches {n}")
+    print(f"[mt] prompts: sep + 2 language tags, prompt files beside the corpus; train 4 "
+          f"updates {train_wall:.2f} s; load_model_dir -> score (beam 5) and generate "
+          f"(greedy) with repetition_penalty 1.2 and no_repeat_ngram_size 3: every "
+          f"hypothesis forced to its prompt, e.g. {scored[0].tokens[0][:6]} -> "
+          f"{scored[0].translation[0][:40]!r}; launches beam {beam_n}, greedy {greedy_n}")
+    return {name: train_n[name] + beam_n[name] + greedy_n[name] for name in train_n}
+
+
+def mt_phase() -> tuple:
+    """Phase 12: configs/synthetic_mt.yaml at full width in bf16 (8 + 8
+    layers, hidden 512, 4 heads of 128, tied softmax) on
+    scripts/generate_synthetic_mt.py's corpus (4096 / 64 / 64 pairs) through
+    ``train`` (16 updates of 192 sentences, a validation every 8), ``test
+    -o`` and ``translate`` of 8 sentences (beam 5) with exact launch counts
+    and the plain versions refused, ``load_model_dir`` -> ``generate`` equal
+    to ``translate``, the prompt leg (``mt_prompt_leg``), each kernel held
+    against its plain version on the path's inputs, and a float32 ``test``
+    of the checkpoint cut to 2 + 2 layers identical on card and CPU; ms an
+    update, the data pipeline's share and test sentences a second."""
+    from joeys2t_torch.checkpoints import load_checkpoint
+    from joeys2t_torch.config import dump_yaml
+    from joeys2t_torch.hub_interface import load_model_dir
+
+    work = REPO / "build" / "chip_smoke"
+    data = work / "synthetic_mt"
+    t0 = time.time()
+    mt_corpus(data)
+    print(f"[mt] corpus: 4096 / 64 / 64 sentence pairs in {time.time() - t0:.1f} s")
+    model_dir = work / "mt_model"
+    cfg = mt_config(data, model_dir)
+    cfg_path = work / "mt.yaml"
+    cfg_path.write_text(dump_yaml(cfg), encoding="utf-8")
+    n_enc = n_dec = 8
+    srcs = (data / "test.src").read_text(encoding="utf-8").splitlines()[:8]
+    kept, runs = {}, {}
+    with plain_refused("MT CLI path"), kernel_inputs(kept):
+        runs["train"] = cli_run(["train", cfg_path])
+        runs["test"] = cli_run(["test", cfg_path, "-o", work / "mt_out"])
+        runs["translate"] = cli_run(["translate", cfg_path],
+                                    stdin="".join(f"{s}\n" for s in srcs))
+        launches = check_cli_leg("mt", runs, n_enc, n_dec, 16, 2)
+        hub = load_model_dir(model_dir)
+        zero_counters()
+        generated = hub.generate(srcs)
+        hub_n = read_counters()
+        # kernels a decode step and the card's busy share over a profiled
+        # generate cut to 16 steps (the profiler's own cost grows with them)
+        per_step = {}
+        for name, beam in (("greedy", 1), ("beam 5", 5)):
+            zero_counters()
+            wall, kernels = profiled(lambda b=beam: hub.generate(
+                srcs, beam_size=b, max_output_length=16))
+            steps = read_counters()["decode_attention"] // (2 * n_dec)
+            per_step[name] = (sum(n for n, _ in kernels.values()) / steps, steps,
+                              sum(t for _, t in kernels.values()) / 1e4 / wall, wall)
+        prompt_n = mt_prompt_leg(cfg, data, work, n_enc, n_dec)
+    checks = cli_kernel_checks(kept, tag="mt")
+    del kept, hub
+    translated = runs["translate"][2].splitlines()
+    check(generated == translated and len(translated) == 8,
+          f"hub generate {generated} differs from translate {translated}")
+    check(hub_n["flash_attention_fwd"] == n_enc and hub_n["decode_attention_group"] > 0,
+          f"hub generate launches {hub_n}")
+    for name in launches:
+        launches[name] += hub_n[name] + prompt_n[name]
+    valid = (model_dir / "validations.txt").read_text().splitlines()
+    bleus = [float(m.group(1)) for m in (re.search(r"\tbleu: ([\d.]+)\t", v)
+                                         for v in valid) if m]
+    check(len(valid) == 2 and len(bleus) == 2, f"mt validations.txt: {valid}")
+    losses = [float(m.group(1)) for m in (re.search(r"Batch Loss: +([-\d.einfa]+)", ln)
+                                          for ln in runs["train"][1]) if m]
+    check(len(losses) == 4 and all(np.isfinite(losses)), f"mt losses {losses}")
+    state = load_checkpoint(model_dir / "latest.ckpt")["model_state"]
+    check(all(v.dtype == torch.float32 for v in state.values())
+          and "decoder.output_layer.weight" not in state
+          and "src_embed.lut.weight" in state, "mt checkpoint")
+    for split in ("dev", "test"):
+        n = len((work / f"mt_out.{split}").read_text(encoding="utf-8").splitlines())
+        check(n == 64, f"mt out.{split}: {n} hypotheses")
+    cut_mt_test_on_both(cfg, state, model_dir, data, work / "mt_cut")
+    updates, loop_s, per_update, data_s, share = loop_stats(runs["train"][1])
+    test_gen = generations(runs["test"][1])[0]  # the dev set in `test`
+    print(f"[mt] train: 16 updates of 192 sentences, 2 validations (BLEU {bleus}), "
+          f"{runs['train'][0]:.2f} s wall; losses {[round(x, 4) for x in losses]}")
+    print(f"[mt] MT training loop: {per_update * 1e3:.2f} ms per update, the host data "
+          f"pipeline (read, tokenize, sampler, collate, upload) {data_s / updates * 1e3:.2f} "
+          f"ms a batch, {share:.2f} % of the loop's wall ({data_s:.3f} s of {loop_s:.3f} "
+          f"s); test: dev decode {test_gen[0]:.3f} s = {64 / test_gen[0]:.1f} sentences/s "
+          f"over {test_gen[2]} beam-5 steps ({test_gen[1]} batch); translate 8 sentences "
+          f"{runs['translate'][0]:.3f} s")
+    print("[mt] decode of 8 sentences through generate, 16 steps, profiled: " + "; ".join(
+        f"{name}: {k:.1f} kernels a step over {n} steps (the encoder and cache set-up "
+        f"included), the card busy {busy:.1f} % of {wall:.3f} s"
+        for name, (k, n, busy, wall) in per_step.items()))
+    print(f"[mt] launches {launches} as the paths imply, plain attention never ran; "
+          f"load_model_dir -> generate equals translate; float32 test at 2 + 2 layers: "
+          f"card and CPU hypotheses identical")
+    return launches, checks, per_update
+
+
+# ----------------------------------------------------------------- phase 13
+def reverse_phase() -> tuple:
+    """Phase 13: configs/transformer_reverse.yaml as configured (float32,
+    2 + 2 layers of hidden 64, 4 heads of 16, tied embeddings and softmax)
+    on test/data/reverse/ (the dev set cut to its first 100 pairs), cut to 32
+    updates (64 micro-batches of 12) and one validation, then ``test -o``
+    (dev and test) and ``translate`` of 8
+    sentences: every attention on the head-dim-16 kernels (SIMT flash, f32
+    decode), exact launch counts with the plain versions refused, each
+    kernel against its plain version on the path's inputs."""
+    from joeys2t_torch.config import dump_yaml, load_config
+
+    work = REPO / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    model_dir = work / "reverse_model"
+    shutil.rmtree(model_dir, ignore_errors=True)
+    cfg = load_config(REPO / "configs" / "transformer_reverse.yaml")
+    cfg["model_dir"] = str(model_dir)
+    data, cut = REPO / "test" / "data" / "reverse", work / "reverse_dev100"
+    for side in ("src", "trg"):  # validation and test on the first 100 dev pairs
+        lines = (data / f"dev.{side}").read_text(encoding="utf-8").splitlines()[:100]
+        cut.with_suffix(f".{side}").write_text("\n".join(lines) + "\n", encoding="utf-8")
+    cfg["data"].update(train=str(data / "train"), dev=str(cut), test=str(data / "test"))
+    del cfg["data"]["sample_dev_subset"], cfg["testing"]["load_model"]
+    cfg["training"].update(updates=32, validation_freq=32, logging_freq=8)
+    m = cfg["model"]
+    check(not cfg["fp16"] and m["encoder"]["hidden_size"] // m["encoder"]["num_heads"] == 16
+          and m["tied_embeddings"] and m["tied_softmax"]
+          and cfg["training"]["batch_multiplier"] == 2, "unexpected transformer_reverse config")
+    cfg_path = work / "reverse.yaml"
+    cfg_path.write_text(dump_yaml(cfg), encoding="utf-8")
+    srcs = (data / "test.src").read_text(encoding="utf-8").splitlines()[:8]
+    kept, runs = {}, {}
+    with plain_refused("head-dim-16 CLI path"), kernel_inputs(kept):
+        runs["train"] = cli_run(["train", cfg_path])
+        runs["test"] = cli_run(["test", cfg_path, "-o", work / "reverse_out"])
+        runs["translate"] = cli_run(["translate", cfg_path],
+                                    stdin="".join(f"{s}\n" for s in srcs))
+    launches = check_cli_leg("reverse", runs, 2, 2, 64, 1, beam=False)
+    checks = cli_kernel_checks(kept, tag="reverse")
+    del kept
+    valid = (model_dir / "validations.txt").read_text().splitlines()
+    bleu = re.search(r"\tbleu: ([\d.]+)\t", valid[0]) if valid else None
+    check(len(valid) == 1 and bleu is not None, f"reverse validations.txt: {valid}")
+    for split, n in (("dev", 100), ("test", 100)):
+        got = len((work / f"reverse_out.{split}").read_text(encoding="utf-8").splitlines())
+        check(got == n, f"reverse out.{split}: {got} hypotheses, expected {n}")
+    per_update = update_ms(runs["train"][1])
+    print(f"[reverse] train: 32 updates (64 micro-batches of 12), 1 validation "
+          f"(BLEU {bleu.group(1)}), {runs['train'][0]:.2f} s wall, {per_update:.2f} "
+          f"ms an update; test (dev 100 + test 100, greedy) {runs['test'][0]:.2f} s; "
+          f"translate 8 sentences {runs['translate'][0]:.2f} s")
+    print(f"[reverse] head-dim-16 launches: flash forward {launches['flash_attention_fwd']}, "
+          f"flash backward {launches['flash_attention_bwd']}, decode "
+          f"{launches['decode_attention']}; as the path implies, plain attention never ran")
     return launches, checks
 
 
@@ -1980,7 +2415,8 @@ def main():
 
     build_phase()
     mark("phase 1")
-    flash, decode, decode_group, backward = kernel_phase()
+    flash, decode, decode_group, backward, mt_cases = kernel_phase()
+    mt_flash, mt_backward, mt_decode, mt_group = mt_cases
     mark("phase 2")
     flash_launches, decode_launches, asr, batch, served = serving_phase()
     greedy_k5_ms = breakdown_phase(asr, batch)
@@ -2010,6 +2446,17 @@ def main():
     mark("phase 10")
     conformer_counts, conformer_checks = conformer_phase(corpus, cli_update_s)
     mark("phase 11")
+    torch.cuda.empty_cache()
+    mt_counts, mt_checks, mt_update_s = mt_phase()
+    print(f"[mt] ms an update: synthetic_mt {mt_update_s * 1e3:.2f}, synthetic_asr (phase "
+          f"7) {cli_update_s * 1e3:.2f}")
+    mark("phase 12")
+    reverse_counts, reverse_checks = reverse_phase()
+    mark("phase 13")
+
+    def compact(c):  # a case's measurements, without what its printed line adds
+        return {k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "library_ms",
+                                  "bound_ms", "bound_by") if k in c}
 
     def entry(name, source, replaces, also, cases, launches, checks):
         head = cases[0]  # the main path's headline shape and dtype
@@ -2021,14 +2468,15 @@ def main():
                     launches_by_path=launches, max_abs_err=head["max_abs_err"],
                     ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                     bound_by=head["bound_by"], library_ms=head["library_ms"],
-                    case=head["case"], cases=cases,
+                    case=head["case"], cases=[compact(c) for c in cases if "ms" in c],
                     path_checks=dict(worst, n_cases=len(checks)))
 
     def paths(name, **extra):
         return dict(extra, serving_beam=beam_launches[name], cli=cli_counts[name],
                     st=st_counts[name], int8_greedy=int8_counts["greedy 64 x 10 s"][name],
                     int8_beam=int8_counts["beam 5 32 x 10 s"][name],
-                    spm=spm_counts[name], conformer=conformer_counts[name])
+                    spm=spm_counts[name], conformer=conformer_counts[name],
+                    mt=mt_counts[name], reverse_d16=reverse_counts[name])
 
     def int8_paths(name):
         return {"int8_greedy": int8_counts["greedy 64 x 10 s"][name],
@@ -2037,41 +2485,46 @@ def main():
     def mode_cases(cases, mode):
         return [c for c in cases if f" {mode}" in c["case"]]
 
-    for later in (spm_checks, conformer_checks):  # phases 10 and 11 on their own inputs
+    # phases 10-13 on their own inputs
+    for later in (spm_checks, conformer_checks, mt_checks, reverse_checks):
         for name, cases in later.items():
             cli_checks[name] = cli_checks[name] + cases
     decode_checks = cli_checks["decode_attention"]
+    mt_timed = [c for c in mt_decode if "ms" in c]
     int8_decode_checks = int8_checks["decode_attention"]
     kernels = [
         entry("flash_attention_fwd", "joeys2t_torch/csrc/flash_attention.cu",
               "joeys2t_tpu/ops/flash_attention.py:492",
-              "joeys2t_tpu/ops/flash_attention.py:262", flash,
+              "joeys2t_tpu/ops/flash_attention.py:262", flash + mt_flash,
               paths("flash_attention_fwd", serving=flash_launches, train=train_fwd_launches),
               cli_checks["flash_attention_fwd"]),
         entry("flash_attention_bwd", "joeys2t_torch/csrc/flash_attention.cu",
               "joeys2t_tpu/ops/flash_attention.py:562",
-              "joeys2t_tpu/ops/flash_attention.py:306", backward,
+              "joeys2t_tpu/ops/flash_attention.py:306", backward + mt_backward,
               paths("flash_attention_bwd", train=train_bwd_launches),
               cli_checks["flash_attention_bwd"]),
         entry("decode_attention", "joeys2t_torch/csrc/decode_attention.cu",
-              "joeys2t_tpu/ops/decode_attention.py:185", None, decode,
+              "joeys2t_tpu/ops/decode_attention.py:185", None,
+              decode + mt_timed,
               paths("decode_attention", serving=decode_launches),
               [c for c in decode_checks if "(group 1)" in c["case"]]),
         entry("decode_attention (group 5: the beam-shared cross cache)",
               "joeys2t_torch/csrc/decode_attention.cu",
-              "joeys2t_tpu/ops/decode_attention.py:185", None, decode_group,
+              "joeys2t_tpu/ops/decode_attention.py:185", None, decode_group + mt_group,
               paths("decode_attention_group"),
               [c for c in decode_checks if "(group 1)" not in c["case"]]),
         entry("decode_attention (int8 with channel scales: the cross caches)",
               "joeys2t_torch/csrc/decode_attention.cu",
               "joeys2t_tpu/ops/decode_attention.py:185", None,
-              mode_cases(decode, "int8-channel") + mode_cases(decode_group, "int8-channel"),
+              mode_cases(decode + mt_timed, "int8-channel")
+              + mode_cases(decode_group + mt_group, "int8-channel"),
               int8_paths("decode_attention_int8_channel"),
               [c for c in int8_decode_checks if "int8 channel" in c["case"]]),
         entry("decode_attention (int8 with position scales: the self caches)",
               "joeys2t_torch/csrc/decode_attention.cu",
               "joeys2t_tpu/ops/decode_attention.py:185", None,
-              [c for c in mode_cases(decode, "int8-position") if c["case"].startswith("self")],
+              [c for c in mode_cases(decode + mt_timed, "int8-position")
+               if c["case"].startswith("self")],
               int8_paths("decode_attention_int8_position"),
               [c for c in int8_decode_checks if "int8 position" in c["case"]]),
     ]

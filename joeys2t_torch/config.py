@@ -13,7 +13,7 @@ Counterpart of joeys2t_tpu/config.py (``SpecialSymbols`` :28,
 of the parts the port does not have yet (profiling, model and pipeline
 parallelism, optimizers other than adam/adamw, ``moment_dtype``) raise
 ``NotImplementedError`` when set; :func:`check_ported` refuses the unported
-`testing` and `model` options before a run loads any data. The
+`testing`, `model` and `data` options before a run loads any data. The
 ``JOEYS2T_BEAM_REORDER`` environment override of ``beam_reorder`` is not
 ported: the port reads no environment knobs.
 
@@ -309,8 +309,8 @@ def parse_train_args(cfg: Dict, mode: str = "train") -> TrainConfig:
 
 def parse_test_args(cfg: Dict, mode: str = "test") -> TestConfig:
     """Parse and validate the `testing` section (joeynmt/config.py:356-446).
-    Returned attention, ``beam_reorder: lazy``, repetition penalty and
-    n-gram blocking are accepted here; :func:`check_ported` refuses them."""
+    Returned attention and ``beam_reorder: lazy`` are accepted here;
+    :func:`check_ported` refuses them."""
     batch_size = cfg.get("batch_size", 64)
     batch_type = cfg.get("batch_type", "sentence").lower()
     _check_options("batch_type", batch_type, ["sentence", "token"])
@@ -375,18 +375,22 @@ def parse_test_args(cfg: Dict, mode: str = "test") -> TestConfig:
 
 
 def check_ported(args: BaseConfig, save_attention: bool = False) -> None:
-    """Raise ``NotImplementedError`` for an option of the `testing` or
-    `model` section that the port does not have yet, so that ``train``,
+    """Raise ``NotImplementedError`` for an option of the `testing`, `model`
+    or `data` section that the port does not have yet, so that ``train``,
     ``test`` and ``translate`` refuse it before loading any data rather than
     where it would first run (after training, for the closing test)."""
-    t = args.test
+    t, model, data = args.test, args.model, args.data
+    sides = [model.get(side, {}) for side in ("encoder", "decoder")]
     unported = {
         "return_attention": t.return_attention or save_attention,
         "beam_reorder: lazy": t.beam_reorder == "lazy",
-        "repetition_penalty": float(t.repetition_penalty) > 0,
-        "no_repeat_ngram_size": int(t.no_repeat_ngram_size) > 0,
-        "tied_softmax": bool(args.model.get("tied_softmax", False)
-                             and not args.model.get("tied_embeddings", False)),
+        "recurrent models": any(s.get("type", "transformer") == "recurrent"
+                                for s in sides),
+        "num_experts": int(sides[0].get("num_experts", 0)) > 0,
+        "pretokenizer: moses": any(
+            str((data.get(side) or {}).get("tokenizer_cfg", {}).get(
+                "pretokenizer", "none")).lower() == "moses" for side in ("src", "trg")),
+        "dataset_type: huggingface": data.get("dataset_type") == "huggingface",
     }
     names = [name for name, is_set in unported.items() if is_set]
     if names:

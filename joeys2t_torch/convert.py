@@ -8,6 +8,7 @@ naming joeys2t_tpu/convert.py:9-21 documents, so
 back the JAX tree. Mapping (JAX tree path -> port name):
 
   {src,trg}_embed/lut/embedding       -> {src,trg}_embed.lut.weight
+                                         (a tied table: trg_embed only, in both)
   */layer_N/*                         -> *.layers.N.*
   */feed_forward/dense{1,2}           -> *.feed_forward.pwff_layer.{0,3}
   */subsampler/conv_N                 -> *.subsampler.conv_layers.N
@@ -19,6 +20,9 @@ back the JAX tree. Mapping (JAX tree path -> port name):
   */batch_norm_{scale,bias,mean,var}  -> *.batch_norm.{weight,bias,running_mean,
                                          running_var} (the conformer's frozen BN)
   */ls_{ff1,att,conv,ff2}             -> *.ls_{ff1,att,conv,ff2} (LayerScale)
+
+Text models have no ``ctc_output_layer``, and under the tied softmax no
+``output_layer``: their trees simply lack those leaves.
 
 ``jax_checkpoint_to_port`` turns a checkpoint that ``python -m joeys2t_tpu
 train`` wrote (a pickle, joeys2t_tpu/checkpoints.py:29) into a port

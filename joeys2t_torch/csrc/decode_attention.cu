@@ -50,6 +50,9 @@
 //    block at bf16 D=128, so up to ~128 KB an SM at B=64 H=4 (256 blocks on
 //    132 SMs); at B=1-2 S=750 (32-64 blocks, 96 rows each) a block's rows
 //    are all in flight at once. (250 registers a thread at bf16 D=128, no spills.)
+//  - Head dim 16 (the 64-wide MT models): a 32-byte bf16 row is 2 lanes of
+//    16 bytes, so one warp load covers 16 rows (f32: 4 lanes, 8 rows; int8:
+//    1 lane, 32 rows) and every lane of the warp loads.
 //  - Masked rows are not read: a row whose bias is at or below NEG_INF / 2 is
 //    skipped (its K, V and "position" scales are not loaded); its
 //    exp(score - max) is exactly 0 in f32 once the row has a valid key, so
@@ -378,6 +381,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
                      num_heads, s_len, splits, split_rows, sm_scale, layout,   \
                      stream)
   switch (head_dim) {
+    case 16: return DECODE_LAUNCH(16);
     case 64: return DECODE_LAUNCH(64);
     case 128: return DECODE_LAUNCH(128);
     case 192: return DECODE_LAUNCH(192);

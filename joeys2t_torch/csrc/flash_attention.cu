@@ -66,7 +66,7 @@
 // Two routes, chosen by dtype and head size (dispatch_fwd / dispatch_bwd;
 // flash_attention_info reports the route):
 //
-// bf16, D in 64/128/192/256: tensor cores (the *_mma kernels below). Every
+// bf16, D in 16/64/128/192/256: tensor cores (the *_mma kernels below). Every
 // product is mma.sync.m16n8k16 bf16 x bf16 -> f32. Tiles stay bf16 in shared
 // memory, in 16-byte chunks stored at chunk ^ (row % 8), so the 8 row
 // addresses of an ldmatrix hit 8 different bank groups. Operands reach the
@@ -93,6 +93,10 @@
 //     dK += dS^T.Q) or of dQ (dQ kernel: dQ += dS.K). dK/dV holds both
 //     accumulators (234-238 registers at D = 128: 1 block an SM); dQ is
 //     bounded to 2 blocks an SM.
+//   D = 16 (the 64-wide MT models, 4 heads): one k16 step makes S = Q.K^T,
+//     one x4 ldmatrix of V gives P.V's two n8 tiles, and 32-byte tile rows
+//     take their own swizzle (swz); in the backward each warp keeps the n8
+//     half of the 16 head columns that its D/2 band names.
 //   sm_scale is applied in f32 to the scores after the product and to dK and
 //   dQ at the end; folding it into bf16 Q would round Q a second time
 //   (128^-1/2 is not a power of two). Dropout keeps are hashed at each
@@ -104,20 +108,18 @@
 //   (:119-159). Each output is within 2e-2 of the largest value of the
 //   plain f32 version (tests/test_torch_cuda.py, chip_smoke.py).
 //
-// f32, D in 64/128/192/256: the SIMT kernels (before the mma section), the
+// f32, D in 16/64/128/192/256: the SIMT kernels (before the mma section), the
 // exact path. They do the products on the CUDA cores in f32 (FMA from shared
 // memory, 16x16 threads, register micro-tiles; rows padded by one float
 // against bank conflicts). Tensor-core TF32 would round inputs to 10 mantissa
 // bits and break the 1e-4 / 1e-5 agreement that the f32 checks, the
 // card-vs-CPU runs and the CPU tests hold the kernels to.
 //
-// Spills (ptxas -v, printed by chip_smoke.py): the SIMT dQ kernel at D = 64
-// with dropout in f32 spills 4 bytes (flash_bwd_dq_kernel<float, 64, 64, 64,
-// true>, the only SIMT instantiation that spills; earlier builds, which also
-// compiled the SIMT kernels for bf16, reported two 4-byte spills). The mma
-// dQ kernel, bounded to 128 registers, spills 8-56 bytes at D = 128 and
-// 116-260 bytes at D = 192 and 256; the mma forward spills 8 bytes at D = 64
-// with dropout.
+// Spills (ptxas -v under nvcc --split-compile, printed by chip_smoke.py):
+// the SIMT kernels spill in two instantiations, the dQ kernel at D = 64
+// with dropout (8 bytes stored, 32 loaded) and the dK/dV kernel at D = 16
+// without (24 / 48). The mma dQ kernel, bounded to 128 registers, spills
+// 8-56 bytes at D = 128 and 116-260 bytes at D = 192 and 256.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -661,11 +663,15 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 // Element offset of (row, col) in a bf16 tile W columns wide: 16-byte chunk
 // c of a row is stored at c ^ (row % 8), so the 8 rows that one ldmatrix
-// matrix reads at one logical chunk fall on 8 different bank groups.
+// matrix reads at one logical chunk fall on 8 different bank groups. A
+// 16-wide tile (head dim 16) has 2 chunks a row, 32 bytes: chunk c is
+// stored at c ^ ((row / 4) % 2), so rows r and r + 4, which share a bank
+// group at the same chunk, take different ones.
 template <int W>
 __device__ __forceinline__ int swz(int row, int col) {
-  static_assert(W % 64 == 0, "a tile row must be a multiple of 8 chunks");
-  return row * W + (((col >> 3) ^ (row & 7)) << 3) + (col & 7);
+  static_assert(W == 16 || W % 64 == 0, "a tile row must be 2 or a multiple of 8 chunks");
+  const int flip = W == 16 ? (row >> 2) & 1 : row & 7;
+  return row * W + (((col >> 3) ^ flip) << 3) + (col & 7);
 }
 
 // A lane's row address for an ldmatrix.x4 of the 16x16 block at (row0,
@@ -692,16 +698,18 @@ struct Lane {
 
 // Starts the copy of rows [r0, r0 + R) of one head band (D columns at
 // `base`) of a (B, S, E) tensor into a swizzled R x D tile, 16 bytes a
-// thread; rows past S are zero-filled.
+// thread; rows past S are zero-filled. At D = 16 a tile of the 8-warp
+// backward has fewer chunks than threads: the rest sit out.
 template <int R, int D, int NT>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src,
                                           size_t base, int r0, int s, int e) {
   constexpr int kChunks = D / 8;
-  static_assert((R * kChunks) % NT == 0, "whole chunks per thread");
+  static_assert((R * kChunks) % NT == 0 || R * kChunks < NT, "whole chunks per thread");
   const uint32_t d0 = smem_addr(dst);
 #pragma unroll
-  for (int j = 0; j < R * kChunks / NT; ++j) {
+  for (int j = 0; j < (R * kChunks + NT - 1) / NT; ++j) {
     const int i = threadIdx.x + j * NT;
+    if (R * kChunks < NT && i >= R * kChunks) break;
     const int r = i / kChunks, c = i % kChunks, row = r0 + r;
     const bool ok = row < s;
     cp_async16(d0 + 2 * swz<D>(r, 8 * c), src + base + (size_t)(ok ? row : 0) * e + 8 * c,
@@ -1032,15 +1040,24 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       uint32_t ap[4], ads[4];
       ldsm_t(ap, smem_addr(p_s + LT::at(lt.b, 16 * qq, kr)));
       ldsm_t(ads, smem_addr(ds_s + LT::at(lt.b, 16 * qq, kr)));
-#pragma unroll
-      for (int np = 0; np < NH / 2; ++np) {
+      if constexpr (NH == 1) {  // D = 16: this warp's n8 half of one x4 load
         uint32_t bo[4], bq[4];
-        ldsm_t(bo, smem_addr(dos + L::at(lo.a, 16 * qq, dc + 16 * np)));
-        mma(acc_v[2 * np], ap, bo[0], bo[1]);
-        mma(acc_v[2 * np + 1], ap, bo[2], bo[3]);
-        ldsm_t(bq, smem_addr(qs + L::at(lo.a, 16 * qq, dc + 16 * np)));
-        mma(acc_k[2 * np], ads, bq[0], bq[1]);
-        mma(acc_k[2 * np + 1], ads, bq[2], bq[3]);
+        const int hi = dc ? 2 : 0;
+        ldsm_t(bo, smem_addr(dos + L::at(lo.a, 16 * qq, 0)));
+        mma(acc_v[0], ap, hi ? bo[2] : bo[0], hi ? bo[3] : bo[1]);
+        ldsm_t(bq, smem_addr(qs + L::at(lo.a, 16 * qq, 0)));
+        mma(acc_k[0], ads, hi ? bq[2] : bq[0], hi ? bq[3] : bq[1]);
+      } else {
+#pragma unroll
+        for (int np = 0; np < NH / 2; ++np) {
+          uint32_t bo[4], bq[4];
+          ldsm_t(bo, smem_addr(dos + L::at(lo.a, 16 * qq, dc + 16 * np)));
+          mma(acc_v[2 * np], ap, bo[0], bo[1]);
+          mma(acc_v[2 * np + 1], ap, bo[2], bo[3]);
+          ldsm_t(bq, smem_addr(qs + L::at(lo.a, 16 * qq, dc + 16 * np)));
+          mma(acc_k[2 * np], ads, bq[0], bq[1]);
+          mma(acc_k[2 * np + 1], ads, bq[2], bq[3]);
+        }
       }
     }
   }
@@ -1127,12 +1144,18 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int kk = 0; kk < T / 16; ++kk) {
       uint32_t a[4];
       ldsm(a, smem_addr(ds_s + LT::at(lt.a, qr, 16 * kk)));
-#pragma unroll
-      for (int np = 0; np < NH / 2; ++np) {
+      if constexpr (NH == 1) {  // D = 16: this warp's n8 half of one x4 load
         uint32_t bk[4];
-        ldsm_t(bk, smem_addr(ks + L::at(lo.a, 16 * kk, dc + 16 * np)));
-        mma(acc[2 * np], a, bk[0], bk[1]);
-        mma(acc[2 * np + 1], a, bk[2], bk[3]);
+        ldsm_t(bk, smem_addr(ks + L::at(lo.a, 16 * kk, 0)));
+        mma(acc[0], a, dc ? bk[2] : bk[0], dc ? bk[3] : bk[1]);
+      } else {
+#pragma unroll
+        for (int np = 0; np < NH / 2; ++np) {
+          uint32_t bk[4];
+          ldsm_t(bk, smem_addr(ks + L::at(lo.a, 16 * kk, dc + 16 * np)));
+          mma(acc[2 * np], a, bk[0], bk[1]);
+          mma(acc[2 * np + 1], a, bk[2], bk[3]);
+        }
       }
     }
   }
@@ -1259,7 +1282,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
 // of the backward.
 template <int D>
 struct SimtTiles {
-  static constexpr int FQ = D <= 128 ? 64 : 32, FK = D == 64 ? 64 : 32;
+  static constexpr int FQ = D <= 128 ? 64 : 32, FK = D <= 64 ? 64 : 32;
   static constexpr int BQ = D <= 128 ? 64 : 32, BK = BQ;
 };
 // BK of the tensor-core forward: 64 keys a tile, 32 where the wider O needs
@@ -1271,6 +1294,7 @@ constexpr int kMmaFwdBK = D <= 128 ? 64 : 32;
 template <typename F>
 cudaError_t with_head_dim(int head_dim, F&& f) {
   switch (head_dim) {
+    case 16: return f(std::integral_constant<int, 16>{});
     case 64: return f(std::integral_constant<int, 64>{});
     case 128: return f(std::integral_constant<int, 128>{});
     case 192: return f(std::integral_constant<int, 192>{});

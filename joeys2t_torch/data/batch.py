@@ -3,12 +3,15 @@
 Mini-batch container (counterpart of joeys2t_tpu/data/batch.py ``Batch``
 :32), plain numpy on the host: the teacher-forcing shift, the target mask,
 ``nseqs``/``ntokens``, ``pad_to_shape`` (:98), ``normalize`` (:164),
-``sort_by_src_length`` (:186) and ``score`` (:212). Prompts are not ported
-yet.
+``sort_by_src_length`` (:186) and ``score`` (:212), with the source and
+target prompt masks (0/1 rows, 1 up to and including the first sep) carried
+through each.
 """
 from typing import List, Optional, Sequence
 
 import numpy as np
+
+from joeys2t_torch.helpers import adjust_mask_size
 
 DEFAULT_BUCKETS = (8, 16, 32, 64, 96, 128, 192, 256, 384, 512, 768, 1024,
                    1536, 2048, 3072, 4096, 6144, 8192)
@@ -33,12 +36,10 @@ class Batch:
                  trg_length: Optional[np.ndarray], trg_prompt_mask: Optional[np.ndarray],
                  indices: np.ndarray, pad_index: int, eos_index: int,
                  is_train: bool = True, task: str = "MT"):
-        if src_prompt_mask is not None or trg_prompt_mask is not None:
-            raise NotImplementedError("prompts are not ported yet")
         self.src = src
         self.src_length = np.asarray(src_length)
         self.src_mask: Optional[np.ndarray] = None
-        self.src_prompt_mask = None
+        self.src_prompt_mask = src_prompt_mask
         self.trg_input: Optional[np.ndarray] = None
         self.trg: Optional[np.ndarray] = None
         self.trg_length: Optional[np.ndarray] = None
@@ -66,6 +67,9 @@ class Batch:
             self.trg_length = np.asarray(trg_length) - 1
             self.trg_mask = (self.trg != pad_index)[:, None, :]  # (B, 1, T)
             self.ntokens = int(self.trg_mask.sum())
+            if trg_prompt_mask is not None:  # fitted to the decoder input
+                self.trg_prompt_mask = adjust_mask_size(
+                    np.asarray(trg_prompt_mask), self.nseqs, self.trg_input.shape[1])
 
         self.task = task
         if self.task == "MT":
@@ -105,10 +109,15 @@ class Batch:
         if self.src_mask is not None:
             src_mask = pad_arr(pad_arr(self.src_mask, src_len, 2, False), target_b, 0,
                                False)
+        src_prompt_mask = None
+        if self.src_prompt_mask is not None:
+            src_prompt_mask = pad_arr(pad_arr(self.src_prompt_mask, src_len, 1, 0),
+                                      target_b, 0, 0)
 
         new = Batch.__new__(Batch)
         new.__dict__.update(self.__dict__)
         new.src, new.src_length, new.src_mask = src, src_length, src_mask
+        new.src_prompt_mask = src_prompt_mask
         new.indices = pad_arr(self.indices, target_b, 0, -1)
         new.nseqs = target_b
 
@@ -124,6 +133,9 @@ class Batch:
             new.trg_length = pad_arr(self.trg_length, target_b, 0, 0)
             new.trg_mask = pad_arr(pad_arr(self.trg_mask, trg_len, 2, False), target_b,
                                    0, False)
+            if self.trg_prompt_mask is not None:
+                new.trg_prompt_mask = pad_arr(pad_arr(self.trg_prompt_mask, trg_len, 1, 0),
+                                              target_b, 0, 0)
         return new
 
     def normalize(self, tensor, normalization: str = "none", n_gpu: int = 1,
@@ -155,8 +167,8 @@ class Batch:
         rev_index = [0] * len(perm_index)
         for new_pos, old_pos in enumerate(perm_index):
             rev_index[int(old_pos)] = new_pos
-        for name in ("src", "src_length", "src_mask", "indices", "trg_input", "trg_mask",
-                     "trg_length", "trg"):
+        for name in ("src", "src_length", "src_mask", "src_prompt_mask", "indices",
+                     "trg_input", "trg_mask", "trg_length", "trg", "trg_prompt_mask"):
             arr = getattr(self, name)
             if arr is not None:
                 setattr(self, name, arr[perm_index])

@@ -2,7 +2,7 @@
 """
 Datasets (counterpart of joeys2t_tpu/data/datasets.py): ``BaseDataset`` :54
 with ``collate_fn`` :172 and ``make_iter`` :207, ``_BatchIterator`` :270,
-``_prefetch`` :291, ``TsvDataset`` :360, ``SpeechDataset`` :420,
+``_prefetch`` :291, ``PlaintextDataset`` :312, ``TsvDataset`` :360, ``SpeechDataset`` :420,
 ``StreamDataset`` :481, ``SpeechStreamDataset`` :542, ``build_dataset``
 :676.
 
@@ -12,8 +12,8 @@ row, no quoting, ``\\`` escapes the next character, no NA filtering, every
 column a string but ``n_frames``; rows whose ``n_frames`` is not above the
 source ``min_length`` or with a blank field are dropped (:449-450). A text
 TSV (:379): tab separated, a header row, ``"`` quoting, and rows with a
-missing or NA field dropped. Plaintext and Huggingface datasets are not
-ported yet and raise.
+missing or NA field dropped. Huggingface datasets are not ported yet and
+raise.
 """
 import csv
 import queue
@@ -29,6 +29,7 @@ from joeys2t_torch.config import ConfigurationError
 from joeys2t_torch.data.batch import Batch
 from joeys2t_torch.data.samplers import (RandomSubsetSampler, SentenceBatchSampler,
                                          TokenBatchSampler)
+from joeys2t_torch.helpers import read_list_from_file
 from joeys2t_torch.tokenizers import SpeechProcessor
 from joeys2t_torch.utils.logging import get_logger
 
@@ -274,6 +275,64 @@ def _prefetch(it: Iterator, depth: int = 2, name: str = "prefetch") -> Iterator:
         stop.set()
 
 
+class PlaintextDataset(BaseDataset):
+    """One sentence a line in ``<path>.<src_lang>`` and ``<path>.<trg_lang>``
+    (the target file optional outside training), each non-empty line
+    pre-processed by its side's tokenizer. A ``<path>.<lang>_prompt`` file,
+    one prompt a line (empty for none), switches prompting on for that side,
+    as a ``<lang>_prompt`` column does in a TSV; the JAX package's plaintext
+    reader has no such files."""
+
+    def __init__(self, path, src_lang, trg_lang, split="train", has_trg=True,
+                 has_prompt=None, tokenizer=None, sequence_encoder=None,
+                 random_subset=-1, task="MT", **kwargs):
+        super().__init__(path=path, src_lang=src_lang, trg_lang=trg_lang, split=split,
+                         has_trg=has_trg, has_prompt=has_prompt, tokenizer=tokenizer,
+                         sequence_encoder=sequence_encoder,
+                         random_subset=random_subset, task=task)
+        self.data = self.load_data(path, **kwargs)
+        self.reset_indices()
+
+    def load_data(self, path, **kwargs) -> Dict[str, List[str]]:
+        base = Path(path)
+        sides = [self.src_lang] + ([self.trg_lang] if self.has_trg else [])
+        data, counts = {}, []
+        for lang in sides:
+            side_file = base.with_suffix(f"{base.suffix}.{lang}")
+            if not side_file.is_file():
+                raise FileNotFoundError(f"{side_file} not found. Abort.")
+            lines = read_list_from_file(side_file)
+            counts.append(len(lines))
+            data[lang] = [self.tokenizer[lang].pre_process(line) for line in lines
+                          if len(line) > 0]
+        for lang in (self.src_lang, self.trg_lang):
+            prompt_file = base.with_suffix(f"{base.suffix}.{lang}_prompt")
+            if prompt_file.is_file():
+                lines = read_list_from_file(prompt_file)
+                counts.append(len(lines))
+                self.has_prompt[lang] = True
+                data[f"{lang}_prompt"] = [
+                    self.tokenizer[lang].pre_process(line, allow_empty=True) or None
+                    for line in lines]
+        if len(set(counts)) != 1:
+            raise ValueError(f"{path}: the sides' line counts differ: {counts}")
+        return data
+
+    def lookup_item(self, idx: int, lang: str) -> Tuple[str, Optional[str]]:
+        prompts = self.data.get(f"{lang}_prompt")
+        return self.data[lang][idx], None if prompts is None else prompts[idx]
+
+    def get_list(self, lang, tokenized=False, subsampled=True):
+        rows = self.indices if subsampled else range(len(self))
+        lines = [self.data[lang][i] for i in rows]
+        if tokenized:
+            return [self.tokenizer[lang](line, is_train=False) for line in lines]
+        return lines
+
+    def __len__(self) -> int:
+        return len(self.data[self.src_lang])
+
+
 class TsvDataset(BaseDataset):
     """TSV with ``src_lang`` / ``trg_lang`` header columns and optional
     ``<lang>_prompt`` columns."""
@@ -492,8 +551,13 @@ def build_dataset(dataset_type: str, path: Optional[str], src_lang: str, trg_lan
                   sequence_encoder=(placeholder if sequence_encoder is None
                                     else sequence_encoder), task=task)
     speech = dict(common, src_lang="src", trg_lang="trg")
-    if dataset_type in ("plain", "huggingface"):
+    if dataset_type == "huggingface":
         raise NotImplementedError(f"{dataset_type} datasets are not ported yet")
+    if dataset_type == "plain":
+        base = Path(path)
+        return PlaintextDataset(
+            path=path, has_trg=base.with_suffix(f"{base.suffix}.{trg_lang}").is_file(),
+            random_subset=random_subset, **common, **kwargs)
     if dataset_type == "tsv":
         return TsvDataset(path=path, has_trg=True, random_subset=random_subset,
                           **common, **kwargs)

@@ -5,8 +5,8 @@ joeys2t_tpu/helpers.py: ``read_list_from_file`` :29, ``write_list_to_file``
 :39, ``make_model_dir`` :48, ``set_seed`` :58, the text helpers :65-88,
 ``symlink_update`` :101, ``latest_checkpoint_update`` :112,
 ``resolve_ckpt_path`` :118, ``get_latest_checkpoint`` :131,
-``expand_reverse_index`` :141, ``save_hypothese`` :186), and the device an
-entry point runs on.
+``expand_reverse_index`` :141, ``adjust_mask_size`` :171, ``save_hypothese``
+:186), and the device an entry point runs on.
 """
 import random
 import re
@@ -140,6 +140,22 @@ def expand_reverse_index(reverse_index: List[int], n_best: int = 1) -> List[int]
     if n_best == 1:
         return reverse_index
     return [ix * n_best + n for ix in reverse_index for n in range(n_best)]
+
+
+def adjust_mask_size(mask: Optional[np.ndarray], batch_size: int,
+                     hyp_len: int) -> Optional[np.ndarray]:
+    """A (batch, len) mask cut or zero-padded to (batch_size, hyp_len)
+    (joeys2t_tpu/helpers.py:171)."""
+    if mask is None:
+        return None
+    if mask.shape[1] < hyp_len:
+        pad = np.zeros((mask.shape[0], hyp_len - mask.shape[1]), dtype=mask.dtype)
+        mask = np.concatenate([mask, pad], axis=1)
+    elif mask.shape[1] > hyp_len:
+        mask = mask[:, :hyp_len]
+    if mask.shape != (batch_size, hyp_len):
+        raise ValueError(f"mask of shape {mask.shape}, expected {(batch_size, hyp_len)}")
+    return mask
 
 
 def save_hypothese(output_path: Path, hypotheses: List[str], n_best: int = 1) -> None:

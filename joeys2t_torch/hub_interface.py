@@ -8,6 +8,8 @@ joeys2t_tpu/hub_interface.py): ``load_model_dir("models/my_asr")`` gives a
     hub = load_model_dir("models/my_asr")             # config.yaml + best.ckpt
     hub.generate(["feats/utt1.npy"])                  # S2T: feature or audio paths
     hub.score(["feats/utt1.npy"], trg=["a reference"])
+    mt = load_model_dir("models/my_mt")               # MT: sentences, with prompts
+    mt.generate(["ein satz"], src_prompt=["<de>"], trg_prompt=["<en> a"])
 
 The model runs on the device the directory's config asks for (``use_cuda``,
 ``cuda`` unless it is False; pass ``use_cuda=False`` to run on the CPU).

@@ -2,7 +2,7 @@
 """
 Transformer decoder (counterpart of joeys2t_tpu/models/decoders.py
 ``TransformerDecoder`` :27): the full teacher-forced pass with the CTC head
-over the encoder output, and the KV-cached decode path (``init_cache`` and
+over the encoder output (speech models), and the KV-cached decode path (``init_cache`` and
 ``decode_step``) that greedy and beam search run. Caches are (B, H, S, D):
 the cross-attention K/V are projected once per utterance, the
 self-attention K/V fill a preallocated buffer one slot per step. In beam
@@ -46,8 +46,9 @@ class TransformerDecoder(nn.Module):
                  ff_size: int = 2048, dropout: float = 0.1, emb_dropout: float = 0.1,
                  vocab_size: int = 1, layer_norm_position: str = "post",
                  activation: str = "relu", alpha: float = 1.0, ctc_layer: bool = False,
-                 cache_cross_int8: bool = False, cache_self_int8: bool = False,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 tied_softmax: bool = False, cache_cross_int8: bool = False,
+                 cache_self_int8: bool = False, dtype: torch.dtype = torch.float32,
+                 device=None):
         super().__init__()
         self.cache_cross_int8 = cache_cross_int8
         self.cache_self_int8 = cache_self_int8
@@ -62,7 +63,10 @@ class TransformerDecoder(nn.Module):
         self.emb_dropout = Dropout(emb_dropout)
         self.layer_norm = (nn.LayerNorm(hidden_size, eps=1e-6, device=device)
                            if layer_norm_position == "pre" else None)
-        self.output_layer = nn.Linear(hidden_size, vocab_size, bias=False, device=device)
+        # with the tied softmax the model projects onto its embedding table
+        # (joeynmt/model.py:482-490) and the decoder returns hidden states
+        self.output_layer = (None if tied_softmax else
+                             nn.Linear(hidden_size, vocab_size, bias=False, device=device))
         # CTC head over the encoder output (joeynmt/model.py:452-454)
         self.ctc_output_layer = (nn.Linear(hidden_size, vocab_size, bias=False,
                                            device=device) if ctc_layer else None)
@@ -72,20 +76,30 @@ class TransformerDecoder(nn.Module):
             x = layer_norm(self.layer_norm, x, self.dtype)
         return x
 
+    def _project(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits, or under the tied softmax the hidden states as they are."""
+        return x if self.output_layer is None else dense(self.output_layer, x, self.dtype)
+
     def forward(self, trg_embed: torch.Tensor, encoder_output: torch.Tensor,
-                src_mask: Optional[torch.Tensor], trg_mask: torch.Tensor):
-        """Teacher-forced pass; returns (logits, hidden, ctc_logits)
-        (joeynmt/decoders.py:567-625)."""
+                src_mask: Optional[torch.Tensor], trg_mask: torch.Tensor,
+                trg_prompt_embed: Optional[torch.Tensor] = None):
+        """Teacher-forced pass; returns (logits, or hidden states under the
+        tied softmax, hidden, ctc_logits) (joeynmt/decoders.py:567-625).
+        ``trg_prompt_embed`` is the embedded target prompt mask, added to the
+        input (:600-601)."""
         t = trg_embed.shape[1]
         pe = sinusoidal_pe(t, trg_embed.shape[2], trg_embed.device)
-        x = self.emb_dropout(trg_embed + pe.to(trg_embed.dtype)[None]).to(self.dtype)
+        x = trg_embed + pe.to(trg_embed.dtype)[None]
+        if trg_prompt_embed is not None:
+            x = x + trg_prompt_embed
+        x = self.emb_dropout(x).to(self.dtype)
         full_trg_mask = trg_mask & subsequent_mask(t, trg_mask.device)  # (B, T, T)
         for layer in self.layers:
             x = layer(x, encoder_output, src_mask, full_trg_mask)
         x = self._final(x)
         ctc_out = (None if self.ctc_output_layer is None
                    else dense(self.ctc_output_layer, encoder_output, self.dtype))
-        return dense(self.output_layer, x, self.dtype), x, ctc_out
+        return self._project(x), x, ctc_out
 
     def init_cache(self, encoder_output: torch.Tensor, max_len: int,
                    src_mask: Optional[torch.Tensor] = None,
@@ -126,11 +140,17 @@ class TransformerDecoder(nn.Module):
         return cache
 
     def decode_step(self, trg_embed_t: torch.Tensor, index: int, cache: Dict,
-                    beam_k: int = 1) -> torch.Tensor:
-        """One decode step at position ``index`` -> logits (B*beam_k, 1, V)
-        over a cache made with the same ``beam_k``; the self-attention
-        caches are updated in place."""
-        x = (trg_embed_t + cache["pe"][index].to(trg_embed_t.dtype)).to(self.dtype)
+                    beam_k: int = 1,
+                    trg_prompt_embed_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One decode step at position ``index`` -> logits (B*beam_k, 1, V),
+        or hidden states under the tied softmax, over a cache made with the
+        same ``beam_k``; the self-attention caches are updated in place.
+        ``trg_prompt_embed_t`` is the embedded prompt mask of this
+        position."""
+        x = trg_embed_t + cache["pe"][index].to(trg_embed_t.dtype)
+        if trg_prompt_embed_t is not None:
+            x = x + trg_prompt_embed_t
+        x = x.to(self.dtype)
         # slots 0..index are valid in every layer's self-attention buffer
         self_bias = torch.full((x.shape[0], cache["pe"].shape[0]), NEG_INF,
                                dtype=torch.float32, device=x.device)
@@ -138,4 +158,4 @@ class TransformerDecoder(nn.Module):
         for i, layer in enumerate(self.layers):
             x = layer.decode_step(x, cache[f"layer_{i}"], index, self_bias,
                                   cache["cross_bias"], beam_k)
-        return dense(self.output_layer, self._final(x), self.dtype)
+        return self._project(self._final(x))

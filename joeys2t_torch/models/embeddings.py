@@ -1,6 +1,6 @@
 # coding: utf-8
 """Token embeddings (counterpart of joeys2t_tpu/models/embeddings.py
-``Embeddings`` :18)."""
+``Embeddings`` :18), with ``attend`` (:39-41) for the tied softmax."""
 import math
 
 import torch
@@ -25,3 +25,10 @@ class Embeddings(nn.Module):
         if self.scale:
             emb = emb * math.sqrt(self.embedding_dim)
         return emb
+
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits (..., V) of hidden states (..., E) projected onto the table
+        (the tied softmax), a plain matmul in the compute dtype as the
+        untied output layer computes. The JAX module computes it in float32
+        (its embeddings are float32); the two differ only below float32."""
+        return torch.matmul(x.to(self.dtype), self.lut.weight.to(self.dtype).t())

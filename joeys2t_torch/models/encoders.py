@@ -4,10 +4,10 @@ Transformer and Conformer encoders with the Conv1d/GLU audio subsampler
 (counterpart of joeys2t_tpu/models/encoders.py ``TransformerEncoder`` :29,
 ``ConformerEncoder`` :174).
 
-The JAX encoder pads the subsampled sequence to a multiple of 128 for the
-TPU kernel's lanes; the CUDA flash kernel masks any key length itself, so
-the port does not pad. Padded frames are masked keys either way, and the
-output is the same.
+The JAX encoder pads the subsampled audio sequence to a multiple of 128 for
+the TPU kernel's lanes (token sequences are never padded); the CUDA flash
+kernel masks any key length itself, so the port does not pad. Padded frames
+are masked keys either way, and the output is the same.
 """
 from typing import Optional, Sequence
 
@@ -55,15 +55,20 @@ class TransformerEncoder(nn.Module):
         return self.hidden_size
 
     def forward(self, src_embed: torch.Tensor, src_length: torch.Tensor,
-                mask: Optional[torch.Tensor] = None):
-        """(B, T, E) fbank features (S2T) or embedded tokens ->
+                mask: Optional[torch.Tensor] = None,
+                src_prompt_embed: Optional[torch.Tensor] = None):
+        """(B, T, E) fbank features (S2T) or embedded tokens (MT, plus the
+        embedded source prompt mask, joeynmt/encoders.py:274-275) ->
         (output (B, T', H), None, mask (B, 1, T'))."""
         if self.subsampler is not None:
             src_embed, src_length = self.subsampler(src_embed, src_length)
         if mask is None:
             mask = lengths_to_mask(src_length, src_embed.shape[1])
         pe = sinusoidal_pe(src_embed.shape[1], src_embed.shape[2], src_embed.device)
-        x = self.emb_dropout(src_embed + pe.to(src_embed.dtype)[None]).to(self.dtype)
+        x = src_embed + pe.to(src_embed.dtype)[None]
+        if src_prompt_embed is not None:
+            x = x + src_prompt_embed
+        x = self.emb_dropout(x).to(self.dtype)
         for layer in self.layers:
             x = layer(x, mask)
         if self.layer_norm is not None:

@@ -17,6 +17,21 @@ from torch import nn
 from joeys2t_torch.config import ConfigurationError
 
 
+def compute_alpha_beta(num_enc_layers: int, num_dec_layers: int) -> Dict[str, Dict]:
+    """DeepNet's residual scales (alpha) and initialization gains (beta) of
+    each side (joeynmt/initialization.py:63-76)."""
+    return {
+        "alpha": {
+            "encoder": 0.81 * (num_enc_layers**4 * num_dec_layers)**(1 / 16),
+            "decoder": (3 * num_dec_layers)**(1 / 4),
+        },
+        "beta": {
+            "encoder": 0.87 * (num_enc_layers**4 * num_dec_layers)**(-1 / 16),
+            "decoder": (12 * num_dec_layers)**(-1 / 4),
+        },
+    }
+
+
 def _make_init(name: str, scale: float, gain: float):
     """A function (shape, generator) -> float32 CPU tensor
     (joeynmt/initialization.py:154-169)."""
@@ -59,7 +74,8 @@ def initialize_model(model: nn.Module, cfg: Dict, src_padding_idx: int,
     """Initialize every parameter of ``model`` in place per the `model`
     config section (joeynmt/initialization.py:79-236): embeddings, biases
     and weight matrices by their initializers, LayerNorm scales to one, and
-    the padding row of each embedding to zero. As in the JAX package, the
+    the padding row of each embedding to zero, with the DeepNet gains under
+    ``xavier_normal``. As in the JAX package, the
     conformer's parameters outside those rules keep their constants:
     LayerScale vectors (``ls_*``) the encoder's ``layerscale``, the frozen
     BatchNorm's weight and bias one and zero, its running mean and variance
@@ -68,9 +84,15 @@ def initialize_model(model: nn.Module, cfg: Dict, src_padding_idx: int,
     init = cfg.get("initializer", "xavier_uniform")
     if init == "xavier":
         init = "xavier_uniform"
-    if init == "xavier_normal":
-        raise NotImplementedError("the DeepNet (xavier_normal) initialization is not "
-                                  "ported yet")
+    # DeepNet (joeynmt/initialization.py:196-207): under xavier_normal the
+    # feed-forward, value and output projections of a transformer take the
+    # side's beta as their gain; build_model scales the residuals by alpha
+    beta = None
+    if init == "xavier_normal" and cfg.get("encoder", {}).get(
+            "type", "transformer") == "transformer" and cfg.get("decoder", {}).get(
+            "type", "transformer") == "transformer":
+        beta = compute_alpha_beta(cfg["encoder"]["num_layers"],
+                                  cfg["decoder"]["num_layers"])["beta"]
     embed_init = cfg.get("embed_initializer", "xavier_uniform")
     if embed_init == "xavier":
         embed_init = "xavier_uniform"
@@ -95,6 +117,11 @@ def initialize_model(model: nn.Module, cfg: Dict, src_padding_idx: int,
             value[src_padding_idx if "src_embed" in name else trg_padding_idx] = 0.0
         elif name.endswith("bias"):
             value = bias_fn(shape, generator)
+        elif p.dim() > 1 and beta is not None and any(
+                part in name for part in ("feed_forward", "v_layer", "output_layer")):
+            side = next((k for k in ("encoder", "decoder") if k in name), None)
+            value = _make_init("xavier_normal", cfg.get("init_weight", 0.01),
+                               1.0 if side is None else beta[side])(shape, generator)
         elif p.dim() > 1:
             value = init_fn(shape, generator)
         else:

@@ -44,9 +44,12 @@ def _library_path(name: str) -> Path:
 
 
 def _command(name: str, out: Path) -> list:
+    # --split-compile=0: the device code's optimization passes run on as many
+    # threads as the machine has (a source holds dozens of kernel
+    # instantiations, and one thread compiled them one after another)
     return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(out), str(CSRC / f"{name}.cu")]
+            "-O3", "--split-compile=0", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
 def build_all(names: Sequence[str] = KERNELS) -> Dict[str, Path]:

@@ -38,6 +38,7 @@ _LAYOUTS = {None: 0, "channel": 1, "position": 2}
 MAX_SPLITS = 16  # the largest thread-block cluster Hopper launches
 SPLIT_ALIGN = 16  # a split starts on a multiple of this many rows
 MIN_SPLIT_GROUPS = 6  # a split takes at least this many SPLIT_ALIGN-row groups
+HEAD_DIMS = (16, 64, 128, 192, 256)  # the head sizes the kernel is built for
 
 
 def decode_plan(b: int, h: int, s: int, num_sms: int) -> Tuple[int, int]:
@@ -129,9 +130,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode attention runs on cpu or cuda, not {q.device}")
     b, h, s, d = k.shape
     layout = _resolve_layout(k, k_scale, scale_layout)
-    if q.dtype not in (torch.float32, torch.bfloat16) or d not in (64, 128, 192, 256):
+    if q.dtype not in (torch.float32, torch.bfloat16) or d not in HEAD_DIMS:
         raise ValueError(f"decode kernel takes f32/bf16 q and head_dim in "
-                         f"64/128/192/256, got {q.dtype} and {d}")
+                         f"{'/'.join(map(str, HEAD_DIMS))}, got {q.dtype} and {d}")
     int8 = k.dtype == torch.int8
     if int8 != (layout is not None):
         raise ValueError("int8 caches need scales and scales need int8 caches")

@@ -33,9 +33,10 @@ _MASK32 = 0xFFFFFFFF
 
 
 def supported(head_dim: int, dtype: torch.dtype) -> bool:
-    """Whether the kernels take this head size and dtype (the TPU gate
-    ``supported`` :613 asks d % 64 == 0 and d <= 256 too)."""
-    return (head_dim % 64 == 0 and 0 < head_dim <= 256
+    """Whether the kernels take this head size and dtype: 16, 64, 128, 192
+    or 256 in f32 or bf16. The TPU gate ``supported`` :613 asks d % 64 ==
+    0 and sends head dim 16 to einsum; here it has kernels of its own."""
+    return (head_dim in (16, 64, 128, 192, 256)
             and dtype in (torch.float32, torch.bfloat16))
 
 
@@ -167,7 +168,7 @@ def _check_operands(q, named, num_heads):
         raise ValueError(f"E={e} is not a multiple of num_heads={num_heads}")
     d = e // num_heads
     if not supported(d, q.dtype):
-        raise ValueError(f"flash kernel takes head_dim in 64/128/192/256 and "
+        raise ValueError(f"flash kernel takes head_dim in 16/64/128/192/256 and "
                          f"f32/bf16, got {d} and {q.dtype}")
     for name, t, shape, dtype in (("q", q, tuple(q.shape), q.dtype),) + tuple(named):
         if (tuple(t.shape) != shape or t.dtype != dtype or t.device != q.device
@@ -336,7 +337,7 @@ def kernel_info(head_dim: int, dtype: torch.dtype) -> dict:
     dynamic shared memory in bytes of the forward, dK/dV and dQ kernels.
     Builds the library if needed."""
     if not supported(head_dim, dtype):
-        raise ValueError(f"flash kernel takes head_dim in 64/128/192/256 and f32/bf16, "
+        raise ValueError(f"flash kernel takes head_dim in 16/64/128/192/256 and f32/bf16, "
                          f"got {head_dim} and {dtype}")
     info = (ctypes.c_int * 4)()
     err = _library().flash_attention_info(head_dim, 0 if dtype == torch.float32 else 1,

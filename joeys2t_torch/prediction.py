@@ -51,11 +51,15 @@ def _eval_loss(model, loss_fn, batch: Batch, device: torch.device, return_log_pr
     def put(x, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device, dtype)
 
+    mt = batch.task == "MT"
+    prompts = [None if m is None else put(m, torch.long)
+               for m in (batch.src_prompt_mask, batch.trg_prompt_mask)]
     with torch.inference_mode():
         logits, ctc_logits, out_mask = model(
-            put(batch.src, getattr(model.encoder, "dtype", torch.float32)),
-            put(batch.trg_input, torch.long), put(batch.src_length, torch.long), None,
-            put(batch.trg_mask))
+            put(batch.src, torch.long if mt else getattr(model.encoder, "dtype",
+                                                         torch.float32)),
+            put(batch.trg_input, torch.long), put(batch.src_length, torch.long),
+            put(batch.src_mask) if mt else None, put(batch.trg_mask), *prompts)
         total, _, _, n_correct, log_probs = loss_terms(
             loss_fn, logits, ctc_logits, out_mask, put(batch.trg, torch.long),
             put(batch.trg_length, torch.long), put(batch.trg_mask))
@@ -230,6 +234,7 @@ def prepare(args: BaseConfig, rank: int = 0, mode: str = "train"):
     if mode == "train" and rank == 0:
         if args.task == "MT":
             src_vocab.to_file(args.model_dir / "src_vocab.txt")
+            train_data.tokenizer[train_data.src_lang].copy_cfg_file(args.model_dir)
         trg_vocab.to_file(args.model_dir / "trg_vocab.txt")
         train_data.tokenizer[train_data.trg_lang].copy_cfg_file(args.model_dir)
 

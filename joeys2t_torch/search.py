@@ -22,9 +22,15 @@ as ``[unk]`` with score -1. The cross-attention cache stays at B rows,
 shared by an utterance's beams; the self-attention caches, with their
 scales when int8, are reordered physically after each selection (JAX's ``beam_reorder: physical``; its
 default ``auto`` takes the ancestry map, the same math, which is not ported,
-so ``auto`` reorders physically and ``lazy`` raises). Repetition penalty,
-n-gram blocking, prompts and returned attention are not ported yet and
-raise.
+so ``auto`` reorders physically and ``lazy`` raises). Returned attention
+is not ported yet and raises.
+
+Text models (MT) add JAX's search options, computed on the device: the
+repetition penalty over the history and the source (:50-64), the fairseq
+n-gram blocker over the history (:67-103) and over the source (:242-263),
+and forced (prompt) decoding, where the positions of ``trg_prompt_mask``
+take the tokens of ``decoder_prompt`` (:162-216, :402-470). As in JAX, the
+search encodes the source without its prompt mask.
 """
 import copy
 from typing import Dict, Optional
@@ -59,15 +65,112 @@ def _banned_ids(spec: ModelSpec, vocab_size: int, generate_unk: bool,
     return torch.tensor(ids, dtype=torch.long, device=device)
 
 
+def _penalize_repetition(log_probs: torch.Tensor, tokens: torch.Tensor,
+                         valid: torch.Tensor, penalty: float,
+                         exclude: torch.Tensor) -> torch.Tensor:
+    """The repetition penalty (joeynmt/search.py:972-1001) on the ids seen
+    in ``tokens`` (B, L) where ``valid``, apart from ``exclude``: a negative
+    log-probability times ``penalty``, a positive one divided by it."""
+    seen = torch.zeros(log_probs.shape, dtype=torch.long, device=log_probs.device)
+    seen = seen.scatter_add_(1, tokens, valid.long()) > 0
+    seen[:, exclude] = False
+    penalized = torch.where(log_probs < 0, log_probs * penalty, log_probs / penalty)
+    return torch.where(seen, penalized, log_probs)
+
+
+def _ban_ngram_continuations(log_probs: torch.Tensor, ys: torch.Tensor, step: int,
+                             tokens: torch.Tensor, starts_ok: torch.Tensor,
+                             ngram_size: int, exclude: torch.Tensor) -> torch.Tensor:
+    """Ban, in each row, every token of ``tokens`` (B, L) that follows an
+    (n-1)-gram equal to the row's last n-1 tokens of ``ys`` (up to
+    ``step``), counting only the windows whose start ``starts_ok`` (L,)
+    allows; ``exclude`` ids are never banned."""
+    if step + 2 - ngram_size < 1:  # not enough history yet
+        return log_probs
+    l_max = tokens.shape[1]
+    offset = ngram_size - 1
+    device = log_probs.device
+    suffix = ys[:, (step - offset + 1 + torch.arange(offset, device=device)).clamp(
+        0, ys.shape[1] - 1)]  # (B, n-1)
+    pos = torch.arange(l_max, device=device)
+    windows = tokens[:, (pos[:, None] + torch.arange(offset, device=device)).clamp(
+        0, l_max - 1)]  # (B, L, n-1)
+    matches = (windows == suffix[:, None, :]).all(dim=-1) & starts_ok
+    banned_tok = tokens[:, (pos + offset).clamp(0, l_max - 1)]
+    ban = torch.zeros(log_probs.shape, dtype=torch.long, device=device)
+    ban = ban.scatter_add_(1, banned_tok, matches.long()) > 0
+    ban[:, exclude] = False
+    return log_probs.masked_fill(ban, NEG_INF)
+
+
+def _block_repeat_ngrams(log_probs: torch.Tensor, ys: torch.Tensor, step: int,
+                         ngram_size: int, exclude: torch.Tensor) -> torch.Tensor:
+    """The fairseq n-gram blocker (joeynmt/search.py:915-969) over the
+    prefix ``ys[:, :step + 1]`` (position 0 is bos): windows start at 1
+    and end by ``step``."""
+    pos = torch.arange(ys.shape[1], device=ys.device)
+    return _ban_ngram_continuations(log_probs, ys, step, ys,
+                                    (pos >= 1) & (pos + ngram_size - 1 <= step),
+                                    ngram_size, exclude)
+
+
+def _block_src_ngrams(log_probs: torch.Tensor, ys: torch.Tensor, step: int,
+                      src: torch.Tensor, ngram_size: int,
+                      exclude: torch.Tensor) -> torch.Tensor:
+    """Source-side blocking (joeynmt/search.py:956-963): a source token
+    that follows an (n-1)-gram of the source equal to the hypothesis'
+    suffix is banned."""
+    pos = torch.arange(src.shape[1], device=src.device)
+    return _ban_ngram_continuations(log_probs, ys, step, src,
+                                    pos + ngram_size - 1 <= src.shape[1] - 1,
+                                    ngram_size, exclude)
+
+
+def _history_controls(log_probs: torch.Tensor, ys: torch.Tensor, step: int,
+                      encoder_input: Optional[torch.Tensor], ngram_from: int,
+                      no_repeat_ngram_size: int, repetition_penalty: float,
+                      exclude: torch.Tensor) -> torch.Tensor:
+    """n-gram blocking (from ``ngram_from``-grams up: greedy 2, beam 1) then
+    the repetition penalty, each over the history and, with
+    ``encoder_input``, over the source, in the JAX order."""
+    if no_repeat_ngram_size >= ngram_from:
+        log_probs = _block_repeat_ngrams(log_probs, ys, step, no_repeat_ngram_size,
+                                         exclude)
+        if encoder_input is not None:
+            log_probs = _block_src_ngrams(log_probs, ys, step, encoder_input,
+                                          no_repeat_ngram_size, exclude)
+    if repetition_penalty > 1.0:
+        hist_valid = torch.arange(ys.shape[1], device=ys.device)[None, :] <= step
+        log_probs = _penalize_repetition(log_probs, ys, hist_valid.expand_as(ys),
+                                         repetition_penalty, exclude)
+        if encoder_input is not None:
+            log_probs = _penalize_repetition(log_probs, encoder_input,
+                                             torch.ones_like(encoder_input, dtype=torch.bool),
+                                             repetition_penalty, exclude)
+    return log_probs
+
+
+def _prompt_arrays(decoder_prompt, trg_prompt_mask, rows: int, l1: int, pad: int,
+                   device: torch.device, repeat: int = 1):
+    """The forced tokens and the prompt mask (``rows``, ``l1``) on
+    ``device``: each prompt row ``repeat`` times, cut or padded with pad and
+    0 to ``l1`` positions; (None, None) without a prompt."""
+    if decoder_prompt is None or trg_prompt_mask is None:
+        return None, None
+    dp = torch.full((rows, l1), pad, dtype=torch.long, device=device)
+    pm = torch.zeros((rows, l1), dtype=torch.long, device=device)
+    for out, x in ((dp, decoder_prompt), (pm, trg_prompt_mask)):
+        x = torch.as_tensor(x, device=device)[:, :l1]
+        out[:, :x.shape[1]] = x.repeat_interleave(repeat, dim=0)
+    return dp, pm
+
+
 def _check_search_args(device: torch.device, tensors: Dict, kwargs: Dict) -> None:
     """Raise for inputs off ``device`` and for search options not ported."""
     for name, t in tensors.items():
         if t.device.type != device.type:
             raise ValueError(f"{name} is on {t.device}, the search runs on {device}")
-    unported = [k for k in ("repetition_penalty", "no_repeat_ngram_size")
-                if float(kwargs.get(k, -1)) > 0]
-    unported += [k for k in ("decoder_prompt", "trg_prompt_mask", "encoder_input")
-                 if kwargs.get(k) is not None]
+    unported = []
     if kwargs.get("return_attention", False):
         unported.append("return_attention")
     if kwargs.get("beam_reorder", "auto") == "lazy":
@@ -81,7 +184,9 @@ def _cast_params_to_compute_dtype(model: Seq2SeqModel) -> Seq2SeqModel:
     of the float parameters in the compute dtype, so the decode loop reads
     each weight once in that dtype per step instead of re-casting float32
     masters at every use. LayerNorm still computes in float32 (from the cast
-    values, as in the JAX loop). The encoder is shared, not copied, and
+    values, as in the JAX loop). The encoder and an untied source embedding
+    are shared, not copied (a tied table is copied once, with the target
+    side), and
     ``model`` keeps its float32 masters: the JAX function likewise casts a
     copy of the parameters inside jit. A model whose decode side is already
     in the compute dtype (every float32 model) is returned unchanged."""
@@ -93,14 +198,20 @@ def _cast_params_to_compute_dtype(model: Seq2SeqModel) -> Seq2SeqModel:
     memo = {id(g): g for m in decode_side for g in
             (getattr(d, "generator", None) for d in m.modules()) if g is not None}
     trg_embed, decoder = (copy.deepcopy(m, dict(memo)).to(dtype) for m in decode_side)
-    return Seq2SeqModel(model.encoder, decoder, trg_embed).train(model.training)
+    # a tied table is one module: its one copy serves both sides
+    src_embed = trg_embed if model.src_embed is model.trg_embed else model.src_embed
+    return Seq2SeqModel(model.encoder, decoder, trg_embed, src_embed,
+                        model.tied_softmax).train(model.training)
 
 
 @torch.inference_mode()
 def _transformer_greedy(model: Seq2SeqModel, spec: ModelSpec,
                         encoder_output: torch.Tensor, src_mask: torch.Tensor,
                         max_output_length: int, min_output_length: int = 1,
-                        generate_unk: bool = True, return_prob: bool = False):
+                        generate_unk: bool = True, return_prob: bool = False,
+                        repetition_penalty: float = -1.0, no_repeat_ngram_size: int = -1,
+                        encoder_input: Optional[torch.Tensor] = None,
+                        decoder_prompt=None, trg_prompt_mask=None):
     """Greedy loop; returns (ys incl BOS (B, L+1), scores (B, L+1), steps run)."""
     b = encoder_output.shape[0]
     device = encoder_output.device
@@ -111,19 +222,31 @@ def _transformer_greedy(model: Seq2SeqModel, spec: ModelSpec,
     yv = torch.zeros((b, l1), dtype=torch.float32, device=device)
     finished = torch.zeros((b,), dtype=torch.bool, device=device)
     banned = _banned_ids(spec, spec.trg_vocab_size, generate_unk, device)
+    exclude = _exclude_ids(spec, device)
+    dp, pm = _prompt_arrays(decoder_prompt, trg_prompt_mask, b, l1, spec.pad_index, device)
     pad = torch.tensor(spec.pad_index, dtype=torch.long, device=device)
     zero = torch.zeros((), dtype=torch.float32, device=device)
+    softmax = (return_prob or repetition_penalty > 0 or no_repeat_ngram_size > 0
+               or encoder_input is not None)
 
     step = 0
     while step < max_output_length:
-        logits = model.decode_step(ys[:, step:step + 1], step, cache)
+        logits = model.decode_step(ys[:, step:step + 1], step, cache,
+                                   trg_prompt_mask_t=None if pm is None
+                                   else pm[:, step:step + 1])
         log_probs = logits[:, 0].float()
-        if return_prob:
-            log_probs = torch.log_softmax(log_probs, dim=-1)
+        if softmax:
+            log_probs = _history_controls(torch.log_softmax(log_probs, dim=-1), ys, step,
+                                          encoder_input, 2, no_repeat_ngram_size,
+                                          repetition_penalty, exclude)
         log_probs = _apply_token_bans(log_probs, banned, spec.eos_index, step,
                                       min_output_length)
         prob = log_probs.amax(dim=-1)
         next_word = log_probs.argmax(dim=-1)  # first maximum, as jnp.argmax
+        if pm is not None:  # forced (prompt) positions take their token, score 0
+            forced = pm[:, step + 1] > 0
+            next_word = torch.where(forced, dp[:, step + 1], next_word)
+            prob = torch.where(forced, zero, prob)
         # finished rows emit pad with score 0
         ys[:, step + 1] = torch.where(finished, pad, next_word)
         yv[:, step + 1] = torch.where(finished, zero, prob)
@@ -132,6 +255,26 @@ def _transformer_greedy(model: Seq2SeqModel, spec: ModelSpec,
         if bool(finished.all()):
             break
     return ys, yv, step
+
+
+def _exclude_ids(spec: ModelSpec, device: torch.device) -> torch.Tensor:
+    """The ids the repetition controls never touch: specials and language
+    tags."""
+    ids = [t for t in spec.specials + spec.lang_tags if t < spec.trg_vocab_size]
+    return torch.tensor(ids, dtype=torch.long, device=device)
+
+
+def _control_kwargs(kwargs: Dict, device: torch.device) -> Dict:
+    """The history-control and prompt options of a search call, with the
+    source ids as a tensor on ``device``."""
+    encoder_input = kwargs.get("encoder_input")
+    return dict(
+        repetition_penalty=float(kwargs.get("repetition_penalty", -1)),
+        no_repeat_ngram_size=int(kwargs.get("no_repeat_ngram_size", -1)),
+        encoder_input=None if encoder_input is None else torch.as_tensor(
+            encoder_input, dtype=torch.long, device=device),
+        decoder_prompt=kwargs.get("decoder_prompt"),
+        trg_prompt_mask=kwargs.get("trg_prompt_mask"))
 
 
 def transformer_greedy(model: Seq2SeqModel, spec: ModelSpec,
@@ -149,6 +292,9 @@ def transformer_greedy(model: Seq2SeqModel, spec: ModelSpec,
     :param src_mask: (B, 1, S) bool on ``device``
     :param stats: optional dict; ``stats["decode_steps"]`` grows by the
         number of decode steps run
+    :param kwargs: also ``repetition_penalty``, ``no_repeat_ngram_size``,
+        ``encoder_input`` (B, S) source ids, and ``decoder_prompt`` with
+        ``trg_prompt_mask`` (B, P), the forced prefix from bos on
     :return: (output ids (B, L) numpy, scores (B, L) numpy when
         ``return_prob="hyp"`` else None, None)
     """
@@ -160,7 +306,8 @@ def transformer_greedy(model: Seq2SeqModel, spec: ModelSpec,
     ys, yv, steps = _transformer_greedy(
         model, spec, encoder_output, src_mask, int(max_output_length),
         min_output_length=int(kwargs.get("min_output_length", 1)),
-        generate_unk=bool(kwargs.get("generate_unk", True)), return_prob=return_prob)
+        generate_unk=bool(kwargs.get("generate_unk", True)), return_prob=return_prob,
+        **_control_kwargs(kwargs, device))
     if stats is not None:
         stats["decode_steps"] = stats.get("decode_steps", 0) + steps
     output = ys[:, 1:].cpu().numpy()
@@ -188,7 +335,10 @@ def _stable_topk(x: torch.Tensor, k: int):
 @torch.inference_mode()
 def _transformer_beam(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torch.Tensor,
                       src_mask: torch.Tensor, beam_size: int, max_output_length: int,
-                      alpha: float, min_output_length: int = 1, generate_unk: bool = True):
+                      alpha: float, min_output_length: int = 1, generate_unk: bool = True,
+                      repetition_penalty: float = -1.0, no_repeat_ngram_size: int = -1,
+                      encoder_input: Optional[torch.Tensor] = None,
+                      decoder_prompt=None, trg_prompt_mask=None):
     """Beam loop (joeys2t_tpu/search.py:381-610 with ``lazy_reorder`` off);
     returns (finished sequences incl BOS (B, K, L+1), their scores (B, K)
     sorted best first, steps run)."""
@@ -214,15 +364,27 @@ def _transformer_beam(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torc
     fin_scores = torch.full((b, k), NEG_INF, device=device)
     fin_seqs = torch.full((b, k, l1), spec.pad_index, dtype=torch.long, device=device)
     banned = _banned_ids(spec, v, generate_unk, device, also=(spec.pad_index,))
+    exclude = _exclude_ids(spec, device)
+    enc_in = None if encoder_input is None else encoder_input.repeat_interleave(k, dim=0)
+    dp, pm = _prompt_arrays(decoder_prompt, trg_prompt_mask, b * k, l1, spec.pad_index,
+                            device, repeat=k)
     beam_offset = (torch.arange(b, device=device) * k)[:, None]
     positions = torch.arange(1, l1, device=device)
 
     step = 0
     while step < max_output_length:
-        logits = model.decode_step(alive_seq[:, step:step + 1], step, cache, beam_k=k)
+        logits = model.decode_step(alive_seq[:, step:step + 1], step, cache, beam_k=k,
+                                   trg_prompt_mask_t=None if pm is None
+                                   else pm[:, step:step + 1])
         log_probs = torch.log_softmax(logits[:, 0].float(), dim=-1)
+        log_probs = _history_controls(log_probs, alive_seq, step, enc_in, 1,
+                                      no_repeat_ngram_size, repetition_penalty, exclude)
         log_probs = _apply_token_bans(log_probs, banned, spec.eos_index, step,
                                       min_output_length)
+        if pm is not None:  # a forced position keeps only its token, at log-prob 0
+            forced_row = torch.full_like(log_probs, NEG_INF).scatter_(
+                1, dp[:, step + 1:step + 2], 0.0)
+            log_probs = torch.where(pm[:, step + 1:step + 2] > 0, forced_row, log_probs)
         log_probs = log_probs + topk_log_probs.reshape(-1)[:, None]
         curr_scores = log_probs
         if alpha > 0:  # GNMT length penalty, in float32 as the JAX loop computes it
@@ -273,6 +435,8 @@ def beam_search(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torch.Tens
     :param src_mask: (B, 1, S) bool on ``device``
     :param stats: optional dict; ``stats["decode_steps"]`` grows by the
         number of decode steps run
+    :param kwargs: the options of :func:`transformer_greedy`, and
+        ``beam_reorder``
     :return: (output ids (B*n_best, L) numpy, scores (B*n_best, 1) numpy
         when ``return_prob="hyp"`` else None, None)
     """
@@ -290,7 +454,8 @@ def beam_search(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torch.Tens
     fin_seqs, fin_scores, steps = _transformer_beam(
         model, spec, encoder_output, src_mask, int(beam_size), int(max_output_length),
         float(alpha), min_output_length=int(kwargs.get("min_output_length", 1)),
-        generate_unk=bool(kwargs.get("generate_unk", True)))
+        generate_unk=bool(kwargs.get("generate_unk", True)),
+        **_control_kwargs(kwargs, device))
     if stats is not None:
         stats["decode_steps"] = stats.get("decode_steps", 0) + steps
     fin_seqs, fin_scores = fin_seqs.cpu().numpy(), fin_scores.cpu().numpy()
@@ -322,21 +487,32 @@ def search(model: Seq2SeqModel, spec: ModelSpec, batch: Batch, max_output_length
     ``max_output_length`` becomes 1.5 times the longest source, and the
     length is rounded up to a bucket, as the JAX package rounds it for its
     compiled loops: hypotheses that never emit eos have the same length in
-    both. The encoder reads ``model``'s float32 masters; the loop decodes
+    both. A text batch with the repetition controls passes its source ids
+    as ``encoder_input``, and one with a target prompt forces its
+    ``trg_input`` where ``trg_prompt_mask`` is set. The encoder reads ``model``'s float32 masters; the loop decodes
     from ``decode_model`` (``model`` with its decode side cast to the
     compute dtype) when the caller cast it once for many batches.
 
     :return: (output ids (B*n_best, L), scores or None, None), numpy
     """
     device = resolve_device(device)
+    mt = batch.task == "MT"
     with torch.inference_mode():
         src = torch.from_numpy(np.ascontiguousarray(batch.src)).to(
-            device, getattr(model.encoder, "dtype", torch.float32))
+            device, torch.long if mt else getattr(model.encoder, "dtype", torch.float32))
         src_length = torch.from_numpy(np.asarray(batch.src_length)).to(device, torch.long)
-        encoder_output, encoder_hidden, src_mask = model.encode(src, src_length)
+        src_mask = (None if batch.src_mask is None
+                    else torch.from_numpy(batch.src_mask).to(device))
+        encoder_output, encoder_hidden, src_mask = model.encode(src, src_length, src_mask)
     if max_output_length < 0:  # adapt to the source length
         max_output_length = int(np.max(batch.src_length) * 1.5)
     max_output_length = round_up_to_bucket(max_output_length)
+    if mt and (kwargs.get("no_repeat_ngram_size", -1) > 1
+               or kwargs.get("repetition_penalty", -1) > 1):
+        kwargs["encoder_input"] = batch.src
+    if batch.has_trg and batch.trg_prompt_mask is not None:
+        kwargs["decoder_prompt"] = batch.trg_input
+        kwargs["trg_prompt_mask"] = batch.trg_prompt_mask
     decode_model = decode_model if decode_model is not None else model
     if beam_size < 2:
         kwargs.pop("beam_reorder", None)  # a beam-only option

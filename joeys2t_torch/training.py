@@ -136,14 +136,19 @@ class TrainManager:
                 return None
             return torch.from_numpy(np.asarray(x)).to(dtype).to(dev)
 
+        mt = padded.task == "MT"
         arrays = {
-            "src": put(padded.src.astype(np.float32), self._feature_dtype),
+            # token ids as int64; features in the upload dtype
+            "src": (put(padded.src, torch.long) if mt else
+                    put(padded.src.astype(np.float32), self._feature_dtype)),
             "src_length": put(padded.src_length, torch.long),
             "src_mask": put(padded.src_mask),
             "trg_input": put(padded.trg_input, torch.long),
             "trg": put(padded.trg, torch.long),
             "trg_length": put(padded.trg_length, torch.long),
             "trg_mask": put(padded.trg_mask),
+            "src_prompt_mask": put(padded.src_prompt_mask, torch.long),
+            "trg_prompt_mask": put(padded.trg_prompt_mask, torch.long),
         }
         if self.args.normalization == "batch":
             normalizer = float(nseqs_real)
@@ -159,7 +164,7 @@ class TrainManager:
         self.model.train()
         logits, ctc_logits, out_mask = self.model(
             batch["src"], batch["trg_input"], batch["src_length"], batch["src_mask"],
-            batch["trg_mask"])
+            batch["trg_mask"], batch["src_prompt_mask"], batch["trg_prompt_mask"])
         return self._finish_loss(logits, ctc_logits, out_mask, batch, normalizer)
 
     def _finish_loss(self, logits, ctc_logits, out_mask, batch: Dict, normalizer: float):

@@ -210,7 +210,10 @@ def test_loop_steps_schedulers_where_jax_does(trained, tmp_path, scheduling, ste
 
 @pytest.mark.parametrize("section,option", [
     ("testing", {"beam_reorder": "lazy"}), ("testing", {"return_attention": True}),
-    ("testing", {"repetition_penalty": 1.2}), ("model", {"tied_softmax": True})])
+    ("testing", {"beam_reorder": "lazy", "repetition_penalty": 1.2}),
+    ("model", {"decoder": {"type": "recurrent"}}),
+    ("model", {"encoder": {"num_experts": 2}}), ("data", {"dataset_type": "huggingface"}),
+    ("data", {"trg": {"tokenizer_cfg": {"pretokenizer": "moses"}}})])
 @pytest.mark.parametrize("mode", ["train", "test", "translate"])
 def test_runs_refuse_unported_options_before_loading_data(tmp_path, mode, section,
                                                           option):
@@ -219,8 +222,15 @@ def test_runs_refuse_unported_options_before_loading_data(tmp_path, mode, sectio
     from joeys2t_torch.prediction import test, translate
     from joeys2t_torch.training import train
 
+    def merge(into, update):
+        for key, value in update.items():
+            if isinstance(value, dict):
+                merge(into.setdefault(key, {}), value)
+            else:
+                into[key] = value
+
     cfg = tiny_cfg(tmp_path / "no_data", tmp_path / "model")
-    cfg[section].update(option)
+    merge(cfg[section], option)
     with pytest.raises(NotImplementedError):
         {"train": train, "test": test, "translate": translate}[mode](cfg)
 

@@ -150,9 +150,11 @@ def test_beam_size_one_is_greedy(pairs, eos_scale):
 
 
 @pytest.mark.parametrize("option", [{"beam_reorder": "lazy"}, {"return_attention": True},
-                                    {"repetition_penalty": 1.2},
-                                    {"no_repeat_ngram_size": 2}])
+                                    {"beam_reorder": "lazy", "repetition_penalty": 1.2},
+                                    {"return_attention": True, "no_repeat_ngram_size": 2}])
 def test_unported_beam_options_raise(pairs, option):
+    """The ancestry reorder and returned attention raise, also beside the
+    repetition controls, which are ported (tests/test_torch_mt.py)."""
     pair = pairs["tiny"]
     with pytest.raises(NotImplementedError):
         beam_search(pair["tmodel"], pair["tspec"], torch.tensor(pair["enc"]), None,

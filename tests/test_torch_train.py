@@ -308,14 +308,28 @@ def test_unported_options_raise():
     ({"encoder": {"type": "recurrent"}}, NotImplementedError),
     ({"encoder": {"num_experts": 2}}, NotImplementedError),
     ({"decoder": {"type": "recurrent"}}, NotImplementedError),
-    ({"tied_softmax": True}, NotImplementedError),
+    ({"data": {"tokenizer_cfg": {"pretokenizer": "moses"}}}, NotImplementedError),
     ({"tied_embeddings": True}, ConfigurationError),
     ({"tied_embeddings": True, "tied_softmax": True}, ConfigurationError),
+    ({"data": {"dataset_type": "huggingface"}}, NotImplementedError),
 ])
-def test_unported_model_options_raise(option, error):
-    """Recurrent encoders and decoders, mixture-of-experts layers and the
-    tied output layer are not ported and raise rather than be ignored; tied
-    embeddings need a source vocabulary, which a speech model has not."""
+def test_unported_model_options_raise(tmp_path, option, error):
+    """Recurrent encoders and decoders, mixture-of-experts layers, moses
+    pretokenization and Huggingface datasets are not ported and raise
+    rather than be ignored; tied embeddings need a source vocabulary, which
+    a speech model has not."""
+    from joeys2t_torch.data.datasets import build_dataset
+    from joeys2t_torch.tokenizers import build_tokenizer
+
+    data = option.get("data")
+    if data is not None:
+        side = {"level": "word", "tokenizer_cfg": data.get("tokenizer_cfg", {})}
+        with pytest.raises(error):
+            tokenizer = build_tokenizer({"src": dict(side, lang="de"),
+                                         "trg": dict(side, lang="en")}, "MT")
+            build_dataset(data["dataset_type"], str(tmp_path / "none"), "de", "en", "train",
+                          tokenizer=tokenizer)
+        return
     cfg = model_cfg()
     for key, value in option.items():
         if isinstance(value, dict):
@@ -407,9 +421,19 @@ def test_batch_and_pad_to_shape_match_jax():
     for norm in ("batch", "tokens", "none", "sum"):
         assert port.normalize(loss, norm, n_accumulation=2) == ref.normalize(
             loss, norm, n_accumulation=2)
-    with pytest.raises(NotImplementedError):
-        Batch(src, lengths, np.ones((3, T_SRC)), trg, trg_len, None, np.arange(3), 1, 3,
-              task="S2T")
+    # token batches with prompt masks: padded, cut to the decoder input and
+    # sorted with their rows, as JAX's
+    tokens = np.where(trg == 3, 5, trg)[:, :12]
+    src_prompt, trg_prompt = (tokens > 20).astype(np.int32), (trg > 20).astype(np.int32)
+    port = Batch(tokens, np.array([12, 9, 5]), src_prompt, trg, trg_len, trg_prompt,
+                 np.arange(3), 1, 3)
+    ref = JaxBatch(tokens, np.array([12, 9, 5]), src_prompt, trg, trg_len, trg_prompt,
+                   np.arange(3), 1, 3)
+    for a, b in ((port, ref), (port.pad_to_shape(4), ref.pad_to_shape(4))):
+        assert a.sort_by_src_length() == b.sort_by_src_length()
+        for name in ("src", "src_mask", "src_prompt_mask", "trg_input", "trg_prompt_mask",
+                     "indices"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name), err_msg=name)
 
 
 # ------------------------------------------------------------ training mode
