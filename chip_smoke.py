@@ -126,7 +126,33 @@ goes wrong:
     and ``translate``: every attention on the D=16 kernels, exact launch
     counts, each kernel against its plain version on the path's inputs.
 
-Phases 9-13 run after phase 8, each with the counters zeroed just before
+14. recurrent MT: configs/rnn_reverse.yaml as configured (bidirectional
+    LSTM of 64, Luong attention, input feeding, zero initial state, greedy;
+    ``fp16: True``, which a recurrent model ignores, float32 as in JAX) but
+    on the card, on test/data/reverse/ (dev cut to 100 pairs), cut to 200
+    updates of 10 sentences and one validation, then ``test -o`` (dev and
+    test) and ``translate`` of 8 sentences and ``load_model_dir`` ->
+    ``generate`` equal to ``translate``; then rnn_small.yaml's model and
+    training sections (bidirectional GRU of 30, Bahdanau, bridge, beam 5 in
+    ``test``) on the same data (its own corpus, test/data/toy/, is not in
+    the repository); no attention kernel of the port runs on this path
+    (every counter 0); the card's and the CPU's float32 ``test`` of the
+    trained rnn_reverse model on 8 dev sentences identical, the card's in a
+    fresh interpreter (cuDNN's RNN with TF32 off without the flags set
+    here); ms an update, test sentences/s, kernels and busy share a
+    decode step of a profiled ``generate``;
+15. mixture of experts: configs/synthetic_mt.yaml at full width with
+    ``num_experts: 4`` in the encoder (switch top-1, dense dispatch) on
+    phase 12's corpus through ``train`` (8 updates of 192 sentences, one
+    validation), ``test -o`` and ``translate`` (beam 5), exact launch counts
+    with the plain versions refused, each kernel against its plain version
+    on the path's inputs, ``generate`` equal to ``translate``, the logged
+    load-balance term finite, a float32 ``test`` cut to 2 + 2 layers
+    identical on card and CPU; ms an update beside phase 12's dense model,
+    and the device time an update and its largest kernels over a profiled
+    2-update ``train``.
+
+Phases 9-15 run after phase 8, each with the counters zeroed just before
 its runs and the plain versions refused. Phase 2 also holds decode attention
 with int8 channel scales and ``group`` 5 bit for bit against group 1, and
 times int8 cases against SDPA on the dequantized cache.
@@ -2117,6 +2143,15 @@ def loop_stats(lines) -> tuple:
     return (int(loop.group(1)),) + tuple(float(loop.group(i)) for i in range(2, 6))
 
 
+def window_rate(lines, step: int) -> float:
+    """Target tokens a second of the training window that the ``train``
+    log's line at update ``step`` closes (validation excluded)."""
+    found = (re.search(r"Step: +(\d+), .*Tokens per Sec: +(\d+)", ln) for ln in lines)
+    rates = {int(x.group(1)): float(x.group(2)) for x in found if x}
+    check(step in rates, f"no training log line at update {step}")
+    return rates[step]
+
+
 def mt_corpus(data: Path) -> None:
     """Phase 12's corpus: 4096 / 64 / 64 sentence pairs into ``data``."""
     subprocess.run([sys.executable, str(REPO / "scripts" / "generate_synthetic_mt.py"),
@@ -2337,10 +2372,20 @@ def mt_phase() -> tuple:
     print(f"[mt] launches {launches} as the paths imply, plain attention never ran; "
           f"load_model_dir -> generate equals translate; float32 test at 2 + 2 layers: "
           f"card and CPU hypotheses identical")
-    return launches, checks, per_update
+    return launches, checks, per_update, window_rate(runs["train"][1], 8)
 
 
 # ----------------------------------------------------------------- phase 13
+def reverse_dev_cut(work: Path) -> Path:
+    """The first 100 pairs of test/data/reverse/dev, as phases 13 and 14
+    validate on them."""
+    data, cut = REPO / "test" / "data" / "reverse", work / "reverse_dev100"
+    for side in ("src", "trg"):
+        lines = (data / f"dev.{side}").read_text(encoding="utf-8").splitlines()[:100]
+        cut.with_suffix(f".{side}").write_text("\n".join(lines) + "\n", encoding="utf-8")
+    return cut
+
+
 def reverse_phase() -> tuple:
     """Phase 13: configs/transformer_reverse.yaml as configured (float32,
     2 + 2 layers of hidden 64, 4 heads of 16, tied embeddings and softmax)
@@ -2358,10 +2403,7 @@ def reverse_phase() -> tuple:
     shutil.rmtree(model_dir, ignore_errors=True)
     cfg = load_config(REPO / "configs" / "transformer_reverse.yaml")
     cfg["model_dir"] = str(model_dir)
-    data, cut = REPO / "test" / "data" / "reverse", work / "reverse_dev100"
-    for side in ("src", "trg"):  # validation and test on the first 100 dev pairs
-        lines = (data / f"dev.{side}").read_text(encoding="utf-8").splitlines()[:100]
-        cut.with_suffix(f".{side}").write_text("\n".join(lines) + "\n", encoding="utf-8")
+    data, cut = REPO / "test" / "data" / "reverse", reverse_dev_cut(work)
     cfg["data"].update(train=str(data / "train"), dev=str(cut), test=str(data / "test"))
     del cfg["data"]["sample_dev_subset"], cfg["testing"]["load_model"]
     cfg["training"].update(updates=32, validation_freq=32, logging_freq=8)
@@ -2395,6 +2437,242 @@ def reverse_phase() -> tuple:
     print(f"[reverse] head-dim-16 launches: flash forward {launches['flash_attention_fwd']}, "
           f"flash backward {launches['flash_attention_bwd']}, decode "
           f"{launches['decode_attention']}; as the path implies, plain attention never ran")
+    return launches, checks
+
+
+# ----------------------------------------------------------------- phase 14
+def rnn_config(name: str, model_dir: Path, dev: Path, updates: int) -> dict:
+    """``name``'s config on the card with rnn_reverse.yaml's data section
+    (test/data/reverse/, the dev set cut to ``dev``), ``updates`` updates
+    and one validation at the end."""
+    from joeys2t_torch.config import load_config
+
+    cfg = load_config(REPO / "configs" / f"{name}.yaml")
+    data = load_config(REPO / "configs" / "rnn_reverse.yaml")["data"]
+    reverse = REPO / "test" / "data" / "reverse"
+    data.update(train=str(reverse / "train"), dev=str(dev), test=str(reverse / "test"))
+    cfg.update(use_cuda=True, model_dir=str(model_dir), data=data)
+    cfg["training"].update(updates=updates, validation_freq=updates,
+                           logging_freq=updates // 4, overwrite=True)
+    return cfg
+
+
+def decode_step_profile(hub, srcs, beam: int):
+    """(kernels a decode step, steps, the card's busy share %, wall s) of a
+    profiled ``generate`` of ``srcs`` held to 16 steps (eos banned before
+    the last): the steps from the ``predict`` line it logs (the recurrent
+    path has no decode counter)."""
+    log = LogLines()
+    logging.getLogger("joeys2t_torch").addHandler(log)
+    try:
+        wall, kernels = profiled(lambda: hub.generate(srcs, beam_size=beam,
+                                                      max_output_length=16,
+                                                      min_output_length=16))
+    finally:
+        logging.getLogger("joeys2t_torch").removeHandler(log)
+    steps = sum(s for _, _, s in generations(log.lines))
+    check(steps == 16, f"the profiled generate ran {steps} decode steps, not 16")
+    return (sum(n for n, _ in kernels.values()) / steps, steps,
+            sum(t for _, t in kernels.values()) / 1e4 / wall, wall)
+
+
+def recurrent_phase() -> None:
+    """Phase 14: configs/rnn_reverse.yaml and rnn_small.yaml's model and
+    training sections on test/data/reverse/ through ``train`` (200
+    updates of 10 sentences, one validation), ``test -o`` and ``translate``
+    on the card, ``load_model_dir`` -> ``generate`` equal to ``translate``,
+    no attention kernel launched (the recurrent models' attention is
+    Bahdanau or Luong over one query, in PyTorch, as JAX computes it
+    outside Pallas), and the float32 ``test`` of the rnn_reverse model on
+    8 dev sentences identical on card and CPU."""
+    from joeys2t_torch.checkpoints import load_checkpoint
+    from joeys2t_torch.config import dump_yaml
+    from joeys2t_torch.hub_interface import load_model_dir
+
+    work = REPO / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    cut = reverse_dev_cut(work)
+    srcs = (REPO / "test" / "data" / "reverse" / "test.src").read_text(
+        encoding="utf-8").splitlines()[:8]
+    shape = {"rnn_reverse": ("lstm", "luong", "zero", 1, True),
+             "rnn_small": ("gru", "bahdanau", "bridge", 5, False)}
+    for name, (rnn, attention, init, beam, fp16) in shape.items():
+        model_dir = work / f"{name}_model"
+        shutil.rmtree(model_dir, ignore_errors=True)
+        cfg = rnn_config(name, model_dir, cut, 200)
+        m = cfg["model"]
+        check(m["encoder"]["type"] == m["decoder"]["type"] == "recurrent"
+              and m["encoder"]["rnn_type"] == m["decoder"]["rnn_type"] == rnn
+              and m["encoder"]["bidirectional"] and m["decoder"]["attention"] == attention
+              and m["decoder"]["init_hidden"] == init and m["decoder"]["input_feeding"]
+              and cfg["testing"]["beam_size"] == beam and cfg["fp16"] == fp16
+              and cfg["training"]["batch_size"] == 10, f"unexpected {name} config")
+        cfg_path = work / f"{name}.yaml"
+        cfg_path.write_text(dump_yaml(cfg), encoding="utf-8")
+        runs = {}
+        with plain_refused(f"{name} CLI path"):
+            runs["train"] = cli_run(["train", cfg_path, "--skip-test"])
+            runs["test"] = cli_run(["test", cfg_path, "-o", work / f"{name}_out"])
+            runs["translate"] = cli_run(["translate", cfg_path],
+                                        stdin="".join(f"{s}\n" for s in srcs))
+            hub = load_model_dir(model_dir)
+            zero_counters()
+            generated = hub.generate(srcs)
+            hub_n = read_counters()
+            profile = decode_step_profile(hub, srcs, beam)
+        for run, (_, _, _, n) in list(runs.items()) + [("generate", (0, 0, 0, hub_n))]:
+            check(not any(n.values()), f"{name} {run} launched attention kernels: {n}")
+        translated = runs["translate"][2].splitlines()
+        check(generated == translated and len(translated) == 8,
+              f"{name}: hub generate {generated} differs from translate {translated}")
+        valid = (model_dir / "validations.txt").read_text().splitlines()
+        bleu = re.search(r"\tbleu: ([\d.]+)\t", valid[0]) if valid else None
+        check(len(valid) == 1 and bleu is not None, f"{name} validations.txt: {valid}")
+        losses = [float(x.group(1)) for x in (re.search(r"Batch Loss: +([-\d.einfa]+)", ln)
+                                              for ln in runs["train"][1]) if x]
+        check(len(losses) == 4 and all(np.isfinite(losses)), f"{name} losses {losses}")
+        state = load_checkpoint(model_dir / "latest.ckpt")["model_state"]
+        check(all(v.dtype == torch.float32 for v in state.values())
+              and "encoder.rnn.weight_hh_l0_reverse" in state, f"{name} checkpoint")
+        for split in ("dev", "test"):
+            got = len((work / f"{name}_out.{split}").read_text(encoding="utf-8").splitlines())
+            check(got == 100, f"{name} out.{split}: {got} hypotheses, expected 100")
+        updates, _, per_update, data_s, share = loop_stats(runs["train"][1])
+        test_gen = generations(runs["test"][1])[0]  # the dev set
+        print(f"[rnn] {name} ({rnn.upper()}, {attention}, {init} initial state, "
+              f"{'greedy' if beam == 1 else f'beam {beam}'}; float32{' under fp16' if fp16 else ''}): "
+              f"train {updates} updates of 10 sentences, 1 validation (BLEU {bleu.group(1)}), "
+              f"{runs['train'][0]:.2f} s wall, {per_update * 1e3:.2f} ms an update, "
+              f"the host pipeline {data_s / updates * 1e3:.2f} ms a batch ({share:.2f} %); "
+              f"losses {[round(x, 4) for x in losses]}; test: dev decode {test_gen[0]:.3f} s "
+              f"= {100 / test_gen[0]:.1f} sentences/s over {test_gen[2]} steps "
+              f"({test_gen[1]} batches); translate 8 sentences {runs['translate'][0]:.3f} s")
+        print(f"[rnn] {name}: a profiled generate of 8 sentences held to 16 steps: "
+              f"{profile[0]:.1f} kernels a step over {profile[1]} steps (the encoder "
+              f"included), the card busy {profile[2]:.1f} % of {profile[3]:.3f} s; no "
+              f"attention kernel of the port launched on the path; load_model_dir -> "
+              f"generate equals translate")
+        if name == "rnn_reverse":  # float32 on the card and on the CPU
+            dev8 = work / "reverse_dev8"
+            for side in ("src", "trg"):
+                lines = cut.with_suffix(f".{side}").read_text(encoding="utf-8").splitlines()
+                dev8.with_suffix(f".{side}").write_text("\n".join(lines[:8]) + "\n",
+                                                        encoding="utf-8")
+            both = dict(cfg, data={k: v for k, v in cfg["data"].items() if k != "test"})
+            both["data"]["dev"] = str(dev8)
+            for use_cuda in (True, False):
+                path = work / f"{name}_{use_cuda}.yaml"
+                path.write_text(dump_yaml(dict(both, use_cuda=use_cuda)), encoding="utf-8")
+                if use_cuda:  # a fresh interpreter: none of the TF32 flags main sets
+                    sub = subprocess.run([sys.executable, "-m", "joeys2t_torch", "test",
+                                          str(path), "-o", str(work / f"{name}_{use_cuda}")],
+                                         cwd=REPO, capture_output=True, text=True,
+                                         timeout=600)
+                    check(sub.returncode == 0, f"python -m joeys2t_torch test exited "
+                          f"{sub.returncode}: {sub.stderr[-2000:]}")
+                else:
+                    cli_run(["test", path, "-o", work / f"{name}_{use_cuda}"])
+            card, cpu = ((work / f"{name}_{c}.dev").read_text(encoding="utf-8")
+                         for c in (True, False))
+            check(card == cpu and len(card.splitlines()) == 8,
+                  f"float32 RNN hypotheses differ between card and CPU:\n{card}\n{cpu}")
+            print("[rnn] rnn_reverse float32 test of 8 dev sentences, on the card in a "
+                  "fresh interpreter and on the CPU: hypotheses identical")
+
+
+# ----------------------------------------------------------------- phase 15
+def moe_phase(dense_update_s: float, dense_rate: float) -> tuple:
+    """Phase 15: configs/synthetic_mt.yaml at full width with 4 experts in
+    each encoder layer on phase 12's corpus through ``train`` (8 updates of
+    192 sentences, one validation), ``test -o`` and ``translate`` (beam 5):
+    exact launch counts with the plain versions refused, each kernel
+    against its plain version on the path's inputs, ``load_model_dir`` ->
+    ``generate`` equal to ``translate``, the load-balance term in the
+    training log finite, the float32 ``test`` cut to 2 + 2 layers identical
+    on card and CPU; ms an update and the tokens a second of updates 5-8
+    (the same batches) beside phase 12's dense model, and the device time of
+    a profiled 2-update ``train``."""
+    from joeys2t_torch.checkpoints import load_checkpoint
+    from joeys2t_torch.config import dump_yaml
+    from joeys2t_torch.hub_interface import load_model_dir
+
+    work = REPO / "build" / "chip_smoke"
+    data = work / "synthetic_mt"
+    model_dir = work / "moe_model"
+    cfg = mt_config(data, model_dir)
+    cfg["model"]["encoder"]["num_experts"] = 4
+    cfg["training"].update(updates=8, validation_freq=8, logging_freq=4)
+    cfg_path = work / "moe.yaml"
+    cfg_path.write_text(dump_yaml(cfg), encoding="utf-8")
+    n_enc = n_dec = 8
+    srcs = (data / "test.src").read_text(encoding="utf-8").splitlines()[:8]
+    kept, runs = {}, {}
+    with plain_refused("MoE CLI path"), kernel_inputs(kept):
+        runs["train"] = cli_run(["train", cfg_path])
+        runs["test"] = cli_run(["test", cfg_path, "-o", work / "moe_out"])
+        runs["translate"] = cli_run(["translate", cfg_path],
+                                    stdin="".join(f"{s}\n" for s in srcs))
+        launches = check_cli_leg("moe", runs, n_enc, n_dec, 8, 1)
+        hub = load_model_dir(model_dir)
+        zero_counters()
+        generated = hub.generate(srcs)
+        hub_n = read_counters()
+    checks = cli_kernel_checks(kept, tag="moe")
+    del kept, hub
+    # where an update's device time goes: 2 updates of a copy of the config
+    # (no validation, no closing test) under the profiler
+    prof_cfg = json.loads(json.dumps(cfg))
+    prof_cfg["model_dir"] = str(work / "moe_profile_model")
+    prof_cfg["training"].update(updates=2, validation_freq=1000, logging_freq=1000,
+                                overwrite=True)
+    prof_path = work / "moe_profile.yaml"
+    prof_path.write_text(dump_yaml(prof_cfg), encoding="utf-8")
+    prof_wall, kernels = profiled(lambda: cli_run(["train", prof_path, "--skip-test"]))
+    # the copies are mostly set-up: the weights up, the final checkpoint down
+    copies = {k: v for k, v in kernels.items() if k.startswith(("Memcpy", "Memset"))}
+    kernels = {k: v for k, v in kernels.items() if k not in copies}
+    device_ms = sum(t for _, t in kernels.values()) / 2 / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
+    translated = runs["translate"][2].splitlines()
+    check(generated == translated and len(translated) == 8,
+          f"MoE hub generate {generated} differs from translate {translated}")
+    check(hub_n["flash_attention_fwd"] == n_enc and hub_n["decode_attention_group"] > 0,
+          f"MoE hub generate launches {hub_n}")
+    for name in launches:
+        launches[name] += hub_n[name]
+    aux = [float(x.group(1)) for x in (re.search(
+        r"MoE load-balance term of the last micro-batch: ([-\d.einfa]+) \(8 layers\)", ln)
+        for ln in runs["train"][1]) if x]
+    check(len(aux) == 2 and all(np.isfinite(aux)) and min(aux) > 0,
+          f"MoE load-balance terms {aux}")
+    state = load_checkpoint(model_dir / "latest.ckpt")["model_state"]
+    check(state["encoder.layers.7.feed_forward.w1"].shape == (4, 512, 2048)
+          and state["encoder.layers.0.feed_forward.router.weight"].shape == (4, 512)
+          and all(v.dtype == torch.float32 for v in state.values()), "MoE checkpoint")
+    for split in ("dev", "test"):
+        n = len((work / f"moe_out.{split}").read_text(encoding="utf-8").splitlines())
+        check(n == 64, f"moe out.{split}: {n} hypotheses")
+    cut_mt_test_on_both(cfg, state, model_dir, data, work / "moe_cut")
+    updates, loop_s, per_update, data_s, share = loop_stats(runs["train"][1])
+    test_gen = generations(runs["test"][1])[0]
+    print(f"[moe] train: {updates} updates of 192 sentences, 4 experts in each of 8 encoder "
+          f"layers, 1 validation, {runs['train'][0]:.2f} s wall; load-balance term (8 layers, "
+          f"1 each at uniform routing) {[round(x, 4) for x in aux]}")
+    print(f"[moe] ms an update: MoE {per_update * 1e3:.2f}, the dense synthetic_mt (phase 12) "
+          f"{dense_update_s * 1e3:.2f} ({per_update / dense_update_s:.2f}x); the host "
+          f"pipeline {data_s / updates * 1e3:.2f} ms a batch ({share:.2f} %); test: dev decode "
+          f"{test_gen[0]:.3f} s = {64 / test_gen[0]:.1f} sentences/s ({test_gen[2]} beam-5 "
+          f"steps)")
+    rate = window_rate(runs["train"][1], 8)
+    print(f"[moe] updates 5-8 (warm, the same batches as phase 12's): MoE {rate:.0f} target "
+          f"tokens/s, dense {dense_rate:.0f} ({dense_rate / rate:.2f}x the time)")
+    print(f"[moe] a profiled train of 2 updates ({prof_wall:.2f} s wall, the model set-up "
+          f"included): kernels {device_ms:.2f} ms of device time an update (copies, mostly "
+          f"set-up: {sum(t for _, t in copies.values()) / 1e3:.2f} ms in all); the largest: "
+          + "; ".join(f"{name[:70]} x{n} {us / 2e3:.2f} ms an update"
+                      for name, (n, us) in top))
+    print(f"[moe] launches {launches} as the path implies, plain attention never ran; "
+          f"generate equals translate; float32 test at 2 + 2 layers: card and CPU identical")
     return launches, checks
 
 
@@ -2447,12 +2725,17 @@ def main():
     conformer_counts, conformer_checks = conformer_phase(corpus, cli_update_s)
     mark("phase 11")
     torch.cuda.empty_cache()
-    mt_counts, mt_checks, mt_update_s = mt_phase()
+    mt_counts, mt_checks, mt_update_s, mt_rate = mt_phase()
     print(f"[mt] ms an update: synthetic_mt {mt_update_s * 1e3:.2f}, synthetic_asr (phase "
           f"7) {cli_update_s * 1e3:.2f}")
     mark("phase 12")
     reverse_counts, reverse_checks = reverse_phase()
     mark("phase 13")
+    recurrent_phase()
+    mark("phase 14")
+    torch.cuda.empty_cache()
+    moe_counts, moe_checks = moe_phase(mt_update_s, mt_rate)
+    mark("phase 15")
 
     def compact(c):  # a case's measurements, without what its printed line adds
         return {k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "library_ms",
@@ -2476,7 +2759,8 @@ def main():
                     st=st_counts[name], int8_greedy=int8_counts["greedy 64 x 10 s"][name],
                     int8_beam=int8_counts["beam 5 32 x 10 s"][name],
                     spm=spm_counts[name], conformer=conformer_counts[name],
-                    mt=mt_counts[name], reverse_d16=reverse_counts[name])
+                    mt=mt_counts[name], reverse_d16=reverse_counts[name],
+                    moe=moe_counts[name])
 
     def int8_paths(name):
         return {"int8_greedy": int8_counts["greedy 64 x 10 s"][name],
@@ -2486,7 +2770,7 @@ def main():
         return [c for c in cases if f" {mode}" in c["case"]]
 
     # phases 10-13 on their own inputs
-    for later in (spm_checks, conformer_checks, mt_checks, reverse_checks):
+    for later in (spm_checks, conformer_checks, mt_checks, reverse_checks, moe_checks):
         for name, cases in later.items():
             cli_checks[name] = cli_checks[name] + cases
     decode_checks = cli_checks["decode_attention"]

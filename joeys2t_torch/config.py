@@ -13,7 +13,7 @@ Counterpart of joeys2t_tpu/config.py (``SpecialSymbols`` :28,
 of the parts the port does not have yet (profiling, model and pipeline
 parallelism, optimizers other than adam/adamw, ``moment_dtype``) raise
 ``NotImplementedError`` when set; :func:`check_ported` refuses the unported
-`testing`, `model` and `data` options before a run loads any data. The
+`testing` and `data` options before a run loads any data. The
 ``JOEYS2T_BEAM_REORDER`` environment override of ``beam_reorder`` is not
 ported: the port reads no environment knobs.
 
@@ -375,18 +375,14 @@ def parse_test_args(cfg: Dict, mode: str = "test") -> TestConfig:
 
 
 def check_ported(args: BaseConfig, save_attention: bool = False) -> None:
-    """Raise ``NotImplementedError`` for an option of the `testing`, `model`
-    or `data` section that the port does not have yet, so that ``train``,
+    """Raise ``NotImplementedError`` for an option of the `testing` or
+    `data` section that the port does not have yet, so that ``train``,
     ``test`` and ``translate`` refuse it before loading any data rather than
     where it would first run (after training, for the closing test)."""
-    t, model, data = args.test, args.model, args.data
-    sides = [model.get(side, {}) for side in ("encoder", "decoder")]
+    t, data = args.test, args.data
     unported = {
         "return_attention": t.return_attention or save_attention,
         "beam_reorder: lazy": t.beam_reorder == "lazy",
-        "recurrent models": any(s.get("type", "transformer") == "recurrent"
-                                for s in sides),
-        "num_experts": int(sides[0].get("num_experts", 0)) > 0,
         "pretokenizer: moses": any(
             str((data.get(side) or {}).get("tokenizer_cfg", {}).get(
                 "pretokenizer", "none")).lower() == "moses" for side in ("src", "trg")),

@@ -20,6 +20,13 @@ back the JAX tree. Mapping (JAX tree path -> port name):
   */batch_norm_{scale,bias,mean,var}  -> *.batch_norm.{weight,bias,running_mean,
                                          running_var} (the conformer's frozen BN)
   */ls_{ff1,att,conv,ff2}             -> *.ls_{ff1,att,conv,ff2} (LayerScale)
+  */feed_forward/{w1,b1,w2,b2}        -> *.feed_forward.{w1,b1,w2,b2} (experts, as
+                                         they are; the router is a Dense)
+  encoder/{fwd,bwd}_lK/cell_0/<gate>  -> encoder.rnn.{weight,bias}_{ih,hh}_lK[_reverse]
+  decoder/rnn/cell_K/<gate>           -> decoder.rnn.{weight,bias}_{ih,hh}_lK
+                                         (flax keeps one Dense a gate: GRU ir, iz, in,
+                                         hr, hz, hn; LSTM ii..io, hi..ho; torch stacks
+                                         the gates row-wise, see _rnn_cell)
 
 Text models have no ``ctc_output_layer``, and under the tied softmax no
 ``output_layer``: their trees simply lack those leaves.
@@ -48,12 +55,51 @@ _BATCH_NORM = {"batch_norm_scale": "weight", "batch_norm_bias": "bias",
                "batch_norm_mean": "running_mean", "batch_norm_var": "running_var"}
 
 
+def _rnn_cell(gates: Dict, prefix: str, suffix: str) -> Dict[str, np.ndarray]:
+    """One flax GRU/LSTM cell's per-gate Dense parameters as torch's flat
+    tensors: the inverse of joeys2t_tpu/convert.py's ``_convert_rnn_cell``.
+    A flax GRU has the biases of ir, iz, in (input side) and hn; an LSTM
+    one bias a gate (on its h side), which goes into ``bias_ih`` here. The
+    other torch biases are zero: JAX's converter sums each pair, so the
+    round trip gives back the flax values."""
+    order = "rzn" if ("ir", "kernel") in gates else "ifgo"
+    w_ih = np.concatenate([gates[(f"i{g}", "kernel")].T for g in order])
+    w_hh = np.concatenate([gates[(f"h{g}", "kernel")].T for g in order])
+    zeros = np.zeros(w_hh.shape[1], np.float32)
+    if order == "rzn":
+        b_ih = np.concatenate([gates[(f"i{g}", "bias")] for g in order])
+        b_hh = np.concatenate([zeros, zeros, gates[("hn", "bias")]])
+    else:
+        b_ih = np.concatenate([gates[(f"h{g}", "bias")] for g in order])
+        b_hh = np.concatenate([zeros] * 4)
+    return {f"{prefix}{kind}_{suffix}": value for kind, value in (
+        ("weight_ih", w_ih), ("weight_hh", w_hh), ("bias_ih", b_ih), ("bias_hh", b_hh))}
+
+
+def _rnn_cell_path(path) -> tuple:
+    """(torch name prefix, suffix) of a flax recurrent cell's leaf path
+    (..., cell, gate, leaf), or None."""
+    if len(path) != 5 or not path[2].startswith("cell_"):
+        return None
+    side, mid, cell = path[:3]
+    if mid == "rnn":
+        return f"{side}.rnn.", f"l{cell[5:]}"
+    if mid[:5] in ("fwd_l", "bwd_l") and mid[5:].isdigit():
+        return f"{side}.rnn.", f"l{mid[5:]}" + ("_reverse" if mid[0] == "b" else "")
+    return None
+
+
 def flax_params_to_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
     """JAX parameter tree (nested dicts of arrays) -> port ``state_dict``
     of float32 CPU tensors."""
     out = {}
+    cells: Dict = {}
     for path, value in _flatten(params):
         value = np.asarray(value, dtype=np.float32)
+        cell = _rnn_cell_path(path)
+        if cell is not None:
+            cells.setdefault(cell, {})[path[3:]] = value
+            continue
         names = []
         for part in path[:-1]:
             if part.startswith("layer_") and part[6:].isdigit():
@@ -76,9 +122,13 @@ def flax_params_to_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
         elif leaf in _BATCH_NORM:
             names.append("batch_norm")
             leaf = _BATCH_NORM[leaf]
-        elif leaf != "bias" and not leaf.startswith("ls_"):
+        elif leaf != "bias" and not leaf.startswith("ls_") and not (
+                names[-1] == "feed_forward" and leaf in ("w1", "b1", "w2", "b2")):
             raise ValueError(f"no port parameter for {'/'.join(path)}")
         out[".".join(names + [leaf])] = torch.tensor(np.ascontiguousarray(value))
+    for (prefix, suffix), gates in cells.items():
+        out.update({name: torch.tensor(np.ascontiguousarray(value)) for name, value in
+                    _rnn_cell(gates, prefix, suffix).items()})
     return out
 
 

@@ -26,21 +26,23 @@ def lengths_to_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
 
 
 class TransformerEncoder(nn.Module):
-    """Transformer encoder with optional conv subsampling for S2T."""
+    """Transformer encoder with optional conv subsampling for S2T, and
+    mixture-of-experts feed-forwards with ``num_experts > 0``."""
 
     def __init__(self, hidden_size: int = 512, ff_size: int = 2048, num_layers: int = 8,
                  num_heads: int = 4, dropout: float = 0.1, emb_dropout: float = 0.1,
                  layer_norm_position: str = "pre", activation: str = "relu",
                  alpha: float = 1.0, subsample: bool = False, in_channels: int = 80,
                  conv_channels: int = 512, conv_kernel_sizes: Sequence[int] = (3, 3),
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None, num_experts: int = 0):
         super().__init__()
         self.hidden_size = hidden_size
         self.layer_norm_position = layer_norm_position
         self.dtype = dtype
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(hidden_size, ff_size, num_heads, dropout, alpha,
-                                    layer_norm_position, activation, dtype, device)
+                                    layer_norm_position, activation, dtype, device,
+                                    num_experts)
             for _ in range(num_layers))
         self.emb_dropout = Dropout(emb_dropout)
         # final layer norm exists iff layer_norm == "pre" (joeynmt/encoders.py:223-226)

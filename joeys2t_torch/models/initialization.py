@@ -9,6 +9,7 @@ same weights on every device. The draws are the port's own: they do not
 reproduce the JAX package's random numbers.
 """
 import math
+import re
 from typing import Dict
 
 import torch
@@ -68,6 +69,24 @@ def _make_init(name: str, scale: float, gain: float):
     return fn
 
 
+_RNN_LEAF = re.compile(r"(weight|bias)_(ih|hh)_l\d+(?:_reverse)?$")
+
+
+def _rnn_tensor(kind: str, side: str, shape, model: nn.Module, name: str, init_fn,
+                bias_fn, generator: torch.Generator) -> torch.Tensor:
+    """A flat GRU/LSTM tensor drawn per flax gate (see ``initialize_model``)."""
+    hidden = model.get_submodule(name.rsplit(".", 1)[0]).hidden_size
+    gates = shape[0] // hidden
+    if kind == "weight":
+        return torch.cat([init_fn((hidden,) + tuple(shape[1:]), generator)
+                          for _ in range(gates)])
+    # the gates whose bias flax keeps in this torch tensor
+    drawn = (range(gates) if side == "ih" else
+             [2] if gates == 3 else [])
+    return torch.cat([bias_fn((hidden,), generator) if g in drawn
+                      else torch.zeros(hidden) for g in range(gates)])
+
+
 @torch.no_grad()
 def initialize_model(model: nn.Module, cfg: Dict, src_padding_idx: int,
                      trg_padding_idx: int, generator: torch.Generator) -> nn.Module:
@@ -79,7 +98,18 @@ def initialize_model(model: nn.Module, cfg: Dict, src_padding_idx: int,
     conformer's parameters outside those rules keep their constants:
     LayerScale vectors (``ls_*``) the encoder's ``layerscale``, the frozen
     BatchNorm's weight and bias one and zero, its running mean and variance
-    (buffers) zero and one."""
+    (buffers) zero and one.
+
+    Where JAX's tensors are laid out otherwise, the port draws what JAX
+    draws. A recurrent layer's flat ``weight_ih``/``weight_hh`` (G*H, in)
+    is drawn one (H, in) gate block at a time, with that block's fans, as
+    JAX initializes each flax gate's matrix; its biases are drawn one per
+    flax gate (GRU: r, z, n of ``bias_ih`` and n of ``bias_hh``; LSTM: the
+    four gates in ``bias_ih``), the redundant torch halves left at zero
+    (joeys2t_tpu/convert.py:254-290). The experts' ``w1``/``w2`` take the
+    fans of their JAX layout, and ``b1``/``b2`` are drawn as weight
+    matrices, which is what JAX makes of them (their leaf is not ``bias``).
+    ``init_rnn_orthogonal`` and ``lstm_forget_gate`` are not read, as in JAX."""
     gain = float(cfg.get("init_gain", 1.0))
     init = cfg.get("initializer", "xavier_uniform")
     if init == "xavier":
@@ -112,18 +142,28 @@ def initialize_model(model: nn.Module, cfg: Dict, src_padding_idx: int,
         if ".batch_norm." in name:
             p.fill_(1.0 if leaf == "weight" else 0.0)
             continue
+        rnn = _RNN_LEAF.match(leaf) if ".rnn." in name else None
+        expert = ".feed_forward." in name and leaf in ("w1", "b1", "w2", "b2")
         if "embed" in name and name.endswith("lut.weight"):
             value = embed_fn(shape, generator)
             value[src_padding_idx if "src_embed" in name else trg_padding_idx] = 0.0
+        elif rnn is not None:
+            value = _rnn_tensor(rnn.group(1), rnn.group(2), shape, model, name, init_fn,
+                                bias_fn, generator)
         elif name.endswith("bias"):
             value = bias_fn(shape, generator)
-        elif p.dim() > 1 and beta is not None and any(
-                part in name for part in ("feed_forward", "v_layer", "output_layer")):
-            side = next((k for k in ("encoder", "decoder") if k in name), None)
-            value = _make_init("xavier_normal", cfg.get("init_weight", 0.01),
-                               1.0 if side is None else beta[side])(shape, generator)
         elif p.dim() > 1:
-            value = init_fn(shape, generator)
+            fn = init_fn
+            if beta is not None and any(
+                    part in name for part in ("feed_forward", "v_layer", "output_layer")):
+                side = next((k for k in ("encoder", "decoder") if k in name), None)
+                fn = _make_init("xavier_normal", cfg.get("init_weight", 0.01),
+                                1.0 if side is None else beta[side])
+            # an expert tensor keeps JAX's (..., in, out) layout: drawn as its
+            # reversed transpose, in torch's (out, in, ...) order, whose fans
+            # are the ones JAX gives it (joeys2t_tpu/models/initialization.py:41-49)
+            value = (fn(shape[::-1], generator).permute(*range(p.dim())[::-1])
+                     if expert else fn(shape, generator))
         else:
             value = torch.ones(shape)  # LayerNorm scale
         p.copy_(value)

@@ -3,7 +3,8 @@
 Model facade and builder (counterpart of joeys2t_tpu/models/model.py:
 ``ModelSpec`` :28, ``Seq2SeqModel`` :56, ``build_model`` :236), for
 speech-to-text with a transformer or conformer encoder and text-to-text
-with a transformer encoder.
+with a transformer or recurrent encoder, under a transformer or recurrent
+decoder.
 """
 import dataclasses
 from typing import Dict, Optional, Tuple
@@ -17,6 +18,7 @@ from joeys2t_torch.models.decoders import TransformerDecoder
 from joeys2t_torch.models.embeddings import Embeddings
 from joeys2t_torch.models.encoders import ConformerEncoder, TransformerEncoder
 from joeys2t_torch.models.initialization import compute_alpha_beta, initialize_model
+from joeys2t_torch.models.rnn import RecurrentDecoder, RecurrentEncoder
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,9 +55,10 @@ class Seq2SeqModel(nn.Module):
     keeps it (``trg_embed/lut``), and ``src_embed`` refers to the same
     module without registering it a second time. Under the tied softmax the
     logits are the decoder's hidden states projected onto the target table
-    (:482-490)."""
+    (:482-490). A recurrent decoder starts from the encoder's last states
+    and computes its own logits."""
 
-    def __init__(self, encoder: nn.Module, decoder: TransformerDecoder,
+    def __init__(self, encoder: nn.Module, decoder: nn.Module,
                  trg_embed: Embeddings, src_embed: Optional[Embeddings] = None,
                  tied_softmax: bool = False):
         super().__init__()
@@ -85,8 +88,15 @@ class Seq2SeqModel(nn.Module):
 
     def decode(self, trg_input: torch.Tensor, encoder_output: torch.Tensor,
                src_mask: Optional[torch.Tensor], trg_mask: torch.Tensor,
-               trg_prompt_mask: Optional[torch.Tensor] = None):
-        """Teacher-forced decode; returns (logits, hidden, ctc_logits)."""
+               trg_prompt_mask: Optional[torch.Tensor] = None,
+               encoder_hidden: Optional[torch.Tensor] = None):
+        """Teacher-forced decode; returns (logits, hidden, ctc_logits). A
+        recurrent decoder unrolls ``trg_input.shape[1]`` steps from
+        ``encoder_hidden`` and reads no target prompt (model.py:161-167)."""
+        if isinstance(self.decoder, RecurrentDecoder):
+            out, hidden, _ = self.decoder(self.trg_embed(trg_input), encoder_output,
+                                          encoder_hidden, src_mask)
+            return out, hidden, None
         prompt = None if trg_prompt_mask is None else self.trg_embed(trg_prompt_mask)
         out, hidden, ctc = self.decoder(self.trg_embed(trg_input), encoder_output,
                                         src_mask, trg_mask, prompt)
@@ -98,10 +108,10 @@ class Seq2SeqModel(nn.Module):
                 src_prompt_mask: Optional[torch.Tensor] = None,
                 trg_prompt_mask: Optional[torch.Tensor] = None):
         """Encode + decode; returns (logits, ctc_logits, src_mask)."""
-        encoder_output, _, src_mask = self.encode(src, src_length, src_mask,
-                                                  src_prompt_mask)
+        encoder_output, encoder_hidden, src_mask = self.encode(src, src_length, src_mask,
+                                                               src_prompt_mask)
         logits, _, ctc_logits = self.decode(trg_input, encoder_output, src_mask, trg_mask,
-                                            trg_prompt_mask)
+                                            trg_prompt_mask, encoder_hidden)
         return logits, ctc_logits, src_mask
 
     def init_cache(self, encoder_output: torch.Tensor, max_len: int,
@@ -132,25 +142,32 @@ def build_model(cfg: Dict, src_vocab=None, trg_vocab=None,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[Seq2SeqModel, ModelSpec]:
     """Build and initialize the model of the `model` config section
-    (joeynmt/model.py:366-506): a transformer decoder over a transformer or
-    conformer encoder of speech features (no ``src_vocab``), or over a
-    transformer encoder of source tokens (MT).
+    (joeynmt/model.py:366-506): a transformer or conformer encoder of speech
+    features (no ``src_vocab``), or a transformer (optionally with
+    mixture-of-experts feed-forwards) or recurrent encoder of source tokens
+    (MT), under a transformer or recurrent decoder.
 
     Parameters are float32 (the JAX package's master weights) on ``device``
     (``cuda`` unless given), drawn by
     :func:`~joeys2t_torch.models.initialization.initialize_model` from
-    ``generator`` (seed 42 when None). The model is returned in eval mode:
-    no dropout, as the JAX package's default ``deterministic=True``."""
+    ``generator`` (seed 42 when None). Recurrent modules and their
+    embeddings compute in float32 whatever ``compute_dtype`` says, as in
+    JAX. The model is returned in eval mode: no dropout, as the JAX
+    package's default ``deterministic=True``."""
+    # pylint: disable=too-many-locals,too-many-branches
     device = resolve_device(device)
     task = "MT" if src_vocab is not None else "S2T"
     enc_cfg, dec_cfg = cfg["encoder"], cfg["decoder"]
     enc_type = enc_cfg.get("type", "transformer")
-    if enc_type not in ("transformer", "conformer"):
-        raise NotImplementedError(f"{enc_type} encoders are not ported yet")
-    if dec_cfg.get("type", "transformer") != "transformer":
-        raise NotImplementedError(f"{dec_cfg.get('type')} decoders are not ported yet")
-    if int(enc_cfg.get("num_experts", 0)) > 0:
-        raise NotImplementedError("mixture-of-experts layers are not ported yet")
+    dec_type = dec_cfg.get("type", "transformer")
+    if enc_type not in ("recurrent", "transformer", "conformer"):
+        raise ConfigurationError("Invalid encoder type. Valid options: {`recurrent`, "
+                                 "`transformer`, `conformer`}.")
+    if dec_type not in ("recurrent", "transformer"):
+        raise ConfigurationError("Invalid decoder type. Valid options: {`transformer`, "
+                                 "`recurrent`}.")
+    if enc_type == "recurrent" and task != "MT":
+        raise ConfigurationError("RNN model not supported for s2t task. use transformer.")
     subsample = enc_cfg.get("subsample", False) or enc_type == "conformer"
     if task == "S2T" and not subsample:
         raise ConfigurationError("a speech encoder needs `subsample: True`")
@@ -164,13 +181,14 @@ def build_model(cfg: Dict, src_vocab=None, trg_vocab=None,
         raise ConfigurationError(
             "For tied_softmax, the decoder embedding_dim and decoder hidden_size must be "
             "the same. The decoder must be a Transformer.")
-    if task == "MT" and enc_cfg["embeddings"]["embedding_dim"] != enc_cfg["hidden_size"]:
+    if task == "MT" and enc_type == "transformer" \
+            and enc_cfg["embeddings"]["embedding_dim"] != enc_cfg["hidden_size"]:
         raise ConfigurationError("for transformer, emb_size must be the same as "
                                  "hidden_size.")
     # the DeepNet residual scale of xavier_normal (joeys2t_tpu/models/model.py:249-260)
     enc_alpha = dec_alpha = 1.0
     if cfg.get("initializer", "xavier_uniform") == "xavier_normal" \
-            and enc_type == "transformer":
+            and enc_type == dec_type == "transformer":
         alpha = compute_alpha_beta(enc_cfg["num_layers"], dec_cfg["num_layers"])["alpha"]
         enc_alpha, dec_alpha = alpha["encoder"], alpha["decoder"]
 
@@ -178,45 +196,78 @@ def build_model(cfg: Dict, src_vocab=None, trg_vocab=None,
     src_pad = src_vocab.pad_index if task == "MT" else trg_pad
     enc_dropout = enc_cfg.get("dropout", 0.0)
     dec_dropout = dec_cfg.get("dropout", 0.0)
+    enc_emb_dropout = enc_cfg["embeddings"].get("dropout", enc_dropout)
+    dec_emb_dropout = dec_cfg["embeddings"].get("dropout", dec_dropout)
     with torch.device("meta"):
-        common = dict(
-            hidden_size=enc_cfg["hidden_size"], ff_size=enc_cfg["ff_size"],
-            num_layers=enc_cfg["num_layers"], num_heads=enc_cfg["num_heads"],
-            dropout=enc_dropout,
-            emb_dropout=enc_cfg["embeddings"].get("dropout", enc_dropout),
-            layer_norm_position=enc_cfg.get("layer_norm", "pre"), alpha=enc_alpha,
-            dtype=compute_dtype)
-        if subsample:
-            common.update(in_channels=enc_cfg["in_channels"],
-                          conv_channels=enc_cfg["conv_channels"],
-                          conv_kernel_sizes=tuple(enc_cfg.get("conv_kernel_sizes", [3, 3])))
-        if enc_type == "conformer":
-            encoder = ConformerEncoder(
-                depthwise_conv_kernel_size=enc_cfg.get("depthwise_conv_kernel_size", 31),
-                conv_norm_type=enc_cfg.get("conv_norm", "layernorm"),
-                macaron=enc_cfg.get("macaron", "reference"),
-                layerscale_init=float(enc_cfg.get("layerscale", 0.0)), **common)
+        if enc_type == "recurrent":
+            encoder = RecurrentEncoder(
+                rnn_type=enc_cfg.get("rnn_type", "gru"), hidden_size=enc_cfg["hidden_size"],
+                emb_size=enc_cfg["embeddings"]["embedding_dim"],
+                num_layers=enc_cfg.get("num_layers", 1), dropout=enc_dropout,
+                emb_dropout=enc_emb_dropout,
+                bidirectional=enc_cfg.get("bidirectional", True))
         else:
-            encoder = TransformerEncoder(activation=enc_cfg.get("activation", "relu"),
-                                         subsample=subsample, **common)
-        decoder = TransformerDecoder(
-            num_layers=dec_cfg["num_layers"], num_heads=dec_cfg["num_heads"],
-            hidden_size=dec_cfg["hidden_size"], ff_size=dec_cfg["ff_size"],
-            dropout=dec_dropout,
-            emb_dropout=dec_cfg["embeddings"].get("dropout", dec_dropout),
-            vocab_size=len(trg_vocab),
-            layer_norm_position=dec_cfg.get("layer_norm", "post"),
-            activation=dec_cfg.get("activation", "relu"), alpha=dec_alpha,
-            ctc_layer=task == "S2T", tied_softmax=tied_softmax,
-            cache_cross_int8=bool(cfg.get("cache_cross_int8",
-                                          dec_cfg.get("cache_cross_int8", False))),
-            cache_self_int8=bool(cfg.get("cache_self_int8",
-                                         dec_cfg.get("cache_self_int8", False))),
-            dtype=compute_dtype)
-        src_embed = (_embeddings(src_vocab, enc_cfg["embeddings"], compute_dtype)
+            common = dict(
+                hidden_size=enc_cfg["hidden_size"], ff_size=enc_cfg["ff_size"],
+                num_layers=enc_cfg["num_layers"], num_heads=enc_cfg["num_heads"],
+                dropout=enc_dropout, emb_dropout=enc_emb_dropout,
+                layer_norm_position=enc_cfg.get("layer_norm", "pre"), alpha=enc_alpha,
+                dtype=compute_dtype)
+            if subsample:
+                common.update(in_channels=enc_cfg["in_channels"],
+                              conv_channels=enc_cfg["conv_channels"],
+                              conv_kernel_sizes=tuple(enc_cfg.get("conv_kernel_sizes",
+                                                                  [3, 3])))
+            if enc_type == "conformer":
+                encoder = ConformerEncoder(
+                    depthwise_conv_kernel_size=enc_cfg.get("depthwise_conv_kernel_size",
+                                                           31),
+                    conv_norm_type=enc_cfg.get("conv_norm", "layernorm"),
+                    macaron=enc_cfg.get("macaron", "reference"),
+                    layerscale_init=float(enc_cfg.get("layerscale", 0.0)), **common)
+            else:
+                encoder = TransformerEncoder(
+                    activation=enc_cfg.get("activation", "relu"), subsample=subsample,
+                    num_experts=int(enc_cfg.get("num_experts", 0)), **common)
+        if dec_type == "recurrent":
+            decoder = RecurrentDecoder(
+                rnn_type=dec_cfg.get("rnn_type", "gru"),
+                emb_size=dec_cfg["embeddings"]["embedding_dim"],
+                hidden_size=dec_cfg["hidden_size"], encoder_output_size=encoder.output_size,
+                attention=dec_cfg.get("attention", "bahdanau"),
+                num_layers=dec_cfg.get("num_layers", 1), vocab_size=len(trg_vocab),
+                dropout=dec_dropout, emb_dropout=dec_emb_dropout,
+                hidden_dropout=dec_cfg.get("hidden_dropout", 0.0),
+                init_hidden=dec_cfg.get("init_hidden", "bridge"),
+                input_feeding=dec_cfg.get("input_feeding", True),
+                activation=dec_cfg.get("activation", "tanh"),
+                encoder_hidden_size=(encoder.output_size if enc_type == "recurrent"
+                                     else None))
+        else:
+            decoder = TransformerDecoder(
+                num_layers=dec_cfg["num_layers"], num_heads=dec_cfg["num_heads"],
+                hidden_size=dec_cfg["hidden_size"], ff_size=dec_cfg["ff_size"],
+                dropout=dec_dropout, emb_dropout=dec_emb_dropout,
+                vocab_size=len(trg_vocab),
+                layer_norm_position=dec_cfg.get("layer_norm", "post"),
+                activation=dec_cfg.get("activation", "relu"), alpha=dec_alpha,
+                ctc_layer=task == "S2T", tied_softmax=tied_softmax,
+                cache_cross_int8=bool(cfg.get("cache_cross_int8",
+                                              dec_cfg.get("cache_cross_int8", False))),
+                cache_self_int8=bool(cfg.get("cache_self_int8",
+                                             dec_cfg.get("cache_self_int8", False))),
+                dtype=compute_dtype)
+        # embeddings feed their side in its compute dtype: float32 for a
+        # recurrent side (and for a table tied to one)
+        src_dtype = compute_dtype if enc_type != "recurrent" else torch.float32
+        trg_dtype = compute_dtype if dec_type != "recurrent" else torch.float32
+        if tied_embeddings:
+            src_dtype = trg_dtype = (compute_dtype if enc_type == dec_type == "transformer"
+                                     else torch.float32)
+        src_embed = (_embeddings(src_vocab, enc_cfg["embeddings"], src_dtype)
                      if task == "MT" else None)
         trg_embed = (src_embed if tied_embeddings else
-                     _embeddings(trg_vocab, dec_cfg["embeddings"], compute_dtype))
+                     _embeddings(trg_vocab, dec_cfg["embeddings"], trg_dtype))
         model = Seq2SeqModel(encoder, decoder, trg_embed, src_embed, tied_softmax)
     # parameters are made on the meta device and only then given memory, so
     # no default initializer runs and the global torch generator is untouched

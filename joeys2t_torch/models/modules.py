@@ -274,21 +274,94 @@ class PositionwiseFeedForward(nn.Module):
         return x
 
 
+class MoEFeedForward(nn.Module):
+    """Mixture-of-experts feed-forward with switch-style top-1 routing
+    (joeys2t_tpu/models/modules.py:508-600): a float32 router picks each
+    token's expert, whose output is scaled by the router's probability for
+    it. Dispatch is dense, as JAX computes it: every expert runs on every
+    token (``einsum``, (B, T, E, F) activations) and the expert axis is
+    contracted with the one-hot dispatch weights. The expert tensors keep
+    JAX's layout: ``w1`` (E, H, F), ``b1`` (E, F), ``w2`` (E, F, H), ``b2``
+    (E, H); the router is ``router.weight`` (E, H).
+
+    Each forward leaves the Switch load-balance term E * sum_e f_e * p_e in
+    ``aux_loss`` (f_e the share of tokens routed to expert e, p_e its mean
+    router probability, both over the valid tokens of ``token_valid``),
+    where the trainer collects it (JAX sows it)."""
+
+    def __init__(self, input_size: int, ff_size: int, num_experts: int,
+                 dropout: float = 0.1, alpha: float = 1.0,
+                 layer_norm_position: str = "post", activation: str = "relu",
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        if layer_norm_position not in {"pre", "post"}:
+            raise ValueError(f"layer_norm_position {layer_norm_position!r}")
+        self.num_experts = num_experts
+        self.alpha = alpha
+        self.layer_norm_position = layer_norm_position
+        self.dtype = dtype
+        self.layer_norm = _layer_norm_module(input_size, device)
+        self.router = nn.Linear(input_size, num_experts, bias=False, device=device)
+        e, h, f = num_experts, input_size, ff_size
+        self.w1 = nn.Parameter(torch.empty((e, h, f), device=device))
+        self.b1 = nn.Parameter(torch.empty((e, f), device=device))
+        self.w2 = nn.Parameter(torch.empty((e, f, h), device=device))
+        self.b2 = nn.Parameter(torch.empty((e, h), device=device))
+        self.act = build_activation(activation)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.aux_loss: Optional[torch.Tensor] = None
+
+    def forward(self, x: torch.Tensor,
+                token_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        residual = x
+        if self.layer_norm_position == "pre":
+            x = layer_norm(self.layer_norm, x, self.dtype)
+        x = x.to(self.dtype)
+        gates = torch.softmax(F.linear(x.float(), self.router.weight.float()), dim=-1)
+        top_p, top1 = gates.max(dim=-1)  # the first maximum, as jnp.argmax
+        one_hot = F.one_hot(top1, self.num_experts).float()
+        if token_valid is None:
+            f, p = one_hot.mean(dim=(0, 1)), gates.mean(dim=(0, 1))
+        else:
+            w = token_valid.float()[..., None]
+            denom = w.sum().clamp(min=1.0)
+            f, p = (one_hot * w).sum(dim=(0, 1)) / denom, (gates * w).sum(dim=(0, 1)) / denom
+        self.aux_loss = self.num_experts * (f * p).sum()
+        dispatch = (one_hot * top_p[..., None]).to(self.dtype)  # (B, T, E)
+        h = torch.einsum("bth,ehf->btef", x, self.w1.to(self.dtype)) + self.b1.to(self.dtype)
+        h = self.dropout1(self.act(h))
+        y = torch.einsum("btef,efh->bteh", h, self.w2.to(self.dtype)) + self.b2.to(self.dtype)
+        y = self.dropout2(torch.einsum("bteh,bte->bth", y, dispatch))
+        y = y + self.alpha * residual
+        if self.layer_norm_position == "post":
+            y = layer_norm(self.layer_norm, y, self.dtype)
+        return y
+
+
 class TransformerEncoderLayer(nn.Module):
-    """Self-attention + FFN (joeynmt/transformer_layers.py:216-289)."""
+    """Self-attention + FFN (joeynmt/transformer_layers.py:216-289);
+    ``num_experts > 0`` makes the FFN a :class:`MoEFeedForward` whose
+    routing statistics count the valid tokens of ``mask`` only."""
 
     def __init__(self, size: int, ff_size: int, num_heads: int, dropout: float = 0.1,
                  alpha: float = 1.0, layer_norm_position: str = "post",
                  activation: str = "relu", dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, num_experts: int = 0):
         super().__init__()
         self.alpha = alpha
         self.layer_norm_position = layer_norm_position
         self.dtype = dtype
         self.layer_norm = _layer_norm_module(size, device)
         self.src_src_att = MultiHeadedAttention(num_heads, size, dropout, dtype, device)
-        self.feed_forward = PositionwiseFeedForward(
-            size, ff_size, dropout, alpha, layer_norm_position, activation, dtype, device)
+        if num_experts > 0:
+            self.feed_forward = MoEFeedForward(size, ff_size, num_experts, dropout, alpha,
+                                               layer_norm_position, activation, dtype,
+                                               device)
+        else:
+            self.feed_forward = PositionwiseFeedForward(
+                size, ff_size, dropout, alpha, layer_norm_position, activation, dtype,
+                device)
         self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -299,6 +372,8 @@ class TransformerEncoderLayer(nn.Module):
         x = self.dropout(x) + self.alpha * residual
         if self.layer_norm_position == "post":
             x = layer_norm(self.layer_norm, x, self.dtype)
+        if isinstance(self.feed_forward, MoEFeedForward):
+            return self.feed_forward(x, None if mask is None else mask[:, 0, :])
         return self.feed_forward(x)
 
 

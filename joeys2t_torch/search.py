@@ -25,6 +25,21 @@ default ``auto`` takes the ancestry map, the same math, which is not ported,
 so ``auto`` reorders physically and ``lazy`` raises). Returned attention
 is not ported yet and raises.
 
+Recurrent decoders (``recurrent_greedy`` :305, ``_recurrent_beam_search``
+:613) carry (state, attentional vector) from step to step on the device
+and keep JAX's host rules, in float64 as JAX computes them with numpy:
+greedy bans with -inf and runs on after a row's eos until every row has
+one (its output is as long as the steps run; a finished row goes on
+emitting, as in JAX, and the caller cuts after the first eos), and beam
+search adds the length penalty to the scores ranked and takes it back out
+of those kept, sets a finished beam's score to -inf, and collects each
+hypothesis when it ends (or at the length limit), best first, with unfilled
+n-best slots as ``[unk]`` and -1. Ties go to the lower index
+(``_stable_topk``); numpy's ``argsort``, which JAX's loop calls, orders
+ties its own way, which only shows among -inf candidates, when fewer than
+K are finite. Like JAX's, these searches ignore the repetition penalty,
+n-gram blocking and prompts.
+
 Text models (MT) add JAX's search options, computed on the device: the
 repetition penalty over the history and the source (:50-64), the fairseq
 n-gram blocker over the history (:67-103) and over the source (:242-263),
@@ -41,6 +56,7 @@ import torch
 from joeys2t_torch.data.batch import Batch, round_up_to_bucket
 from joeys2t_torch.helpers import resolve_device
 from joeys2t_torch.models.model import ModelSpec, Seq2SeqModel
+from joeys2t_torch.models.rnn import RecurrentDecoder
 
 NEG_INF = -1.0e9
 
@@ -315,14 +331,64 @@ def transformer_greedy(model: Seq2SeqModel, spec: ModelSpec,
     return output, scores, None
 
 
+@torch.inference_mode()
+def _recurrent_greedy(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torch.Tensor,
+                      encoder_hidden: Optional[torch.Tensor], src_mask: torch.Tensor,
+                      max_output_length: int, min_output_length: int = 1,
+                      generate_unk: bool = True, return_prob: bool = False):
+    """Greedy loop of a recurrent decoder (joeys2t_tpu/search.py:305-352);
+    returns (ids (B, steps), float64 scores (B, steps), steps run)."""
+    decoder = model.decoder
+    encoder_output = encoder_output.float()
+    b, device = encoder_output.shape[0], encoder_output.device
+    carry, att_vector, proj_keys = decoder.init_state(encoder_output, encoder_hidden)
+    banned = _banned_ids(spec, decoder.output_size, generate_unk, device,
+                         also=(spec.pad_index,))
+    ys = torch.zeros((b, max_output_length), dtype=torch.long, device=device)
+    yv = torch.zeros((b, max_output_length), dtype=torch.float64, device=device)
+    prev = torch.full((b, 1), spec.bos_index, dtype=torch.long, device=device)
+    finished = torch.zeros((b,), dtype=torch.bool, device=device)
+    step = 0
+    while step < max_output_length:
+        att_vector, carry, _ = decoder.step(model.trg_embed(prev), att_vector, carry,
+                                            proj_keys, encoder_output, src_mask)
+        out = decoder.output_layer(att_vector)[:, 0].double()
+        out[:, spec.bos_index] = -np.inf
+        if return_prob:
+            out = out - torch.logsumexp(out, dim=1, keepdim=True)
+        out = out.index_fill(1, banned, -np.inf)
+        if step < min_output_length:
+            out[:, spec.eos_index] = -np.inf
+        ys[:, step], yv[:, step] = out.argmax(dim=1), out.amax(dim=1)
+        prev = ys[:, step:step + 1]
+        finished |= ys[:, step] == spec.eos_index
+        step += 1
+        if bool(finished.all()):
+            break
+    return ys[:, :step], yv[:, :step], step
+
+
 def greedy(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torch.Tensor,
            encoder_hidden, src_mask: torch.Tensor, max_output_length: int,
-           device=None, **kwargs):
-    """Greedy dispatch (joeynmt/search.py:21-61); only the transformer
-    decoder is ported."""
-    del encoder_hidden  # recurrent decoders only
-    return transformer_greedy(model, spec, encoder_output, src_mask,
-                              max_output_length, device=device, **kwargs)
+           device=None, stats: Optional[Dict] = None, **kwargs):
+    """Greedy dispatch (joeynmt/search.py:21-61): a recurrent decoder's own
+    loop from ``encoder_hidden``, or the transformer's KV-cached one.
+    Returns (output ids (B, L) numpy, scores (B, L) numpy when
+    ``return_prob="hyp"`` else None, None)."""
+    if not isinstance(model.decoder, RecurrentDecoder):
+        return transformer_greedy(model, spec, encoder_output, src_mask,
+                                  max_output_length, device=device, stats=stats, **kwargs)
+    device = resolve_device(device)
+    _check_search_args(device, {"encoder_output": encoder_output, "src_mask": src_mask,
+                                "model": next(model.parameters())}, kwargs)
+    return_prob = kwargs.get("return_prob", "none") == "hyp"
+    ys, yv, steps = _recurrent_greedy(
+        model, spec, encoder_output, encoder_hidden, src_mask, int(max_output_length),
+        min_output_length=int(kwargs.get("min_output_length", 1)),
+        generate_unk=bool(kwargs.get("generate_unk", True)), return_prob=return_prob)
+    if stats is not None:
+        stats["decode_steps"] = stats.get("decode_steps", 0) + steps
+    return ys.cpu().numpy(), yv.cpu().numpy() if return_prob else None, None
 
 
 def _stable_topk(x: torch.Tensor, k: int):
@@ -423,6 +489,95 @@ def _transformer_beam(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torc
     return fin_seqs, fin_scores, step
 
 
+def _sort_key(scores: torch.Tensor, collected: torch.Tensor) -> torch.Tensor:
+    """Descending-order key of a hypothesis store: a collected hypothesis by
+    its score, one at -inf just above every empty slot."""
+    finite_floor = torch.finfo(scores.dtype).min
+    return torch.where(collected, scores.clamp(min=finite_floor), -np.inf)
+
+
+@torch.inference_mode()
+def _recurrent_beam(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torch.Tensor,
+                    encoder_hidden: Optional[torch.Tensor], src_mask: torch.Tensor,
+                    beam_size: int, max_output_length: int, alpha: float, n_best: int,
+                    min_output_length: int = 1, generate_unk: bool = True):
+    """Beam loop of a recurrent decoder (joeys2t_tpu/search.py:613-703).
+    JAX appends every hypothesis that ends to a list and sorts it at the end
+    (Python's stable sort, best first); the port keeps the ``n_best`` best
+    in a store on the device, merged with each step's new hypotheses by a
+    stable sort, which picks the same ones in the same order. Returns
+    (sequences without BOS (B, n_best, L), their lengths, float64 scores,
+    whether each slot was filled, steps run)."""
+    # pylint: disable=too-many-locals
+    decoder = model.decoder
+    b, k, v, l1 = encoder_output.shape[0], beam_size, decoder.output_size, \
+        max_output_length + 1
+    device = encoder_output.device
+    encoder_output = encoder_output.float().repeat_interleave(k, dim=0)
+    src_mask = src_mask.repeat_interleave(k, dim=0)
+    if encoder_hidden is not None:
+        encoder_hidden = encoder_hidden.repeat_interleave(k, dim=0)
+    carry, att_vector, proj_keys = decoder.init_state(encoder_output, encoder_hidden)
+    banned = _banned_ids(spec, v, generate_unk, device, also=(spec.pad_index,))
+
+    alive_seq = torch.full((b * k, l1), spec.pad_index, dtype=torch.long, device=device)
+    alive_seq[:, 0] = spec.bos_index
+    topk_log_probs = torch.full((b, k), -np.inf, dtype=torch.float64, device=device)
+    topk_log_probs[:, 0] = 0.0
+    is_finished = torch.zeros((b, k), dtype=torch.bool, device=device)
+    store_seq = torch.full((b, n_best, l1 - 1), spec.pad_index, dtype=torch.long,
+                           device=device)
+    store_len = torch.zeros((b, n_best), dtype=torch.long, device=device)
+    store_score = torch.full((b, n_best), -np.inf, dtype=torch.float64, device=device)
+    store_full = torch.zeros((b, n_best), dtype=torch.bool, device=device)
+    beam_offset = (torch.arange(b, device=device) * k)[:, None]
+
+    step = 0
+    while step < max_output_length:
+        att_vector, carry, _ = decoder.step(model.trg_embed(alive_seq[:, step:step + 1]),
+                                            att_vector, carry, proj_keys, encoder_output,
+                                            src_mask)
+        log_probs = torch.log_softmax(decoder.output_layer(att_vector)[:, 0].float(),
+                                      dim=-1).double()
+        log_probs = log_probs.index_fill(1, banned, -np.inf)
+        if step < min_output_length:
+            log_probs[:, spec.eos_index] = -np.inf
+        log_probs = log_probs + topk_log_probs.reshape(-1)[:, None]
+        length_penalty = ((5.0 + (step + 1)) / 6.0) ** alpha if alpha > 0 else 1.0
+        topk_scores, topk_ids = _stable_topk((log_probs / length_penalty).reshape(b, k * v),
+                                             k)
+        topk_log_probs = topk_scores * length_penalty if alpha > 0 else topk_scores.clone()
+        token = topk_ids % v
+        select = (topk_ids // v + beam_offset).reshape(-1)
+        alive_seq = alive_seq.index_select(0, select)
+        alive_seq[:, step + 1] = token.reshape(-1)
+        carry = tuple(tuple(t.index_select(0, select) for t in c) if isinstance(c, tuple)
+                      else c.index_select(0, select) for c in carry)
+        att_vector = att_vector.index_select(0, select)
+
+        # a candidate that ends now, or reaches the length limit in a slot
+        # that had not finished (JAX reads the slot's flag of the last step)
+        newly_eos = token == spec.eos_index
+        at_max = step + 1 == max_output_length
+        ended = newly_eos | (~is_finished if at_max else torch.zeros_like(newly_eos))
+        keys = torch.cat([_sort_key(store_score, store_full),
+                          _sort_key(topk_scores, ended)], dim=1)
+        _, best = _stable_topk(keys, n_best)
+        seqs = torch.cat([store_seq, alive_seq[:, 1:].reshape(b, k, l1 - 1)], dim=1)
+        store_seq = torch.gather(seqs, 1, best[:, :, None].expand(b, n_best, l1 - 1))
+        store_len = torch.gather(torch.cat([store_len, torch.full_like(token, step + 1)],
+                                           dim=1), 1, best)
+        store_score = torch.gather(torch.cat([store_score, topk_scores], dim=1), 1, best)
+        store_full = torch.gather(torch.cat([store_full, ended], dim=1), 1, best)
+
+        is_finished = newly_eos | is_finished | ~torch.isfinite(topk_scores)
+        step += 1
+        if at_max or bool(is_finished.all()):
+            break
+        topk_log_probs = topk_log_probs.masked_fill(is_finished, -np.inf)
+    return store_seq, store_len, store_score, store_full, step
+
+
 def beam_search(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torch.Tensor,
                 encoder_hidden, src_mask: torch.Tensor, beam_size: int,
                 max_output_length: int, alpha: float, n_best: int = 1, device=None,
@@ -439,8 +594,10 @@ def beam_search(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torch.Tens
         ``beam_reorder``
     :return: (output ids (B*n_best, L) numpy, scores (B*n_best, 1) numpy
         when ``return_prob="hyp"`` else None, None)
+
+    A recurrent decoder runs its own loop from ``encoder_hidden``
+    (``_recurrent_beam``), with no cache.
     """
-    del encoder_hidden  # recurrent decoders only
     if beam_size < 1:
         raise ValueError("Beam size must be >0.")
     if n_best > beam_size:
@@ -450,27 +607,36 @@ def beam_search(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torch.Tens
     _check_search_args(device, {"encoder_output": encoder_output, "src_mask": src_mask,
                                 "model": next(model.parameters())}, kwargs)
     return_prob = kwargs.get("return_prob", "none") == "hyp"
-    model = _cast_params_to_compute_dtype(model)
-    fin_seqs, fin_scores, steps = _transformer_beam(
-        model, spec, encoder_output, src_mask, int(beam_size), int(max_output_length),
-        float(alpha), min_output_length=int(kwargs.get("min_output_length", 1)),
-        generate_unk=bool(kwargs.get("generate_unk", True)),
-        **_control_kwargs(kwargs, device))
+    options = dict(min_output_length=int(kwargs.get("min_output_length", 1)),
+                   generate_unk=bool(kwargs.get("generate_unk", True)))
+    unk = np.array([spec.unk_index], np.int64)
+    if isinstance(model.decoder, RecurrentDecoder):
+        seqs, lengths, fin_scores, filled, steps = (
+            t.cpu().numpy() if torch.is_tensor(t) else t for t in _recurrent_beam(
+                model, spec, encoder_output, encoder_hidden, src_mask, int(beam_size),
+                int(max_output_length), float(alpha), int(n_best), **options))
+        # as JAX lays them out (joeys2t_tpu/search.py:690-702)
+        predictions = [seq[:n] if full else unk for row in zip(seqs, lengths, filled)
+                       for seq, n, full in zip(*row)]
+        scores = np.where(filled, fin_scores, -1.0).reshape(-1)
+    else:
+        fin_seqs, fin_scores, steps = _transformer_beam(
+            _cast_params_to_compute_dtype(model), spec, encoder_output, src_mask,
+            int(beam_size), int(max_output_length), float(alpha), **options,
+            **_control_kwargs(kwargs, device))
+        predictions, scores = [], []
+        for seqs, seq_scores in zip(fin_seqs.cpu().numpy(), fin_scores.cpu().numpy()):
+            for n in range(n_best):
+                if seq_scores[n] <= NEG_INF:  # unfilled slot (joeynmt/search.py:795-804)
+                    predictions.append(unk)
+                    scores.append(-1.0)
+                    continue
+                seq = seqs[n, 1:]  # drop BOS
+                eos_pos = np.flatnonzero(seq == spec.eos_index)
+                predictions.append(seq[:eos_pos[0] + 1] if len(eos_pos) else seq)
+                scores.append(float(seq_scores[n]))
     if stats is not None:
         stats["decode_steps"] = stats.get("decode_steps", 0) + steps
-    fin_seqs, fin_scores = fin_seqs.cpu().numpy(), fin_scores.cpu().numpy()
-
-    predictions, scores = [], []
-    for seqs, seq_scores in zip(fin_seqs, fin_scores):
-        for n in range(n_best):
-            if seq_scores[n] <= NEG_INF:  # unfilled slot (joeynmt/search.py:795-804)
-                predictions.append(np.array([spec.unk_index], np.int64))
-                scores.append(-1.0)
-                continue
-            seq = seqs[n, 1:]  # drop BOS
-            eos_pos = np.flatnonzero(seq == spec.eos_index)
-            predictions.append(seq[:eos_pos[0] + 1] if len(eos_pos) else seq)
-            scores.append(float(seq_scores[n]))
     output = np.full((len(predictions), max(len(p) for p in predictions)), spec.pad_index,
                      np.int64)
     for row, p in zip(output, predictions):

@@ -41,7 +41,7 @@ from joeys2t_torch.config import (TestConfig, TrainConfig, check_ported, log_con
 from joeys2t_torch.data.batch import Batch
 from joeys2t_torch.helpers import resolve_device, write_list_to_file
 from joeys2t_torch.losses import loss_terms
-from joeys2t_torch.models.modules import set_dropout_generator
+from joeys2t_torch.models.modules import MoEFeedForward, set_dropout_generator
 from joeys2t_torch.optim import (build_gradient_clipper, build_optimizer, build_scheduler,
                                  get_learning_rate, set_learning_rate)
 from joeys2t_torch.prediction import predict, prepare, test
@@ -92,6 +92,8 @@ class TrainManager:
         self.train_iter_state = None
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 7919)
         set_dropout_generator(model, self.generator)
+        self._experts = [m for m in model.modules() if isinstance(m, MoEFeedForward)]
+        self._last_aux: Optional[torch.Tensor] = None  # the last micro-batch's term
         enc_dtype = getattr(model.encoder, "dtype", torch.float32)
         fd = self.args.feature_dtype
         self._feature_dtype = (torch.bfloat16 if fd == "bfloat16" or (
@@ -160,21 +162,30 @@ class TrainManager:
 
     # ---------------------------------------------------------------- loss
     def _loss_and_metrics(self, batch: Dict, normalizer: float):
-        """The model in training mode on one prepared batch (:494)."""
+        """The model in training mode on one prepared batch (:494), with the
+        load-balance terms its mixture-of-experts layers left."""
         self.model.train()
         logits, ctc_logits, out_mask = self.model(
             batch["src"], batch["trg_input"], batch["src_length"], batch["src_mask"],
             batch["trg_mask"], batch["src_prompt_mask"], batch["trg_prompt_mask"])
-        return self._finish_loss(logits, ctc_logits, out_mask, batch, normalizer)
+        aux = sum(m.aux_loss for m in self._experts) if self._experts else None
+        return self._finish_loss(logits, ctc_logits, out_mask, batch, normalizer, aux)
 
-    def _finish_loss(self, logits, ctc_logits, out_mask, batch: Dict, normalizer: float):
+    def _finish_loss(self, logits, ctc_logits, out_mask, batch: Dict, normalizer: float,
+                     aux: Optional[torch.Tensor] = None):
         """Normalized loss and the metrics (loss, nll, ctc, n_correct), each
-        divided by the normalizer and the accumulation count (:510)."""
+        divided by the normalizer and the accumulation count (:510). The
+        Switch load-balance term ``aux`` adds 0.01 * aux, divided by the
+        accumulation count only (:527-529), to the loss and the logged loss;
+        validation computes no such term."""
         total, nll, ctc, n_correct, _ = loss_terms(
             self.loss_fn, logits, ctc_logits, out_mask, batch["trg"], batch["trg_length"],
             batch["trg_mask"])
         div = normalizer * self.args.batch_multiplier
         norm = total / div
+        if aux is not None:
+            norm = norm + 0.01 * aux / self.args.batch_multiplier
+            self._last_aux = aux.detach()
         metrics = (norm.detach(), nll.detach() / div, ctc.detach() / div, n_correct)
         return norm, metrics
 
@@ -471,6 +482,10 @@ class TrainManager:
                     "Tokens per Sec: %8.0f, Lr: %.6f", epoch_no, self.stats.steps,
                     total_batch_loss, elapsed_correct / max(elapsed_tok, 1),
                     elapsed_tok / max(elapsed_time, 1e-9), current_lr)
+        if self._last_aux is not None:
+            # included in the batch loss (x 0.01); 1 per layer at uniform routing
+            logger.info("MoE load-balance term of the last micro-batch: %.6f "
+                        "(%d layers)", float(self._last_aux), len(self._experts))
 
 
 class TrainStatistics:

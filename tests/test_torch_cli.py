@@ -211,8 +211,7 @@ def test_loop_steps_schedulers_where_jax_does(trained, tmp_path, scheduling, ste
 @pytest.mark.parametrize("section,option", [
     ("testing", {"beam_reorder": "lazy"}), ("testing", {"return_attention": True}),
     ("testing", {"beam_reorder": "lazy", "repetition_penalty": 1.2}),
-    ("model", {"decoder": {"type": "recurrent"}}),
-    ("model", {"encoder": {"num_experts": 2}}), ("data", {"dataset_type": "huggingface"}),
+    ("data", {"dataset_type": "huggingface"}),
     ("data", {"trg": {"tokenizer_cfg": {"pretokenizer": "moses"}}})])
 @pytest.mark.parametrize("mode", ["train", "test", "translate"])
 def test_runs_refuse_unported_options_before_loading_data(tmp_path, mode, section,

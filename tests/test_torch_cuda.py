@@ -7,6 +7,8 @@ one training update). Needs a CUDA card and nvcc; skipped without
 them. Run on a card with (the suite's conftest.py imports JAX, which the
 card's machine need not have):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py"""
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -374,3 +376,76 @@ def test_small_model_card_matches_cpu(card):
     np.testing.assert_array_equal(outs["cuda"][1], outs["cpu"][1])
     np.testing.assert_array_equal(outs["cuda"][2], outs["cpu"][2])  # beam 5, 2-best
     np.testing.assert_allclose(outs["cuda"][3], outs["cpu"][3], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["rnn_reverse", "rnn_small"])
+def test_recurrent_model_card_matches_cpu(card, name):
+    """A recurrent config's model (LSTM/Luong or GRU/Bahdanau, float32) on
+    the card and on the CPU with the same seeded weights: the encoder's
+    outputs and states to 1e-5 with cuDNN's TF32 left at its default (the
+    encoder turns it off for float32 itself), the logits, greedy and beam-5
+    2-best hypotheses; no attention kernel of the port launches."""
+    from joeys2t_torch.config import load_config
+    from joeys2t_torch.search import greedy
+
+    repo = Path(__file__).resolve().parents[1]
+    cfg = load_config(repo / "configs" / f"{name}.yaml")["model"]
+    vocab = Vocabulary([f"w{i}" for i in range(40)], SpecialSymbols())
+    rng = np.random.RandomState(4)
+    src = torch.tensor(rng.randint(4, 44, size=(4, 12)))
+    lengths = torch.tensor([12, 9, 1, 0])
+    src[torch.arange(12)[None, :] >= lengths[:, None]] = 1
+    trg = torch.tensor(rng.randint(4, 44, size=(4, 7)))
+    mask = (src != 1)[:, None, :]
+    launches = (fa.flash_attention_fwd.launches, da.decode_attention.launches)
+    outs = {}
+    with torch.inference_mode():
+        for dev in ("cpu", card):
+            model, spec = build_model(cfg, src_vocab=vocab, trg_vocab=vocab, device=dev,
+                                      generator=torch.Generator().manual_seed(5))
+            args = [t.to(dev) for t in (src, lengths, mask)]
+            enc, hidden, enc_mask = model.encode(*args)
+            logits = model(args[0], trg.to(dev), args[1], args[2],
+                           torch.ones(4, 1, 7, dtype=torch.bool, device=dev))[0]
+            beam = beam_search(model, spec, enc, hidden, enc_mask, 5, 20, 1.0, n_best=2,
+                               device=dev, return_prob="hyp")
+            outs[str(dev)] = (enc.cpu(), hidden.cpu(), logits.cpu(),
+                              greedy(model, spec, enc, hidden, enc_mask, 20, device=dev)[0],
+                              beam[0], beam[1])
+    assert (fa.flash_attention_fwd.launches, da.decode_attention.launches) == launches
+    for got, want in zip(outs["cuda"][:3], outs["cpu"][:3]):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    for got, want in zip(outs["cuda"][3:5], outs["cpu"][3:5]):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(outs["cuda"][5], outs["cpu"][5], atol=1e-4, rtol=0)
+
+
+def test_moe_model_card_matches_cpu(card):
+    """A float32 text transformer with 4 experts an encoder layer, on the
+    card and on the CPU: the logits and the load-balance term, with the
+    encoder's self-attention on the flash kernel."""
+    from joeys2t_torch.models.modules import MoEFeedForward
+
+    side = {"num_layers": 2, "num_heads": 2, "hidden_size": 128, "ff_size": 256,
+            "layer_norm": "pre", "embeddings": {"embedding_dim": 128, "scale": True}}
+    cfg = {"encoder": dict(side, num_experts=4), "decoder": dict(side)}
+    vocab = Vocabulary([f"w{i}" for i in range(60)], SpecialSymbols())
+    rng = np.random.RandomState(6)
+    src = torch.tensor(rng.randint(4, 64, size=(3, 15)))
+    lengths = torch.tensor([15, 8, 0])
+    src[torch.arange(15)[None, :] >= lengths[:, None]] = 1
+    trg = torch.tensor(rng.randint(4, 64, size=(3, 9)))
+    outs = {}
+    with torch.inference_mode():
+        for dev in ("cpu", card):
+            model, _ = build_model(cfg, src_vocab=vocab, trg_vocab=vocab, device=dev,
+                                   generator=torch.Generator().manual_seed(7))
+            before = fa.flash_attention_fwd.launches
+            logits = model(src.to(dev), trg.to(dev), lengths.to(dev),
+                           (src != 1)[:, None, :].to(dev),
+                           torch.ones(3, 1, 9, dtype=torch.bool, device=dev))[0]
+            aux = sum(m.aux_loss for m in model.modules() if isinstance(m, MoEFeedForward))
+            outs[str(dev)] = (logits.cpu(), float(aux), fa.flash_attention_fwd.launches - before)
+    torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], atol=1e-4, rtol=0)
+    assert abs(outs["cuda"][1] - outs["cpu"][1]) <= 1e-5
+    assert outs["cuda"][2] == 4 and outs["cpu"][2] == 0  # 2 encoder + 2 cross attentions

@@ -305,19 +305,17 @@ def test_unported_options_raise():
 
 
 @pytest.mark.parametrize("option,error", [
-    ({"encoder": {"type": "recurrent"}}, NotImplementedError),
-    ({"encoder": {"num_experts": 2}}, NotImplementedError),
-    ({"decoder": {"type": "recurrent"}}, NotImplementedError),
+    ({"encoder": {"type": "recurrent"}}, ConfigurationError),
     ({"data": {"tokenizer_cfg": {"pretokenizer": "moses"}}}, NotImplementedError),
     ({"tied_embeddings": True}, ConfigurationError),
     ({"tied_embeddings": True, "tied_softmax": True}, ConfigurationError),
     ({"data": {"dataset_type": "huggingface"}}, NotImplementedError),
 ])
 def test_unported_model_options_raise(tmp_path, option, error):
-    """Recurrent encoders and decoders, mixture-of-experts layers, moses
-    pretokenization and Huggingface datasets are not ported and raise
-    rather than be ignored; tied embeddings need a source vocabulary, which
-    a speech model has not."""
+    """Moses pretokenization and Huggingface datasets are not ported and
+    raise rather than be ignored; a recurrent encoder of speech features is
+    refused, as JAX refuses it (RNN models are for text); tied embeddings
+    need a source vocabulary, which a speech model has not."""
     from joeys2t_torch.data.datasets import build_dataset
     from joeys2t_torch.tokenizers import build_tokenizer
 
