@@ -152,7 +152,42 @@ goes wrong:
     and the device time an update and its largest kernels over a profiled
     2-update ``train``.
 
-Phases 9-15 run after phase 8, each with the counters zeroed just before
+16. data parallel: (a) ``train configs/synthetic_asr.yaml -d`` as phase 7
+    cuts it (full width, bf16, 16 updates, 2 validations, the closing
+    beam-5 ``test``) in this process under torchrun's variables, one NCCL
+    rank a card (world 1 here, so the counters are this process's): the
+    first update's loss equal to phase 7's single process to 1e-3 relative,
+    K1 and K3 launches equal to phase 7's and K5's as its decode steps
+    imply, hypotheses written once; then ``test -d`` in a fresh interpreter,
+    which spawns one rank a visible card; (b) two ranks on the one card over
+    gloo, processes that each initialise gloo and call
+    ``joeys2t_torch.training.train`` (full width, dropout 0, no SpecAugment,
+    2 updates of 64 utterances a rank, a sharded greedy validation after
+    each): the first update against a single-process update on the union
+    of the ranks' first batches (the gradients before clipping within 2 %
+    of their norm; every weight within 2 lr and at most 0.5 % of them
+    further apart than lr / 10; the loss to 1e-2), beside what an update on
+    rank 0's batch alone reads, and the merged validation hypotheses equal
+    to a single-process ``predict``; its wall is printed and is no
+    yardstick (gloo stages through the host);
+17. ``remat`` and ``moment_dtype``: phase 5's model and micro-batches
+    through ``train_batch`` (dropout 0.1, 4 micro-batches an update), 2
+    updates without and with ``remat``: ms an update, peak memory, the flash
+    forward launched again in the backward (48 a micro-batch against 24),
+    the first update's gradients and weights equal (the masks replayed;
+    the limits of phase 16 (b)), beside what another dropout seed reads,
+    and a profiled micro-batch of each (wall, device busy, kernels); then
+    one update with ``moment_dtype: bfloat16``, its first moments in
+    bfloat16 and their bytes; and the port's Adam step timed against
+    ``torch.optim.Adam(foreach=True)``.
+
+``python3 chip_smoke.py --phases cards`` (on a machine with several cards)
+runs phase 7's config through ``train`` on one card and through ``train
+-d`` on every visible card (spawned NCCL ranks), holds the merged
+validation hypotheses of the ``-d`` run against one process's ``predict``
+of its checkpoint, and exits 4 without a result line.
+
+Phases 9-17 run after phase 8, each with the counters zeroed just before
 its runs and the plain versions refused. Phase 2 also holds decode attention
 with int8 channel scales and ``group`` 5 bit for bit against group 1, and
 times int8 cases against SDPA on the dequantized cache.
@@ -1489,6 +1524,27 @@ def cli_kernel_checks(kept: dict, names=("flash_attention_fwd", "flash_attention
     return out
 
 
+@contextlib.contextmanager
+def first_loss(store: list):
+    """While active, keeps the loss of the first micro-batch that
+    ``TrainManager`` trains (a copy on the card, read after the run)."""
+    from joeys2t_torch.training import TrainManager
+
+    inner = TrainManager._train_prepared
+
+    def kept(self, prepared):
+        out = inner(self, prepared)
+        if not store:
+            store.append(out["loss"].detach().clone())
+        return out
+
+    TrainManager._train_prepared = kept
+    try:
+        yield store
+    finally:
+        TrainManager._train_prepared = inner
+
+
 def cli_run(argv, stdin: str = ""):
     """``joeys2t_torch.__main__.main(argv)`` in this process with the kernels'
     launch counters zeroed just before and read just after: (wall s, log
@@ -1625,8 +1681,9 @@ def cli_phase(train_batch_rate: float):
     cfg_path.write_text(dump_yaml(cfg), encoding="utf-8")
     n_enc, n_dec = 16, 8
     kept = {}
+    first = []
     with plain_refused("CLI path"):
-        with kernel_inputs(kept):
+        with kernel_inputs(kept), first_loss(first):
             train_wall, lines, _, train_n = cli_run(["train", cfg_path])
             test_wall, test_lines, _, test_n = cli_run(["test", cfg_path, "-o",
                                                         work / "out"])
@@ -1720,7 +1777,8 @@ def cli_phase(train_batch_rate: float):
           "beam-5 test at 2 + 2 layers: card and CPU hypotheses identical over 8 dev "
           "utterances")
     launches = {name: train_n[name] + test_n[name] + tr_n[name] for name in train_n}
-    return launches, checks, model_dir / "best.ckpt", per_update
+    return launches, checks, model_dir / "best.ckpt", per_update, (first[0], train_n,
+                                                                    per_update)
 
 
 # ------------------------------------------------------------------ phase 8
@@ -2676,6 +2734,516 @@ def moe_phase(dense_update_s: float, dense_rate: float) -> tuple:
     return launches, checks
 
 
+# ----------------------------------------------------------------- phase 16
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ddp_cli_phase(data: Path, phase7: tuple) -> dict:
+    """Phase 16 (a): ``python -m joeys2t_torch train <phase 7's config> -d``
+    in this process under torchrun's variables for one rank a visible card
+    (NCCL), with the counters zeroed just before and read just after; then
+    ``test -d`` in a fresh interpreter, which spawns its ranks."""
+    from joeys2t_torch.config import dump_yaml
+
+    work = REPO / "build" / "chip_smoke"
+    model_dir = work / "model_ddp"
+    cfg = cli_config(data, model_dir)
+    cfg_path = work / "cli_ddp.yaml"
+    cfg_path.write_text(dump_yaml(cfg), encoding="utf-8")
+    world = 1  # the ranks of this process's group: the counters are its own
+    env = dict(RANK="0", LOCAL_RANK="0", WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    os.environ.update(env)
+    first = []
+    try:
+        with plain_refused("data-parallel CLI path"), first_loss(first):
+            wall, lines, _, counts = cli_run(["train", cfg_path, "-d"])
+    finally:
+        for key in env:
+            os.environ.pop(key, None)
+    check(not torch.distributed.is_initialized(), "train -d left its process group")
+    log = "\n".join(lines)
+    check(f"data-parallel ranks: {world}" in log and "effective batch size: 64" in log,
+          "train -d did not log its ranks and effective batch")
+    ref_first, ref_train, ref_update_s = phase7
+    got, want = first[0].item(), ref_first.item()
+    check(abs(got - want) <= 1e-3 * abs(want),
+          f"train -d first update's loss {got} against phase 7's {want}")
+    gens = generations(lines)
+    check(len(gens) == 4, f"train -d logged {len(gens)} predict calls, expected 2 + 2")
+    expected = cli_launches(16, 8, 16, gens[:2], gens[2:])
+    check(counts == expected, f"train -d launches {counts}, expected {expected}")
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        check(counts[name] == ref_train[name],
+              f"train -d {name} {counts[name]}, phase 7's single process {ref_train[name]}")
+    check(sum("Translations saved to" in ln for ln in lines) == 2,
+          "the closing test of train -d did not write dev and test once")
+    for split in ("dev", "test"):
+        n = len((model_dir / f"best.hyps.{split}").read_text(encoding="utf-8").splitlines())
+        check(n == 64, f"best.hyps.{split}: {n} hypotheses")
+    losses = [float(m.group(1)) for m in (re.search(r"Batch Loss: +([-\d.einfa]+)", ln)
+                                          for ln in lines) if m]
+    # `test -d` without torchrun's variables: one spawned rank a visible card
+    rows = (data / "dev.tsv").read_text(encoding="utf-8").splitlines()
+    (data / "dev8.tsv").write_text("\n".join(rows[:9]) + "\n", encoding="utf-8")
+    sub_cfg = dict(cfg, data={k: v for k, v in cfg["data"].items() if k != "test"})
+    sub_cfg["data"]["dev"] = str(data / "dev8")
+    sub_path = work / "cli_ddp_dev8.yaml"
+    sub_path.write_text(dump_yaml(sub_cfg), encoding="utf-8")
+    t0 = time.time()
+    sub = subprocess.run([sys.executable, "-m", "joeys2t_torch", "test", str(sub_path), "-d",
+                          "-o", str(work / "out_ddp_spawn")], cwd=REPO, capture_output=True,
+                         text=True, timeout=600)
+    check(sub.returncode == 0, f"test -d exited {sub.returncode}: {sub.stderr[-2000:]}")
+    spawned = (work / "out_ddp_spawn.dev").read_text(encoding="utf-8").splitlines()
+    best = (model_dir / "best.hyps.dev").read_text(encoding="utf-8").splitlines()[:8]
+    check(len(spawned) == 8, f"test -d wrote {len(spawned)} hypotheses")
+    print(f"[ddp] train -d (phase 7's config, {world} NCCL rank a card in this process, "
+          f"{torch.cuda.device_count()} card(s) visible): 16 updates, 2 validations, "
+          f"beam-5 test in {wall:.2f} s wall; first update's loss {got:.5f} against phase "
+          f"7's single process {want:.5f} (rel. {abs(got - want) / abs(want):.2e}); losses "
+          f"{[round(x, 4) for x in losses]}; ms an update {update_ms(lines):.2f} (phase 7, "
+          f"which ran first and colder: {ref_update_s * 1e3:.2f})")
+    print(f"[ddp] train -d launches {counts}: K1 and K3 as phase 7's single process "
+          f"({ref_train['flash_attention_fwd']}, {ref_train['flash_attention_bwd']}), K5 as "
+          f"its own decode steps imply; hypotheses written once (rank 0)")
+    print(f"[ddp] test -d (spawned, {torch.cuda.device_count()} rank(s)) on 8 dev "
+          f"utterances exited 0 in {time.time() - t0:.1f} s; "
+          f"{sum(a == b for a, b in zip(spawned, best))}/8 hypotheses as train -d's own "
+          f"closing test")
+    return counts
+
+
+def keep_first_grads(tm, store: dict, path: Path = None) -> None:
+    """Have ``tm``'s next update keep its gradients before clipping in
+    ``store`` (float32, on the host) on their way to the optimizer, and
+    write them to ``path`` if one is given."""
+
+    def capture():
+        store.update({n: (torch.zeros_like(p) if p.grad is None else p.grad).float().cpu()
+                      for n, p in tm.model.named_parameters()})
+        if path is not None:
+            torch.save(store, path)
+        del tm.apply_accum  # the class's method again: no cycle keeps ``tm`` alive
+        tm.apply_accum()
+
+    tm.apply_accum = capture
+
+
+# Limits of the first-update checks of phases 16 (b) and 17, between the
+# sound readings and what a fault reads (PERF.md section 6): gloo against
+# one process 2.05e-3 and 0.061 % of the weights, remat against none 0;
+# a rank that skipped the all-reduce 7.69e-2 and 3.87 %, another dropout
+# seed 7.95e-2 and 15.8 %, gradients averaged instead of summed 0.5.
+GRAD_GAP = 0.02  # ||dg|| / ||g|| of the gradients before clipping
+WEIGHTS_APART = 0.005  # the share of the weights further apart than lr / 10
+
+
+def grad_gap(got: dict, want: dict) -> float:
+    """||got - want|| / ||want|| over all the gradients together (0.5 for
+    gradients averaged where they should be summed)."""
+    num = sum(float((got[n] - g).double().square().sum()) for n, g in want.items())
+    return (num / sum(float(g.double().square().sum()) for g in want.values())) ** 0.5
+
+
+def weight_gap(got: dict, want: dict, lr: float) -> tuple:
+    """Weights after Adam's first step from the same weights: the largest
+    |dw| and its allowance (each side moved by lr at most, plus a float32
+    rounding of the largest weight on each), and the share of the weights
+    further apart than lr / 10."""
+    diffs = torch.cat([(got[n].float().cpu() - w.float().cpu()).abs().flatten()
+                       for n, w in want.items()])
+    largest = max(w.abs().max().item() for w in want.values())
+    allowance = 2 * lr + 2 * torch.finfo(torch.float32).eps * largest
+    return diffs.max().item(), allowance, (diffs > lr / 10).float().mean().item()
+
+
+def one_process_validation(cfg: dict, ckpt: Path) -> tuple:
+    """(scores, references, hypotheses) of ``ckpt`` on ``cfg``'s dev set,
+    decoded as the trainer validates, by this process alone on the card."""
+    import copy
+
+    from joeys2t_torch.config import parse_global_args, set_validation_args
+    from joeys2t_torch.prediction import predict, prepare
+
+    cfg = copy.deepcopy(cfg)
+    cfg["testing"]["load_model"] = str(ckpt)
+    args = parse_global_args(cfg, mode="test")
+    model, spec, loss_fn, _, dev_data, _ = prepare(args, mode="test")
+    scores, refs, hyps, _, _, _ = predict(
+        model, spec, dev_data, loss_fn=loss_fn, compute_loss=True,
+        normalization=args.train.normalization, args=set_validation_args(args.test),
+        device="cuda")
+    return scores, refs, hyps
+
+
+def gloo_rank(rank: int, port: int, cfg: dict) -> None:
+    """One of phase 16 (b)'s two ranks: gloo on the one card, initialised
+    here, then ``joeys2t_torch.training.train``; rank 0 writes the first
+    update's summed gradients before clipping to ``grads.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from joeys2t_torch.training import TrainManager, train
+    from joeys2t_torch.utils.logging import add_file_handler, get_logger
+
+    init = TrainManager.__init__
+
+    def init_keeping_grads(self, *a, **kw):
+        init(self, *a, **kw)
+        if rank == 0:
+            keep_first_grads(self, {}, Path(cfg["model_dir"]) / "grads.pt")
+
+    TrainManager.__init__ = init_keeping_grads
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(minutes=10))
+    try:
+        add_file_handler(get_logger(), Path(cfg["model_dir"]) / "train.log")
+        train(cfg, skip_test=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_phase(data: Path) -> None:
+    """Phase 16 (b): two ranks on the one card over gloo, each a process
+    that calls ``training.train`` (full width, dropout 0, SpecAugment off:
+    it draws from each rank's numpy stream); 2 updates of 64 utterances a
+    rank, a sharded greedy validation after each. Against a single-process
+    update on the union of the two ranks' first batches: the summed
+    gradients before clipping (within 2 % of their norm), the weights after
+    the first update (bf16: within 2 lr, Adam's first step moving a weight
+    by lr at most, and at most 0.5 % of them further apart than lr / 10) and
+    the loss (1e-2 relative); then the merged hypotheses of the first
+    validation against a single-process ``predict`` of that checkpoint,
+    token for token. A single-process update on rank 0's batch alone is
+    read beside them: what a rank that skipped the all-reduce would show."""
+    import copy
+
+    import torch.multiprocessing as mp
+
+    from joeys2t_torch.checkpoints import load_checkpoint
+    from joeys2t_torch.config import parse_global_args
+    from joeys2t_torch.data.samplers import SentenceBatchSampler, ShardedSubsetSampler
+    from joeys2t_torch.prediction import prepare
+    from joeys2t_torch.training import TrainManager
+
+    work = REPO / "build" / "chip_smoke"
+    model_dir = work / "model_gloo"
+    shutil.rmtree(model_dir, ignore_errors=True)
+    model_dir.mkdir(parents=True)
+    cfg = cli_config(data, model_dir)
+    del cfg["data"]["src"]["tokenizer_cfg"]["specaugment"]
+    for side in ("encoder", "decoder"):
+        cfg["model"][side]["dropout"] = 0.0
+        cfg["model"][side]["embeddings"]["dropout"] = 0.0
+    cfg["training"].update(updates=2, validation_freq=1, logging_freq=1)
+    cfg["testing"]["batch_size"] = 16  # 4 dev batches: 2 a rank
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=gloo_rank, args=(r, port, cfg)) for r in range(2)]
+    t0 = time.time()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=900 - (time.time() - t0))
+    if any(p.is_alive() for p in procs):
+        for p in procs:
+            p.terminate()
+            p.join()
+        fail("the two gloo ranks did not end within 900 s")
+    gloo_wall = time.time() - t0
+    check(all(p.exitcode == 0 for p in procs),
+          f"gloo ranks exited {[p.exitcode for p in procs]}")
+    log = (model_dir / "train.log").read_text(encoding="utf-8")
+    check("data-parallel ranks: 2" in log and "effective batch size: 128" in log,
+          "the gloo ranks did not train as two")
+    rank_loss = float(re.search(r"Step: +1, Batch Loss: +([-\d.einfa]+)", log).group(1))
+    rank_grads = torch.load(model_dir / "grads.pt")
+    after = load_checkpoint(model_dir / "1.ckpt")["model_state"]
+
+    # one process: the union of the two ranks' first batches, then rank 0's alone
+    args = parse_global_args(copy.deepcopy(cfg), mode="train")
+    model, spec, loss_fn, train_data, _, _ = prepare(args, mode="train")
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    rows = []
+    for rank in range(2):
+        train_data.reset_indices()
+        sampler = SentenceBatchSampler(
+            ShardedSubsetSampler(train_data, shuffle=True, seed=args.seed, num_replicas=2,
+                                 rank=rank), batch_size=64, drop_last=False, seed=args.seed)
+        sampler.set_seed(args.seed + 1)  # the first epoch's
+        rows.append(next(iter(sampler)))
+    train_data.reset_indices()
+    runs = {}
+    for tag, picked in (("union", rows[0] + rows[1]), ("rank 0 alone", rows[0])):
+        model.load_state_dict(init, strict=False)
+        tm = TrainManager(model, spec, loss_fn, args.train, seed=args.seed,
+                          model_cfg=args.model, device="cuda", task=args.task)
+        grads = {}
+        keep_first_grads(tm, grads)
+        batch = train_data.collate_fn([train_data[i] for i in picked],
+                                      pad_index=spec.pad_index, eos_index=spec.eos_index)
+        lr = tm.current_lr
+        out = tm.train_batch(batch)
+        check(out["stepped"] and batch.nseqs == len(picked), f"the {tag} update did not run")
+        runs[tag] = dict(loss=out["loss"].item(), grads=grads,
+                         weights={n: p.detach().cpu() for n, p in model.named_parameters()})
+        del tm
+    union, half = runs["union"], runs["rank 0 alone"]
+    g_gap, g_half = grad_gap(rank_grads, union["grads"]), grad_gap(half["grads"], union["grads"])
+    worst, allowance, outside = weight_gap(after, union["weights"], lr)
+    _, _, half_outside = weight_gap(half["weights"], union["weights"], lr)
+    check(g_gap <= GRAD_GAP, f"gloo gradients against one process on the union: "
+          f"{g_gap:.3e} of their norm (rank 0's batch alone reads {g_half:.3e})")
+    check(worst <= allowance and outside <= WEIGHTS_APART,
+          f"gloo first update against one process: max |dw| {worst:.3e} (allowed "
+          f"{allowance:.3e}), {100 * outside:.3f} % further apart than lr / 10 (rank 0's "
+          f"batch alone reads {100 * half_outside:.3f} %)")
+    check(abs(rank_loss - union["loss"]) <= 1e-2 * abs(union["loss"]),
+          f"gloo first update's loss {rank_loss} against one process's {union['loss']}")
+
+    # the first validation: merged over the ranks against one process
+    _, _, hyps = one_process_validation(cfg, model_dir / "1.ckpt")
+    merged = (model_dir / "1.hyps").read_text(encoding="utf-8").splitlines()
+    check(merged == hyps, f"gloo validation: {sum(a != b for a, b in zip(merged, hyps))} "
+          f"of {len(hyps)} hypotheses differ from one process's")
+    print(f"[gloo] two ranks on the one card over gloo, each calling training.train: 2 "
+          f"updates of 64 utterances a rank (global batch 128), dropout 0, a sharded greedy "
+          f"validation after each, {gloo_wall:.1f} s wall with start-up (gloo stages through "
+          f"the host: no yardstick)")
+    print(f"[gloo] first update against one process on the union of the ranks' first "
+          f"batches: loss {rank_loss:.5f} / {union['loss']:.5f}; gradients before clipping "
+          f"{g_gap:.3e} of their norm apart (limit {GRAD_GAP}); weights max |dw| "
+          f"{worst:.3e} (allowed {allowance:.3e}, lr {lr:.3e}), {100 * outside:.4f} % "
+          f"further apart than lr / 10 (limit {100 * WEIGHTS_APART} %); validation "
+          f"hypotheses identical ({len(hyps)}, 4 batches of 16, 2 a rank)")
+    print(f"[gloo] what the checks would read for a rank that skipped the all-reduce (one "
+          f"process on rank 0's batch alone against the union): gradients {g_half:.3e} of "
+          f"their norm, {100 * half_outside:.3f} % of the weights further apart than lr / "
+          f"10; gradients averaged instead of summed read 0.5 by construction")
+
+
+# ----------------------------------------------------------------- phase 17
+def optimizer_timing(cfg: dict, vocab) -> tuple:
+    """ms of one ``optimizer.step()`` on phase 5's model with gradients
+    in every parameter: the port's Adam, then ``torch.optim.Adam(foreach=
+    True)`` (the library call the port's replaced), then each again, each
+    on the host clock ending in a device sync over 20 steps after 3."""
+    from joeys2t_torch.models import build_model
+    from joeys2t_torch.optim import Adam
+
+    model, _ = build_model(cfg["model"], trg_vocab=vocab, compute_dtype=torch.bfloat16,
+                           device="cuda", generator=torch.Generator().manual_seed(0))
+    params = list(model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=gen, device="cuda", dtype=p.dtype) * 1e-3
+    opts = {"port": Adam(params, lr=1e-6),
+            "torch": torch.optim.Adam(params, lr=1e-6, foreach=True)}
+    times = {k: [] for k in opts}
+    for name in ("port", "torch", "torch", "port"):
+        for _ in range(3):
+            opts[name].step()
+        _, wall = sync_time(lambda o=opts[name]: [o.step() for _ in range(20)])
+        times[name].append(wall / 20 * 1e3)
+    del opts, model, params
+    return min(times["port"]), min(times["torch"])
+
+
+def remat_phase() -> dict:
+    """Phase 17: ``remat`` and ``moment_dtype`` on phase 5's model and
+    micro-batches through ``train_batch`` (dropout 0.1, batch_multiplier 4):
+    2 updates without and with ``remat`` from the same seeds (the second
+    update timed, peak memory over both, K1 and K3 launches); the first
+    update's gradients before clipping (within 2 % of their norm; CTC's
+    atomics make the card's backward non-deterministic) and its weights
+    (the same dropout masks replayed: every weight within 2 lr, and at most
+    0.5 % further apart than lr / 10), read beside an update without
+    ``remat`` from another dropout seed (what masks that were not replayed
+    would show); a profiled micro-batch of each; then one update with
+    ``moment_dtype: bfloat16`` and the bytes of its first moments; and the
+    port's Adam step timed against ``torch.optim.Adam(foreach=True)``."""
+    import gc
+
+    from joeys2t_torch.config import SpecialSymbols, load_config, parse_train_args
+    from joeys2t_torch.losses import build_loss_function
+    from joeys2t_torch.models import build_model
+    from joeys2t_torch.training import TrainManager
+    from joeys2t_torch.vocabulary import Vocabulary
+
+    cfg = load_config(REPO / "configs" / "librispeech_100h.yaml")
+    vocab = Vocabulary([f"w{i}" for i in range(4996)], SpecialSymbols())
+    batches = synthetic_batches(8, 64, np.random.RandomState(7), len(vocab))
+    seed = cfg.get("random_seed", 42)
+
+    def run(remat: bool, moment_dtype=None, updates: int = 2, seed: int = seed) -> dict:
+        model, spec = build_model(dict(cfg["model"], remat=remat), trg_vocab=vocab,
+                                  compute_dtype=torch.bfloat16, device="cuda",
+                                  generator=torch.Generator().manual_seed(0))
+        args = parse_train_args(dict(cfg["training"], moment_dtype=moment_dtype))
+        tm = TrainManager(model, spec, build_loss_function(args, spec), args,
+                          seed=seed, device="cuda")
+        grads = {}
+        keep_first_grads(tm, grads)
+        gc.collect()  # what earlier runs and phases left: the peak is this run's
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        lr, first, update_s = tm.current_lr, None, []
+        t0 = time.perf_counter()
+        with plain_refused("remat training path"):
+            for batch in batches[:4 * updates]:
+                out = tm.train_batch(batch)
+                if out["stepped"]:
+                    torch.cuda.synchronize()
+                    update_s.append(time.perf_counter() - t0)
+                    t0 = time.perf_counter()
+                    if first is None:
+                        first = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        moments = [st["exp_avg"] for st in tm.optimizer.state.values()]
+        result = dict(first=first, grads=grads, lr=lr, ms=update_s[-1] * 1e3,
+                      peak=torch.cuda.max_memory_allocated() / 2**30,
+                      launches=read_counters(), remat=model.encoder.remat,
+                      moment_bytes=sum(m.numel() * m.element_size() for m in moments),
+                      moment_dtypes={m.dtype for m in moments})
+        if updates > 1:  # one more micro-batch, profiled: where the time goes
+            wall, kernels = profiled(lambda: tm.train_batch(batches[0]))
+            result["profile"] = (wall * 1e3, sum(t for _, t in kernels.values()) / 1e3,
+                                 sum(n for n, _ in kernels.values()))
+        del tm, model
+        return result
+
+    plain, remat = run(False), run(True)
+    check(remat["remat"] and not plain["remat"], "remat not set on the encoder")
+    per_micro = 16 + 8
+    check(plain["launches"]["flash_attention_fwd"] == 8 * per_micro
+          and remat["launches"]["flash_attention_fwd"] == 2 * 8 * per_micro
+          and plain["launches"]["flash_attention_bwd"] == 8 * per_micro
+          == remat["launches"]["flash_attention_bwd"],
+          f"remat launches {remat['launches']}, without {plain['launches']}")
+    other = run(False, updates=1, seed=seed + 1)  # other dropout masks
+    lr = plain["lr"]
+    g_gap, g_other = (grad_gap(remat["grads"], plain["grads"]),
+                      grad_gap(other["grads"], plain["grads"]))
+    worst, allowance, outside = weight_gap(remat["first"], plain["first"], lr)
+    _, _, other_outside = weight_gap(other["first"], plain["first"], lr)
+    check(g_gap <= GRAD_GAP, f"remat's first gradients against none: {g_gap:.3e} of their norm "
+          f"(other dropout masks read {g_other:.3e})")
+    check(worst <= allowance and outside <= WEIGHTS_APART,
+          f"remat's first update against none: max |dw| {worst:.3e} (allowed "
+          f"{allowance:.3e}), {100 * outside:.3f} % further apart than lr / 10 (other "
+          f"dropout masks read {100 * other_outside:.3f} %)")
+    low = run(False, "bfloat16", updates=1)
+    check(low["moment_dtypes"] == {torch.bfloat16} and plain["moment_dtypes"] ==
+          {torch.float32}, f"moment dtypes {low['moment_dtypes']} / {plain['moment_dtypes']}")
+    print(f"[remat] librispeech_100h, 4 micro-batches of 64 an update, dropout 0.1: ms an "
+          f"update {plain['ms']:.2f} without remat, {remat['ms']:.2f} with "
+          f"({remat['ms'] / plain['ms']:.2f}x); peak memory {plain['peak']:.2f} GiB / "
+          f"{remat['peak']:.2f} GiB ({remat['peak'] / plain['peak']:.2f}x); flash forward "
+          f"launches {plain['launches']['flash_attention_fwd']} / "
+          f"{remat['launches']['flash_attention_fwd']} (recomputed in the backward), "
+          f"backward {remat['launches']['flash_attention_bwd']}")
+    for tag, r in (("without", plain), ("with", remat)):
+        if r["profile"][2]:
+            wall, busy, n = r["profile"]
+            print(f"[remat] a profiled micro-batch {tag} remat: wall {wall:.2f} ms, device "
+                  f"busy {busy:.2f} ms ({100 * busy / wall:.1f} %), {n} kernels")
+        else:
+            print(f"[remat] device busy share {tag} remat: not measured (no device events)")
+    print(f"[remat] first update with remat against without (the same masks replayed): "
+          f"gradients before clipping {g_gap:.3e} of their norm apart (limit {GRAD_GAP}); "
+          f"max |dw| {worst:.3e} (allowed {allowance:.3e}, lr {lr:.3e}), "
+          f"{100 * outside:.4f} % further apart than lr / 10 (limit {100 * WEIGHTS_APART} "
+          f"%); another dropout seed without remat reads {g_other:.3e} and "
+          f"{100 * other_outside:.3f} %")
+    print(f"[remat] moment_dtype bfloat16: first moments {low['moment_bytes'] / 1e6:.1f} MB "
+          f"against {plain['moment_bytes'] / 1e6:.1f} MB in float32 (saves "
+          f"{(plain['moment_bytes'] - low['moment_bytes']) / 1e6:.1f} MB); peak memory "
+          f"{low['peak']:.2f} GiB over one update; ms of that first (cold) update "
+          f"{low['ms']:.2f}")
+    launches = remat["launches"]
+    del plain, remat, other, low
+    torch.cuda.empty_cache()
+    port_ms, torch_ms = optimizer_timing(cfg, vocab)
+    print(f"[remat] optimizer step on phase 5's model (every parameter with a gradient, "
+          f"best of 2 turns of 20): the port's Adam "
+          f"{port_ms:.3f} ms, torch.optim.Adam(foreach=True) {torch_ms:.3f} ms "
+          f"({port_ms / torch_ms:.2f}x)")
+    return launches
+def cards_main() -> None:
+    """``--phases cards``: ``train configs/synthetic_asr.yaml`` as phase 7
+    cuts it, in fresh interpreters: once on one card without ``-d``, then
+    with ``-d`` and without torchrun's variables, which spawns one NCCL rank
+    a visible card (each rank reads 64 utterances a step, so a step covers
+    ranks x 64); both model directories written once, the first validation's
+    hypotheses (merged over the ranks under ``-d``) equal to this process's
+    ``predict`` of that checkpoint token for token, the WER beside the
+    hypotheses' mean length in words (and the last validation's), and the
+    ms an update of the two runs
+    side by side. Exit code 4 and no result line."""
+    from joeys2t_torch.config import dump_yaml
+
+    build_phase()
+    work = REPO / "build" / "chip_smoke"
+    data = work / "synthetic_asr"
+    generate_corpus(data)
+    cards = torch.cuda.device_count()
+    runs = {}
+    for tag, flags in (("one card", []), (f"-d, {cards} ranks", ["-d"])):
+        model_dir = work / ("model_cards" if flags else "model_one")
+        shutil.rmtree(model_dir, ignore_errors=True)
+        cfg = cli_config(data, model_dir)
+        path = work / f"{model_dir.name}.yaml"
+        path.write_text(dump_yaml(cfg), encoding="utf-8")
+        t0 = time.time()
+        sub = subprocess.run([sys.executable, "-m", "joeys2t_torch", "train", str(path),
+                              *flags], cwd=REPO, capture_output=True, text=True, timeout=900)
+        check(sub.returncode == 0, f"{tag}: exited {sub.returncode}: {sub.stderr[-3000:]}")
+        wall = time.time() - t0
+        log = (model_dir / "train.log").read_text(encoding="utf-8").splitlines()
+        valid = (model_dir / "validations.txt").read_text(encoding="utf-8").splitlines()
+        check(len(valid) == 2, f"{tag}: validations.txt {valid}")
+        check(sum("Training loop:" in ln for ln in log) == 1, f"{tag}: train.log written twice")
+        for split in ("dev", "test"):
+            n = len((model_dir / f"best.hyps.{split}").read_text(encoding="utf-8")
+                    .splitlines())
+            check(n == 64, f"{tag}: best.hyps.{split} has {n} hypotheses")
+        ranks = int(re.search(r"data-parallel ranks: (\d+)", "\n".join(log)).group(1))
+        check(ranks == (cards if flags else 1), f"{tag}: {ranks} ranks")
+        scores, refs, hyps = one_process_validation(cfg, model_dir / "8.ckpt")
+        merged = (model_dir / "8.hyps").read_text(encoding="utf-8").splitlines()
+        check(merged == hyps, f"{tag}: {sum(a != b for a, b in zip(merged, hyps))} of "
+              f"{len(hyps)} hypotheses of the first validation differ from one process's "
+              f"predict of 8.ckpt")
+        last = (model_dir / "16.hyps").read_text(encoding="utf-8").splitlines()
+        words = [float(np.mean([len(t.split()) for t in texts]))
+                 for texts in (hyps, refs, last)]
+        runs[tag] = (update_ms(log), wall, valid, scores["wer"], *words)
+    for tag, (ms, wall, valid, wer, hyp_words, ref_words, last_words) in runs.items():
+        per_step = 64 * (cards if "-d" in tag else 1)
+        print(f"[cards] train ({tag}): {ms:.2f} ms an update of {per_step} utterances, "
+              f"{wall:.1f} s wall with start-up; {valid[-1][:80]}")
+        print(f"[cards] train ({tag}): the first validation's 64 hypotheses equal one "
+              f"process's predict of 8.ckpt token for token; WER {wer:.2f} with "
+              f"{hyp_words:.2f} words a hypothesis against {ref_words:.2f} a reference; "
+              f"the last validation's (16.hyps) {last_words:.2f} words a hypothesis")
+    one, many = runs["one card"][0], runs[f"-d, {cards} ranks"][0]
+    print(f"[cards] weak scaling over {cards} card(s): {one / many:.3f} of one card's pace "
+          f"an update with {cards}x the utterances")
+    print("[done] phase 1 and the multi-card run passed (a partial run)")
+    sys.exit(4)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -2684,6 +3252,8 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--phases", "cards"]:
+        cards_main()
     t_start = time.time()
     marks = [("start", t_start)]
 
@@ -2710,7 +3280,7 @@ def main():
     train_card_vs_cpu_phase()
     mark("phases 5-6")
     torch.cuda.empty_cache()
-    cli_counts, cli_checks, asr_ckpt, cli_update_s = cli_phase(train_batch_rate)
+    cli_counts, cli_checks, asr_ckpt, cli_update_s, cli_first = cli_phase(train_batch_rate)
     mark("phase 7")
     st_counts = st_phase(asr_ckpt)
     mark("phase 8")
@@ -2736,6 +3306,13 @@ def main():
     torch.cuda.empty_cache()
     moe_counts, moe_checks = moe_phase(mt_update_s, mt_rate)
     mark("phase 15")
+    torch.cuda.empty_cache()
+    ddp_counts = ddp_cli_phase(corpus, cli_first)
+    gloo_phase(corpus)
+    mark("phase 16")
+    torch.cuda.empty_cache()
+    remat_counts = remat_phase()
+    mark("phase 17")
 
     def compact(c):  # a case's measurements, without what its printed line adds
         return {k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "library_ms",
@@ -2760,7 +3337,7 @@ def main():
                     int8_beam=int8_counts["beam 5 32 x 10 s"][name],
                     spm=spm_counts[name], conformer=conformer_counts[name],
                     mt=mt_counts[name], reverse_d16=reverse_counts[name],
-                    moe=moe_counts[name])
+                    moe=moe_counts[name], ddp=ddp_counts[name], remat=remat_counts[name])
 
     def int8_paths(name):
         return {"int8_greedy": int8_counts["greedy 64 x 10 s"][name],

@@ -10,6 +10,10 @@ A checkpoint is ``torch.save`` of a dict with the JAX package's keys
 ``state_dict``), ``scheduler_state``, ``train_iter_state`` (the sampler's
 bit-generator state) and ``stats_state``. Every value is a tensor or a
 plain Python type, so ``torch.load(weights_only=True)`` reads it.
+
+In a data-parallel run every rank keeps the same record of the best
+checkpoints, only rank 0 writes, links and deletes files, and the other
+ranks wait at each save until it has.
 """
 import heapq
 import math
@@ -20,6 +24,7 @@ from typing import Any, Dict, Iterable, List, Set, Tuple
 import torch
 
 from joeys2t_torch.helpers import symlink_update
+from joeys2t_torch.parallel import distributed
 from joeys2t_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -113,15 +118,21 @@ class CheckpointManager:
 
     def save(self, steps: int, state: Dict[str, Any], new_best: bool,
              score: float) -> Path:
+        """Write ``state`` as ``<steps>.ckpt`` (rank 0), update the links and
+        the record of the best checkpoints, delete the ones that fell out;
+        every rank of a data-parallel run calls it and returns once rank 0
+        is done."""
         model_path = self.model_dir / f"{steps}.ckpt"
-        save_checkpoint(model_path, state)
-        logger.info("Checkpoint saved in %s.", model_path)
-
-        symlink_target = Path(f"{steps}.ckpt")
-        prev_path = symlink_update(symlink_target, self.model_dir / "latest.ckpt")
+        main = distributed.is_main()
         best_path = self.model_dir / "best.ckpt"
-        if new_best:
-            prev_path = symlink_update(symlink_target, best_path)
+        prev_path = None
+        if main:
+            save_checkpoint(model_path, state)
+            logger.info("Checkpoint saved in %s.", model_path)
+            symlink_target = Path(f"{steps}.ckpt")
+            prev_path = symlink_update(symlink_target, self.model_dir / "latest.ckpt")
+            if new_best:
+                prev_path = symlink_update(symlink_target, best_path)
 
         if not (isinstance(score, float) and math.isnan(score)) and self.keep_best_ckpts > 0:
             key = -score if self.minimize_metric else score
@@ -132,7 +143,7 @@ class CheckpointManager:
                 to_delete = heapq.heappushpop(self.ckpt_queue, (key, model_path))
             # a newcomer that is itself the worst stays as latest.ckpt's
             # target until latest moves on; the best checkpoint is never deleted
-            if (to_delete is not None and to_delete[1] != model_path
+            if (main and to_delete is not None and to_delete[1] != model_path
                     and to_delete[1].stem != best_path.resolve().stem):
                 delete_ckpt(to_delete[1])
 
@@ -144,4 +155,5 @@ class CheckpointManager:
                     and prev.stem != best_path.resolve().stem
                     and prev.stem != str(steps) and prev.exists()):
                 delete_ckpt(prev)
+        distributed.barrier()
         return model_path

@@ -11,7 +11,7 @@ Counterpart of joeys2t_tpu/config.py (``SpecialSymbols`` :28,
 ``cuda`` device and raises without one; ``use_cuda: False`` runs on the CPU.
 ``fp16`` selects bfloat16 compute on float32 masters. The `training` options
 of the parts the port does not have yet (profiling, model and pipeline
-parallelism, optimizers other than adam/adamw, ``moment_dtype``) raise
+parallelism, optimizers other than adam/adamw) raise
 ``NotImplementedError`` when set; :func:`check_ported` refuses the unported
 `testing` and `data` options before a run loads any data. The
 ``JOEYS2T_BEAM_REORDER`` environment override of ``beam_reorder`` is not
@@ -106,6 +106,8 @@ class TrainConfig:
     batch_type: str = "sentence"
     batch_multiplier: int = 1
     ctc_weight: float = 0.0
+    # the dtype Adam keeps its first moment in (optax's mu_dtype); None: float32
+    moment_dtype: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,7 +199,7 @@ def parse_global_args(cfg: Dict, rank: int = 0, mode: str = "train") -> BaseConf
     """Parse and validate the whole config (joeynmt/config.py:176-249). The
     device is ``cuda`` unless ``use_cuda`` is False; without a card the
     default raises."""
-    del rank  # one process
+    del rank  # every rank parses the same config
     task = cfg.get("task", cfg["data"].get("task", "MT")).upper()
     _check_options("task", task, ["MT", "S2T"])
     use_cuda = bool(cfg.get("use_cuda", cfg["training"].get("use_cuda", True)))
@@ -255,16 +257,23 @@ def parse_train_args(cfg: Dict, mode: str = "train") -> TrainConfig:
     if validation_freq % logging_freq != 0:
         raise ConfigurationError("`validation_freq` must be divisible by `logging_freq`.")
 
+    moment_dtype = cfg.get("moment_dtype", None)
+    if moment_dtype is not None:
+        moment_dtype = str(moment_dtype).lower()
+    _check_options("moment_dtype", moment_dtype, [None, "bfloat16", "float32"])
+
     unported = {
         "profile_dir": cfg.get("profile_dir") is not None,
-        "moment_dtype": cfg.get("moment_dtype") is not None,
         "model_parallel": int(cfg.get("model_parallel", 1)) != 1,
         "pipeline_parallel": int(cfg.get("pipeline_parallel", 1)) != 1,
         f"optimizer {optimizer}": optimizer not in PORTED_OPTIMIZERS,
     }
+    where = {"model_parallel": " (tensor parallelism, ROADMAP.md §A item 7)",
+             "pipeline_parallel": " (pipeline parallelism, ROADMAP.md §A item 7)"}
     for option, is_set in unported.items():
         if is_set:
-            raise NotImplementedError(f"training option `{option}` is not ported yet")
+            raise NotImplementedError(f"training option `{option}` is not ported "
+                                      f"yet{where.get(option, '')}")
 
     is_test = mode != "train"
     return TrainConfig(
@@ -303,6 +312,7 @@ def parse_train_args(cfg: Dict, mode: str = "train") -> TrainConfig:
         batch_size=cfg["batch_size"],
         batch_type=batch_type,
         batch_multiplier=cfg.get("batch_multiplier", 1),
+        moment_dtype=moment_dtype,
         ctc_weight=cfg.get("ctc_weight", 0.0),
     )
 

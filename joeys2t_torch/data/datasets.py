@@ -28,7 +28,8 @@ import numpy as np
 from joeys2t_torch.config import ConfigurationError
 from joeys2t_torch.data.batch import Batch
 from joeys2t_torch.data.samplers import (RandomSubsetSampler, SentenceBatchSampler,
-                                         TokenBatchSampler)
+                                         ShardedSubsetSampler, TokenBatchSampler)
+from joeys2t_torch.parallel import distributed
 from joeys2t_torch.helpers import read_list_from_file
 from joeys2t_torch.tokenizers import SpeechProcessor
 from joeys2t_torch.utils.logging import get_logger
@@ -188,9 +189,16 @@ class BaseDataset:
                   eos_index: int = 3, generator_state=None, return_sampler: bool = False):
         """The (re-iterable batch iterator[, batch sampler]) pipeline
         (joeynmt/datasets.py:244-323); ``num_workers > 0`` reads ahead on a
-        background thread."""
+        background thread. In a data-parallel run the training set is
+        sharded rank-strided (``ShardedSubsetSampler``, JAX :232), and each
+        rank makes batches of ``batch_size`` from its own share; evaluation
+        sets are batched alike on every rank, and ``predict`` shares their
+        batches out."""
         shuffle = shuffle and self.split == "train"
-        sampler = RandomSubsetSampler(self, shuffle=shuffle, seed=seed)
+        if self.split == "train" and distributed.in_group():
+            sampler = ShardedSubsetSampler(self, shuffle=shuffle, seed=seed)
+        else:
+            sampler = RandomSubsetSampler(self, shuffle=shuffle, seed=seed)
         if batch_type == "sentence":
             batch_sampler = SentenceBatchSampler(sampler, batch_size=batch_size,
                                                  drop_last=False, seed=seed)

@@ -2,19 +2,22 @@
 """
 Samplers and batch samplers (counterpart of joeys2t_tpu/data/samplers.py:
 ``RandomSubsetSampler`` :23, ``SentenceBatchSampler`` :103,
-``TokenBatchSampler`` :158).
+``TokenBatchSampler`` :158, ``ShardedSubsetSampler`` :70).
 
 Randomness comes from a numpy ``Generator`` whose bit-generator state goes
 into the checkpoint, so a resumed run continues the same order. The batch
 samplers read every item once to drop the filtered ones, as the JAX
 package's do; with SpecAugment on, that read draws from numpy's global RNG
 too, so the port reads the items in the same order and the same number of
-times. The rank-strided sampler of multi-process training is not ported.
+times. In a data-parallel run the training set goes through
+``ShardedSubsetSampler``: every rank draws the same permutation from the
+same seed and keeps its rank-strided share of it.
 """
-from typing import Iterator, List
+from typing import Iterator, List, Optional
 
 import numpy as np
 
+from joeys2t_torch.parallel import distributed
 from joeys2t_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -61,6 +64,37 @@ class RandomSubsetSampler:
 
     def set_state(self, state) -> None:
         self.rng.bit_generator.state = state
+
+
+class ShardedSubsetSampler(RandomSubsetSampler):
+    """Rank-strided sharding of a data-parallel run: the (shuffled) indices
+    cut to a multiple of the world size, then every ``num_replicas``-th one
+    from ``rank`` (joeynmt/helpers_for_ddp.py:244-343). As in the JAX
+    package, the cut list becomes the data source's indices, so the next
+    epoch permutes it in turn."""
+
+    def __init__(self, data_source, shuffle: bool, seed: int = 42,
+                 num_replicas: Optional[int] = None, rank: Optional[int] = None,
+                 drop_last: bool = True):
+        super().__init__(data_source, shuffle, seed)
+        if num_replicas is None or rank is None:
+            num_replicas, rank = distributed.world_size(), distributed.rank()
+        if not 0 <= rank < num_replicas:
+            raise ValueError(f"rank {rank} outside a world of {num_replicas}")
+        self.num_replicas = num_replicas
+        self.rank = rank
+        self.drop_last = drop_last
+
+    def __iter__(self) -> Iterator[int]:
+        indices = self.data_source.indices
+        if self.shuffle:
+            indices = [indices[i] for i in self.rng.permutation(len(indices))]
+        if len(indices) % self.num_replicas != 0 and not self.drop_last:
+            raise RuntimeError("`len(dataset)` must be divisible by `world_size`.")
+        total = (len(indices) // self.num_replicas) * self.num_replicas
+        indices = indices[:total]
+        self.data_source.indices = indices
+        return iter(indices[self.rank:total:self.num_replicas])
 
 
 class SentenceBatchSampler:

@@ -19,6 +19,8 @@ from typing import Any, List, Optional, Union
 import numpy as np
 import torch
 
+from joeys2t_torch.parallel import distributed
+
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
@@ -159,7 +161,10 @@ def adjust_mask_size(mask: Optional[np.ndarray], batch_size: int,
 
 
 def save_hypothese(output_path: Path, hypotheses: List[str], n_best: int = 1) -> None:
-    """Hypotheses to a file, or one file per rank for n-best output."""
+    """Hypotheses to a file, or one file per rank for n-best output; in a
+    data-parallel run rank 0 writes them."""
+    if not distributed.is_main():
+        return
     output_path = Path(output_path)
     if n_best > 1:
         for n in range(n_best):

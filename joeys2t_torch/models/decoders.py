@@ -25,7 +25,8 @@ import torch
 from torch import nn
 
 from joeys2t_torch.models.modules import (NEG_INF, Dropout, TransformerDecoderLayer, dense,
-                                          layer_norm, sinusoidal_pe, subsequent_mask)
+                                          layer_norm, rematerialized, sinusoidal_pe,
+                                          subsequent_mask)
 
 
 def _quantize_per_channel(x: torch.Tensor, src_mask: Optional[torch.Tensor]):
@@ -48,8 +49,9 @@ class TransformerDecoder(nn.Module):
                  activation: str = "relu", alpha: float = 1.0, ctc_layer: bool = False,
                  tied_softmax: bool = False, cache_cross_int8: bool = False,
                  cache_self_int8: bool = False, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, remat: bool = False):
         super().__init__()
+        self.remat = remat  # rematerialize each layer in the backward
         self.cache_cross_int8 = cache_cross_int8
         self.cache_self_int8 = cache_self_int8
         self.num_heads = num_heads
@@ -95,7 +97,8 @@ class TransformerDecoder(nn.Module):
         x = self.emb_dropout(x).to(self.dtype)
         full_trg_mask = trg_mask & subsequent_mask(t, trg_mask.device)  # (B, T, T)
         for layer in self.layers:
-            x = layer(x, encoder_output, src_mask, full_trg_mask)
+            x = (rematerialized(layer, x, encoder_output, src_mask, full_trg_mask)
+                 if self.remat else layer(x, encoder_output, src_mask, full_trg_mask))
         x = self._final(x)
         ctc_out = (None if self.ctc_output_layer is None
                    else dense(self.ctc_output_layer, encoder_output, self.dtype))

@@ -16,7 +16,7 @@ from torch import nn
 
 from joeys2t_torch.models.modules import (ConformerEncoderLayer, Conv1dSubsampler, Dropout,
                                           TransformerEncoderLayer, dense, layer_norm,
-                                          sinusoidal_pe)
+                                          rematerialized, sinusoidal_pe)
 
 
 def lengths_to_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -34,11 +34,13 @@ class TransformerEncoder(nn.Module):
                  layer_norm_position: str = "pre", activation: str = "relu",
                  alpha: float = 1.0, subsample: bool = False, in_channels: int = 80,
                  conv_channels: int = 512, conv_kernel_sizes: Sequence[int] = (3, 3),
-                 dtype: torch.dtype = torch.float32, device=None, num_experts: int = 0):
+                 dtype: torch.dtype = torch.float32, device=None, num_experts: int = 0,
+                 remat: bool = False):
         super().__init__()
         self.hidden_size = hidden_size
         self.layer_norm_position = layer_norm_position
         self.dtype = dtype
+        self.remat = remat  # rematerialize each layer in the backward
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(hidden_size, ff_size, num_heads, dropout, alpha,
                                     layer_norm_position, activation, dtype, device,
@@ -72,7 +74,7 @@ class TransformerEncoder(nn.Module):
             x = x + src_prompt_embed
         x = self.emb_dropout(x).to(self.dtype)
         for layer in self.layers:
-            x = layer(x, mask)
+            x = rematerialized(layer, x, mask) if self.remat else layer(x, mask)
         if self.layer_norm is not None:
             x = layer_norm(self.layer_norm, x, self.dtype)
         return x, None, mask
@@ -89,10 +91,12 @@ class ConformerEncoder(nn.Module):
                  depthwise_conv_kernel_size: int = 31, in_channels: int = 80,
                  conv_channels: int = 512, conv_kernel_sizes: Sequence[int] = (3, 3),
                  dtype: torch.dtype = torch.float32, conv_norm_type: str = "layernorm",
-                 macaron: str = "reference", layerscale_init: float = 0.0, device=None):
+                 macaron: str = "reference", layerscale_init: float = 0.0, device=None,
+                 remat: bool = False):
         super().__init__()
         self.hidden_size = hidden_size
         self.dtype = dtype
+        self.remat = remat  # rematerialize each layer in the backward
         self.layers = nn.ModuleList(
             ConformerEncoderLayer(hidden_size, ff_size, num_heads, dropout,
                                   depthwise_conv_kernel_size, alpha, layer_norm_position,
@@ -117,5 +121,5 @@ class ConformerEncoder(nn.Module):
         x = x + sinusoidal_pe(x.shape[1], x.shape[2], x.device).to(x.dtype)[None]
         x = self.emb_dropout(dense(self.linear, x, self.dtype)).to(self.dtype)
         for layer in self.layers:
-            x = layer(x, mask)
+            x = rematerialized(layer, x, mask) if self.remat else layer(x, mask)
         return x, None, mask

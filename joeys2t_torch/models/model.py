@@ -4,7 +4,9 @@ Model facade and builder (counterpart of joeys2t_tpu/models/model.py:
 ``ModelSpec`` :28, ``Seq2SeqModel`` :56, ``build_model`` :236), for
 speech-to-text with a transformer or conformer encoder and text-to-text
 with a transformer or recurrent encoder, under a transformer or recurrent
-decoder.
+decoder. ``remat`` (model-level, or a side's own key, read as JAX reads it
+at :296 and :375) rematerializes each transformer or Conformer layer in the
+backward (``modules.rematerialized``); recurrent sides ignore it, as in JAX.
 """
 import dataclasses
 from typing import Dict, Optional, Tuple
@@ -212,7 +214,8 @@ def build_model(cfg: Dict, src_vocab=None, trg_vocab=None,
                 num_layers=enc_cfg["num_layers"], num_heads=enc_cfg["num_heads"],
                 dropout=enc_dropout, emb_dropout=enc_emb_dropout,
                 layer_norm_position=enc_cfg.get("layer_norm", "pre"), alpha=enc_alpha,
-                dtype=compute_dtype)
+                dtype=compute_dtype,
+                remat=bool(cfg.get("remat", enc_cfg.get("remat", False))))
             if subsample:
                 common.update(in_channels=enc_cfg["in_channels"],
                               conv_channels=enc_cfg["conv_channels"],
@@ -256,6 +259,7 @@ def build_model(cfg: Dict, src_vocab=None, trg_vocab=None,
                                               dec_cfg.get("cache_cross_int8", False))),
                 cache_self_int8=bool(cfg.get("cache_self_int8",
                                              dec_cfg.get("cache_self_int8", False))),
+                remat=bool(cfg.get("remat", dec_cfg.get("remat", False))),
                 dtype=compute_dtype)
         # embeddings feed their side in its compute dtype: float32 for a
         # recurrent side (and for a table tied to one)

@@ -38,6 +38,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from joeys2t_torch.ops.decode_attention import decode_attention, quantize_per_position
@@ -85,6 +86,39 @@ def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]
     for module in model.modules():
         if isinstance(module, Dropout):
             module.generator = generator
+
+
+def rematerialized(layer: nn.Module, *args) -> torch.Tensor:
+    """``layer(*args)`` under ``torch.utils.checkpoint`` in training (JAX's
+    ``nn.remat`` of a layer, ``remat: True``): the layer keeps only its
+    inputs, and the backward runs its forward again. The recomputation
+    replays the dropout of the first run: the port's dropout and the flash
+    kernel's seed draw from explicit generators, which a checkpoint does not
+    restore, so their states from before the first run are set again around
+    the recomputation, and put back after it. Outside training the layer
+    simply runs."""
+    if not (layer.training and torch.is_grad_enabled()):
+        return layer(*args)
+    generators = list({id(m.generator): m.generator for m in layer.modules()
+                       if isinstance(m, Dropout) and m.generator is not None}.values())
+    before = [g.get_state() for g in generators]
+    runs = []
+
+    def run(*inputs):
+        if not runs:  # the forward
+            runs.append(1)
+            return layer(*inputs)
+        now = [g.get_state() for g in generators]
+        for g, state in zip(generators, before):
+            g.set_state(state)
+        try:
+            return layer(*inputs)
+        finally:
+            for g, state in zip(generators, now):
+                g.set_state(state)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
 
 
 def build_activation(activation: str = "relu") -> nn.Module:
@@ -287,7 +321,10 @@ class MoEFeedForward(nn.Module):
     Each forward leaves the Switch load-balance term E * sum_e f_e * p_e in
     ``aux_loss`` (f_e the share of tokens routed to expert e, p_e its mean
     router probability, both over the valid tokens of ``token_valid``),
-    where the trainer collects it (JAX sows it)."""
+    where the trainer collects it (JAX sows it). With ``global_stats`` (the
+    trainer sets it in a data-parallel run) the sums behind f_e and p_e are
+    summed over the ranks in training mode, differentiably, so the term is
+    the global batch's, as JAX computes it over one global array."""
 
     def __init__(self, input_size: int, ff_size: int, num_experts: int,
                  dropout: float = 0.1, alpha: float = 1.0,
@@ -311,6 +348,7 @@ class MoEFeedForward(nn.Module):
         self.dropout1 = Dropout(dropout)
         self.dropout2 = Dropout(dropout)
         self.aux_loss: Optional[torch.Tensor] = None
+        self.global_stats = False
 
     def forward(self, x: torch.Tensor,
                 token_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -321,13 +359,18 @@ class MoEFeedForward(nn.Module):
         gates = torch.softmax(F.linear(x.float(), self.router.weight.float()), dim=-1)
         top_p, top1 = gates.max(dim=-1)  # the first maximum, as jnp.argmax
         one_hot = F.one_hot(top1, self.num_experts).float()
-        if token_valid is None:
-            f, p = one_hot.mean(dim=(0, 1)), gates.mean(dim=(0, 1))
-        else:
-            w = token_valid.float()[..., None]
-            denom = w.sum().clamp(min=1.0)
-            f, p = (one_hot * w).sum(dim=(0, 1)) / denom, (gates * w).sum(dim=(0, 1)) / denom
-        self.aux_loss = self.num_experts * (f * p).sum()
+        e = self.num_experts
+        w = (torch.ones_like(gates[..., :1]) if token_valid is None
+             else token_valid.float()[..., None])
+        sums = torch.cat([(one_hot * w).sum(dim=(0, 1)), (gates * w).sum(dim=(0, 1)),
+                          w.sum().reshape(1)])
+        if self.training and self.global_stats:
+            from torch.distributed.nn.functional import all_reduce
+
+            sums = all_reduce(sums)
+        denom = sums[2 * e].clamp(min=1.0)
+        f, p = sums[:e] / denom, sums[e:2 * e] / denom
+        self.aux_loss = e * (f * p).sum()
         dispatch = (one_hot * top_p[..., None]).to(self.dtype)  # (B, T, E)
         h = torch.einsum("bth,ehf->btef", x, self.w1.to(self.dtype)) + self.b1.to(self.dtype)
         h = self.dropout1(self.act(h))

@@ -6,11 +6,16 @@ joeys2t_tpu/optim.py).
 Clipping follows optax: global-norm clipping scales the gradients by
 ``max_norm / ||g||`` when ``||g|| >= max_norm`` (not ``clip_grad_norm_``'s
 ``max_norm / (||g|| + 1e-6)``), computed on the device without a host sync.
-Adam and AdamW are ``torch.optim``'s, which do optax's update: eps 1e-8
-outside the square root (eps_root 0), and AdamW's decoupled decay applied
-as ``-lr * (adam + wd * theta)``; the trainer writes the scheduler's rate
-into the optimizer before each update. The other optimizers of the JAX
-package are not ported yet. The schedulers are plain Python, as in the JAX
+Adam and AdamW are the port's own :class:`Adam`, optax's ``scale_by_adam``
+step in ``torch._foreach_*`` operations: eps 1e-8 outside the square root
+(eps_root 0), the bias corrections in float32, Adam's L2 term added to the
+raw gradients (``add_decayed_weights`` before ``scale_by_adam``) and AdamW's
+decoupled decay applied as ``-lr * (adam + wd * theta)``; ``moment_dtype``
+keeps the first moment in that dtype (optax's ``mu_dtype``: the moment is
+updated and used in float32 and stored cast; the second moment stays
+float32), which ``torch.optim.Adam`` cannot. The trainer writes the
+scheduler's rate into the optimizer before each update. The other
+optimizers of the JAX package are not ported yet. The schedulers are plain Python, as in the JAX
 package (joeynmt/builders.py:253-485), with their ``state_dict``.
 """
 from typing import Dict, Iterable, List, Optional, Tuple
@@ -62,22 +67,100 @@ def build_gradient_clipper(cfg: Dict):
     return None
 
 
-def build_optimizer(cfg: Dict, params: Iterable[torch.nn.Parameter]
-                    ) -> torch.optim.Optimizer:
+class Adam(torch.optim.Optimizer):
+    """optax's Adam (``decoupled`` False: the L2 term on the gradients) or
+    AdamW (``decoupled`` True: the decay added to Adam's direction), with
+    the first moment kept in ``moment_dtype``. Its state per parameter is
+    ``torch.optim.Adam``'s (``step`` a host float tensor, ``exp_avg``,
+    ``exp_avg_sq``), so checkpoints of either load into the other."""
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0, decoupled: bool = False,
+                 moment_dtype: Optional[torch.dtype] = None):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay, decoupled=decoupled))
+        self.moment_dtype = moment_dtype
+        self._count = None  # updates so far, as optax's one count; read from the state
+
+    def load_state_dict(self, state_dict) -> None:  # noqa: D102
+        super().load_state_dict(state_dict)
+        self._count = None
+
+    @torch.no_grad()
+    def step(self, closure=None):  # noqa: D102 - torch.optim.Optimizer.step
+        if closure is not None:
+            raise ValueError("Adam takes no closure")
+        if self._count is None:  # the first update, or the first after a load
+            self._count = int(max((st["step"].item() for st in self.state.values()
+                                   if "step" in st), default=0))
+        self._count += 1
+        count = self._count
+        step = torch.tensor(float(count))  # one host tensor for every parameter's state
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            lr, eps, wd = group["lr"], group["eps"], group["weight_decay"]
+            grads = [p.grad for p in params]
+            decoupled = group.get("decoupled", self.defaults["decoupled"])
+            if wd and not decoupled:
+                grads = torch._foreach_add(grads, params, alpha=wd)
+            states = [self._state(p) for p in params]
+            for st in states:
+                st["step"] = step
+            # mu <- (1 - b1) g + b1 mu and nu <- (1 - b2) g^2 + b2 nu in float32;
+            # a stored bfloat16 mu enters as optax's b1 * mu does: the Python
+            # float b1 is weakly typed, so JAX rounds it to bfloat16 and the
+            # product too
+            mus = [st["exp_avg"] for st in states]
+            if mus[0].dtype == torch.float32:
+                torch._foreach_mul_(mus, b1)
+            else:
+                b1_low = torch.tensor(b1, dtype=mus[0].dtype).item()
+                mus = [m.float() for m in torch._foreach_mul(mus, b1_low)]
+            nus = [st["exp_avg_sq"] for st in states]
+            torch._foreach_add_(mus, grads, alpha=1.0 - b1)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_addcmul_(nus, grads, grads, value=1.0 - b2)
+            c1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** count
+            c2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** count
+            # mu_hat / (sqrt(nu_hat) + eps)
+            denom = torch._foreach_div(nus, float(c2))
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, eps)
+            updates = torch._foreach_div(mus, float(c1))
+            torch._foreach_div_(updates, denom)
+            if wd and decoupled:
+                torch._foreach_add_(updates, params, alpha=wd)
+            torch._foreach_add_(params, updates, alpha=-lr)
+            for st, mu in zip(states, mus):
+                if st["exp_avg"] is not mu:  # stored in moment_dtype
+                    st["exp_avg"].copy_(mu)
+
+    def _state(self, p: torch.Tensor) -> Dict:
+        st = self.state[p]
+        if not st:
+            st["step"] = torch.tensor(0.0)  # a host tensor, as torch.optim.Adam's
+            st["exp_avg"] = torch.zeros_like(p, dtype=self.moment_dtype or p.dtype)
+            st["exp_avg_sq"] = torch.zeros_like(p)
+        elif self.moment_dtype is not None and st["exp_avg"].dtype != self.moment_dtype:
+            # load_state_dict casts the state to the parameter's dtype
+            st["exp_avg"] = st["exp_avg"].to(self.moment_dtype)
+        return st
+
+
+def build_optimizer(cfg: Dict, params: Iterable[torch.nn.Parameter]) -> Adam:
     """Adam or AdamW over ``params`` from the training config
-    (joeys2t_tpu/optim.py:51)."""
+    (joeys2t_tpu/optim.py:51), the first moment in ``moment_dtype``."""
     name = cfg.get("optimizer", "sgd").lower()
     if name not in PORTED_OPTIMIZERS:
         raise NotImplementedError(f"optimizer {name!r} is not ported yet")
-    if cfg.get("moment_dtype") is not None:
-        raise NotImplementedError("moment_dtype is not ported yet")
-    lr = cfg.get("learning_rate", 3.0e-4)
-    weight_decay = cfg.get("weight_decay", 0)
-    betas = tuple(cfg.get("adam_betas", (0.9, 0.999)))
-    # torch Adam adds the L2 term to the raw gradients, as optax's
-    # add_decayed_weights placed before scale_by_adam does
-    cls = torch.optim.Adam if name == "adam" else torch.optim.AdamW
-    return cls(params, lr=lr, betas=betas, eps=1e-8, weight_decay=weight_decay)
+    moment_dtype = cfg.get("moment_dtype")
+    return Adam(params, lr=cfg.get("learning_rate", 3.0e-4),
+                betas=tuple(cfg.get("adam_betas", (0.9, 0.999))), eps=1e-8,
+                weight_decay=cfg.get("weight_decay", 0), decoupled=name == "adamw",
+                moment_dtype=None if moment_dtype is None else getattr(torch, moment_dtype))
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, rate: float) -> None:

@@ -16,6 +16,13 @@ decode side is cast to the compute dtype once per call. ``test`` and
 ``translate`` refuse the options not ported yet (attention plots,
 ``--save-attention``, and the rest that ``config.check_ported`` names)
 before loading any data.
+
+In a data-parallel run (``_eval_shard_info``, ``_merge_sharded_eval``, JAX
+:59-130) every rank makes the same batches, decodes the ones it owns
+(round-robin by batch index) and the ranks' outputs are gathered and put
+back in dataset order; losses and counts are summed. Scoring references
+(``return_prob: ref``) decodes the whole set on every rank, as JAX does.
+Only rank 0 writes files.
 """
 import dataclasses
 import math
@@ -38,6 +45,7 @@ from joeys2t_torch.helpers import (expand_reverse_index, resolve_ckpt_path, save
 from joeys2t_torch.losses import build_loss_function, loss_terms
 from joeys2t_torch.metrics import bleu, chrf, sequence_accuracy, token_accuracy, wer
 from joeys2t_torch.models import build_model
+from joeys2t_torch.parallel import distributed
 from joeys2t_torch.search import _cast_params_to_compute_dtype, search
 from joeys2t_torch.tokenizers import EvaluationTokenizer
 from joeys2t_torch.utils.logging import get_logger
@@ -65,6 +73,39 @@ def _eval_loss(model, loss_fn, batch: Batch, device: torch.device, return_log_pr
             put(batch.trg_length, torch.long), put(batch.trg_mask))
         return (float(total), int(n_correct),
                 log_probs.cpu().numpy() if return_log_probs else None)
+
+
+def _eval_shard_info(args: TestConfig) -> Optional[Tuple[int, int]]:
+    """(world size, rank) when the ranks of a data-parallel run share the
+    batches out, else None (no process group, or ``return_prob: ref``,
+    which decodes nothing and scores the whole set on every rank; returned
+    attention is not ported)."""
+    if distributed.in_group() and not args.return_attention and args.return_prob != "ref":
+        return distributed.world_size(), distributed.rank()
+    return None
+
+
+def _merge_sharded_eval(outputs: List, scores: List, batch_rows: List[int],
+                        shard: Tuple[int, int], counts: List[float]
+                        ) -> Tuple[List, List, List[float]]:
+    """Gather every rank's decoded rows (``outputs``, ``scores``: those of
+    the batches it owns, in batch order) and restore dataset order from
+    ``batch_rows``, the rows of every batch (known on every rank); the
+    ``counts`` (loss, tokens, correct tokens) are summed over the ranks.
+    Returns (outputs, scores, counts)."""
+    n_proc, _ = shard
+    gathered = distributed.all_gather_objects((outputs, scores, counts))
+    cursors = [0] * n_proc
+    merged_o, merged_s = [], []
+    for bi, rows in enumerate(batch_rows):
+        owner = bi % n_proc
+        o, sc, _ = gathered[owner]
+        c = cursors[owner]
+        merged_o.extend(o[c:c + rows])
+        merged_s.extend(sc[c:c + rows])
+        cursors[owner] = c + rows
+    totals = [sum(g[2][i] for g in gathered) for i in range(len(counts))]
+    return merged_o, merged_s, totals
 
 
 def _eval_tokenizer(args: TestConfig) -> EvaluationTokenizer:
@@ -112,9 +153,15 @@ def predict(model, spec, data, loss_fn=None, compute_loss: bool = False,
     all_outputs, valid_attn_scores, valid_seq_scores = [], [], []
     total_loss, total_nseqs, total_ntokens, total_n_correct = 0.0, 0, 0, 0
     n_batches, steps_before = 0, stats.get("decode_steps", 0)
+    shard = _eval_shard_info(args)
+    batch_rows: List[int] = []  # rows of every batch, of all ranks
     gen_start_time = time.time()
-    for raw_batch in valid_iter:
+    for bi, raw_batch in enumerate(valid_iter):
         nseqs = raw_batch.nseqs
+        batch_rows.append(nseqs * args.n_best)
+        if shard is not None and bi % shard[0] != shard[1]:
+            total_nseqs += nseqs  # counted everywhere; another rank decodes it
+            continue
         reverse_index = raw_batch.sort_by_src_length()
         sort_reverse_index = expand_reverse_index(reverse_index, args.n_best)
         batch = raw_batch.pad_to_shape(batch_size=nseqs)
@@ -156,6 +203,12 @@ def predict(model, spec, data, loss_fn=None, compute_loss: bool = False,
     stats["batches"] = stats.get("batches", 0) + n_batches
     logger.info("Generation took %.4f[sec] over %d batch(es), %d decode step(s).",
                 gen_duration, n_batches, decode_steps)
+    if shard is not None:
+        logger.info("Sharded eval: rank %d decoded %d/%d batches.", shard[1], n_batches,
+                    len(batch_rows))
+        all_outputs, valid_seq_scores, (total_loss, total_ntokens, total_n_correct) = \
+            _merge_sharded_eval(all_outputs, valid_seq_scores, batch_rows, shard,
+                                [total_loss, total_ntokens, total_n_correct])
     if total_nseqs != num_samples or len(all_outputs) != num_samples * args.n_best:
         raise RuntimeError(f"decoded {len(all_outputs)} of {num_samples} examples")
 
@@ -277,11 +330,13 @@ def evaluate(valid_scores: Dict, valid_hyp: List, data,
 def test(cfg: Dict, output_path: Optional[str] = None, prepared: Optional[Dict] = None,
          save_attention: bool = False, save_scores: bool = False) -> None:
     """Decode (or with ``return_prob: ref`` score) the dev and test sets and
-    write ``<output_path>.{dev,test}`` (joeynmt/prediction.py:524-635)."""
-    args = parse_global_args(cfg, rank=0, mode="test")
+    write ``<output_path>.{dev,test}`` (joeynmt/prediction.py:524-635); the
+    ranks of a data-parallel run share the batches out and rank 0 writes."""
+    args = parse_global_args(cfg, rank=distributed.rank(), mode="test")
     check_ported(args, save_attention=save_attention)
     if prepared is None:
-        model, spec, loss_fn, _, dev_data, test_data = prepare(args, rank=0, mode="test")
+        model, spec, loss_fn, _, dev_data, test_data = prepare(
+            args, rank=distributed.rank(), mode="test")
         prepared = {"model": model, "spec": spec, "loss_fn": loss_fn, "dev": dev_data,
                     "test": test_data}
     if save_scores:
@@ -308,7 +363,7 @@ def test(cfg: Dict, output_path: Optional[str] = None, prepared: Optional[Dict] 
             compute_loss=args.test.return_prob == "ref",
             normalization=args.train.normalization, num_workers=args.num_workers,
             args=args.test)
-        if output_path is not None:
+        if output_path is not None and distributed.is_main():
             if save_scores and seq_scores is not None:
                 write_list_to_file(Path(f"{output_path}.{data_set_name}.scores"),
                                    seq_scores)

@@ -4,7 +4,7 @@ Training (counterpart of joeys2t_tpu/training.py: ``TrainManager`` :210
 with ``train_and_validate`` :640, ``_validate`` :898 and the checkpoint
 wiring :582-637, ``TrainStatistics`` :1023, ``train`` :1069).
 
-One card: the model's float32 parameters are the master weights, the
+One card per process: the model's float32 parameters are the master weights, the
 forward runs in the model's compute dtype (bfloat16 on the card for the
 flagship), and the gradients land in float32 on the masters. An optimizer
 update is ``batch_multiplier`` micro-batches whose gradients accumulate in
@@ -12,28 +12,54 @@ the parameters' ``.grad`` (the JAX package's ``accum_step`` :557 and
 ``apply_accum`` :570; ``train_step`` :542 when the multiplier is 1), then
 clipping, the optimizer and the scheduler's next rate. Dropout draws from
 the trainer's generator, seeded with ``seed + 7919`` as the JAX trainer
-seeds its dropout key (:307).
+seeds its dropout key (:307), plus the rank in a data-parallel run, so each
+rank draws its own masks.
+
+Data parallelism (``train -d``; the JAX package's ``data`` mesh axis and
+multi-process path): each rank reads ``batch_size`` examples of its own
+rank-strided shard, so an update covers world x ``batch_size`` x
+``batch_multiplier`` examples. Before each micro-batch the ranks exchange
+(has a batch, source and target lengths, sentences, tokens) on the host, as
+JAX's ``_multihost_sync_stream`` (:126) does: the epoch ends at the first
+rank that runs out, every rank pads to the longest source and target of the
+step (the conv subsampler reads the padding frames beyond the longest
+utterance, so the pad must be the one the union of the rows would have),
+and the loss of each rank is divided by the count of the whole global batch,
+as single-process JAX divides the loss of one global batch by its count
+(:846-881). The training forward goes through ``DistributedDataParallel``,
+whose all-reduce sums the ranks' gradients (a comm hook; DDP itself would
+average them), with ``no_sync`` on all but the last micro-batch of an
+update; checkpoints, validation and the closing test use the unwrapped
+model, so parameter names carry no ``module.`` prefix. A mixture-of-experts
+layer's routing statistics are summed over the ranks, so its load-balance
+term is the global batch's. Only rank 0 writes checkpoints, reports,
+hypotheses and logs; validation shares its batches out over the ranks
+(``prediction.predict``), and every rank decides on the same merged scores.
 
 The epoch loop reads, collates and uploads each batch on the loop's own
 thread (the JAX package's prepare-prefetch thread is not ported: the host
 pipeline's numpy and Python share one interpreter lock with the launch
 loop, and on the card the thread did not shorten an update) and logs the
-share of the loop's wall that went to the pipeline; device metrics are read
-at the logging and validation boundaries only. Schedulers step where the JAX
-loop steps them: per update, per epoch (:694-696) or per validation
-(:916-918). Validation decodes greedily. ``load_encoder``/``load_decoder``
-initialize the encoder or decoder from another checkpoint
-(``init_layers`` :630). Not ported yet: profiling, a TensorBoard writer,
-attention plots, ``freeze``, and the multihost, tensor- and
-pipeline-parallel paths.
+share of the loop's wall that went to the pipeline (with the ranks' host
+exchange in a data-parallel run); device metrics are read at the logging
+and validation boundaries only. Schedulers step where the JAX loop steps
+them: per update, per epoch (:694-696) or per validation (:916-918).
+Validation decodes greedily. ``load_encoder``/``load_decoder`` initialize
+the encoder or decoder from another checkpoint (``init_layers`` :630). Not
+ported yet: profiling, a TensorBoard writer, attention plots, ``freeze``,
+and the tensor- and pipeline-parallel paths.
 """
+import contextlib
 import math
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
 from joeys2t_torch.checkpoints import CheckpointManager, load_checkpoint, partial_load
 from joeys2t_torch.config import (TestConfig, TrainConfig, check_ported, log_config,
@@ -44,15 +70,24 @@ from joeys2t_torch.losses import loss_terms
 from joeys2t_torch.models.modules import MoEFeedForward, set_dropout_generator
 from joeys2t_torch.optim import (build_gradient_clipper, build_optimizer, build_scheduler,
                                  get_learning_rate, set_learning_rate)
+from joeys2t_torch.parallel import distributed
 from joeys2t_torch.prediction import predict, prepare, test
 from joeys2t_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 
 
+def _sum_gradients(group, bucket):
+    """DDP comm hook: the sum of the ranks' gradients (DDP's own hook
+    averages them; the port divides each rank's loss by the global count)."""
+    work = dist.all_reduce(bucket.buffer(), group=group, async_op=True)
+    return work.get_future().then(lambda fut: fut.value()[0])
+
+
 class TrainManager:
     """Optimizer, clipper, scheduler, dropout generator and checkpoints
-    around a model; the training update and the epoch loop on one device."""
+    around a model; the training update and the epoch loop on this process's
+    device, one rank of a data-parallel group when one is initialised."""
 
     # pylint: disable=too-many-instance-attributes
 
@@ -90,9 +125,13 @@ class TrainManager:
             minimize_metric=self.args.minimize_metric))
         self.batch_sampler = None
         self.train_iter_state = None
-        self.generator = torch.Generator(device=self.device).manual_seed(seed + 7919)
+        self.world = distributed.world_size()
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            seed + 7919 + distributed.rank())
         set_dropout_generator(model, self.generator)
         self._experts = [m for m in model.modules() if isinstance(m, MoEFeedForward)]
+        for m in self._experts:
+            m.global_stats = distributed.in_group()
         self._last_aux: Optional[torch.Tensor] = None  # the last micro-batch's term
         enc_dtype = getattr(model.encoder, "dtype", torch.float32)
         fd = self.args.feature_dtype
@@ -113,24 +152,77 @@ class TrainManager:
                                       ("decoder", self.args.load_decoder)):
             if load_path is not None:
                 self.init_layers(load_path, layer_name)
+        self.ddp = self._wrap() if distributed.in_group() else None
+
+    def _params_without_gradient(self) -> List[str]:
+        """The parameters the training loss never reaches, which DDP must
+        leave out of its all-reduce: a speech model's CTC head under a loss
+        without CTC, and the LSTM ``bias_hh`` halves that enter the cells
+        detached (``models/rnn.py``)."""
+        names = []
+        if not self.loss_fn.require_ctc_layer:
+            names += [n for n, _ in self.model.named_parameters()
+                      if n.startswith("decoder.ctc_output_layer.")]
+        for prefix, module in self.model.named_modules():
+            if isinstance(module, nn.LSTM):
+                names += [f"{prefix}.{n}" for n, _ in module.named_parameters()
+                          if n.startswith("bias_hh")]
+        return names
+
+    def _wrap(self) -> DistributedDataParallel:
+        """The model under DDP for the training forward; the rank-0
+        parameters are broadcast to every rank here."""
+        DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(
+            self.model, self._params_without_gradient())
+        ddp = DistributedDataParallel(
+            self.model, device_ids=([torch.cuda.current_device()]
+                                    if self.device.type == "cuda" else None))
+        ddp.register_comm_hook(dist.group.WORLD, _sum_gradients)
+        return ddp
 
     @property
     def current_lr(self) -> float:
         return get_learning_rate(self.optimizer)
 
     # ------------------------------------------------------------- batches
-    def _prepare_batch(self, batch: Batch) -> Tuple[int, int, Dict, float]:
+    def _agree(self, batch: Optional[Batch]) -> Optional[Tuple[int, int, int, int]]:
+        """The ranks' lockstep exchange before a micro-batch (JAX's
+        ``_multihost_sync_stream`` :126): None when any rank has run out of
+        batches (the epoch ends for all), else the step's longest source and
+        target and its sentences and tokens over all ranks."""
+        local = ([0] * 5 if batch is None else
+                 [1, batch.src.shape[1], batch.trg.shape[1] if batch.has_trg else 0,
+                  batch.nseqs, batch.ntokens])
+        rows = distributed.all_gather_counts(local)
+        if min(r[0] for r in rows) == 0:
+            if batch is not None:
+                logger.warning("Data-parallel epoch sync: dropping local tail batch(es) so "
+                               "all ranks finish the epoch together.")
+            return None
+        return (max(r[1] for r in rows), max(r[2] for r in rows), sum(r[3] for r in rows),
+                sum(r[4] for r in rows))
+
+    def _prepare_batch(self, batch: Batch, step: Optional[Tuple[int, int, int, int]] = None
+                       ) -> Tuple[int, int, Dict, float]:
         """Pad and move a batch to the device, and compute its loss
         normalizer from the real counts (:846). Sentence batches are padded
         to ``batch_size`` rows, as the JAX package does; token batches keep
         their rows (``batch_size`` counts tokens there). Sequence lengths are
         not rounded up to buckets: PyTorch runs eagerly, so there are no
-        compiled shapes to reuse, and the masks make the padding inert."""
+        compiled shapes to reuse, and the masks make the padding inert. In a
+        data-parallel run ``step`` is :meth:`_agree`'s: the lengths to pad
+        to, and the global counts that the normalizer and the returned
+        counts are."""
         nseqs_real, ntokens_real = batch.nseqs, batch.ntokens
         target_b = nseqs_real
         if self.args.batch_type == "sentence":
             target_b = max(self.args.batch_size, nseqs_real)
-        padded = batch.pad_to_shape(batch_size=target_b, buckets=())
+        if step is None:
+            padded = batch.pad_to_shape(batch_size=target_b, buckets=())
+        else:
+            src_len, trg_len, nseqs_real, ntokens_real = step
+            padded = batch.pad_to_shape(batch_size=target_b, buckets=(), src_len=src_len,
+                                        trg_len=trg_len or None)
         dev = self.device
 
         def put(x, dtype=None):
@@ -165,7 +257,7 @@ class TrainManager:
         """The model in training mode on one prepared batch (:494), with the
         load-balance terms its mixture-of-experts layers left."""
         self.model.train()
-        logits, ctc_logits, out_mask = self.model(
+        logits, ctc_logits, out_mask = (self.ddp or self.model)(
             batch["src"], batch["trg_input"], batch["src_length"], batch["src_mask"],
             batch["trg_mask"], batch["src_prompt_mask"], batch["trg_prompt_mask"])
         aux = sum(m.aux_loss for m in self._experts) if self._experts else None
@@ -177,14 +269,16 @@ class TrainManager:
         divided by the normalizer and the accumulation count (:510). The
         Switch load-balance term ``aux`` adds 0.01 * aux, divided by the
         accumulation count only (:527-529), to the loss and the logged loss;
-        validation computes no such term."""
+        validation computes no such term. In a data-parallel run the term is
+        the global batch's on every rank, so each rank adds its share,
+        1 / world of it, and the summed gradients count it once."""
         total, nll, ctc, n_correct, _ = loss_terms(
             self.loss_fn, logits, ctc_logits, out_mask, batch["trg"], batch["trg_length"],
             batch["trg_mask"])
         div = normalizer * self.args.batch_multiplier
         norm = total / div
         if aux is not None:
-            norm = norm + 0.01 * aux / self.args.batch_multiplier
+            norm = norm + 0.01 * aux / (self.args.batch_multiplier * self.world)
             self._last_aux = aux.detach()
         metrics = (norm.detach(), nll.detach() / div, ctc.detach() / div, n_correct)
         return norm, metrics
@@ -197,10 +291,15 @@ class TrainManager:
         self.apply_accum()
         return metrics
 
-    def accum_step(self, batch: Dict, normalizer: float):
-        """Forward and backward; the gradients add to ``.grad`` (:557)."""
-        loss, metrics = self._loss_and_metrics(batch, normalizer)
-        loss.backward()
+    def accum_step(self, batch: Dict, normalizer: float, sync: bool = True):
+        """Forward and backward; the gradients add to ``.grad`` (:557). In a
+        data-parallel run the ranks' gradients are summed in this backward
+        unless ``sync`` is False (``no_sync``: a micro-batch before the last
+        of an update)."""
+        with (self.ddp.no_sync() if self.ddp is not None and not sync
+              else contextlib.nullcontext()):
+            loss, metrics = self._loss_and_metrics(batch, normalizer)
+            loss.backward()
         return metrics
 
     def apply_accum(self) -> None:
@@ -212,8 +311,15 @@ class TrainManager:
         self.optimizer.zero_grad(set_to_none=True)
 
     def train_batch(self, batch: Batch) -> Dict:
-        """One micro-batch of the loop (:722-770) from a host batch."""
-        return self._train_prepared(self._prepare_batch(batch))
+        """One micro-batch of the loop (:722-770) from a host batch; in a
+        data-parallel run every rank calls it at the same step with its own
+        batch."""
+        step = None
+        if self.ddp is not None:
+            step = self._agree(batch)
+            if step is None:
+                raise ValueError("a rank has no batch for this step")
+        return self._train_prepared(self._prepare_batch(batch, step))
 
     def _train_prepared(self, prepared) -> Dict:
         """One micro-batch, an update every ``batch_multiplier`` of them, the
@@ -224,9 +330,10 @@ class TrainManager:
             metrics = self.train_step(arrays, normalizer)
             stepped = True
         else:
-            metrics = self.accum_step(arrays, normalizer)
+            last = self._micro + 1 >= self.args.batch_multiplier
+            metrics = self.accum_step(arrays, normalizer, sync=last)
             self._micro += 1
-            stepped = self._micro >= self.args.batch_multiplier
+            stepped = last
             if stepped:
                 self.apply_accum()
                 self._micro = 0
@@ -308,10 +415,11 @@ class TrainManager:
             return_sampler=True)
         if self.train_iter_state is not None:
             self.batch_sampler.set_state(self.train_iter_state)
-        logger.info("Train config:\n\tdevice: %s\n\tgradient accumulation: %d\n"
-                    "\tbatch size: %d\n\teffective batch size: %d", self.device,
+        logger.info("Train config:\n\tdevice: %s\n\tdata-parallel ranks: %d\n"
+                    "\tgradient accumulation: %d\n\tbatch size per rank: %d\n"
+                    "\teffective batch size: %d", self.device, self.world,
                     self.args.batch_multiplier, self.args.batch_size,
-                    self.args.batch_size * self.args.batch_multiplier)
+                    self.world * self.args.batch_size * self.args.batch_multiplier)
 
         epoch_no = self.stats.epochs
         loop_start, data_time, valid_time, updates_before = (time.time(), 0.0, 0.0,
@@ -336,7 +444,12 @@ class TrainManager:
                 while True:
                     t_data = time.perf_counter()  # read, collate, pad, upload
                     batch = next(batches, None)
-                    prepared = None if batch is None else self._prepare_batch(batch)
+                    if self.ddp is not None:  # lockstep: all ranks go on, or none
+                        step = self._agree(batch)
+                        batch = None if step is None else batch
+                    else:
+                        step = None
+                    prepared = None if batch is None else self._prepare_batch(batch, step)
                     data_time += time.perf_counter() - t_data
                     if prepared is None:
                         break
@@ -408,7 +521,9 @@ class TrainManager:
     # ------------------------------------------------------------- validation
     def _validate(self, valid_data) -> None:
         """Validate greedily, step a per-validation scheduler, keep the
-        checkpoint when it is among the best, report (:898)."""
+        checkpoint when it is among the best, report (:898). Every rank
+        decodes its share and decides on the same merged scores; rank 0
+        reports."""
         valid_scores, valid_references, valid_hypotheses, _, _, _ = predict(
             self.model, self.spec, valid_data, loss_fn=self.loss_fn, compute_loss=True,
             normalization=self.args.normalization, args=self.dev_cfg, device=self.device)
@@ -425,10 +540,12 @@ class TrainManager:
                      if self.ckpt_mgr.ckpt_queue else True)
         if self.args.keep_best_ckpts < 0 or is_better:
             self._save_checkpoint(new_best, ckpt_score)
-        self._add_report(valid_scores=valid_scores, new_best=new_best)
-        self._log_examples(references=valid_references, hypotheses=valid_hypotheses,
-                           data=valid_data)
-        write_list_to_file(self.model_dir / f"{self.stats.steps}.hyps", valid_hypotheses)
+        if distributed.is_main():
+            self._add_report(valid_scores=valid_scores, new_best=new_best)
+            self._log_examples(references=valid_references, hypotheses=valid_hypotheses,
+                               data=valid_data)
+            write_list_to_file(self.model_dir / f"{self.stats.steps}.hyps",
+                               valid_hypotheses)
 
     def _add_report(self, valid_scores: Dict, new_best: bool = False) -> None:
         """One line of ``validations.txt`` (joeynmt/training.py:687-702)."""
@@ -453,22 +570,20 @@ class TrainManager:
             logger.info("\tHypothesis: %s", hypotheses[p])
 
     def _sync_pending_metrics(self, pending) -> Tuple[float, float]:
-        """Read the deferred per-update device metrics in one sync: add the
-        correct-token counts to the statistics, warn on a non-finite loss, and
-        return (sum of the updates' losses, the last update's loss)."""
-        losses_sum, last_loss = 0.0, 0.0
-        for step_no, group in pending:
-            step_loss = 0.0
-            for loss, n_correct in group:
-                v = float(loss)
-                if not np.isfinite(v):
-                    logger.warning("Non-finite batch loss %s at step %d", v, step_no)
-                step_loss += v
-                self.stats.total_correct += int(n_correct)
-            losses_sum += step_loss
-            last_loss = step_loss
+        """Read the deferred per-update device metrics in one sync (summed
+        over the ranks in a data-parallel run): add the correct-token counts
+        to the statistics, warn on a non-finite loss, and return (sum of the
+        updates' losses, the last update's loss)."""
+        step_losses = [sum(float(loss) for loss, _ in group) for _, group in pending]
+        n_correct = sum(int(c) for _, group in pending for _, c in group)
+        if self.ddp is not None:
+            *step_losses, n_correct = distributed.all_reduce_counts(step_losses + [n_correct])
+        for (step_no, _), v in zip(pending, step_losses):
+            if not np.isfinite(v):
+                logger.warning("Non-finite batch loss %s at step %d", v, step_no)
+        self.stats.total_correct += int(n_correct)
         pending.clear()
-        return losses_sum, last_loss
+        return float(sum(step_losses)), (step_losses[-1] if step_losses else 0.0)
 
     def _log_scores(self, epoch_no, elapsed_time, start_tokens, start_correct,
                     total_batch_loss) -> None:
@@ -536,18 +651,21 @@ class TrainStatistics:
 
 def train(cfg: Dict, skip_test: bool = False) -> None:
     """Train from a config, then test the best (or latest) checkpoint on the
-    dev and test sets (joeynmt/training.py:829-895)."""
+    dev and test sets (joeynmt/training.py:829-895). In a data-parallel run
+    every rank calls it; the ranks wait for one another before the test
+    reads the checkpoint rank 0 wrote (JAX :1087-1093)."""
     log_config(cfg)
-    args = parse_global_args(cfg, rank=0, mode="train")
+    args = parse_global_args(cfg, rank=distributed.rank(), mode="train")
     check_ported(args)
-    model, spec, loss_fn, train_data, dev_data, test_data = prepare(args, rank=0,
-                                                                    mode="train")
+    model, spec, loss_fn, train_data, dev_data, test_data = prepare(
+        args, rank=distributed.rank(), mode="train")
     trainer = TrainManager(model, spec, loss_fn, args.train, seed=args.seed,
                            model_cfg=args.model, device=args.device,
                            model_dir=args.model_dir, task=args.task,
                            dev_args=set_validation_args(args.test),
                            num_workers=args.num_workers)
     trainer.train_and_validate(train_data=train_data, valid_data=dev_data)
+    distributed.barrier()
     if skip_test:
         logger.info("Skipping test after training.")
         return

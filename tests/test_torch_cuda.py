@@ -3,9 +3,10 @@
 forward and backward, with and without dropout, and the dropout mask bit
 for bit; decode attention, also with query rows sharing a cache row), and a
 small model on the card against the CPU (greedy and beam search, serving and
-one training update). Needs a CUDA card and nvcc; skipped without
-them. Run on a card with (the suite's conftest.py imports JAX, which the
-card's machine need not have):
+one training update), a one-rank NCCL update and ``remat`` against the plain
+update. Needs a CUDA card and nvcc; skipped without them. Run on a card
+with (the suite's conftest.py imports JAX, which the card's machine need
+not have):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py"""
 from pathlib import Path
 
@@ -334,6 +335,55 @@ def test_train_update_card_matches_cpu(card):
         assert err <= 1e-4 * cpu["grad_norm"], name
         err = (gpu["params"][name] - cpu["params"][name]).abs().max().item()
         assert err <= 2 * cpu["lr"], name
+
+
+def _same_update(a, b, grad_tol: float):
+    """Loss to 1e-5 relative, gradients to ``grad_tol`` of the global norm,
+    weights to 2 lr (Adam's first step moves a weight by lr at most; CTC's
+    atomics make the card's backward non-deterministic)."""
+    assert abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"])
+    for name in b["grads"]:
+        err = (a["grads"][name] - b["grads"][name]).abs().max().item()
+        assert err <= grad_tol * b["grad_norm"], name
+        err = (a["params"][name] - b["params"][name]).abs().max().item()
+        assert err <= 2 * b["lr"], name
+
+
+def test_one_rank_nccl_update_matches_plain(card):
+    """The update of a one-rank NCCL group (DDP, its summing comm hook, the
+    ranks' host exchange) equals the plain update on the card."""
+    import socket
+
+    import torch.distributed as dist
+
+    from joeys2t_torch.parallel import distributed
+    from test_torch_train import one_update
+
+    plain = one_update(card)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        ranked = one_update(card)
+    finally:
+        distributed.leave()
+    _same_update(ranked, plain, 1e-4)
+
+
+def test_remat_on_the_card_equals_no_remat(card):
+    """One update at dropout 0.1 with ``remat`` and without, from the same
+    seeds: the recomputation replays the dropout masks and the flash seeds."""
+    from test_torch_train import model_cfg, one_update
+
+    before = fa.flash_attention_fwd.launches
+    plain = one_update(card, cfg=model_cfg(dropout=0.1))
+    between = fa.flash_attention_fwd.launches
+    remat = one_update(card, cfg=dict(model_cfg(dropout=0.1), remat=True))
+    # 3 layers' flash forward a micro-batch, twice under remat
+    assert fa.flash_attention_fwd.launches - between == 2 * (between - before)
+    _same_update(remat, plain, 1e-5)
 
 
 @pytest.mark.parametrize("heads,dtype", [(2, torch.bfloat16), (1, torch.float16)])
