@@ -25,7 +25,13 @@ goes wrong:
    shape (32 cache rows, 160 queries, S=250, bf16 and f32), bit-identical to
    one query a row on the cache repeated 5 times, timed beside that call and
    SDPA on the repeated cache, against two bounds (the shared cache read
-   once; once for each query);
+   once; once for each query); and decode attention through lazy beam
+   search's ancestry map at the beam request's self shape (32 x 5 rows,
+   97 slots, step 48; bf16, f32, int8 position) and the MT beam's (128 x 5
+   rows, 81 slots; D=128 bf16, D=16 bf16, f32, int8 position), bit for bit
+   the kernel on the caches physically reordered as the map says, timed
+   beside the physical path it replaces (an index_select of every self
+   buffer, then the kernel);
 3. serving: build the librispeech_100h model (configs/librispeech_100h.yaml,
    16 encoder / 8 decoder layers, hidden 512) with random weights from a
    seed and a synthetic 5000-token vocabulary, in bf16, and serve three
@@ -36,15 +42,19 @@ goes wrong:
    goes (front end, encoder, decode loop) and the card's busy share in a
    profiled decode loop, with the decode kernel's device time and launches;
    then one beam request at bench.py's beam shape (32 x 10 s, beam 5, length
-   penalty 1, 96 steps at most) with the counters zeroed and the plain
-   versions refused: 16 flash launches and 16 decode launches a step (8 of
-   them with 5 queries a cache row), its audio-s/s, ms a step, and busy
-   share and launches a step over a profiled 16-step slice of the beam loop;
+   penalty 1, 96 steps at most) with ``beam_reorder`` auto (lazy) and
+   physical, the counters zeroed and the plain versions refused: 16 flash
+   launches and 16 decode launches a step (8 of them with 5 queries a cache
+   row; in the lazy run the other 8 through the ancestry map), identical
+   transcripts, and for each its audio-s/s, ms a step, and busy share,
+   launches and index_select kernels a step over a profiled 16-step slice
+   of the beam loop;
 4. card vs CPU: a small float32 model with the same seeded weights on the
    card and on the CPU must give the same encoder output (within 1e-4), the
    same greedy tokens and the same beam-5 2-best hypotheses (scores within
-   1e-4); and key-masked attention at a head size or dtype
-   the flash kernel does not take must raise on the card;
+   1e-4); the same model with ``attention_impl: xla`` launches no kernel
+   and gives the same tokens; and key-masked attention at a head size or
+   dtype the flash kernel does not take must raise on the card;
 5. training: the librispeech_100h model (``model:`` and ``training:`` of the
    config: bf16 compute on float32 masters, dropout 0.1, label smoothing 0.1,
    CTC weight 0.3, AdamW, warmup-inverse-sqrt, clipping at 10,
@@ -81,7 +91,8 @@ goes wrong:
    version on exactly those inputs: the CLI's own shapes (short utterances:
    about 100-130 encoder and 50-65 target positions, across the flash
    kernels' 64-wide tiles; B=8 in ``translate``; decode attention also
-   with 5 queries a cache row), the flash kernels with and without dropout;
+   with 5 queries a cache row and, in the beam legs, through the ancestry
+   map), the flash kernels with and without dropout;
 8. speech translation: configs/synthetic_st.yaml at full width in bf16 (12
    encoder / 6 decoder layers) on scripts/generate_synthetic_st.py's corpus
    (512 / 64 / 64), cut to 16 updates and a validation every 8, its encoder
@@ -92,6 +103,7 @@ goes wrong:
    the plain versions refused;
 9. int8 serving: phase 3's librispeech_100h model with ``cache_cross_int8``
    and ``cache_self_int8`` serves greedy 64 x 10 s and beam 5 over 32 x 10 s
+   (lazy, and physical with identical transcripts)
    with exact launch counts, every decode launch int8 (channel scales on the
    cross caches, position scales on the self ring buffers), the kernel held
    against its plain version on the path's own inputs, audio-s/s and K5's
@@ -129,7 +141,7 @@ goes wrong:
 14. recurrent MT: configs/rnn_reverse.yaml as configured (bidirectional
     LSTM of 64, Luong attention, input feeding, zero initial state, greedy;
     ``fp16: True``, which a recurrent model ignores, float32 as in JAX) but
-    on the card, on test/data/reverse/ (dev cut to 100 pairs), cut to 200
+    on the card, on test/data/reverse/ (dev cut to 100 pairs), cut to 100
     updates of 10 sentences and one validation, then ``test -o`` (dev and
     test) and ``translate`` of 8 sentences and ``load_model_dir`` ->
     ``generate`` equal to ``translate``; then rnn_small.yaml's model and
@@ -162,8 +174,8 @@ goes wrong:
     which spawns one rank a visible card; (b) two ranks on the one card over
     gloo, processes that each initialise gloo and call
     ``joeys2t_torch.training.train`` (full width, dropout 0, no SpecAugment,
-    2 updates of 64 utterances a rank, a sharded greedy validation after
-    each): the first update against a single-process update on the union
+    1 update of 64 utterances a rank, then a sharded greedy validation):
+    the update against a single-process update on the union
     of the ranks' first batches (the gradients before clipping within 2 %
     of their norm; every weight within 2 lr and at most 0.5 % of them
     further apart than lr / 10; the loss to 1e-2), beside what an update on
@@ -307,7 +319,9 @@ def profiled(fn):
 def counters():
     """{name: (object, attribute)} of the kernel wrappers' launch counters;
     ``decode_attention_group`` counts the decode launches whose query rows
-    share a cache row (beam search's cross attention), and
+    share a cache row (beam search's cross attention),
+    ``decode_attention_ancestry`` those that read the self caches through
+    lazy beam search's ancestry map, and
     ``decode_attention_int8_{channel,position}`` those on int8 caches with
     channel scales (cross) or position scales (self)."""
     from joeys2t_torch.ops import decode_attention as da
@@ -317,6 +331,7 @@ def counters():
             "flash_attention_bwd": (fa.flash_attention_bwd, "launches"),
             "decode_attention": (da.decode_attention, "launches"),
             "decode_attention_group": (da.decode_attention, "group_launches"),
+            "decode_attention_ancestry": (da.decode_attention, "ancestry_launches"),
             "decode_attention_int8_channel": (da.decode_attention, "channel_launches"),
             "decode_attention_int8_position": (da.decode_attention, "position_launches")}
 
@@ -440,6 +455,29 @@ def out_tol(ref, f32: bool, scaled: bool) -> float:
     return tol * max(1.0, ref.float().abs().max().item()) if scaled else tol
 
 
+def fault_detail(got, again, want, tol) -> str:
+    """Where a kernel's outputs ``got`` disagree with the plain version's
+    ``want`` (tuples of tensors alike in shape): for each output the count
+    of non-finite entries of either and of entries off by more than ``tol``,
+    and the first few of those with both values; then whether the kernel's
+    second call on the same inputs (``again``) gave the same bits, which
+    tells a fault of the code from one of the run."""
+    parts = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.float(), w.float()
+        off = ~torch.isfinite(g) | ~torch.isfinite(w) | ((g - w).abs() > tol)
+        at = torch.nonzero(off)[:4].tolist()
+        parts.append(f"output {i}: {int((~torch.isfinite(g)).sum())} non-finite "
+                     f"(plain {int((~torch.isfinite(w)).sum())}), {int(off.sum())} off, "
+                     f"first at {at}: kernel {[g[tuple(j)].item() for j in at]}, "
+                     f"plain {[w[tuple(j)].item() for j in at]}")
+    same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+               for a, b in zip(got, again))
+    parts.append("the second call gave the same bits" if same else
+                 "the second call gave other bits")
+    return "; ".join(parts)
+
+
 def flash_case(b, sq, sk, dtype, gen, d=128, timed=True, scaled=False):
     """The forward kernel against its plain version (output and lse; two
     calls bit-identical), and when ``timed`` the kernel, the plain version
@@ -466,8 +504,11 @@ def flash_case(b, sq, sk, dtype, gen, d=128, timed=True, scaled=False):
     err = max((out.float() - ref.float()).abs().max().item(),
               (lse - ref_lse).abs().max().item())
     tol = out_tol(ref, dtype == torch.float32, scaled)
-    check(bool(torch.isfinite(out.float()).all()), f"flash {name}: non-finite output")
-    check(err <= tol, f"flash {name}: max abs err {err} > {tol}")
+    finite = bool(torch.isfinite(out.float()).all())
+    where = "" if finite and err <= tol else \
+        "; " + fault_detail((out, lse), again, (ref, ref_lse), tol)
+    check(finite, f"flash {name}: non-finite output{where}")
+    check(err <= tol, f"flash {name}: max abs err {err} > {tol}{where}")
     check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
           f"flash {name}: two calls differ")
     case = dict(case=name, route=fa.kernel_info(d, dtype)["route"], max_abs_err=err, tol=tol)
@@ -785,6 +826,110 @@ def decode_group_case(mode, gen, shape=BEAM_CROSS):
                 g_roofline=g_bound_ms / ms, tflops=flops / ms / 1e9)
 
 
+# lazy beam search's self attention: 32 utterances x 5 beams (bench.py's
+# beam shape), 97-slot ring buffers read through the (B, K, S) ancestry map
+# at step 48; and the MT model's beam (128 sentences x 5, 81 slots, step 40)
+BEAM_SELF = (32, 5, 97, 48)
+MT_SELF = (128, 5, 81, 40)
+
+
+def decode_ancestry_case(mode, gen, shape=BEAM_SELF, d=128, timed=True):
+    """Decode attention through a random valid ancestry map (entries in
+    [0, K) up to the step, each row's own beyond it) against the plain
+    version, bit for bit against the kernel without a map on the caches
+    physically reordered as the map says, and two calls bit-identical.
+    Timed on cold L2: the kernel; the physical path it replaces for the
+    same step (an ``index_select`` of each self buffer, and of its scales
+    for int8, into a spare, then the kernel on the reordered buffers); the
+    plain version. Two bounds: the distinct (cache row, slot) vectors that
+    the map points at up to the step, read once (K, V, int8 scales; the
+    bound proper), and those of every query row, read once a row (what the
+    kernel reads); both add the map's used entries, q, the bias and the
+    output. The physical path's bound is the second without the map plus a
+    read and a write of the whole buffers."""
+    from joeys2t_torch.ops import decode_attention as da
+
+    b, kb, s, step = shape
+    rows = b * kb
+    args, kw, _ = decode_inputs("self", rows, s, step, mode, gen, d)
+    q, k, v, bias, ks, vs = args
+    h = q.shape[1]
+    anc = torch.randint(0, kb, (b, kb, s), generator=gen, dtype=torch.int32)
+    anc[:, :, step + 1:] = torch.arange(kb, dtype=torch.int32)[None, :, None]
+    anc = anc.cuda()
+    out = da.decode_attention(*args, ancestry=anc, **kw)
+    again = da.decode_attention(*args, ancestry=anc, **kw)
+    ref = da.decode_attention_plain(*args, ancestry=anc, **kw)
+    moved = [None if t is None else da.gather_ancestry(t, anc).contiguous()
+             for t in (k, v, ks, vs)]
+    flat = da.decode_attention(q, moved[0], moved[1], bias, moved[2], moved[3], **kw)
+    torch.cuda.synchronize()
+    name = (f"self ancestry map B={b} K={kb} ({rows} rows) H={h} S={s} D={d} {mode} "
+            f"step {step}")
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = 1e-5 if q.dtype == torch.float32 else 1e-2
+    check(bool(torch.isfinite(out.float()).all()), f"decode {name}: non-finite output")
+    check(err <= tol, f"decode {name}: max abs err {err} > {tol}")
+    check(torch.equal(out, again), f"decode {name}: two calls differ")
+    check(torch.equal(out, flat), f"decode {name}: differs from the reordered cache")
+    splits, split_rows = da.decode_plan(rows, h, s, da.num_sms(q.device))
+    case = dict(case=name, max_abs_err=err, tol=tol, splits=splits, split_rows=split_rows)
+    if not timed:
+        return case
+    used = (step + 1) * rows  # (query row, slot) pairs read, each over H heads
+    own = (torch.arange(b, device=anc.device)[:, None, None] * kb + anc[:, :, :step + 1])
+    slots = torch.arange(step + 1, device=anc.device)
+    distinct = torch.unique(own * s + slots).numel()  # (cache row, slot) pairs
+    vector = h * (d * k.element_size() * 2 + (8 if ks is not None else 0))  # K, V, scales
+    fixed = nbytes(q, bias, out)
+    flops = 4 * used * h * d
+    bound_ms, bound_by = bound(distinct * vector + used * 4 + fixed, flops, k.dtype)
+    q_bound_ms, _ = bound(used * vector + used * 4 + fixed, flops, k.dtype)
+    buffers = [t for t in (k, v, ks, vs) if t is not None]
+    physical_bound_ms, _ = bound(used * vector + fixed + 2 * nbytes(*buffers), flops,
+                                 k.dtype)
+    copies = cold_copies((q, k, v, bias, ks, vs, anc))
+    ms = time_cold_ms([lambda c=c: da.decode_attention(*c[:6], ancestry=c[6], **kw)
+                       for c in copies])
+    del copies
+    parents = torch.randint(0, kb, (b, kb), generator=gen)
+    select = (parents + torch.arange(b)[:, None] * kb).reshape(-1).cuda()
+
+    def physical(c):  # c: (q, k, v, bias, ks, vs, spare k, v, ks, vs)
+        spares = [sp for sp in c[6:] if sp is not None]
+        for src, sp in zip([t for t in c[1:3] + c[4:6] if t is not None], spares):
+            torch.index_select(src, 0, select, out=sp)
+        sk, sv = spares[0], spares[1]
+        sks, svs = (spares[2], spares[3]) if len(spares) == 4 else (None, None)
+        return da.decode_attention(c[0], sk, sv, c[3], sks, svs, **kw)
+
+    copies = cold_copies((q, k, v, bias, ks, vs) + tuple(
+        None if t is None else torch.empty_like(t) for t in (k, v, ks, vs)))
+    physical_ms = time_cold_ms([lambda c=c: physical(c) for c in copies])
+    del copies
+    case.update(ms=ms, plain_ms=time_ms(lambda: da.decode_attention_plain(
+        *args, ancestry=anc, **kw), iters=5), library_ms=None, physical_ms=physical_ms,
+        bound_ms=bound_ms, bound_by=bound_by, q_bound_ms=q_bound_ms,
+        physical_bound_ms=physical_bound_ms, distinct=distinct / used,
+        roofline=bound_ms / ms, q_roofline=q_bound_ms / ms, tflops=flops / ms / 1e9)
+    return case
+
+
+def print_ancestry(c):
+    line = (f"[kernels] decode {c['case']}: plan {c['splits']} split(s) of "
+            f"{c['split_rows']} rows; err {c['max_abs_err']:.3g} (tol {c['tol']}), two "
+            f"calls bit-identical, bit-identical to the kernel on the reordered cache")
+    if "ms" in c:
+        line += (f"; cold L2: kernel {c['ms']:.4f} ms, physical reorder + kernel "
+                 f"{c['physical_ms']:.4f} ms; plain {c['plain_ms']:.4f} ms; bound "
+                 f"(the {100 * c['distinct']:.1f} % of the rows' used slots the map "
+                 f"points at, once) {c['bound_ms']:.4f} ms ({c['bound_by']}), roofline "
+                 f"share {100 * c['roofline']:.1f} %; bound once a query row "
+                 f"{c['q_bound_ms']:.4f} ms, share {100 * c['q_roofline']:.1f} %; the "
+                 f"physical path's bound {c['physical_bound_ms']:.4f} ms")
+    print(line)
+
+
 def print_flash(c):
     line = f"[kernels] {c['case']}: err {c['max_abs_err']:.3g} (tol {c['tol']}), two calls " \
         "bit-identical"
@@ -909,6 +1054,12 @@ def kernel_phase():
     group = [decode_group_case(mode, gen) for mode in ("bf16", "f32", "int8-channel")]
     for c in group:
         print_group(c)
+    ancestry = [decode_ancestry_case(mode, gen) for mode in ("bf16", "f32", "int8-position")]
+    ancestry += [decode_ancestry_case("bf16", gen, MT_SELF)]
+    ancestry += [decode_ancestry_case(mode, gen, MT_SELF, d=16, timed=mode == "bf16")
+                 for mode in ("bf16", "f32", "int8-position")]
+    for c in ancestry:
+        print_ancestry(c)
     for c in flash:
         print_flash(c)
     # the training path's shapes: encoder (250 frames), decoder cross (47
@@ -923,7 +1074,7 @@ def kernel_phase():
         print(f"[kernels] dropout mask bits of the {str(dtype)[6:]} forward and backward "
               f"kernels identical to the plain version's: {n} of {n} (keep fraction "
               f"{kept:.4f} at rate 0.1)")
-    return flash, decode, group, backward, mt_kernel_cases(gen)
+    return flash, decode, group, backward, mt_kernel_cases(gen), ancestry
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1046,55 +1197,99 @@ def decode_profile(tag, what, asr, wall, kernels, steps):
     return k5_us / 1e3 / steps
 
 
+def index_selects(kernels) -> int:
+    """The kernels in a profile that ``torch.index_select(..., out=)`` of a
+    cache buffer launches (``vectorized_gather_kernel``): the physical
+    reorder's, one a self buffer a step."""
+    return sum(n for name, (n, _) in kernels.items() if "vectorized_gather_kernel" in name)
+
+
+REORDERS = ("auto", "physical")
+
+
 def beam_serving_phase(asr, batch):
     """Phase 3's beam request at bench.py's beam shape: 32 x 10 s, beam 5,
-    length penalty 1, ``max_output_length`` 96, the best hypothesis, with
-    the launch counters zeroed just before and the plain attention versions
-    refused: 16 flash forward launches (the encoder) and 16 decode launches
-    a step (8 self-attentions over the 160-row ring buffers, 8 cross with 5
-    queries a cache row). Then the decode loop's ms a step, and the busy
-    share and launches a step over a profiled 16-step slice of the loop."""
+    length penalty 1, ``max_output_length`` 96, the best hypothesis, once
+    with ``beam_reorder: auto`` (lazy: the ancestry map) and once with
+    ``physical``, each with the launch counters zeroed just before and the
+    plain attention versions refused: 16 flash forward launches (the
+    encoder) and 16 decode launches a step (8 cross with 5 queries a cache
+    row, 8 self over the 160-row ring buffers, through the ancestry map in
+    the lazy run). The two must give the same transcripts. Then the decode
+    loop alone is timed for each, in the other order (physical, then lazy),
+    and for each the busy share, launches and ``index_select`` kernels a
+    step over a profiled 16-step slice of the loop (the physical reorder
+    adds one a self buffer a step). Returns the lazy run's launches, and
+    {reorder: (texts, wall s, steps, K5 ms a step)}."""
     from joeys2t_torch.ops.frontend import device_frontend
     from joeys2t_torch.search import beam_search
 
     waves = batch[:32]
     n_enc, n_dec = len(asr.model.encoder.layers), len(asr.model.decoder.layers)
-    asr.transcribe(waves[:2], max_output_length=4, beam_size=5)  # warm-up
-    s0 = asr.stats["decode_steps"]
-    zero_counters()
-    with plain_refused("beam serving path"):
-        texts, request_wall = sync_time(lambda: asr.transcribe(
-            waves, max_output_length=96, beam_size=5, beam_alpha=1.0))
-    launches = read_counters()
-    steps = asr.stats["decode_steps"] - s0
-    check(len(texts) == 32 and all(isinstance(t, str) for t in texts),
-          "beam request: not 32 transcripts")
-    check(1 <= steps <= 96, f"beam request: {steps} decode steps")
-    want = {"flash_attention_fwd": n_enc, "flash_attention_bwd": 0,
-            "decode_attention": 2 * n_dec * steps, "decode_attention_group": n_dec * steps,
-            "decode_attention_int8_channel": 0, "decode_attention_int8_position": 0}
-    check(launches == want, f"beam request launches {launches}, expected {want}")
-    print(f"[serving] 32 x 10 s beam 5 (alpha 1, n_best 1): {steps} decode steps, "
-          f"{request_wall:.3f} s wall, {320.0 / request_wall:.1f} audio-s/s; launches "
-          f"{launches} as the path implies, plain attention never ran")
+    for reorder in REORDERS:  # warm-up at the request's batch
+        asr.transcribe(waves, max_output_length=4, beam_size=5, beam_reorder=reorder)
+    runs = {}
+    for reorder in REORDERS:
+        s0 = asr.stats["decode_steps"]
+        zero_counters()
+        with plain_refused("beam serving path"):
+            texts, request_wall = sync_time(lambda: asr.transcribe(
+                waves, max_output_length=96, beam_size=5, beam_alpha=1.0,
+                beam_reorder=reorder))
+        launches = read_counters()
+        steps = asr.stats["decode_steps"] - s0
+        check(len(texts) == 32 and all(isinstance(t, str) for t in texts),
+              f"beam request ({reorder}): not 32 transcripts")
+        check(1 <= steps <= 96, f"beam request ({reorder}): {steps} decode steps")
+        want = {"flash_attention_fwd": n_enc, "flash_attention_bwd": 0,
+                "decode_attention": 2 * n_dec * steps,
+                "decode_attention_group": n_dec * steps,
+                "decode_attention_ancestry": n_dec * steps if reorder == "auto" else 0,
+                "decode_attention_int8_channel": 0, "decode_attention_int8_position": 0}
+        check(launches == want, f"beam request ({reorder}) launches {launches}, "
+              f"expected {want}")
+        runs[reorder] = (texts, request_wall, steps, launches)
+        print(f"[serving] 32 x 10 s beam 5 (alpha 1, n_best 1, beam_reorder {reorder}): "
+              f"{steps} decode steps, {request_wall:.3f} s wall, "
+              f"{320.0 / request_wall:.1f} audio-s/s; launches {launches} as the path "
+              f"implies, plain attention never ran")
+    check(runs["auto"][0] == runs["physical"][0],
+          "lazy and physical beam reorders gave different transcripts")
+    print(f"[serving] beam 5: lazy (auto) {320.0 / runs['auto'][1]:.1f} against physical "
+          f"{320.0 / runs['physical'][1]:.1f} audio-s/s "
+          f"({runs['physical'][1] / runs['auto'][1]:.3f}x), transcripts identical")
 
     wave_t = torch.tensor(np.stack(waves)).cuda()
     lengths = torch.full((32,), wave_t.shape[1], device="cuda")
+    served, selects = {}, {}
     with torch.inference_mode():
         feats, flen = device_frontend(wave_t, lengths)
         enc, _, mask = asr.model.encode(feats, flen)
-        stats = {}
-        _, t_dec = sync_time(lambda: beam_search(asr.decode_model, asr.spec, enc, None,
-                                                 mask, 5, 96, 1.0, device="cuda",
-                                                 stats=stats))
-        print(f"[beam] decode loop: {stats['decode_steps']} steps of "
-              f"{t_dec / stats['decode_steps'] * 1e3:.3f} ms ({t_dec * 1e3:.2f} ms)")
-        pstats = {}
-        wall, kernels = profiled(lambda: beam_search(
-            asr.decode_model, asr.spec, enc, None, mask, 5, 16, 1.0, device="cuda",
-            stats=pstats))
-    k5_ms = decode_profile("beam", "beam loop", asr, wall, kernels, pstats["decode_steps"])
-    return launches, (texts, request_wall, steps), k5_ms
+        for reorder in reversed(REORDERS):
+            stats = {}
+            _, t_dec = sync_time(lambda: beam_search(asr.decode_model, asr.spec, enc, None,
+                                                     mask, 5, 96, 1.0, device="cuda",
+                                                     stats=stats, beam_reorder=reorder))
+            print(f"[beam] decode loop ({reorder}): {stats['decode_steps']} steps of "
+                  f"{t_dec / stats['decode_steps'] * 1e3:.3f} ms ({t_dec * 1e3:.2f} ms)")
+        profiled(lambda: beam_search(asr.decode_model, asr.spec, enc, None, mask, 5, 2,
+                                     1.0, device="cuda"))  # the profiler's own warm-up
+        for reorder in REORDERS:
+            pstats = {}
+            wall, kernels = profiled(lambda: beam_search(
+                asr.decode_model, asr.spec, enc, None, mask, 5, 16, 1.0, device="cuda",
+                stats=pstats, beam_reorder=reorder))
+            k5_ms = decode_profile("beam", f"beam loop ({reorder})", asr, wall, kernels,
+                                   pstats["decode_steps"])
+            selects[reorder] = index_selects(kernels) / pstats["decode_steps"]
+            print(f"[beam] index_select kernels a step ({reorder}): {selects[reorder]:.1f}")
+            served[reorder] = runs[reorder][:3] + (k5_ms,)
+    if kernels:  # the profiler recorded device events
+        check(selects["auto"] == 0 and selects["physical"] == 2 * n_dec,
+              f"index_select kernels a step: physical {selects['physical']}, lazy "
+              f"{selects['auto']}; only the physical loop reorders the {2 * n_dec} self "
+              f"buffers")
+    return runs["auto"][3], served
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1180,6 +1375,26 @@ def card_vs_cpu_phase():
           f"encoder err {enc_err:.3g} (tol 1e-4), greedy tokens identical "
           f"({cpu[2].shape[1]} steps); beam 5 2-best hypotheses identical "
           f"({cpu[3].shape[1]} tokens), scores err {score_err:.3g} (tol 1e-4)")
+
+    # ``attention_impl: xla`` asks for the plain versions, on the card too: no
+    # kernel launches, and the tokens of the kernels' run above
+    from joeys2t_torch.search import beam_search, transformer_greedy
+
+    model, spec = small_models(attention_impl="xla")[0]["cuda"]
+    zero_counters()
+    with torch.inference_mode():
+        enc, _, mask = model.encode(feats.cuda(), flen.cuda())
+        tokens, _, _ = transformer_greedy(model, spec, enc, mask, 40, device="cuda")
+        beams, _, _ = beam_search(model, spec, enc, None, mask, 5, 40, 1.0, n_best=2,
+                                  device="cuda")
+    launches = read_counters()
+    check(all(n == 0 for n in launches.values()),
+          f"attention_impl xla launched kernels: {launches}")
+    check(np.array_equal(tokens, cpu[2]) and np.array_equal(beams, cpu[3]),
+          "attention_impl xla gave other tokens than the kernels")
+    print("[card-vs-cpu] attention_impl xla on the card: every launch counter 0, greedy "
+          "tokens and beam 5 (lazy) 2-best hypotheses identical to the kernels' run")
+    del model
 
     # no plain path on the card: key-masked attention at a head size or dtype
     # the flash kernel does not take raises instead of running plain PyTorch
@@ -1425,22 +1640,27 @@ def kernel_inputs(kept: dict, flash_calls=(0, 80), decode_calls=(0, 384)):
     def flash_key(name, q, k, rate):
         return (name, q.shape[0], q.shape[1] == k.shape[1], q.dtype, rate > 0)
 
-    def kept_forward(ctx, q, k, v, bias, sm_scale, num_heads, dropout_rate=0.0, seed=None):
+    def kept_forward(ctx, q, k, v, bias, sm_scale, num_heads, dropout_rate=0.0, seed=None,
+                     plain=False):
         keep(flash_key("flash_attention_fwd", q, k, dropout_rate),
              (q, k, v, bias, sm_scale, num_heads, dropout_rate, seed), flash_calls)
-        return forward.__func__(ctx, q, k, v, bias, sm_scale, num_heads, dropout_rate, seed)
+        return forward.__func__(ctx, q, k, v, bias, sm_scale, num_heads, dropout_rate, seed,
+                                plain)
 
     def kept_backward(ctx, d_out):
         q, k, v, bias, out, lse, seed = ctx.saved_tensors
-        sm_scale, num_heads, rate = ctx.args
+        sm_scale, num_heads, rate = ctx.args[:3]
         keep(flash_key("flash_attention_bwd", q, k, rate),
              (q, k, v, bias, out, lse, d_out.contiguous(), sm_scale, num_heads, rate, seed),
              flash_calls)
         return backward.__func__(ctx, d_out)
 
     def kept_decode(q, k, v, bias, k_scale=None, v_scale=None, **kw):
-        keep(("decode_attention", q.shape[0], k.shape[2], k.dtype, kw.get("group", 1)),
-             (q, k, v, bias, k_scale, v_scale, kw), decode_calls)
+        keep(("decode_attention", q.shape[0], k.shape[2], k.dtype, kw.get("group", 1),
+              kw.get("ancestry") is not None),
+             (q, k, v, bias, k_scale, v_scale,
+              {n: a.clone() if torch.is_tensor(a) else a for n, a in kw.items()}),
+             decode_calls)
         return decode(q, k, v, bias, k_scale, v_scale, **kw)
 
     fa.FlashAttention.forward = staticmethod(kept_forward)
@@ -1499,7 +1719,10 @@ def cli_kernel_checks(kept: dict, names=("flash_attention_fwd", "flash_attention
                       da.decode_attention_plain(*args, **kw))]
             rel = 1e-5 if f32 else 1e-2
             valid = (bias > -1e8).sum(1)
-            shape = (f"B={q.shape[0]} (group {kw.get('group', 1)}) S={k.shape[2]} valid "
+            anc = kw.get("ancestry")
+            reads = ("ancestry map K=" + str(anc.shape[1]) if anc is not None
+                     else f"group {kw.get('group', 1)}")
+            shape = (f"B={q.shape[0]} ({reads}) S={k.shape[2]} valid "
                      f"keys {int(valid.min())}-{int(valid.max())}"
                      + (f" int8 {kw['scale_layout']}" if k.dtype == torch.int8 else ""))
         torch.cuda.synchronize()
@@ -1621,7 +1844,8 @@ def cli_launches(n_enc: int, n_dec: int, updates: int, validations, decodes,
     ``translate`` batch the encoder's n_enc; 2 n_dec decode launches a
     step, greedy in validation, beam search in ``decodes`` (greedy where
     not ``beam``), where the n_dec cross-attention launches a beam step
-    have 5 query rows a cache row."""
+    have 5 query rows a cache row and the n_dec self-attention launches
+    read the ring buffers through the ancestry map (``auto`` is lazy)."""
     per_micro = n_enc + n_dec
     valid_batches = sum(b for _, b, _ in validations)
     beam_steps = sum(s for _, _, s in decodes)
@@ -1630,6 +1854,7 @@ def cli_launches(n_enc: int, n_dec: int, updates: int, validations, decodes,
             "flash_attention_bwd": per_micro * updates,
             "decode_attention": 2 * n_dec * (sum(s for _, _, s in validations) + beam_steps),
             "decode_attention_group": n_dec * beam_steps if beam else 0,
+            "decode_attention_ancestry": n_dec * beam_steps if beam else 0,
             "decode_attention_int8_channel": 0, "decode_attention_int8_position": 0}
 
 
@@ -1899,11 +2124,14 @@ def int8_phase(batch, bf16):
     """Phase 9: the librispeech_100h model of phase 3 (the same seeded
     weights, bf16) with ``cache_cross_int8`` and ``cache_self_int8``, served
     through ``Transcriber``: greedy 64 x 10 s (96 steps) and beam 5 over 32
-    x 10 s (length penalty 1), each with the counters zeroed just before and
+    x 10 s (length penalty 1) with ``beam_reorder`` auto (lazy) and
+    physical, each with the counters zeroed just before and
     the plain versions refused: 16 decode launches a step, all int8 (8 with
     channel scales on the cross caches, 8 with position scales on the self
-    ring buffers; in beam the 8 cross launches take 5 queries a cache row),
-    and 16 flash launches (the encoder). Decode attention is then held
+    ring buffers; in beam the 8 cross launches take 5 queries a cache row,
+    and the lazy run's 8 self launches read through the ancestry map),
+    and 16 flash launches (the encoder); the two beam runs must give the
+    same transcripts. Decode attention is then held
     against its plain version on the inputs of a first and a later call of
     each kind; audio-s/s and K5's device ms a step (16 profiled steps) stand
     beside phase 3's bf16 requests, with the share of words equal to theirs
@@ -1926,9 +2154,11 @@ def int8_phase(batch, bf16):
     asr = Transcriber(model, spec, vocab, device="cuda")
     n_enc, n_dec = len(model.encoder.layers), len(model.decoder.layers)
     asr.transcribe(batch[:2], max_output_length=4)  # warm-up
-    asr.transcribe(batch[:2], max_output_length=4, beam_size=5)
-    requests = [("greedy 64 x 10 s", 64, {}), ("beam 5 32 x 10 s", 32,
-                                               dict(beam_size=5, beam_alpha=1.0))]
+    for reorder in REORDERS:  # at the beam request's batch
+        asr.transcribe(batch[:32], max_output_length=4, beam_size=5, beam_reorder=reorder)
+    beam = dict(beam_size=5, beam_alpha=1.0)
+    requests = [("greedy 64 x 10 s", 64, {}), ("beam 5 32 x 10 s", 32, beam),
+                ("beam 5 32 x 10 s physical", 32, dict(beam, beam_reorder="physical"))]
     kept, results = {}, {}
     for name, n, kw in requests:
         s0 = asr.stats["decode_steps"]
@@ -1944,10 +2174,18 @@ def int8_phase(batch, bf16):
         want = {"flash_attention_fwd": n_enc, "flash_attention_bwd": 0,
                 "decode_attention": 2 * n_dec * steps,
                 "decode_attention_group": n_dec * steps if kw else 0,
+                "decode_attention_ancestry": (n_dec * steps if kw and "beam_reorder" not in kw
+                                              else 0),
                 "decode_attention_int8_channel": n_dec * steps,
                 "decode_attention_int8_position": n_dec * steps}
         check(launches == want, f"int8 {name} launches {launches}, expected {want}")
         results[name] = (texts, wall, steps, launches)
+    check(results["beam 5 32 x 10 s"][0] == results["beam 5 32 x 10 s physical"][0],
+          "int8 caches: lazy and physical beam reorders gave different transcripts")
+    print(f"[int8] beam 5: lazy "
+          f"{320.0 / results['beam 5 32 x 10 s'][1]:.1f} against physical "
+          f"{320.0 / results['beam 5 32 x 10 s physical'][1]:.1f} audio-s/s, transcripts "
+          f"identical")
     checks = cli_kernel_checks(kept, names=("flash_attention_fwd", "decode_attention"),
                                tag="int8")
     for kind in ("channel", "position"):
@@ -1964,13 +2202,19 @@ def int8_phase(batch, bf16):
             pstats = {}
             if kw:
                 run = lambda: beam_search(asr.decode_model, spec, enc, None, mask, 5, 16,  # noqa: E731
-                                          1.0, device="cuda", stats=pstats)
+                                          1.0, device="cuda", stats=pstats,
+                                          beam_reorder=kw.get("beam_reorder", "auto"))
             else:
                 run = lambda: transformer_greedy(asr.decode_model, spec, enc, mask, 16,  # noqa: E731
                                                  device="cuda", stats=pstats)
             wall, kernels = profiled(run)
             k5_ms = decode_profile("int8", f"int8 {name.split()[0]} loop", asr, wall, kernels,
                                    pstats["decode_steps"])
+            if kw and kernels:  # the physical loop reorders values and scales
+                selects = index_selects(kernels) / pstats["decode_steps"]
+                print(f"[int8] index_select kernels a step ({name}): {selects:.1f}")
+                check(selects == (4 * n_dec if "beam_reorder" in kw else 0),
+                      f"int8 {name}: {selects} index_select kernels a step")
             texts, wall, steps, launches = results[name]
             ref_texts, ref_wall, ref_steps, ref_k5 = bf16[name]
             audio = 10.0 * n
@@ -2092,6 +2336,7 @@ def spm_phase(data: Path) -> dict:
     steps = asr.stats["decode_steps"] - s0
     want = {"flash_attention_fwd": n_enc, "flash_attention_bwd": 0,
             "decode_attention": 2 * n_dec * steps, "decode_attention_group": 0,
+            "decode_attention_ancestry": 0,
             "decode_attention_int8_channel": 0, "decode_attention_int8_position": 0}
     check(serve_n == want, f"spm serving launches {serve_n}, expected {want}")
     check(hub_n["flash_attention_fwd"] == n_enc and hub_n["decode_attention_group"] > 0,
@@ -2112,7 +2357,7 @@ def spm_phase(data: Path) -> dict:
           and asr.norm_vars, "Transcriber.from_hub took no SentencePiece tokenizer or "
           "not the config's CMVN flags")
     for name in ("flash_attention_fwd", "flash_attention_bwd", "decode_attention",
-                 "decode_attention_group"):
+                 "decode_attention_group", "decode_attention_ancestry"):
         launches[name] += hub_n[name] + serve_n[name]
     print(f"[spm] train (4 updates, 1 validation) {runs['train'][0]:.2f} s, "
           f"{update_ms(runs['train'][1]):.2f} ms an update; test {runs['test'][0]:.2f} s; "
@@ -2331,7 +2576,8 @@ def mt_prompt_leg(cfg: dict, data: Path, work: Path, n_enc: int, n_dec: int) -> 
         steps = n["decode_attention"] // (2 * n_dec)
         check(n["flash_attention_fwd"] == n_enc and n["flash_attention_bwd"] == 0
               and steps > 2 and n["decode_attention"] == 2 * n_dec * steps
-              and n["decode_attention_group"] == (n_dec * steps if group else 0),
+              and n["decode_attention_group"] == (n_dec * steps if group else 0)
+              and n["decode_attention_ancestry"] == (n_dec * steps if group else 0),
               f"prompted {name} launches {n}")
     print(f"[mt] prompts: sep + 2 language tags, prompt files beside the corpus; train 4 "
           f"updates {train_wall:.2f} s; load_model_dir -> score (beam 5) and generate "
@@ -2536,7 +2782,7 @@ def decode_step_profile(hub, srcs, beam: int):
 
 def recurrent_phase() -> None:
     """Phase 14: configs/rnn_reverse.yaml and rnn_small.yaml's model and
-    training sections on test/data/reverse/ through ``train`` (200
+    training sections on test/data/reverse/ through ``train`` (100
     updates of 10 sentences, one validation), ``test -o`` and ``translate``
     on the card, ``load_model_dir`` -> ``generate`` equal to ``translate``,
     no attention kernel launched (the recurrent models' attention is
@@ -2557,7 +2803,7 @@ def recurrent_phase() -> None:
     for name, (rnn, attention, init, beam, fp16) in shape.items():
         model_dir = work / f"{name}_model"
         shutil.rmtree(model_dir, ignore_errors=True)
-        cfg = rnn_config(name, model_dir, cut, 200)
+        cfg = rnn_config(name, model_dir, cut, 100)
         m = cfg["model"]
         check(m["encoder"]["type"] == m["decoder"]["type"] == "recurrent"
               and m["encoder"]["rnn_type"] == m["decoder"]["rnn_type"] == rnn
@@ -2916,8 +3162,8 @@ def gloo_rank(rank: int, port: int, cfg: dict) -> None:
 def gloo_phase(data: Path) -> None:
     """Phase 16 (b): two ranks on the one card over gloo, each a process
     that calls ``training.train`` (full width, dropout 0, SpecAugment off:
-    it draws from each rank's numpy stream); 2 updates of 64 utterances a
-    rank, a sharded greedy validation after each. Against a single-process
+    it draws from each rank's numpy stream); 1 update of 64 utterances a
+    rank, then a sharded greedy validation. Against a single-process
     update on the union of the two ranks' first batches: the summed
     gradients before clipping (within 2 % of their norm), the weights after
     the first update (bf16: within 2 lr, Adam's first step moving a weight
@@ -2945,7 +3191,7 @@ def gloo_phase(data: Path) -> None:
     for side in ("encoder", "decoder"):
         cfg["model"][side]["dropout"] = 0.0
         cfg["model"][side]["embeddings"]["dropout"] = 0.0
-    cfg["training"].update(updates=2, validation_freq=1, logging_freq=1)
+    cfg["training"].update(updates=1, validation_freq=1, logging_freq=1)
     cfg["testing"]["batch_size"] = 16  # 4 dev batches: 2 a rank
     ctx = mp.get_context("spawn")
     port = free_port()
@@ -3016,9 +3262,9 @@ def gloo_phase(data: Path) -> None:
     merged = (model_dir / "1.hyps").read_text(encoding="utf-8").splitlines()
     check(merged == hyps, f"gloo validation: {sum(a != b for a, b in zip(merged, hyps))} "
           f"of {len(hyps)} hypotheses differ from one process's")
-    print(f"[gloo] two ranks on the one card over gloo, each calling training.train: 2 "
-          f"updates of 64 utterances a rank (global batch 128), dropout 0, a sharded greedy "
-          f"validation after each, {gloo_wall:.1f} s wall with start-up (gloo stages through "
+    print(f"[gloo] two ranks on the one card over gloo, each calling training.train: 1 "
+          f"update of 64 utterances a rank (global batch 128), dropout 0, then a sharded "
+          f"greedy validation, {gloo_wall:.1f} s wall with start-up (gloo stages through "
           f"the host: no yardstick)")
     print(f"[gloo] first update against one process on the union of the ranks' first "
           f"batches: loss {rank_loss:.5f} / {union['loss']:.5f}; gradients before clipping "
@@ -3263,14 +3509,15 @@ def main():
 
     build_phase()
     mark("phase 1")
-    flash, decode, decode_group, backward, mt_cases = kernel_phase()
+    flash, decode, decode_group, backward, mt_cases, ancestry = kernel_phase()
     mt_flash, mt_backward, mt_decode, mt_group = mt_cases
     mark("phase 2")
     flash_launches, decode_launches, asr, batch, served = serving_phase()
     greedy_k5_ms = breakdown_phase(asr, batch)
-    beam_launches, beam_served, beam_k5_ms = beam_serving_phase(asr, batch)
+    beam_launches, beam_served = beam_serving_phase(asr, batch)
     bf16 = {"greedy 64 x 10 s": served["64 x 10 s"] + (greedy_k5_ms,),
-            "beam 5 32 x 10 s": beam_served + (beam_k5_ms,)}
+            "beam 5 32 x 10 s": beam_served["auto"],
+            "beam 5 32 x 10 s physical": beam_served["physical"]}
     del asr
     mark("phase 3")
     card_vs_cpu_phase()
@@ -3316,7 +3563,7 @@ def main():
 
     def compact(c):  # a case's measurements, without what its printed line adds
         return {k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "library_ms",
-                                  "bound_ms", "bound_by") if k in c}
+                                  "physical_ms", "bound_ms", "bound_by") if k in c}
 
     def entry(name, source, replaces, also, cases, launches, checks):
         head = cases[0]  # the main path's headline shape and dtype
@@ -3329,7 +3576,8 @@ def main():
                     ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                     bound_by=head["bound_by"], library_ms=head["library_ms"],
                     case=head["case"], cases=[compact(c) for c in cases if "ms" in c],
-                    path_checks=dict(worst, n_cases=len(checks)))
+                    path_checks=dict(worst, n_cases=len(checks)),
+                    **({"physical_ms": head["physical_ms"]} if "physical_ms" in head else {}))
 
     def paths(name, **extra):
         return dict(extra, serving_beam=beam_launches[name], cli=cli_counts[name],
@@ -3351,8 +3599,11 @@ def main():
         for name, cases in later.items():
             cli_checks[name] = cli_checks[name] + cases
     decode_checks = cli_checks["decode_attention"]
+    anc_checks = [c for c in decode_checks + int8_checks["decode_attention"]
+                  if "(ancestry map" in c["case"]]
     mt_timed = [c for c in mt_decode if "ms" in c]
     int8_decode_checks = int8_checks["decode_attention"]
+    check(bool(anc_checks), "no ancestry-map decode input of the main paths was checked")
     kernels = [
         entry("flash_attention_fwd", "joeys2t_torch/csrc/flash_attention.cu",
               "joeys2t_tpu/ops/flash_attention.py:492",
@@ -3373,7 +3624,13 @@ def main():
               "joeys2t_torch/csrc/decode_attention.cu",
               "joeys2t_tpu/ops/decode_attention.py:185", None, decode_group + mt_group,
               paths("decode_attention_group"),
-              [c for c in decode_checks if "(group 1)" not in c["case"]]),
+              [c for c in decode_checks if "(group " in c["case"]
+               and "(group 1)" not in c["case"]]),
+        entry("decode_attention (ancestry map: lazy beam search's self caches)",
+              "joeys2t_torch/csrc/decode_attention.cu",
+              "joeys2t_tpu/ops/decode_attention.py:185",
+              "joeys2t_tpu/models/modules.py:320 (step_self_ancestry, einsum)", ancestry,
+              paths("decode_attention_ancestry"), anc_checks),
         entry("decode_attention (int8 with channel scales: the cross caches)",
               "joeys2t_torch/csrc/decode_attention.cu",
               "joeys2t_tpu/ops/decode_attention.py:185", None,

@@ -11,11 +11,13 @@ Counterpart of joeys2t_tpu/config.py (``SpecialSymbols`` :28,
 ``cuda`` device and raises without one; ``use_cuda: False`` runs on the CPU.
 ``fp16`` selects bfloat16 compute on float32 masters. The `training` options
 of the parts the port does not have yet (profiling, model and pipeline
-parallelism, optimizers other than adam/adamw) raise
-``NotImplementedError`` when set; :func:`check_ported` refuses the unported
-`testing` and `data` options before a run loads any data. The
-``JOEYS2T_BEAM_REORDER`` environment override of ``beam_reorder`` is not
-ported: the port reads no environment knobs.
+parallelism with ``pipeline_microbatches``, optimizers other than
+adam/adamw, and sgd's ``momentum``) raise ``NotImplementedError`` when set;
+:func:`check_ported` refuses the unported `testing` and `model` options
+(returned attention, ``sequence_parallel``) before a run loads any data.
+As in JAX, the ``JOEYS2T_BEAM_REORDER`` environment variable overrides
+``beam_reorder`` when the `testing` section is parsed, never in the
+decode loop.
 
 The port depends on torch, numpy and the standard library only, so it reads
 the repository's configs with its own YAML reader: block mappings by
@@ -29,6 +31,7 @@ back in that subset.
 import dataclasses
 import json
 import math
+import os
 import re
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
@@ -266,10 +269,13 @@ def parse_train_args(cfg: Dict, mode: str = "train") -> TrainConfig:
         "profile_dir": cfg.get("profile_dir") is not None,
         "model_parallel": int(cfg.get("model_parallel", 1)) != 1,
         "pipeline_parallel": int(cfg.get("pipeline_parallel", 1)) != 1,
+        "pipeline_microbatches": int(cfg.get("pipeline_microbatches", 0)) != 0,
         f"optimizer {optimizer}": optimizer not in PORTED_OPTIMIZERS,
     }
-    where = {"model_parallel": " (tensor parallelism, ROADMAP.md §A item 7)",
-             "pipeline_parallel": " (pipeline parallelism, ROADMAP.md §A item 7)"}
+    where = {"model_parallel": " (tensor parallelism, ROADMAP.md §A item 3)",
+             "pipeline_parallel": " (pipeline parallelism, ROADMAP.md §A item 4)",
+             "pipeline_microbatches": " (pipeline parallelism, ROADMAP.md §A item 4)",
+             "optimizer sgd": " (nor its `momentum`)"}
     for option, is_set in unported.items():
         if is_set:
             raise NotImplementedError(f"training option `{option}` is not ported "
@@ -319,8 +325,10 @@ def parse_train_args(cfg: Dict, mode: str = "train") -> TrainConfig:
 
 def parse_test_args(cfg: Dict, mode: str = "test") -> TestConfig:
     """Parse and validate the `testing` section (joeynmt/config.py:356-446).
-    Returned attention and ``beam_reorder: lazy`` are accepted here;
-    :func:`check_ported` refuses them."""
+    Returned attention is accepted here; :func:`check_ported` refuses it.
+    ``beam_reorder`` (``auto``, ``lazy`` or ``physical``) is taken from the
+    ``JOEYS2T_BEAM_REORDER`` environment variable where it is set, as JAX
+    does (joeys2t_tpu/config.py:409-412)."""
     batch_size = cfg.get("batch_size", 64)
     batch_type = cfg.get("batch_type", "sentence").lower()
     _check_options("batch_type", batch_type, ["sentence", "token"])
@@ -362,7 +370,8 @@ def parse_test_args(cfg: Dict, mode: str = "test") -> TestConfig:
     if 0 < repetition_penalty < 1:
         raise ConfigurationError(
             "Repetition penalty must be > 1. (-1 indicates no repetition penalty.)")
-    beam_reorder = str(cfg.get("beam_reorder", "auto")).lower()
+    beam_reorder = str(os.environ.get("JOEYS2T_BEAM_REORDER",
+                                      cfg.get("beam_reorder", "auto"))).lower()
     _check_options("beam_reorder", beam_reorder, ["auto", "lazy", "physical"])
     return TestConfig(
         load_model=_check_path(cfg.get("load_model", None), allow_empty=mode == "train"),
@@ -386,17 +395,14 @@ def parse_test_args(cfg: Dict, mode: str = "test") -> TestConfig:
 
 def check_ported(args: BaseConfig, save_attention: bool = False) -> None:
     """Raise ``NotImplementedError`` for an option of the `testing` or
-    `data` section that the port does not have yet, so that ``train``,
+    `model` section that the port does not have yet, so that ``train``,
     ``test`` and ``translate`` refuse it before loading any data rather than
     where it would first run (after training, for the closing test)."""
-    t, data = args.test, args.data
+    t, model = args.test, args.model
     unported = {
         "return_attention": t.return_attention or save_attention,
-        "beam_reorder: lazy": t.beam_reorder == "lazy",
-        "pretokenizer: moses": any(
-            str((data.get(side) or {}).get("tokenizer_cfg", {}).get(
-                "pretokenizer", "none")).lower() == "moses" for side in ("src", "trg")),
-        "dataset_type: huggingface": data.get("dataset_type") == "huggingface",
+        # JAX's sequence-parallel constraint of tensor parallelism (ROADMAP.md §A item 3)
+        "sequence_parallel": bool(model.get("sequence_parallel", False)),
     }
     names = [name for name, is_set in unported.items() if is_set]
     if names:

@@ -66,6 +66,20 @@
 //    reads every rank's (max, sum, acc) in rank order, rescales, divides and
 //    writes the output; a second cluster.sync() keeps the other blocks'
 //    shared memory alive until it is read.
+//
+// Ancestry-map mode (lazy beam reorder; the JAX einsum of models/modules.py
+// `step_self_ancestry`, :320-412, which has no Pallas kernel). Beam search
+// keeps one self-attention ring buffer per beam row (B*K rows) and, instead
+// of permuting the buffers after every selection, a (B, K, S) int32 map:
+// query row r = b*K + k reads, at position s, cache row b*K + anc[b, k, s]
+// (K, V and the "position" scales through the same index). The kernel is
+// the one above with one change: a row's K/V (and scale) address is offset
+// by (anc - k) cache rows. Each position's D-vector stays contiguous, so a
+// row's loads stay coalesced 16-byte loads; the map entry of a row is read
+// with the row's bias, two steps ahead, and held in registers. Entries are
+// clamped into [0, K), so no utterance reads another's rows. What bounds it:
+// the bytes of the used slots of the B*K rows plus the map, where the
+// physical reorder writes the whole buffers and reads them again.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -174,15 +188,16 @@ struct Step {
   bool take[U];
 };
 
-template <typename TQ, typename TKV, int D>
+template <typename TQ, typename TKV, int D, bool kAnc>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                         const TKV* __restrict__ v,
                         const float* __restrict__ bias,
                         const float* __restrict__ k_scale,
-                        const float* __restrict__ v_scale, TQ* __restrict__ out,
-                        int s_len, int split_rows, int group, float sm_scale,
-                        int layout) {
+                        const float* __restrict__ v_scale,
+                        const int* __restrict__ anc, int beam_k,
+                        TQ* __restrict__ out, int s_len, int split_rows, int group,
+                        float sm_scale, int layout) {
   using G = Geometry<TKV, D>;
   constexpr int L = G::kLanes, R = G::kRows, E = G::kElems, NW = G::kWords,
                 U = G::kUnroll, kStride = kWarps * U * R;
@@ -202,6 +217,11 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   const char* vb = reinterpret_cast<const char*>(v + bh * s_len * D) + col * sizeof(TKV);
   const float* ks_row = k_scale + bh * s_len;  // layout 2 only
   const float* vs_row = v_scale + bh * s_len;
+  // ancestry mode (group 1, so b is the query row): this row's map, its own
+  // beam index, and the distance between two beam rows' buffers
+  const int* anc_row = kAnc ? anc + (size_t)b * s_len : nullptr;
+  const int own = kAnc ? b % beam_k : 0;
+  const size_t row_elems = (size_t)gridDim.y * s_len;  // one row's (H, S)
 
   // q for this lane's columns, scaled (and the channel K scales folded in)
   // exactly as the plain version scales it
@@ -214,14 +234,19 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     qr[i] = x;
   }
 
-  auto load_bias = [&](float (&bs)[U], int base) {
+  // the bias of a step's rows and, in ancestry mode, their row offsets
+  // (anc - own, in cache rows)
+  auto load_bias = [&](float (&bs)[U], int (&dr)[U], int base) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int r = base + u * R + slot;
       bs[u] = r < s1 ? __ldg(bias_row + r) : -INFINITY;
+      if constexpr (kAnc)
+        dr[u] = r < s1 ? min(max(__ldg(anc_row + r), 0), beam_k - 1) - own : 0;
     }
   };
-  auto fetch = [&](Step<NW, U>& st, const float (&bs)[U], int base, bool skip) {
+  auto fetch = [&](Step<NW, U>& st, const float (&bs)[U], const int (&dr)[U], int base,
+                   bool skip) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int r = base + u * R + slot;
@@ -229,9 +254,12 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       st.take[u] = r < s1 && (!skip || bs[u] > kMaskedAtOrBelow);
       st.ks[u] = st.vs[u] = 1.f;
       if (st.take[u]) {
-        load_words(st.kw[u], kb + (size_t)r * G::kRowBytes);
-        load_words(st.vw[u], vb + (size_t)r * G::kRowBytes);
-        if (layout == kPosition) st.ks[u] = __ldg(ks_row + r), st.vs[u] = __ldg(vs_row + r);
+        // element offset of row r of this (query row, h) in the caches
+        long long e = (long long)r;
+        if constexpr (kAnc) e += (long long)dr[u] * (long long)row_elems;
+        load_words(st.kw[u], kb + e * G::kRowBytes);
+        load_words(st.vw[u], vb + e * G::kRowBytes);
+        if (layout == kPosition) st.ks[u] = __ldg(ks_row + e), st.vs[u] = __ldg(vs_row + e);
       } else {
 #pragma unroll
         for (int j = 0; j < NW; ++j) st.kw[u][j] = st.vw[u][j] = 0u;
@@ -279,16 +307,21 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     // the bias of the step after that before those
     Step<NW, U> st_a, st_b;
     float bias_next[U];
+    int dr_next[U];
     int base = s0 + warp * U * R;
-    load_bias(bias_next, base);
-    if (base < s1) fetch(st_a, bias_next, base, skip), load_bias(bias_next, base + kStride);
+    load_bias(bias_next, dr_next, base);
+    if (base < s1)
+      fetch(st_a, bias_next, dr_next, base, skip),
+          load_bias(bias_next, dr_next, base + kStride);
     while (base < s1) {
       if (base + kStride < s1)
-        fetch(st_b, bias_next, base + kStride, skip), load_bias(bias_next, base + 2 * kStride);
+        fetch(st_b, bias_next, dr_next, base + kStride, skip),
+            load_bias(bias_next, dr_next, base + 2 * kStride);
       consume(st_a);
       if ((base += kStride) >= s1) break;
       if (base + kStride < s1)
-        fetch(st_a, bias_next, base + kStride, skip), load_bias(bias_next, base + 2 * kStride);
+        fetch(st_a, bias_next, dr_next, base + kStride, skip),
+            load_bias(bias_next, dr_next, base + 2 * kStride);
       consume(st_b);
       base += kStride;
     }
@@ -338,13 +371,13 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   cluster.sync();  // rank 0 has read every block's shared memory
 }
 
-template <typename TQ, typename TKV, int D>
+template <typename TQ, typename TKV, int D, bool kAnc>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* bias, const float* k_scale,
-                   const float* v_scale, void* out, int batch, int group,
-                   int num_heads, int s_len, int splits, int split_rows,
-                   float sm_scale, int layout, cudaStream_t stream) {
-  auto kernel = decode_attention_kernel<TQ, TKV, D>;
+                   const float* v_scale, const int* anc, int beam_k, void* out,
+                   int batch, int group, int num_heads, int s_len, int splits,
+                   int split_rows, float sm_scale, int layout, cudaStream_t stream) {
+  auto kernel = decode_attention_kernel<TQ, TKV, D, kAnc>;
   if (splits > kPortableSplits) {  // per launch: the attribute is per device
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -364,28 +397,29 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   cfg.numAttrs = splits > 1;  // one split: no cluster, which launches faster
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), bias, k_scale, v_scale, static_cast<TQ*>(out),
-      s_len, split_rows, group, sm_scale, layout);
+      static_cast<const TKV*>(v), bias, k_scale, v_scale, anc, beam_k,
+      static_cast<TQ*>(out), s_len, split_rows, group, sm_scale, layout);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename TQ, typename TKV>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const float* bias, const float* k_scale,
-                     const float* v_scale, void* out, int batch, int group,
-                     int num_heads, int s_len, int head_dim, int splits,
-                     int split_rows, float sm_scale, int layout,
+                     const float* v_scale, const int* anc, int beam_k, void* out,
+                     int batch, int group, int num_heads, int s_len, int head_dim,
+                     int splits, int split_rows, float sm_scale, int layout,
                      cudaStream_t stream) {
-#define DECODE_LAUNCH(D)                                                        \
-  launch<TQ, TKV, D>(q, k, v, bias, k_scale, v_scale, out, batch, group,       \
-                     num_heads, s_len, splits, split_rows, sm_scale, layout,   \
-                     stream)
+#define DECODE_LAUNCH(D, ANC)                                                   \
+  launch<TQ, TKV, D, ANC>(q, k, v, bias, k_scale, v_scale, anc, beam_k, out,   \
+                          batch, group, num_heads, s_len, splits, split_rows,  \
+                          sm_scale, layout, stream)
+  const bool a = anc != nullptr;
   switch (head_dim) {
-    case 16: return DECODE_LAUNCH(16);
-    case 64: return DECODE_LAUNCH(64);
-    case 128: return DECODE_LAUNCH(128);
-    case 192: return DECODE_LAUNCH(192);
-    case 256: return DECODE_LAUNCH(256);
+    case 16: return a ? DECODE_LAUNCH(16, true) : DECODE_LAUNCH(16, false);
+    case 64: return a ? DECODE_LAUNCH(64, true) : DECODE_LAUNCH(64, false);
+    case 128: return a ? DECODE_LAUNCH(128, true) : DECODE_LAUNCH(128, false);
+    case 192: return a ? DECODE_LAUNCH(192, true) : DECODE_LAUNCH(192, false);
+    case 256: return a ? DECODE_LAUNCH(256, true) : DECODE_LAUNCH(256, false);
     default: return cudaErrorInvalidValue;
   }
 #undef DECODE_LAUNCH
@@ -395,7 +429,10 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 
 // q (B * group, H, D), query row r reading cache row r / group; k/v (B, H,
 // S, D); bias (B, S) f32; k_scale/v_scale f32 of (B, H, D) for layout 1,
-// (B, H, S) for layout 2, unused (may be null) for 0. out (B * group, H, D)
+// (B, H, S) for layout 2, unused (may be null) for 0. anc: null, or the
+// (B / beam_k, beam_k, S) int32 ancestry map (group 1, layout 0 or 2):
+// query row r reads, at position s, cache row
+// r - r % beam_k + anc[r, s]. out (B * group, H, D)
 // in q's type. q_dtype: 0 = float32, 1 = bfloat16; kv_int8: 1
 // when the caches are int8 (then layout must be 1 or 2), else 0 and the caches
 // have q's type. S is cut into `splits` (1-16) ranges of `split_rows` rows,
@@ -403,7 +440,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 // cudaError_t of the launch (0 on success).
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     const float* bias, const float* k_scale,
-                                    const float* v_scale, void* out, int batch,
+                                    const float* v_scale, const int* anc,
+                                    int beam_k, void* out, int batch,
                                     int group, int num_heads, int s_len, int head_dim,
                                     int q_dtype, int kv_int8, int layout,
                                     int splits, int split_rows, float sm_scale,
@@ -412,24 +450,26 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
       num_heads <= 0 || s_len <= 0 || layout < 0 || layout > 2 ||
       (kv_int8 != 0) != (layout != 0) || splits < 1 || splits > kMaxSplits ||
       split_rows < 1 || (long long)splits * split_rows < s_len ||
-      (long long)(splits - 1) * split_rows >= s_len)
+      (long long)(splits - 1) * split_rows >= s_len ||
+      (anc != nullptr &&
+       (group != 1 || layout == 1 || beam_k < 1 || batch % beam_k != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && !kv_int8)
-    return (int)dispatch<float, float>(q, k, v, bias, k_scale, v_scale, out,
-                                       batch, group, num_heads, s_len, head_dim,
+    return (int)dispatch<float, float>(q, k, v, bias, k_scale, v_scale, anc,
+                                       beam_k, out, batch, group, num_heads, s_len, head_dim,
                                        splits, split_rows, sm_scale, layout, st);
   if (q_dtype == 0 && kv_int8)
-    return (int)dispatch<float, int8_t>(q, k, v, bias, k_scale, v_scale, out,
-                                        batch, group, num_heads, s_len, head_dim,
+    return (int)dispatch<float, int8_t>(q, k, v, bias, k_scale, v_scale, anc,
+                                        beam_k, out, batch, group, num_heads, s_len, head_dim,
                                         splits, split_rows, sm_scale, layout, st);
   if (q_dtype == 1 && !kv_int8)
     return (int)dispatch<__nv_bfloat16, __nv_bfloat16>(
-        q, k, v, bias, k_scale, v_scale, out, batch, group, num_heads, s_len,
+        q, k, v, bias, k_scale, v_scale, anc, beam_k, out, batch, group, num_heads, s_len,
         head_dim, splits, split_rows, sm_scale, layout, st);
   if (q_dtype == 1 && kv_int8)
     return (int)dispatch<__nv_bfloat16, int8_t>(
-        q, k, v, bias, k_scale, v_scale, out, batch, group, num_heads, s_len,
+        q, k, v, bias, k_scale, v_scale, anc, beam_k, out, batch, group, num_heads, s_len,
         head_dim, splits, split_rows, sm_scale, layout, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,8 +3,9 @@
 Datasets (counterpart of joeys2t_tpu/data/datasets.py): ``BaseDataset`` :54
 with ``collate_fn`` :172 and ``make_iter`` :207, ``_BatchIterator`` :270,
 ``_prefetch`` :291, ``PlaintextDataset`` :312, ``TsvDataset`` :360, ``SpeechDataset`` :420,
-``StreamDataset`` :481, ``SpeechStreamDataset`` :542, ``build_dataset``
-:676.
+``StreamDataset`` :481, ``SpeechStreamDataset`` :542,
+``BaseHuggingfaceDataset`` :574, ``HuggingfaceTranslationDataset`` :648,
+``build_dataset`` :676.
 
 Manifests are read with the ``csv`` module under the semantics of the JAX
 package's pandas reads. A speech manifest (:442): tab separated, a header
@@ -12,8 +13,11 @@ row, no quoting, ``\\`` escapes the next character, no NA filtering, every
 column a string but ``n_frames``; rows whose ``n_frames`` is not above the
 source ``min_length`` or with a blank field are dropped (:449-450). A text
 TSV (:379): tab separated, a header row, ``"`` quoting, and rows with a
-missing or NA field dropped. Huggingface datasets are not ported yet and
-raise.
+missing or NA field dropped. A Huggingface dataset (the ``datasets``
+package, imported only for one) is read with ``load_from_disk`` when its
+path holds a saved dataset and ``load_dataset`` otherwise; its split is
+``dataset_cfg.split`` (``hf_split``), else the positional one with dev read
+as ``validation``.
 """
 import csv
 import queue
@@ -546,6 +550,97 @@ class SpeechStreamDataset(StreamDataset):
         return self.tokenizer["src"](wav_path, is_train=False)
 
 
+class BaseHuggingfaceDataset(BaseDataset):
+    """A Huggingface ``datasets.Dataset`` whose ``COLUMN_NAME`` column maps
+    each language to its text, with optional ``<lang>_prompt`` columns
+    (joeynmt/datasets.py:866-969)."""
+
+    COLUMN_NAME = "sentence"
+
+    def __init__(self, path, src_lang, trg_lang, has_trg=True, has_prompt=None,
+                 tokenizer=None, sequence_encoder=None, random_subset=-1,
+                 task="MT", **kwargs):
+        super().__init__(path=path, src_lang=src_lang, trg_lang=trg_lang,
+                         split=kwargs["split"], has_trg=has_trg, has_prompt=has_prompt,
+                         tokenizer=tokenizer, sequence_encoder=sequence_encoder,
+                         random_subset=random_subset, task=task)
+        self.dataset = self.load_data(path, **kwargs)
+        self.reset_indices()
+
+    def load_data(self, path: str, **kwargs) -> Any:
+        # pylint: disable=import-outside-toplevel
+        from datasets import Dataset, DatasetDict, config, load_dataset, load_from_disk
+
+        on_disk = any(Path(path, marker).exists()
+                      for marker in (config.DATASET_STATE_JSON_FILENAME,
+                                     config.DATASETDICT_JSON_FILENAME))
+        if on_disk:
+            hf_dataset = load_from_disk(path)
+            if isinstance(hf_dataset, DatasetDict):
+                if kwargs["split"] not in hf_dataset:
+                    raise ValueError(f"{path} has no split {kwargs['split']!r}")
+                hf_dataset = hf_dataset[kwargs["split"]]
+        else:
+            hf_dataset = load_dataset(path, **kwargs)
+        if not isinstance(hf_dataset, Dataset) or self.COLUMN_NAME not in hf_dataset.features:
+            raise ValueError(f"{path}: expected a dataset with a {self.COLUMN_NAME!r} column")
+        return hf_dataset
+
+    def lookup_item(self, idx: int, lang: str) -> Tuple[str, Optional[str]]:
+        line = self.dataset[idx]
+        if lang not in line[self.COLUMN_NAME]:
+            raise KeyError(f"row {idx} has no {lang!r} text")
+        return line[self.COLUMN_NAME][lang], line.get(f"{lang}_prompt", None)
+
+    def get_list(self, lang, tokenized=False, subsampled=True):
+        indices = self.indices if subsampled else range(len(self))
+        lines = [self.dataset[int(i)][self.COLUMN_NAME][lang] for i in indices]
+        if tokenized:
+            return [self.tokenizer[lang](line) for line in lines]
+        return lines
+
+    def __len__(self) -> int:
+        return self.dataset.num_rows
+
+
+class HuggingfaceTranslationDataset(BaseHuggingfaceDataset):
+    """A dataset of ``datasets.features.Translation`` rows
+    (joeynmt/datasets.py:972-1027): rows with an empty or missing side are
+    dropped, and every text and prompt is pre-processed once at load."""
+
+    COLUMN_NAME = "translation"
+
+    def load_data(self, path: str, **kwargs) -> Any:
+        dataset = super().load_data(path=path, **kwargs)
+        from datasets.features import Translation  # pylint: disable=import-outside-toplevel
+
+        feature = dataset.features[self.COLUMN_NAME]
+        if not isinstance(feature, Translation):
+            raise ValueError(f"Please cast `{self.COLUMN_NAME}` column to "
+                             "datasets.features.Translation class.")
+        sides = [self.src_lang] + ([self.trg_lang] if self.has_trg else [])
+        missing = [lang for lang in sides if lang not in feature.languages]
+        if missing:
+            raise ValueError(f"{path}: no {missing} in {feature.languages}")
+
+        def _pre_process(item):
+            for lang in sides:
+                item[self.COLUMN_NAME][lang] = self.tokenizer[lang].pre_process(
+                    item[self.COLUMN_NAME][lang])
+            for lang in (self.src_lang, self.trg_lang):
+                if self.has_prompt[lang]:
+                    item[f"{lang}_prompt"] = self.tokenizer[lang].pre_process(
+                        item[f"{lang}_prompt"], allow_empty=True)
+            return item
+
+        def _drop_nan(item):
+            return all(item[self.COLUMN_NAME][lang] is not None
+                       and len(item[self.COLUMN_NAME][lang]) > 0 for lang in sides)
+
+        dataset = dataset.filter(_drop_nan, desc="Dropping NaN...")
+        return dataset.map(_pre_process, desc="Preprocessing...")
+
+
 def build_dataset(dataset_type: str, path: Optional[str], src_lang: str, trg_lang: str,
                   split: str, tokenizer: Optional[Dict] = None,
                   sequence_encoder: Optional[Dict] = None,
@@ -560,7 +655,14 @@ def build_dataset(dataset_type: str, path: Optional[str], src_lang: str, trg_lan
                                     else sequence_encoder), task=task)
     speech = dict(common, src_lang="src", trg_lang="trg")
     if dataset_type == "huggingface":
-        raise NotImplementedError(f"{dataset_type} datasets are not ported yet")
+        # the dataset's own split name: dataset_cfg's ``split`` (``hf_split``
+        # here), else the positional one, dev read as "validation"
+        kwargs["split"] = kwargs.pop("hf_split", kwargs.get(
+            "split", "validation" if split == "dev" else split))
+        del common["split"]
+        return HuggingfaceTranslationDataset(path=path, has_trg=True,
+                                             random_subset=random_subset, **common,
+                                             **kwargs)
     if dataset_type == "plain":
         base = Path(path)
         return PlaintextDataset(

@@ -35,7 +35,10 @@ def load_data(cfg: Dict, datasets: List[str], task: str = "MT"
     if task == "S2T" and dataset_type != "speech":
         raise ValueError(f"S2T data needs dataset_type speech, got {dataset_type}")
     dataset_cfg = dict(cfg.get("dataset_cfg", {}))
-    dataset_cfg.pop("split", None)  # a Huggingface split name; not ported
+    # a Huggingface dataset's own split name, kept apart from the positional split
+    hf_split = dataset_cfg.pop("split", None)
+    if dataset_type == "huggingface" and hf_split is not None:
+        dataset_cfg["hf_split"] = hf_split
     has_prompt = {src_lang: src_cfg.get("has_prompt", False),
                   trg_lang: trg_cfg.get("has_prompt", False)}
     common = dict(dataset_type=dataset_type, src_lang=src_lang, trg_lang=trg_lang,

@@ -144,12 +144,15 @@ class TransformerDecoder(nn.Module):
 
     def decode_step(self, trg_embed_t: torch.Tensor, index: int, cache: Dict,
                     beam_k: int = 1,
-                    trg_prompt_embed_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    trg_prompt_embed_t: Optional[torch.Tensor] = None,
+                    ancestry: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One decode step at position ``index`` -> logits (B*beam_k, 1, V),
         or hidden states under the tied softmax, over a cache made with the
         same ``beam_k``; the self-attention caches are updated in place.
         ``trg_prompt_embed_t`` is the embedded prompt mask of this
-        position."""
+        position; ``ancestry`` the (B, beam_k, max_len) int32 map of the
+        lazy beam reorder, through which every layer's self-attention reads
+        (joeys2t_tpu/models/decoders.py:238-260)."""
         x = trg_embed_t + cache["pe"][index].to(trg_embed_t.dtype)
         if trg_prompt_embed_t is not None:
             x = x + trg_prompt_embed_t
@@ -160,5 +163,5 @@ class TransformerDecoder(nn.Module):
         self_bias[:, :index + 1] = 0.0
         for i, layer in enumerate(self.layers):
             x = layer.decode_step(x, cache[f"layer_{i}"], index, self_bias,
-                                  cache["cross_bias"], beam_k)
+                                  cache["cross_bias"], beam_k, ancestry)
         return self._project(self._final(x))

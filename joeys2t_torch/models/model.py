@@ -20,6 +20,7 @@ from joeys2t_torch.models.decoders import TransformerDecoder
 from joeys2t_torch.models.embeddings import Embeddings
 from joeys2t_torch.models.encoders import ConformerEncoder, TransformerEncoder
 from joeys2t_torch.models.initialization import compute_alpha_beta, initialize_model
+from joeys2t_torch.models.modules import set_attention_impl
 from joeys2t_torch.models.rnn import RecurrentDecoder, RecurrentEncoder
 
 
@@ -124,14 +125,16 @@ class Seq2SeqModel(nn.Module):
 
     def decode_step(self, prev_tokens: torch.Tensor, index: int, cache: Dict,
                     beam_k: int = 1,
-                    trg_prompt_mask_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    trg_prompt_mask_t: Optional[torch.Tensor] = None,
+                    ancestry: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One KV-cached decode step -> logits (B*beam_k, 1, V) from
         ``prev_tokens`` (B*beam_k, 1), with the 0/1 prompt mask (B*beam_k, 1)
         of this position when decoding is forced; ``cache`` is updated in
-        place."""
+        place. ``ancestry`` is the lazy beam reorder's (B, beam_k, S) map
+        (joeys2t_tpu/models/model.py:216-232)."""
         prompt = None if trg_prompt_mask_t is None else self.trg_embed(trg_prompt_mask_t)
         return self._output_logits(self.decoder.decode_step(
-            self.trg_embed(prev_tokens), index, cache, beam_k, prompt))
+            self.trg_embed(prev_tokens), index, cache, beam_k, prompt, ancestry))
 
 
 def _embeddings(vocab, emb_cfg: Dict, dtype: torch.dtype) -> Embeddings:
@@ -155,7 +158,9 @@ def build_model(cfg: Dict, src_vocab=None, trg_vocab=None,
     ``generator`` (seed 42 when None). Recurrent modules and their
     embeddings compute in float32 whatever ``compute_dtype`` says, as in
     JAX. The model is returned in eval mode: no dropout, as the JAX
-    package's default ``deterministic=True``."""
+    package's default ``deterministic=True``. ``attention_impl`` (of the
+    model, or of a side) routes the side's attention:
+    :func:`~joeys2t_torch.models.modules.set_attention_impl`."""
     # pylint: disable=too-many-locals,too-many-branches
     device = resolve_device(device)
     task = "MT" if src_vocab is not None else "S2T"
@@ -279,6 +284,12 @@ def build_model(cfg: Dict, src_vocab=None, trg_vocab=None,
     if generator is None:
         generator = torch.Generator().manual_seed(42)
     initialize_model(model, cfg, src_pad, trg_pad, generator)
+    # JAX's attn_impl of each transformer side (joeys2t_tpu/models/model.py:293, :370)
+    for side, side_cfg, side_type in ((encoder, enc_cfg, enc_type),
+                                      (decoder, dec_cfg, dec_type)):
+        if side_type != "recurrent":
+            set_attention_impl(side, cfg.get("attention_impl",
+                                             side_cfg.get("attention_impl", "auto")))
     spec = ModelSpec(
         task=task, pad_index=trg_vocab.pad_index, bos_index=trg_vocab.bos_index,
         eos_index=trg_vocab.eos_index, unk_index=trg_vocab.unk_index,

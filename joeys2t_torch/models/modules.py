@@ -28,10 +28,17 @@ trainer hands the model (:func:`set_dropout_generator`), never from torch's
 global generator. The masks are not the JAX package's: the two frameworks'
 random bits differ.
 
-Unlike the functional JAX modules, ``step_self`` writes the new key/value
-into the caller's self-attention cache in place, and the decode steps take
-additive (B, S) biases that the decoder builds once per step (self) or once
-per utterance (cross) instead of masks.
+``attention_impl`` (:func:`set_attention_impl`, JAX's ``attn_impl``):
+``xla`` makes every attention take the plain PyTorch versions of the
+kernels (flash forward and backward, decode attention with and without the
+ancestry map), on the card too; ``auto``, ``flash`` and ``decode_kernel``
+take the kernels on a CUDA tensor. JAX gates its Pallas kernels
+by backend; the port's kernels exist on the card only, so the three agree.
+
+Unlike the functional JAX modules, ``step_self`` and ``step_self_ancestry``
+write the new key/value into the caller's self-attention cache in place,
+and the decode steps take additive (B, S) biases that the decoder builds
+once per step (self) or once per utterance (cross) instead of masks.
 """
 import math
 from typing import Optional, Sequence, Tuple
@@ -41,10 +48,12 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from joeys2t_torch.ops.decode_attention import decode_attention, quantize_per_position
+from joeys2t_torch.ops.decode_attention import (decode_attention, decode_attention_plain,
+                                                quantize_per_position)
 from joeys2t_torch.ops.flash_attention import mha_flash_flat, supported
 
 NEG_INF = -1e9
+ATTENTION_IMPLS = ("auto", "xla", "flash", "decode_kernel")
 
 
 class Dropout(nn.Module):
@@ -86,6 +95,17 @@ def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]
     for module in model.modules():
         if isinstance(module, Dropout):
             module.generator = generator
+
+
+def set_attention_impl(model: nn.Module, impl: str) -> None:
+    """Route every :class:`MultiHeadedAttention` of ``model`` as JAX's
+    ``attn_impl`` says: ``xla`` to the plain versions of the kernels, the
+    other values to the kernels (on a CUDA tensor)."""
+    if impl not in ATTENTION_IMPLS:
+        raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, got {impl!r}")
+    for module in model.modules():
+        if isinstance(module, MultiHeadedAttention):
+            module.plain = impl == "xla"
 
 
 def rematerialized(layer: nn.Module, *args) -> torch.Tensor:
@@ -170,7 +190,9 @@ def _layer_norm_module(size: int, device) -> nn.LayerNorm:
 
 class MultiHeadedAttention(nn.Module):
     """Multi-head attention (joeynmt/transformer_layers.py:17-115) with the
-    decode entry points ``project_kv``, ``step_self`` and ``step_cross``."""
+    decode entry points ``project_kv``, ``step_self``,
+    ``step_self_ancestry`` and ``step_cross``. ``plain`` (set by
+    :func:`set_attention_impl`) takes the kernels' plain versions."""
 
     def __init__(self, num_heads: int, size: int, dropout: float = 0.1,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -187,6 +209,7 @@ class MultiHeadedAttention(nn.Module):
         self.q_layer = nn.Linear(size, size, device=device)
         self.output_layer = nn.Linear(size, size, device=device)
         self.attn_dropout = Dropout(dropout)
+        self.plain = False  # attention_impl: xla
 
     def _split_heads(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, size) -> (B, T, H, Dh)"""
@@ -216,7 +239,7 @@ class MultiHeadedAttention(nn.Module):
         are projected from ``k``."""
         del v
         key_mask_only = mask is None or (mask.dim() == 3 and mask.shape[1] == 1)
-        if key_mask_only and (q.device.type != "cpu"
+        if key_mask_only and (self.plain or q.device.type != "cpu"
                               or supported(self.head_size, self.dtype)):
             drop = self.attn_dropout.active()
             context = mha_flash_flat(
@@ -225,7 +248,7 @@ class MultiHeadedAttention(nn.Module):
                 None if mask is None else mask[:, 0, :],
                 1.0 / math.sqrt(self.head_size),
                 dropout_rate=self.dropout if drop else 0.0,
-                generator=self.attn_dropout.generator if drop else None)
+                generator=self.attn_dropout.generator if drop else None, plain=self.plain)
             return dense(self.output_layer, context, self.dtype)
         k_h, v_h = self.project_kv(k)
         q_h = self._split_heads(dense(self.q_layer, q, self.dtype))
@@ -243,17 +266,38 @@ class MultiHeadedAttention(nn.Module):
         new slot is quantized on its own (``quantize_per_position``), its
         values and scale written in place, and the attention folds the
         scales in the "position" layout."""
+        self._write_slot(q, cache_k, cache_v, index, k_scale, v_scale)
+        return self._step(q, cache_k, cache_v, bias, k_scale=k_scale, v_scale=v_scale,
+                          layout=None if k_scale is None else "position")
+
+    def step_self_ancestry(self, q: torch.Tensor, cache_k: torch.Tensor,
+                           cache_v: torch.Tensor, index: int, bias: torch.Tensor,
+                           ancestry: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Beam self-attention without the physical reorder of the caches
+        (joeys2t_tpu/models/modules.py ``step_self_ancestry`` :320-412):
+        ``q`` (B*K, 1, size) writes its key/value (int8: with its scale)
+        into its own row's slot ``index``, as :meth:`step_self` does, then
+        attends over the (B, K, S_max) int32 ``ancestry`` map: position s of
+        beam k of utterance b reads row b*K + anc[b, k, s] of the caches
+        and of their scales. The same math as reorder-then-attend."""
+        self._write_slot(q, cache_k, cache_v, index, k_scale, v_scale)
+        return self._step(q, cache_k, cache_v, bias, k_scale=k_scale, v_scale=v_scale,
+                          layout=None if k_scale is None else "position",
+                          ancestry=ancestry)
+
+    def _write_slot(self, q, cache_k, cache_v, index, k_scale, v_scale) -> None:
+        """Write this step's key/value into slot ``index`` of each query
+        row's own cache row; int8 slots are quantized on their own."""
         k_h, v_h = self.project_kv(q)  # (B, 1, H, Dh)
         if cache_k.dtype == torch.int8:
             for cache, scale, x in ((cache_k, k_scale, k_h), (cache_v, v_scale, v_h)):
                 x_q, x_s = quantize_per_position(x[:, 0])  # (B, H, Dh), (B, H)
                 cache[:, :, index] = x_q
                 scale[:, :, index] = x_s
-            return self._step(q, cache_k, cache_v, bias, k_scale=k_scale,
-                              v_scale=v_scale, layout="position")
+            return
         cache_k[:, :, index] = k_h[:, 0].to(cache_k.dtype)
         cache_v[:, :, index] = v_h[:, 0].to(cache_v.dtype)
-        return self._step(q, cache_k, cache_v, bias)
 
     def step_cross(self, q: torch.Tensor, k_h: torch.Tensor, v_h: torch.Tensor,
                    bias: torch.Tensor, beam_k: int = 1,
@@ -268,11 +312,13 @@ class MultiHeadedAttention(nn.Module):
         return self._step(q, k_h, v_h, bias, beam_k, k_scale, v_scale,
                           None if k_scale is None else "channel")
 
-    def _step(self, q, k_h, v_h, bias, group=1, k_scale=None, v_scale=None, layout=None):
+    def _step(self, q, k_h, v_h, bias, group=1, k_scale=None, v_scale=None, layout=None,
+              ancestry=None):
         q_h = self._split_heads(dense(self.q_layer, q, self.dtype))
-        ctx = decode_attention(q_h[:, 0], k_h, v_h, bias, k_scale, v_scale,
-                               sm_scale=1.0 / math.sqrt(self.head_size),
-                               scale_layout=layout, group=group)
+        attend = decode_attention_plain if self.plain else decode_attention
+        ctx = attend(q_h[:, 0], k_h, v_h, bias, k_scale, v_scale,
+                     sm_scale=1.0 / math.sqrt(self.head_size), scale_layout=layout,
+                     group=group, ancestry=ancestry)
         return dense(self.output_layer, ctx.reshape(q.shape[0], 1, self.size), self.dtype)
 
 
@@ -464,19 +510,24 @@ class TransformerDecoderLayer(nn.Module):
 
     def decode_step(self, x: torch.Tensor, cache: dict, index: int,
                     self_bias: torch.Tensor, cross_bias: torch.Tensor,
-                    beam_k: int = 1) -> torch.Tensor:
+                    beam_k: int = 1, ancestry: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
         """Single decode step (B*K, 1, size) -> (B*K, 1, size) with the
         cached self K/V (B*K rows) and cross K/V (B rows, shared by the K
         beams of an utterance) and their additive biases, int8 with their
         scales where the cache holds ``*_scale`` entries; the self-attention
-        cache is updated in place."""
+        cache is updated in place. With the (B, K, S) ``ancestry`` map the
+        self-attention reads each beam's history through it
+        (``step_self_ancestry``) instead of from a physically reordered
+        cache."""
         pre = self.layer_norm_position == "pre"
         residual = x
         if pre:
             x = layer_norm(self.x_layer_norm, x, self.dtype)
-        h1 = self.trg_trg_att.step_self(x, cache["self_k"], cache["self_v"], index,
-                                        self_bias, cache.get("self_k_scale"),
-                                        cache.get("self_v_scale"))
+        self_args = (x, cache["self_k"], cache["self_v"], index, self_bias)
+        scales = (cache.get("self_k_scale"), cache.get("self_v_scale"))
+        h1 = (self.trg_trg_att.step_self(*self_args, *scales) if ancestry is None else
+              self.trg_trg_att.step_self_ancestry(*self_args, ancestry, *scales))
         h1 = h1 + self.alpha * residual
         if not pre:
             h1 = layer_norm(self.x_layer_norm, h1, self.dtype)

@@ -16,6 +16,13 @@ materializing a dequantized cache:
   - "position" (B, H, S): the self-attention ring buffer; scales fold into
     the scores (K) and into the probabilities (V).
 
+With an ``ancestry`` map (lazy beam reorder) the caches are the B*K beam
+rows' own self-attention ring buffers, never permuted: query row
+r = b*K + k reads, at position s, cache row b*K + anc[b, k, s] (K, V and
+their "position" scales alike), which is the attention of
+reorder-then-attend without the reorder (the JAX einsum of
+models/modules.py ``step_self_ancestry``, which has no Pallas kernel).
+
 Known divergence from the Pallas kernel: it rounds the scaled q to bf16
 even for f32 inputs (decode_attention.py:64); this port does not, and
 matches the JAX einsum path (models/modules.py ``_decode_einsum``) instead.
@@ -77,16 +84,49 @@ def _resolve_layout(k: torch.Tensor, k_scale: Optional[torch.Tensor],
     return scale_layout
 
 
+def _check_ancestry(k: torch.Tensor, ancestry: Optional[torch.Tensor], group: int,
+                    layout: Optional[str]) -> None:
+    if ancestry is None:
+        return
+    if group != 1 or layout == "channel":
+        raise ValueError("an ancestry map reads self-attention ring buffers: group 1, "
+                         "no channel scales")
+    rows, s = k.shape[0], k.shape[2]
+    if ancestry.dim() != 3 or ancestry.shape[0] * ancestry.shape[1] != rows \
+            or ancestry.shape[2] != s:
+        raise ValueError(f"ancestry: expected (B, K, {s}) with B*K = {rows}, got "
+                         f"{tuple(ancestry.shape)}")
+
+
+def gather_ancestry(x: torch.Tensor, ancestry: torch.Tensor) -> torch.Tensor:
+    """The (B*K, H, S, ...) buffer ``x`` reordered as the ancestry map
+    (B, K, S) reads it: row b*K + k, position s, is x's row
+    b*K + anc[b, k, s] at s (a ring buffer or its "position" scales)."""
+    b, kb, s = ancestry.shape
+    own = (torch.arange(b, device=x.device) * kb)[:, None, None]
+    rows = (own + ancestry.long()).reshape(b * kb, s)
+    pos = torch.arange(s, device=x.device)[None, :]
+    return x.transpose(1, 2)[rows, pos].transpose(1, 2)
+
+
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor,
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None, *,
                            sm_scale: float = 1.0,
                            scale_layout: Optional[str] = None,
-                           group: int = 1) -> torch.Tensor:
+                           group: int = 1,
+                           ancestry: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel's math in plain PyTorch, all in f32; returns (B*G, H, D) in
-    q's dtype."""
+    q's dtype. With ``ancestry`` it gathers each beam's history rows
+    (:func:`gather_ancestry`) and attends over them."""
     layout = _resolve_layout(k, k_scale, scale_layout)
+    _check_ancestry(k, ancestry, group, layout)
+    if ancestry is not None:
+        k, v = gather_ancestry(k, ancestry), gather_ancestry(v, ancestry)
+        if layout == "position":
+            k_scale, v_scale = gather_ancestry(k_scale, ancestry), gather_ancestry(
+                v_scale, ancestry)
     b, h, _, d = k.shape
     qf = q.float().reshape(b, group, h, d) * sm_scale
     if layout == "channel":
@@ -108,7 +148,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      v_scale: Optional[torch.Tensor] = None, *,
                      sm_scale: float = 1.0,
                      scale_layout: Optional[str] = None,
-                     group: int = 1) -> torch.Tensor:
+                     group: int = 1,
+                     ancestry: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Single-step attention context (B*G, H, D) with fused int8 dequant.
 
     :param q: (B*G, H, D) f32 or bf16; query row r reads cache row r // G
@@ -118,18 +159,24 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         inferred from the shape when ``scale_layout`` is None (ambiguous
         when S == D)
     :param group: G, the query rows that share each cache row
+    :param ancestry: (B, K, S) int32 map of the lazy beam reorder, entries in
+        [0, K): query row b*K + k reads cache row b*K + anc[b, k, s] at
+        position s (group 1, no "channel" scales). On the card it must be
+        int32, contiguous and on q's device; an entry outside [0, K) is
+        clamped into it, so no utterance reads another's rows.
     """
     if group < 1 or q.shape[0] != k.shape[0] * group:
         raise ValueError(f"q has {q.shape[0]} rows, expected {group} for each of the "
                          f"{k.shape[0]} cache rows")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, bias, k_scale, v_scale,
-                                      sm_scale=sm_scale,
-                                      scale_layout=scale_layout, group=group)
+                                      sm_scale=sm_scale, scale_layout=scale_layout,
+                                      group=group, ancestry=ancestry)
     if q.device.type != "cuda":
         raise ValueError(f"decode attention runs on cpu or cuda, not {q.device}")
     b, h, s, d = k.shape
     layout = _resolve_layout(k, k_scale, scale_layout)
+    _check_ancestry(k, ancestry, group, layout)
     if q.dtype not in (torch.float32, torch.bfloat16) or d not in HEAD_DIMS:
         raise ValueError(f"decode kernel takes f32/bf16 q and head_dim in "
                          f"{'/'.join(map(str, HEAD_DIMS))}, got {q.dtype} and {d}")
@@ -143,6 +190,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale_shape = (b, h, d) if layout == "channel" else (b, h, s)
         checks += [("k_scale", k_scale, scale_shape, torch.float32),
                    ("v_scale", v_scale, scale_shape, torch.float32)]
+    if ancestry is not None:
+        checks.append(("ancestry", ancestry, tuple(ancestry.shape), torch.int32))
     for name, t, shape, dtype in checks:
         if (t is None or tuple(t.shape) != shape or t.dtype != dtype
                 or t.device != q.device or not t.is_contiguous()
@@ -152,10 +201,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"(caches 16-byte aligned), got {desc}")
     plan = decode_plan(b * group, h, s, num_sms(q.device))
     out = torch.empty((b * group, h, d), dtype=q.dtype, device=q.device)
-    err = _launch(q, k, v, bias, k_scale, v_scale, out, layout, plan, sm_scale, group)
+    err = _launch(q, k, v, bias, k_scale, v_scale, out, layout, plan, sm_scale, group,
+                  ancestry)
     if err != 0:
         raise RuntimeError(f"decode_attention_fwd launch failed: cudaError {err}")
     decode_attention.launches += 1
+    if ancestry is not None:
+        decode_attention.ancestry_launches += 1
     if group > 1:
         decode_attention.group_launches += 1
     if layout == "channel":
@@ -169,6 +221,7 @@ decode_attention.launches = 0  # kernel launches; tests and smoke runs reset it
 decode_attention.group_launches = 0  # the launches among them with group > 1
 decode_attention.channel_launches = 0  # ... on int8 caches with channel scales
 decode_attention.position_launches = 0  # ... on int8 caches with position scales
+decode_attention.ancestry_launches = 0  # ... reading the caches through an ancestry map
 
 
 def quantize_per_position(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -181,7 +234,8 @@ def quantize_per_position(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _launch(q, k, v, bias, k_scale, v_scale, out, layout: Optional[str],
-            plan: Tuple[int, int], sm_scale: float, group: int = 1) -> int:
+            plan: Tuple[int, int], sm_scale: float, group: int = 1,
+            ancestry: Optional[torch.Tensor] = None) -> int:
     """One launch of the kernel on checked tensors with the launch plan
     ``(splits, split_rows)``; returns its cudaError_t (0 on success)."""
     b, h, s, d = k.shape
@@ -190,6 +244,8 @@ def _launch(q, k, v, bias, k_scale, v_scale, out, layout: Optional[str],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         k_scale.data_ptr() if int8 else None,
         v_scale.data_ptr() if int8 else None,
+        None if ancestry is None else ancestry.data_ptr(),
+        1 if ancestry is None else ancestry.shape[1],
         out.data_ptr(), b, group, h, s, d, 0 if q.dtype == torch.float32 else 1,
         int(int8), _LAYOUTS[layout], plan[0], plan[1], float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -200,7 +256,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.decode_attention_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
+        fn.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, i, i, i,
                        ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return lib

@@ -275,32 +275,37 @@ class FlashAttention(torch.autograd.Function):
     gradient (the TPU package's ``flash_attention_flat.defvjp`` :605). The
     forward keeps (q, k, v, bias, out, lse, seed) for the backward, which
     never re-runs the forward. Both directions launch the kernels on a CUDA
-    tensor and run the plain versions on a CPU tensor."""
+    tensor and run the plain versions on a CPU tensor, or, with ``plain``
+    (``attention_impl: xla``), on any tensor."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, sm_scale, num_heads, dropout_rate=0.0, seed=None):
-        out, lse = flash_attention_fwd(q, k, v, bias, sm_scale, num_heads, dropout_rate,
-                                       seed)
+    def forward(ctx, q, k, v, bias, sm_scale, num_heads, dropout_rate=0.0, seed=None,
+                plain=False):
+        fwd = flash_attention_plain if plain else flash_attention_fwd
+        out, lse = fwd(q, k, v, bias, sm_scale, num_heads, dropout_rate, seed)
         ctx.save_for_backward(q, k, v, bias, out, lse, seed)
-        ctx.args = (sm_scale, num_heads, dropout_rate)
+        ctx.args = (sm_scale, num_heads, dropout_rate, plain)
         return out
 
     @staticmethod
     def backward(ctx, d_out):
         q, k, v, bias, out, lse, seed = ctx.saved_tensors
-        sm_scale, num_heads, dropout_rate = ctx.args
-        dq, dk, dv = flash_attention_bwd(q, k, v, bias, out, lse, d_out.contiguous(),
-                                         sm_scale, num_heads, dropout_rate, seed)
-        return dq, dk, dv, None, None, None, None, None
+        sm_scale, num_heads, dropout_rate, plain = ctx.args
+        bwd = flash_attention_bwd_plain if plain else flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, bias, out, lse, d_out.contiguous(), sm_scale, num_heads,
+                         dropout_rate, seed)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bias: torch.Tensor, sm_scale: float, num_heads: int,
                          dropout_rate: float = 0.0,
-                         seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         seed: Optional[torch.Tensor] = None,
+                         plain: bool = False) -> torch.Tensor:
     """Differentiable attention output without the lse (the TPU package's
-    ``flash_attention_flat`` :356)."""
-    return FlashAttention.apply(q, k, v, bias, sm_scale, num_heads, dropout_rate, seed)
+    ``flash_attention_flat`` :356); ``plain`` takes the plain versions."""
+    return FlashAttention.apply(q, k, v, bias, sm_scale, num_heads, dropout_rate, seed,
+                                plain)
 
 
 def key_bias(key_valid: Optional[torch.Tensor], b: int, sk: int,
@@ -315,12 +320,14 @@ def key_bias(key_valid: Optional[torch.Tensor], b: int, sk: int,
 def mha_flash_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    num_heads: int, key_valid: Optional[torch.Tensor],
                    sm_scale: float, dropout_rate: float = 0.0,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                   generator: Optional[torch.Generator] = None,
+                   plain: bool = False) -> torch.Tensor:
     """Adapter from the model's flat (B, T, E) projections and a bool key
     mask (B, Sk) (the TPU package's ``mha_flash_flat`` :644). The kernels
     mask the ragged key edge themselves, so keys are not padded. With
     dropout the per-call seed is drawn from ``generator``, never from
-    torch's global generator."""
+    torch's global generator. ``plain`` (``attention_impl: xla``) runs the
+    plain versions on any device."""
     seed = None
     if dropout_rate > 0.0:
         if generator is None:
@@ -328,7 +335,8 @@ def mha_flash_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "caller passes")
         seed = draw_seed(generator, q.device)
     bias = key_bias(key_valid, k.shape[0], k.shape[1], k.device)
-    return flash_attention_flat(q, k, v, bias, sm_scale, num_heads, dropout_rate, seed)
+    return flash_attention_flat(q, k, v, bias, sm_scale, num_heads, dropout_rate, seed,
+                                plain)
 
 
 def kernel_info(head_dim: int, dtype: torch.dtype) -> dict:

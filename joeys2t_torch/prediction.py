@@ -45,6 +45,7 @@ from joeys2t_torch.helpers import (expand_reverse_index, resolve_ckpt_path, save
 from joeys2t_torch.losses import build_loss_function, loss_terms
 from joeys2t_torch.metrics import bleu, chrf, sequence_accuracy, token_accuracy, wer
 from joeys2t_torch.models import build_model
+from joeys2t_torch.models.embeddings import load_pretrained_embeddings, merge_pretrained
 from joeys2t_torch.parallel import distributed
 from joeys2t_torch.search import _cast_params_to_compute_dtype, search
 from joeys2t_torch.tokenizers import EvaluationTokenizer
@@ -295,6 +296,7 @@ def prepare(args: BaseConfig, rank: int = 0, mode: str = "train"):
                               compute_dtype=args.compute_dtype, device=args.device,
                               generator=torch.Generator().manual_seed(args.seed))
     logger.info("Total params: %d", sum(p.numel() for p in model.parameters()))
+    _load_pretrained(model, args, src_vocab, trg_vocab)
     loss_fn = build_loss_function(args.train, spec)
     if mode != "train":
         ckpt = resolve_ckpt_path(args.test.load_model, args.model_dir)
@@ -302,6 +304,26 @@ def prepare(args: BaseConfig, rank: int = 0, mode: str = "train"):
         model.load_state_dict(load_checkpoint(ckpt)["model_state"], strict=True)
     set_seed(seed=args.seed)
     return model, spec, loss_fn, train_data, dev_data, test_data
+
+
+def _load_pretrained(model, args: BaseConfig, src_vocab, trg_vocab) -> None:
+    """Merge the ``embeddings.load_pretrained`` tables into the freshly
+    initialized model (joeys2t_tpu/prediction.py:548-570): the encoder's into
+    the source table of an MT model whose tables are not tied, the
+    decoder's into the target table unless ``tied_embeddings``. Rows the
+    file lacks keep their initialized values."""
+    emb_cfg = {side: args.model[side]["embeddings"] for side in ("encoder", "decoder")}
+    tied = model.src_embed is model.trg_embed
+    for side, embed, vocab, wanted in (
+            ("encoder", model.src_embed, src_vocab, args.task == "MT" and not tied),
+            ("decoder", model.trg_embed, trg_vocab,
+             not args.model.get("tied_embeddings", False))):
+        path = emb_cfg[side].get("load_pretrained")
+        if path and wanted and embed is not None:
+            logger.info("Loading pretrained %s embeddings...",
+                        "src" if side == "encoder" else "trg")
+            merge_pretrained(embed, load_pretrained_embeddings(
+                Path(path), vocab, emb_cfg[side]["embedding_dim"]))
 
 
 def evaluate(valid_scores: Dict, valid_hyp: List, data,

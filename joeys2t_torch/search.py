@@ -19,11 +19,15 @@ penalty ``((5 + step + 1) / 6) ** alpha`` in float32, selection as
 ``jax.lax.top_k`` makes it (ties to the lower index, through a stable
 sort), the finished store merged from 2K candidates, unfilled n-best slots
 as ``[unk]`` with score -1. The cross-attention cache stays at B rows,
-shared by an utterance's beams; the self-attention caches, with their
-scales when int8, are reordered physically after each selection (JAX's ``beam_reorder: physical``; its
-default ``auto`` takes the ancestry map, the same math, which is not ported,
-so ``auto`` reorders physically and ``lazy`` raises). Returned attention
-is not ported yet and raises.
+shared by an utterance's beams. The self-attention caches follow
+``beam_reorder`` as JAX resolves it (:736-738): ``lazy``, and ``auto`` for
+a transformer decoder, leave every beam row's buffers (int8: with their
+scales) where they were written and keep a (B, K, S) ancestry map of which
+row holds each position of each beam's history, which every layer's
+self-attention reads through (``step_self_ancestry``; on the card the
+decode-attention kernel's ancestry mode); ``physical`` reorders the buffers
+after each selection. The two are the same math. Returned attention is not
+ported yet and raises.
 
 Recurrent decoders (``recurrent_greedy`` :305, ``_recurrent_beam_search``
 :613) carry (state, attentional vector) from step to step on the device
@@ -186,13 +190,11 @@ def _check_search_args(device: torch.device, tensors: Dict, kwargs: Dict) -> Non
     for name, t in tensors.items():
         if t.device.type != device.type:
             raise ValueError(f"{name} is on {t.device}, the search runs on {device}")
-    unported = []
     if kwargs.get("return_attention", False):
-        unported.append("return_attention")
-    if kwargs.get("beam_reorder", "auto") == "lazy":
-        unported.append("beam_reorder: lazy")
-    if unported:
-        raise NotImplementedError(f"search options not ported yet: {unported}")
+        raise NotImplementedError("search options not ported yet: ['return_attention']")
+    reorder = kwargs.get("beam_reorder", "auto")
+    if reorder not in ("auto", "lazy", "physical"):
+        raise ValueError(f"beam_reorder must be auto, lazy or physical, got {reorder!r}")
 
 
 def _cast_params_to_compute_dtype(model: Seq2SeqModel) -> Seq2SeqModel:
@@ -404,22 +406,31 @@ def _transformer_beam(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torc
                       alpha: float, min_output_length: int = 1, generate_unk: bool = True,
                       repetition_penalty: float = -1.0, no_repeat_ngram_size: int = -1,
                       encoder_input: Optional[torch.Tensor] = None,
-                      decoder_prompt=None, trg_prompt_mask=None):
-    """Beam loop (joeys2t_tpu/search.py:381-610 with ``lazy_reorder`` off);
-    returns (finished sequences incl BOS (B, K, L+1), their scores (B, K)
-    sorted best first, steps run)."""
+                      decoder_prompt=None, trg_prompt_mask=None, lazy_reorder: bool = False):
+    """Beam loop (joeys2t_tpu/search.py:381-610); returns (finished
+    sequences incl BOS (B, K, L+1), their scores (B, K) sorted best first,
+    steps run). ``lazy_reorder`` keeps the ancestry map instead of
+    reordering the self-attention caches."""
     # pylint: disable=too-many-locals
     b = encoder_output.shape[0]
     k, v, l1 = beam_size, spec.trg_vocab_size, max_output_length + 1
     device = encoder_output.device
     cache = model.init_cache(encoder_output, l1, src_mask, beam_k=k)
-    # the self-attention buffers (with their scales when int8), and a spare
-    # of each to reorder into; the cross caches and their scales stay as
-    # they are, shared by an utterance's beams
-    buffers = [(cache[name], key) for name in cache if name.startswith("layer_")
-               for key in ("self_k", "self_v", "self_k_scale", "self_v_scale")
-               if key in cache[name]]
-    spares = [torch.empty_like(layer[key]) for layer, key in buffers]
+    if lazy_reorder:
+        own_row = torch.arange(k, dtype=torch.int32, device=device)[None, :, None]
+        # slots past the step hold each row's own index: a row writes its
+        # next key/value into its own slot before the selection
+        ancestry = own_row.expand(b, k, l1).contiguous()
+        s_grid = torch.arange(l1, device=device)
+    else:
+        ancestry = None
+        # the self-attention buffers (with their scales when int8), and a
+        # spare of each to reorder into; the cross caches and their scales
+        # stay as they are, shared by an utterance's beams
+        buffers = [(cache[name], key) for name in cache if name.startswith("layer_")
+                   for key in ("self_k", "self_v", "self_k_scale", "self_v_scale")
+                   if key in cache[name]]
+        spares = [torch.empty_like(layer[key]) for layer, key in buffers]
 
     alive_seq = torch.full((b * k, l1), spec.pad_index, dtype=torch.long, device=device)
     alive_seq[:, 0] = spec.bos_index
@@ -441,7 +452,7 @@ def _transformer_beam(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torc
     while step < max_output_length:
         logits = model.decode_step(alive_seq[:, step:step + 1], step, cache, beam_k=k,
                                    trg_prompt_mask_t=None if pm is None
-                                   else pm[:, step:step + 1])
+                                   else pm[:, step:step + 1], ancestry=ancestry)
         log_probs = torch.log_softmax(logits[:, 0].float(), dim=-1)
         log_probs = _history_controls(log_probs, alive_seq, step, enc_in, 1,
                                       no_repeat_ngram_size, repetition_penalty, exclude)
@@ -459,12 +470,20 @@ def _transformer_beam(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torc
         topk_scores, topk_ids = _stable_topk(curr_scores.reshape(b, k * v), k)
         topk_log_probs = topk_scores * length_penalty if alpha > 0 else topk_scores
         topk_token = topk_ids % v
-        select = (topk_ids // v + beam_offset).reshape(-1)
+        parent = topk_ids // v
+        select = (parent + beam_offset).reshape(-1)
         alive_seq = alive_seq.index_select(0, select)
         alive_seq[:, step + 1] = topk_token.reshape(-1)
-        for i, (layer, key) in enumerate(buffers):  # the physical reorder
-            torch.index_select(layer[key], 0, select, out=spares[i])
-            layer[key], spares[i] = spares[i], layer[key]
+        if lazy_reorder:
+            # a new beam reads its parent's history up to this step (the
+            # map's entry at ``step`` names the row that just wrote it);
+            # later slots go back to its own row (JAX :547-558)
+            inherited = torch.gather(ancestry, 1, parent[:, :, None].expand(b, k, l1))
+            ancestry = torch.where(s_grid > step, own_row, inherited)
+        else:
+            for i, (layer, key) in enumerate(buffers):  # the physical reorder
+                torch.index_select(layer[key], 0, select, out=spares[i])
+                layer[key], spares[i] = spares[i], layer[key]
 
         # finished bookkeeping (joeynmt/search.py:671-717)
         seq_bk = alive_seq.reshape(b, k, l1)
@@ -591,7 +610,10 @@ def beam_search(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torch.Tens
     :param stats: optional dict; ``stats["decode_steps"]`` grows by the
         number of decode steps run
     :param kwargs: the options of :func:`transformer_greedy`, and
-        ``beam_reorder``
+        ``beam_reorder``: ``lazy`` (the ancestry map), ``physical``, or
+        ``auto`` (the default), lazy for a transformer decoder as in JAX
+        (joeys2t_tpu/search.py:736-738); a recurrent decoder has no cache
+        to reorder
     :return: (output ids (B*n_best, L) numpy, scores (B*n_best, 1) numpy
         when ``return_prob="hyp"`` else None, None)
 
@@ -623,7 +645,8 @@ def beam_search(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torch.Tens
         fin_seqs, fin_scores, steps = _transformer_beam(
             _cast_params_to_compute_dtype(model), spec, encoder_output, src_mask,
             int(beam_size), int(max_output_length), float(alpha), **options,
-            **_control_kwargs(kwargs, device))
+            **_control_kwargs(kwargs, device),
+            lazy_reorder=kwargs.get("beam_reorder", "auto") in ("auto", "lazy"))
         predictions, scores = [], []
         for seqs, seq_scores in zip(fin_seqs.cpu().numpy(), fin_scores.cpu().numpy()):
             for n in range(n_best):

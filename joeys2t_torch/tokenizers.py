@@ -16,11 +16,17 @@ sampling in training (SentencePiece ``alpha``, BPE ``dropout``) draws from
 (``rng.seed`` reseeds it); the JAX package draws from the global ``random``
 module instead.
 
+``pretokenizer: moses`` (joeys2t_tpu/tokenizers.py:65-80) runs the
+``sacremoses`` package's punctuation normalizer (with ``normalize``) and
+tokenizer on every raw line, and its detokenizer on the joined output:
+a word-level hypothesis is detokenized from its pieces, a subword one
+from its joined text (:96-97, :161, :231, :286). It needs ``sacremoses``
+only when it is asked for.
+
 ``EvaluationTokenizer`` carries its own ``13a`` and ``none`` tokenizers,
 the behaviour of sacrebleu's (the mteval-v13a regexes), so the port needs
-no sacrebleu. Not ported yet, each raising ``NotImplementedError``: moses
-pretokenization, and the ``intl``, ``zh`` and ``ja-mecab`` evaluation
-tokenizers.
+no sacrebleu. Not ported yet, each raising ``NotImplementedError``: the
+``intl``, ``zh`` and ``ja-mecab`` evaluation tokenizers.
 """
 import random
 import re
@@ -63,22 +69,36 @@ class BasicTokenizer:
         self.min_length = min_length
         self.rng = random.Random(42)
         self.pretokenizer = kwargs.get("pretokenizer", "none").lower()
-        if self.pretokenizer != "none":
-            raise NotImplementedError(
-                f"pretokenizer {self.pretokenizer!r} is not ported yet")
+        if self.pretokenizer not in ("none", "moses"):
+            raise ConfigurationError("Currently, we support moses tokenizer only.")
+        if self.pretokenizer == "moses":
+            try:
+                import sacremoses  # pylint: disable=import-outside-toplevel
+            except ImportError as err:
+                raise ImportError("pretokenizer: moses needs the sacremoses package") \
+                    from err
+            self.lang = kwargs.get("lang", "en")
+            self.moses_tokenizer = sacremoses.MosesTokenizer(lang=self.lang)
+            self.moses_detokenizer = sacremoses.MosesDetokenizer(lang=self.lang)
+            if self.normalize:
+                self.moses_normalizer = sacremoses.MosesPunctNormalizer()
         self.unk_token = self.eos_token = self.sep_token = None
         self.specials: List[str] = []
         self.lang_tags: List[str] = []
 
     def pre_process(self, raw_input: str, allow_empty: bool = False) -> str:
-        """Clean one raw line: NFKC and space normalization, then
-        lowercasing."""
+        """Clean one raw line: NFKC and space normalization, moses
+        pretokenization, then lowercasing, in that order."""
         if not allow_empty and (not isinstance(raw_input, str) or not raw_input.strip()):
             raise ValueError("Got an empty input sentence; tokenization needs "
                              "non-empty text.")
         text = raw_input
         if self.normalize:
             text = remove_extra_spaces(unicode_normalize(text))
+        if self.pretokenizer == "moses":
+            if self.normalize:
+                text = self.moses_normalizer.normalize(text)
+            text = self.moses_tokenizer.tokenize(text, return_str=True)
         if self.lowercase:
             text = text.lower()
         if not allow_empty and not text:
@@ -122,6 +142,7 @@ class BasicTokenizer:
             banned = set(self.specials) | ({self.unk_token} if not generate_unk else set())
             sequence = self._join([p for p in sequence if p not in banned]
                                   or [self.unk_token])
+        sequence = self._post_join(sequence)
         if self.normalize:
             sequence = remove_extra_spaces(sequence)
         return sequence
@@ -129,7 +150,13 @@ class BasicTokenizer:
     def _join(self, pieces: List[str]) -> str:
         if self.level == "char":
             return "".join(pieces).replace(_MARKER, _SPACE)
+        if self.pretokenizer == "moses":
+            return self.moses_detokenizer.detokenize(pieces)
         return _SPACE.join(pieces)
+
+    def _post_join(self, text: str) -> str:
+        """Subword tokenizers detokenize the joined text (moses)."""
+        return text
 
     def set_vocab(self, vocab) -> None:
         """Bind the special tokens' surface forms once the vocabulary
@@ -152,6 +179,14 @@ class BasicTokenizer:
 
     def __repr__(self):
         return f"{self.__class__.__name__}({self._describe()})"
+
+
+def _moses_detokenize(tokenizer: BasicTokenizer, text: str) -> str:
+    """A subword tokenizer's joined text, moses-detokenized when it
+    pretokenizes with moses."""
+    if tokenizer.pretokenizer == "moses":
+        return tokenizer.moses_detokenizer.detokenize(text.split())
+    return text
 
 
 class SentencePieceTokenizer(BasicTokenizer):
@@ -182,6 +217,9 @@ class SentencePieceTokenizer(BasicTokenizer):
 
     def _join(self, pieces: List[str]) -> str:
         return self.spm.decode(pieces).replace(_MARKER, _SPACE).strip()
+
+    def _post_join(self, text: str) -> str:
+        return _moses_detokenize(self, text)
 
     def set_vocab(self, vocab) -> None:
         super().set_vocab(vocab)
@@ -228,6 +266,9 @@ class SubwordNMTTokenizer(BasicTokenizer):
     def _join(self, pieces: List[str]) -> str:
         text = _SPACE.join(pieces).replace(self.separator + _SPACE, "")
         return text[:-len(self.separator)] if text.endswith(self.separator) else text
+
+    def _post_join(self, text: str) -> str:
+        return _moses_detokenize(self, text)
 
     def set_vocab(self, vocab) -> None:
         super().set_vocab(vocab)
@@ -378,6 +419,8 @@ def _build_tokenizer(cfg: Dict):
     """One side's tokenizer from its data-config section."""
     level = cfg["level"]
     extra = cfg.get("tokenizer_cfg", {})
+    if extra.get("pretokenizer", "none") == "moses":  # moses takes the side's language
+        extra = dict(extra, lang=cfg["lang"])
     common = dict(level=level, lowercase=cfg.get("lowercase", False),
                   normalize=cfg.get("normalize", False),
                   max_length=cfg.get("max_length", -1),

@@ -1,7 +1,8 @@
 # coding: utf-8
 """The port's CUDA kernels against their plain versions (flash attention
 forward and backward, with and without dropout, and the dropout mask bit
-for bit; decode attention, also with query rows sharing a cache row), and a
+for bit; decode attention, also with query rows sharing a cache row and through an
+ancestry map), and a
 small model on the card against the CPU (greedy and beam search, serving and
 one training update), a one-rank NCCL update and ``remat`` against the plain
 update. Needs a CUDA card and nvcc; skipped without them. Run on a card
@@ -277,6 +278,79 @@ def test_decode_kernel_group_matches_expanded_cache(card, mode, d, s, b, h, grou
         assert torch.equal(out, flat), f"{kind}: group {group} differs from the expanded cache"
         torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0,
                                    msg=lambda m, kind=kind: f"{kind}: {m}")
+
+
+def random_ancestry(b, k, s, index, gen, device):
+    """A (B, K, S) int32 map as lazy beam search keeps it: entries in
+    [0, K) up to ``index``, each row's own index beyond it."""
+    anc = torch.randint(0, k, (b, k, s), generator=gen, dtype=torch.int32)
+    anc[:, :, index + 1:] = torch.arange(k, dtype=torch.int32)[None, :, None]
+    return anc.to(device)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "position"])
+@pytest.mark.parametrize("d", [16, 64, 128, 192, 256])
+@pytest.mark.parametrize("s", [1, 31, 97, 250])
+@pytest.mark.parametrize("b,k,h", [(1, 5, 4), (3, 2, 2), (32, 5, 4)])
+def test_decode_kernel_ancestry_matches_reordered_cache(card, mode, d, s, b, k, h):
+    """The ancestry-map mode (lazy beam search's self-attention): bit for
+    bit the kernel without a map over the cache physically reordered as the
+    map says (``gather_ancestry``: the same plan, the same math per row),
+    and within the tolerances above of the plain version, under each mask
+    kind with the map valid up to step S // 2 (the self-attention step) and
+    beyond; entries outside [0, K) read as clamped into it, so no row of
+    another utterance is read; a launch counts in ``ancestry_launches``."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    cpu_gen = torch.Generator().manual_seed(8)
+    qdt = torch.float32 if mode == "f32" else torch.bfloat16
+    rows = b * k
+    q = torch.randn(rows, h, d, generator=gen, device=card).to(qdt)
+    kf, vf = (torch.randn(rows, h, s, d, generator=gen, device=card) for _ in range(2))
+    kc, vc, ks, vs = decode_caches(mode, kf, vf, qdt)
+    kw = dict(sm_scale=d ** -0.5, scale_layout=mode if ks is not None else None)
+    tol = 1e-5 if qdt == torch.float32 else 1e-2
+    for kind in DECODE_MASKS:
+        bias = torch.where(decode_valid(kind, rows, s, cpu_gen).to(card), 0.0, -1e9).float()
+        for index in (s // 2, s - 1):
+            anc = random_ancestry(b, k, s, index, cpu_gen, card)
+            before = da.decode_attention.ancestry_launches
+            out = da.decode_attention(q, kc, vc, bias, ks, vs, ancestry=anc, **kw)
+            assert da.decode_attention.ancestry_launches == before + 1
+            moved = [None if t is None else da.gather_ancestry(t, anc).contiguous()
+                     for t in (kc, vc, ks, vs)]
+            flat = da.decode_attention(q, *moved[:2], bias, *moved[2:], **kw)
+            ref = da.decode_attention_plain(q, kc, vc, bias, ks, vs, ancestry=anc, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(out, flat), f"{kind} {index}: differs from the reordered cache"
+            torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0,
+                                       msg=lambda m, kind=kind: f"{kind}: {m}")
+            wild = anc + torch.where(anc % 2 == 0, -7 * k, 9 * k).to(torch.int32)
+            clamped = wild.clamp(0, k - 1)
+            out_w = da.decode_attention(q, kc, vc, bias, ks, vs, ancestry=wild, **kw)
+            out_c = da.decode_attention(q, kc, vc, bias, ks, vs, ancestry=clamped, **kw)
+            assert torch.equal(out_w, out_c), f"{kind}: an entry outside [0, K) is not clamped"
+
+
+def test_decode_kernel_ancestry_refuses_what_it_does_not_take(card):
+    """A map that is not int32, not contiguous, of the wrong shape, beside
+    ``group`` > 1 or "channel" scales, or at a head size the kernel is not
+    built for, raises before a launch."""
+    q = torch.randn(6, 2, 64, device=card)
+    c = torch.randn(6, 2, 9, 64, device=card)
+    bias = torch.zeros(6, 9, device=card)
+    anc = torch.zeros(2, 3, 9, dtype=torch.int32, device=card)
+    bad = [dict(ancestry=anc.long()), dict(ancestry=anc.transpose(1, 2).contiguous()),
+           dict(ancestry=torch.zeros(2, 3, 9, 2, dtype=torch.int32, device=card)[..., 0]),
+           dict(ancestry=anc[:1])]
+    for kwargs in bad:
+        with pytest.raises(ValueError):
+            da.decode_attention(q, c, c, bias, **kwargs)
+    with pytest.raises(ValueError):
+        da.decode_attention(q.repeat(2, 1, 1), c, c, bias, ancestry=anc, group=2)
+    q2 = torch.randn(6, 2, 32, device=card)
+    c2 = torch.randn(6, 2, 9, 32, device=card)
+    with pytest.raises(ValueError):
+        da.decode_attention(q2, c2, c2, bias, ancestry=anc)
 
 
 def legal_plans(s):

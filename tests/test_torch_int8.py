@@ -204,10 +204,11 @@ def test_greedy_tokens_match_jax(flags, eos_scale, kwargs):
 @pytest.mark.parametrize("n_best,alpha,eos_scale", [(1, 1.0, 1.0), (5, 1.0, 1.2),
                                                     (2, -1.0, 3.0)])
 def test_beam_search_matches_jax(pair, reorder, n_best, alpha, eos_scale):
-    """Beam 5 over int8 caches: the port's physical reorder moves the self
-    buffers' scales with their values (the cross caches and their scales
-    are shared and never moved), JAX's ancestry map reads them where they
-    were written; both give the same hypotheses."""
+    """Beam 5 over int8 caches, both sides under the same ``beam_reorder``:
+    the physical reorder moves the self buffers' scales with their values
+    (the cross caches and their scales are shared and never moved), the
+    ancestry map of ``auto`` reads them where they were written; both give
+    the same hypotheses."""
     params = jax.tree.map(np.array, pair["params"])
     params["decoder"]["output_layer"]["kernel"][:, 3] *= eos_scale
     tmodel = copy.deepcopy(pair["tmodel"])
@@ -219,7 +220,7 @@ def test_beam_search_matches_jax(pair, reorder, n_best, alpha, eos_scale):
         return_prob="hyp")
     ids_t, scores_t, _ = beam_search(tmodel, pair["tspec"], torch.tensor(pair["enc"]), None,
                                      torch.tensor(pair["mask"]), 5, 12, alpha, n_best=n_best,
-                                     device="cpu", return_prob="hyp")
+                                     device="cpu", return_prob="hyp", beam_reorder=reorder)
     np.testing.assert_array_equal(ids_t, np.asarray(ids_j))
     np.testing.assert_allclose(scores_t, np.asarray(scores_j), rtol=1e-4)
     if eos_scale == 3.0:  # the best beams end early

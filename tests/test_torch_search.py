@@ -3,9 +3,10 @@
 
 One set of seeded weights goes from the port to the JAX model through
 ``torch_state_dict_to_flax`` (model as in test_torch_model.py: 2 + 2 layers,
-hidden 128, head dim 64); the same encoder output goes through JAX ``beam_search`` (with its
-``beam_reorder`` ``physical`` and its default ``auto``, the ancestry map)
-and the port's, at float32. Hypotheses must be token-identical and scores
+hidden 128, head dim 64); the same encoder output goes through JAX ``beam_search`` and the port's
+with the same ``beam_reorder`` (``physical``; ``lazy``, the ancestry map;
+and the default ``auto``, which both take as lazy for a transformer), at
+float32. Hypotheses must be token-identical and scores
 agree to 1e-5 relative. The eos logit is rescaled in both models to steer
 when beams finish. A 6-id vocabulary (4 specials, 2 words) with unk and,
 early on, eos banned leaves fewer finite candidates than beams: the rest
@@ -91,7 +92,7 @@ CASES = [  # (vocabulary, beam size, n_best, alpha, eos scale, max length, optio
 ]
 
 
-@pytest.mark.parametrize("reorder", ["physical", "auto"])
+@pytest.mark.parametrize("reorder", ["physical", "auto", "lazy"])
 @pytest.mark.parametrize("vocab,k,n_best,alpha,eos_scale,max_len,kwargs", CASES)
 def test_beam_search_matches_jax(pairs, vocab, k, n_best, alpha, eos_scale, max_len,
                                  kwargs, reorder):
@@ -105,7 +106,7 @@ def test_beam_search_matches_jax(pairs, vocab, k, n_best, alpha, eos_scale, max_
                               beam_reorder=reorder, **kwargs)
         out = beam_search(tmodel, pair["tspec"], torch.tensor(enc), None,
                           torch.tensor(mask), k, max_len, alpha, n_best=n_best,
-                          device="cpu", stats=stats, **kwargs)
+                          device="cpu", stats=stats, beam_reorder=reorder, **kwargs)
         return ref, out
 
     (ids_j, scores_j, _), (ids_t, scores_t, att) = with_eos_scale(pair, eos_scale, run)
@@ -149,12 +150,11 @@ def test_beam_size_one_is_greedy(pairs, eos_scale):
         assert list(b_row[:len(g)]) == g and (b_row[len(g):] == 1).all()
 
 
-@pytest.mark.parametrize("option", [{"beam_reorder": "lazy"}, {"return_attention": True},
-                                    {"beam_reorder": "lazy", "repetition_penalty": 1.2},
+@pytest.mark.parametrize("option", [{"return_attention": True},
                                     {"return_attention": True, "no_repeat_ngram_size": 2}])
 def test_unported_beam_options_raise(pairs, option):
-    """The ancestry reorder and returned attention raise, also beside the
-    repetition controls, which are ported (tests/test_torch_mt.py)."""
+    """Returned attention raises, also beside the repetition controls, which
+    are ported (tests/test_torch_mt.py)."""
     pair = pairs["tiny"]
     with pytest.raises(NotImplementedError):
         beam_search(pair["tmodel"], pair["tspec"], torch.tensor(pair["enc"]), None,

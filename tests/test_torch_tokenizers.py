@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 
 from joeys2t_torch import bpe as port_bpe
-from joeys2t_torch.config import SpecialSymbols
+from joeys2t_torch.config import ConfigurationError, SpecialSymbols
 from joeys2t_torch.spm import MiniSentencePiece
 from joeys2t_torch.tokenizers import (FastBPETokenizer, SentencePieceTokenizer,
                                       SubwordNMTTokenizer, _build_tokenizer)
@@ -219,9 +219,9 @@ def test_build_tokenizer_and_copy_cfg_file(spm_model, codes, tmp_path):
     with pytest.raises(Exception):
         _build_tokenizer({"level": "bpe", "lang": "en", "tokenizer_type": "wordpiece",
                           "tokenizer_cfg": {}})
-    with pytest.raises(NotImplementedError):  # moses needs sacremoses
+    with pytest.raises(ConfigurationError):  # moses is the one pretokenizer
         _build_tokenizer({"level": "bpe", "lang": "en", "tokenizer_type": "sentencepiece",
-                          "tokenizer_cfg": {"model_file": str(path), "pretokenizer": "moses"}})
+                          "tokenizer_cfg": {"model_file": str(path), "pretokenizer": "spacy"}})
 
 
 def test_empty_transcript_is_returned_not_asserted(spm_model):

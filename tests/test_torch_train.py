@@ -306,28 +306,14 @@ def test_unported_options_raise():
 
 @pytest.mark.parametrize("option,error", [
     ({"encoder": {"type": "recurrent"}}, ConfigurationError),
-    ({"data": {"tokenizer_cfg": {"pretokenizer": "moses"}}}, NotImplementedError),
     ({"tied_embeddings": True}, ConfigurationError),
     ({"tied_embeddings": True, "tied_softmax": True}, ConfigurationError),
-    ({"data": {"dataset_type": "huggingface"}}, NotImplementedError),
 ])
-def test_unported_model_options_raise(tmp_path, option, error):
-    """Moses pretokenization and Huggingface datasets are not ported and
-    raise rather than be ignored; a recurrent encoder of speech features is
-    refused, as JAX refuses it (RNN models are for text); tied embeddings
-    need a source vocabulary, which a speech model has not."""
-    from joeys2t_torch.data.datasets import build_dataset
-    from joeys2t_torch.tokenizers import build_tokenizer
-
-    data = option.get("data")
-    if data is not None:
-        side = {"level": "word", "tokenizer_cfg": data.get("tokenizer_cfg", {})}
-        with pytest.raises(error):
-            tokenizer = build_tokenizer({"src": dict(side, lang="de"),
-                                         "trg": dict(side, lang="en")}, "MT")
-            build_dataset(data["dataset_type"], str(tmp_path / "none"), "de", "en", "train",
-                          tokenizer=tokenizer)
-        return
+def test_unported_model_options_raise(option, error):
+    """A recurrent encoder of speech features is refused, as JAX refuses it
+    (RNN models are for text); tied embeddings need a source vocabulary,
+    which a speech model has not. (Moses pretokenization and Huggingface
+    datasets are ported: tests/test_torch_text_data.py.)"""
     cfg = model_cfg()
     for key, value in option.items():
         if isinstance(value, dict):
@@ -445,8 +431,9 @@ def test_train_mode_routes_key_masked_attention_through_flash(monkeypatch):
     model = model.to("meta").train()
     calls = []
 
-    def record(q, k, v, bias, sm_scale, num_heads, dropout_rate, seed):
-        calls.append((q.device.type, q.shape, k.shape, dropout_rate, seed is not None))
+    def record(q, k, v, bias, sm_scale, num_heads, dropout_rate, seed, plain):
+        calls.append((q.device.type, q.shape, k.shape, dropout_rate, seed is not None,
+                      plain))
         return torch.empty_like(q)
 
     monkeypatch.setattr(fa.FlashAttention, "apply", record)
@@ -461,7 +448,7 @@ def test_train_mode_routes_key_masked_attention_through_flash(monkeypatch):
                            trg_mask=torch.ones(2, 1, 7, dtype=torch.bool, device="meta"))
     assert logits.shape == (2, 7, 40) and ctc.shape == (2, 23, 40)
     assert len(calls) == 3  # 2 encoder self + 1 decoder cross
-    assert all(c[0] == "meta" and c[3] == 0.1 and c[4] for c in calls)
+    assert all(c[0] == "meta" and c[3] == 0.1 and c[4] and not c[5] for c in calls)
     assert [c[1][1] for c in calls] == [23, 23, 7]  # query lengths: enc, enc, dec
 
 
