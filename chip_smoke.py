@@ -193,13 +193,38 @@ goes wrong:
     bfloat16 and their bytes; and the port's Adam step timed against
     ``torch.optim.Adam(foreach=True)``.
 
-``python3 chip_smoke.py --phases cards`` (on a machine with several cards)
-runs phase 7's config through ``train`` on one card and through ``train
--d`` on every visible card (spawned NCCL ranks), holds the merged
-validation hypotheses of the ``-d`` run against one process's ``predict``
-of its checkpoint, and exits 4 without a result line.
+18. tensor parallelism: phase 5's model (dropout 0) takes one update of 8
+    synthetic utterances through ``train_batch`` on two gloo ranks on the
+    one card with ``model_parallel: 2``, then also with
+    ``sequence_parallel``, then both again in float32: the loss (1e-3
+    relative), the gathered gradients before clipping and those of the
+    layers' replicated parameters (2 % of their norm) and the weights
+    (within 2 lr; at most 0.5 % further apart than lr / 10, 2 % in
+    bfloat16, the rounding floor of a split reduction, see
+    ``TP_WEIGHTS_APART``) against one process on the same batch in the
+    same dtype, K1 and K3 launched on every rank as often as in one process
+    on 2 local heads, each held against its plain version on a rank's
+    inputs, the card memory a rank holds beside one process's; two faults
+    (the copy's backward not summed over the model group; the layers'
+    replicated gradients not summed under sequence parallelism) must each
+    break a limit;
+19. pipeline parallelism: the same with ``pipeline_parallel: 2`` and 4
+    microbatches (both stacks staged; phase 16 (b)'s limits), a stage
+    launching K1 and K3 once a layer a microbatch.
 
-Phases 9-17 run after phase 8, each with the counters zeroed just before
+``python3 chip_smoke.py --phases PART[,PART...]`` runs phase 1 and then
+only the parts named, in order, and exits 4 without a result line:
+``layouts`` (phases 18 and 19); on a machine with several cards ``holds``,
+which trains ``-d`` over every card, ``model_parallel: 2`` x data,
+``model_parallel`` over every card and ``pipeline_parallel: 2`` x data
+(NCCL, spawned ranks; 2 updates, a validation after each, the closing
+beam ``test`` over every rank) and holds the first update against one
+process on the union of the data ranks' first batches and the merged
+first validation against one process's ``predict`` of the checkpoint, and
+``timing``, which times phase 7's cut on one card and in each layout in
+alternating turns; ``cards`` is ``holds,timing``.
+
+Phases 9-19 run after phase 8, each with the counters zeroed just before
 its runs and the plain versions refused. Phase 2 also holds decode attention
 with int8 channel scales and ``group`` 5 bit for bit against group 1, and
 times int8 cases against SDPA on the dequantized cache.
@@ -225,6 +250,8 @@ JAX or of joeys2t_tpu.
 """
 import collections
 import contextlib
+import copy
+import gc
 import json
 import logging
 import os
@@ -3072,7 +3099,7 @@ def keep_first_grads(tm, store: dict, path: Path = None) -> None:
 
     def capture():
         store.update({n: (torch.zeros_like(p) if p.grad is None else p.grad).float().cpu()
-                      for n, p in tm.model.named_parameters()})
+                      .clone() for n, p in tm.model.named_parameters()})
         if path is not None:
             torch.save(store, path)
         del tm.apply_accum  # the class's method again: no cycle keeps ``tm`` alive
@@ -3088,6 +3115,18 @@ def keep_first_grads(tm, store: dict, path: Path = None) -> None:
 # seed 7.95e-2 and 15.8 %, gradients averaged instead of summed 0.5.
 GRAD_GAP = 0.02  # ||dg|| / ||g|| of the gradients before clipping
 WEIGHTS_APART = 0.005  # the share of the weights further apart than lr / 10
+# Tensor parallelism splits the reductions of every attention and
+# feed-forward layer (forward and backward), so its bfloat16 roundings
+# cannot be the unsharded run's, as data and pipeline parallelism's are
+# (cuBLAS rounds a row alike whatever the row count: one process against
+# itself reads 0, the pipeline 0.10 %). The first update's sign then
+# differs on the weights whose gradient is below that rounding: on an
+# untrained model the decoder cross-attention's query and key weights,
+# 17-30 % of whose gradient is rounding. Sound bfloat16 tensor parallelism
+# reads 1.34 % of the weights (gradients 5.7e-3); a copy whose backward
+# skips the sum over the model group reads 14 % (gradients 0.56). The same
+# layouts in float32 are held to WEIGHTS_APART (PERF.md section 6).
+TP_WEIGHTS_APART = 0.02
 
 
 def grad_gap(got: dict, want: dict) -> float:
@@ -3124,7 +3163,7 @@ def one_process_validation(cfg: dict, ckpt: Path) -> tuple:
     scores, refs, hyps, _, _, _ = predict(
         model, spec, dev_data, loss_fn=loss_fn, compute_loss=True,
         normalization=args.train.normalization, args=set_validation_args(args.test),
-        device="cuda")
+        device=args.device)
     return scores, refs, hyps
 
 
@@ -3426,67 +3465,501 @@ def remat_phase() -> dict:
           f"{port_ms:.3f} ms, torch.optim.Adam(foreach=True) {torch_ms:.3f} ms "
           f"({port_ms / torch_ms:.2f}x)")
     return launches
-def cards_main() -> None:
-    """``--phases cards``: ``train configs/synthetic_asr.yaml`` as phase 7
-    cuts it, in fresh interpreters: once on one card without ``-d``, then
-    with ``-d`` and without torchrun's variables, which spawns one NCCL rank
-    a visible card (each rank reads 64 utterances a step, so a step covers
-    ranks x 64); both model directories written once, the first validation's
-    hypotheses (merged over the ranks under ``-d``) equal to this process's
-    ``predict`` of that checkpoint token for token, the WER beside the
-    hypotheses' mean length in words (and the last validation's), and the
-    ms an update of the two runs
-    side by side. Exit code 4 and no result line."""
+# ------------------------------------------------------------- phases 18, 19
+# the layouts of phases 18 and 19, two gloo ranks on the one card each
+LAYOUTS = {"tensor parallel": {"model_parallel": 2},
+           "tensor + sequence parallel": {"model_parallel": 2, "sequence_parallel": True},
+           "pipeline parallel": {"pipeline_parallel": 2, "pipeline_microbatches": 4},
+           "tensor parallel, float32": {"model_parallel": 2, "dtype": torch.float32},
+           "tensor + sequence parallel, float32":
+               {"model_parallel": 2, "sequence_parallel": True, "dtype": torch.float32}}
+# faults of the tensor-parallel path that the checks must catch (each must
+# break a limit; the port itself never runs them)
+FAULTS = {"the copy's backward not summed over the model group": {"model_parallel": 2},
+          "sequence parallel without the layers' replicated gradients summed":
+              {"model_parallel": 2, "sequence_parallel": True}}
+
+
+@contextlib.contextmanager
+def tp_fault(name: str):
+    """While active, the tensor-parallel path has the fault ``name``."""
+    from joeys2t_torch.parallel import tp
+
+    backward = tp._Copy.backward
+    if name.startswith("the copy's"):
+        tp._Copy.backward = staticmethod(lambda ctx, grad: (grad, None))
+    try:
+        yield
+    finally:
+        tp._Copy.backward = backward
+
+
+def layout_args(cfg: dict, layout: dict):
+    """(training args, model config) of phase 5's model at dropout 0 with
+    one micro-batch an update, in ``layout``."""
+    from joeys2t_torch.config import parse_train_args
+
+    model_cfg = copy.deepcopy(cfg["model"])
+    for side in ("encoder", "decoder"):
+        model_cfg[side]["dropout"] = 0.0
+        model_cfg[side]["embeddings"]["dropout"] = 0.0
+    if layout.get("sequence_parallel"):
+        model_cfg["sequence_parallel"] = True
+    training = dict(cfg["training"], batch_multiplier=1,
+                    **{k: v for k, v in layout.items() if k not in ("sequence_parallel",
+                                                                    "dtype")})
+    return parse_train_args(training), model_cfg
+
+
+def layout_update(cfg: dict, vocab, batch, layout: dict, fault: str = None) -> dict:
+    """One update of phase 5's model (seeded weights, dropout 0) on
+    ``batch`` in ``layout`` (in a process group of its ranks; {} for one
+    process): the launch counts, the gradients before clipping (whole, on
+    the host), the weights after, the loss, the wall, the flash inputs of
+    the first forward and backward calls of each kind, the card memory
+    held before the update and its peak over it (above what the process
+    held before the model was built); with ``fault`` (a name of ``FAULTS``)
+    the path has that fault."""
+    from joeys2t_torch.losses import build_loss_function
+    from joeys2t_torch.models import build_model
+    from joeys2t_torch.training import TrainManager
+
+    args, model_cfg = layout_args(cfg, layout)
+    gc.collect()  # an earlier layout's trainer (it holds a cycle through ``capture``)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model, spec = build_model(model_cfg, trg_vocab=vocab,
+                              compute_dtype=layout.get("dtype", torch.bfloat16),
+                              device="cuda", generator=torch.Generator().manual_seed(0))
+    tm = TrainManager(model, spec, build_loss_function(args, spec), args,
+                      seed=cfg.get("random_seed", 42), model_cfg=model_cfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() - base
+    if fault is not None and fault.startswith("sequence parallel without"):
+        tm._partial = [False] * len(tm._partial)
+    grads, reduce = {}, tm.reduce_gradients
+
+    def capture():
+        reduce()
+        grads.update({n: g.float().cpu().clone() for n, g in tm.full_gradients().items()})
+
+    tm.reduce_gradients = capture
+    lr = tm.current_lr
+    zero_counters()
+    kept = {}
+    with plain_refused("parallel training path"), kernel_inputs(kept, flash_calls=(0,)), \
+            (tp_fault(fault) if fault else contextlib.nullcontext()):
+        t0 = time.perf_counter()
+        out = tm.train_batch(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = read_counters()
+    memory = (held, torch.cuda.max_memory_allocated() - base)
+    tm._sync_model()
+    return dict(counts=counts, grads=grads, lr=lr, wall=wall, loss=out["loss"].item(),
+                memory=memory,
+                weights={n: p.detach().float().cpu() for n, p in model.named_parameters()},
+                kept={k: [a.cpu() if torch.is_tensor(a) else a for a in v]
+                      for k, v in kept.items()})
+
+
+def layout_rank(rank: int, port: int, job: dict) -> None:
+    """One of the two gloo ranks of phases 18 and 19 on the one card: each
+    layout's update in turn; rank 0 writes what it read."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from joeys2t_torch.parallel import distributed
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(minutes=10))
+    try:
+        results = {}
+        for name, layout in LAYOUTS.items():
+            results[name] = layout_update(job["cfg"], job["vocab"], job["batch"], layout)
+            if rank:
+                results[name] = {k: results[name][k] for k in ("counts", "wall", "memory")}
+        for name, layout in FAULTS.items():
+            got = layout_update(job["cfg"], job["vocab"], job["batch"], layout, fault=name)
+            results[name] = got if rank == 0 else {}
+        torch.save(results, Path(job["out"]) / f"layouts{rank}.pt")
+    finally:
+        distributed.leave()
+
+
+def layout_phases() -> dict:
+    """Phases 18 and 19: phase 5's librispeech_100h model (16 / 8 layers,
+    hidden 512, 4 heads of 128, feed-forward 2048, bf16, dropout 0) takes
+    one update of 8 synthetic 6-10 s utterances through ``train_batch`` on
+    two gloo ranks on the one card, with ``model_parallel: 2`` (phase 18),
+    then with ``sequence_parallel`` too, then with ``pipeline_parallel: 2``
+    and 4 microbatches (phase 19), then both tensor-parallel layouts in
+    float32, each rank's counters zeroed just before and read just after.
+    Against one process on the same batch in the same dtype: the gradients
+    before clipping (gathered) within 2 % of their norm, those of the
+    layers' replicated parameters (which sequence parallelism must sum over
+    the model group) too, and at most 0.5 % of the weights after the update
+    further apart than lr / 10 (phase 16 (b)'s limits; ``TP_WEIGHTS_APART``
+    for bfloat16 tensor parallelism). Each fault of ``FAULTS`` must break a
+    limit. K1 and K3 launch on every rank as often as in one process, on 2
+    local heads, under tensor parallelism; under pipeline parallelism a
+    stage launches each of its layers' once a microbatch. Each kernel is
+    held against its plain version on a rank's bfloat16 inputs. The card
+    memory a rank holds and its peak over the update are printed beside
+    one process's; the walls too, though over gloo they are no yardstick."""
+    import torch.multiprocessing as mp
+
+    from joeys2t_torch.config import SpecialSymbols, load_config
+    from joeys2t_torch.parallel.tp import split_dim
+    from joeys2t_torch.vocabulary import Vocabulary
+
+    cfg = load_config(REPO / "configs" / "librispeech_100h.yaml")
+    vocab = Vocabulary([f"w{i}" for i in range(4996)], SpecialSymbols())
+    batch = synthetic_batches(1, 8, np.random.RandomState(11), len(vocab))[0]
+    out = REPO / "build" / "chip_smoke" / "layouts"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    job = dict(cfg=cfg, vocab=vocab, batch=batch, out=str(out))
+    procs = [ctx.Process(target=layout_rank, args=(r, port, job)) for r in range(2)]
+    t0 = time.time()
+    for p in procs:
+        p.start()
+    singles = {dtype: layout_update(cfg, vocab, batch, {"dtype": dtype})  # meanwhile
+               for dtype in (torch.bfloat16, torch.float32)}
+    for p in procs:
+        p.join(timeout=max(1.0, 600 - (time.time() - t0)))
+    if any(p.is_alive() for p in procs):
+        for p in procs:
+            p.terminate()
+            p.join()
+        fail("the two gloo ranks of phases 18-19 did not end within 600 s")
+    wall = time.time() - t0
+    check(all(p.exitcode == 0 for p in procs), f"phase 18-19 ranks exited "
+          f"{[p.exitcode for p in procs]}")
+    ranks = [torch.load(out / f"layouts{r}.pt", weights_only=False) for r in range(2)]
+    n_enc, n_dec = 16, 8
+    want = singles[torch.bfloat16]["counts"]
+    check(want["flash_attention_fwd"] == want["flash_attention_bwd"] == n_enc + n_dec,
+          f"one process's launches {want}")
+    replicated = [n for n in singles[torch.bfloat16]["grads"]
+                  if ".layers." in f".{n}" and split_dim(n) is None]
+
+    def gaps(got: dict, layout: dict) -> tuple:
+        """(readings, the limits they break) of ``got`` against one process."""
+        single = singles[layout.get("dtype", torch.bfloat16)]
+        worst, allowance, outside = weight_gap(got["weights"], single["weights"],
+                                               single["lr"])
+        read = dict(loss=abs(got["loss"] - single["loss"]) / abs(single["loss"]),
+                    grads=grad_gap(got["grads"], single["grads"]),
+                    replicated=grad_gap({n: got["grads"][n] for n in replicated},
+                                        {n: single["grads"][n] for n in replicated}),
+                    worst=worst, allowance=allowance, outside=outside)
+        apart_limit = (TP_WEIGHTS_APART if "model_parallel" in layout and
+                       layout.get("dtype", torch.bfloat16) == torch.bfloat16
+                       else WEIGHTS_APART)
+        broken = [what for what, bad in (
+            (f"loss {read['loss']:.2e} relative", read["loss"] > 1e-3),
+            (f"gradients {read['grads']:.3e} of their norm", read["grads"] > GRAD_GAP),
+            (f"the layers' replicated gradients {read['replicated']:.3e} of their norm",
+             read["replicated"] > GRAD_GAP),
+            (f"max |dw| {worst:.3e} (allowed {allowance:.3e})", worst > allowance),
+            (f"{100 * outside:.3f} % further apart than lr / 10 (limit "
+             f"{100 * apart_limit} %)", outside > apart_limit)) if bad]
+        return read, apart_limit, broken
+
+    launches, checks, failed = {}, {}, []
+    for name, layout in LAYOUTS.items():
+        got = ranks[0][name]
+        single = singles[layout.get("dtype", torch.bfloat16)]
+        read, apart_limit, broken = gaps(got, layout)
+        apart = sorted(((float((got["weights"][n] - w).abs().gt(single["lr"] / 10).sum()), n,
+                         w.numel(), grad_gap({n: got["grads"][n]}, {n: single["grads"][n]}))
+                        for n, w in single["weights"].items()), reverse=True)[:6]
+        print(f"[layouts] {name}: the parameters with most of the weights further apart "
+              f"than lr / 10 (count of size, own gradient gap): "
+              + "; ".join(f"{n} {int(c)} of {size} ({gg:.2e})" for c, n, size, gg in apart))
+        if broken:
+            failed.append(f"{name}: " + "; ".join(broken))
+        counts = [r[name]["counts"] for r in ranks]
+        if "pipeline_parallel" in layout:
+            micro = layout["pipeline_microbatches"]
+            per_stage = (n_enc + n_dec) // 2 * micro
+            expect = {"flash_attention_fwd": per_stage, "flash_attention_bwd": per_stage}
+        else:
+            expect = {k: want[k] for k in ("flash_attention_fwd", "flash_attention_bwd")}
+            heads = {a[5] for key, a in got["kept"].items() if key[0] == "flash_attention_fwd"}
+            check(heads == {2}, f"{name}: the flash kernels ran on {heads} heads, not 2")
+        for r, c in enumerate(counts):
+            check(all(c[k] == v for k, v in expect.items()) and c["decode_attention"] == 0,
+                  f"{name}: rank {r} launches {c}, expected {expect}")
+        if "dtype" not in layout:  # the bfloat16 layouts' launches and kernel inputs
+            launches[name] = {k: sum(c[k] for c in counts) for k in expect}
+            kept = {k: [a.cuda() if torch.is_tensor(a) else a for a in v]
+                    for k, v in got["kept"].items()}
+            checks[name] = cli_kernel_checks(kept, names=("flash_attention_fwd",
+                                                          "flash_attention_bwd"),
+                                             tag=f"{name} rank 0")
+        gib = [tuple(round(m / 2 ** 30, 3) for m in r[name]["memory"]) for r in ranks]
+        print(f"[layouts] {name} ({layout}), 2 gloo ranks on the one card, 8 utterances, "
+              f"dropout 0: loss {got['loss']:.5f} / one process {single['loss']:.5f}; "
+              f"gradients before clipping {read['grads']:.3e} of their norm apart, the "
+              f"layers' replicated ones {read['replicated']:.3e} (limit {GRAD_GAP}); max "
+              f"|dw| {read['worst']:.3e} (allowed {read['allowance']:.3e}, lr "
+              f"{single['lr']:.3e}), {100 * read['outside']:.4f} % further apart than lr / "
+              f"10 (limit {100 * apart_limit} %); K1 / K3 launches a rank "
+              f"{[(c['flash_attention_fwd'], c['flash_attention_bwd']) for c in counts]} "
+              f"(one process {want['flash_attention_fwd']}, {want['flash_attention_bwd']}); "
+              f"card memory a rank held before the update / its peak over it {gib} GiB, one "
+              f"process {tuple(round(m / 2 ** 30, 3) for m in single['memory'])} GiB; "
+              f"train_batch wall a rank {[round(r[name]['wall'], 3) for r in ranks]} s, one "
+              f"process {single['wall']:.3f} s (gloo through the host: no yardstick)")
+    for name, layout in FAULTS.items():
+        read, _, broken = gaps(ranks[0][name], layout)
+        print(f"[layouts] a fault, {name}: gradients {read['grads']:.3e} of their norm, the "
+              f"layers' replicated ones {read['replicated']:.3e}, {100 * read['outside']:.4f} "
+              f"% of the weights further apart than lr / 10; it breaks: "
+              f"{'; '.join(broken) or 'no limit'}")
+        if not broken:
+            failed.append(f"the fault '{name}' breaks no limit")
+    print(f"[layouts] phases 18-19: {wall:.1f} s wall with the ranks' start-up")
+    check(not failed, "; ".join(failed))
+    merged = {}
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        merged[name] = [c for per in checks.values() for c in per[name]]
+    return dict(launches=launches, checks=merged)
+
+
+# layouts of ``--phases cards``, over every visible card: (name, training keys)
+CARD_LAYOUTS = [("-d, data N", {}), ("model 2 x data N/2", {"model_parallel": 2}),
+                ("model N", {"model_parallel": "N"}),
+                ("pipe 2 x data N/2", {"pipeline_parallel": 2})]
+
+
+def card_layout(keys: dict, cards: int) -> dict:
+    return {k: (cards if v == "N" else v) for k, v in keys.items()}
+
+
+def card_rank(local: int, world: int, port: int, cfg: dict) -> None:
+    """One NCCL rank a card: ``training.train`` under torchrun's variables,
+    rank 0 writing the first update's gradients before clipping, whole, to
+    ``grads.pt`` in the model directory."""
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(local), LOCAL_RANK=str(local), WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    from joeys2t_torch.parallel import distributed
+    from joeys2t_torch.training import TrainManager, train
+    from joeys2t_torch.utils.logging import add_file_handler, get_logger
+
+    init = TrainManager.__init__
+
+    def init_keeping_grads(self, *a, **kw):
+        init(self, *a, **kw)
+        reduce = self.reduce_gradients
+
+        def capture():
+            reduce()
+            grads = {n: g.float().cpu().clone() for n, g in self.full_gradients().items()}
+            if local == 0:
+                torch.save(grads, Path(cfg["model_dir"]) / "grads.pt")
+            del self.reduce_gradients  # the class's method again
+        self.reduce_gradients = capture
+
+    TrainManager.__init__ = init_keeping_grads
+    with distributed.process_group(use_cuda=cfg["use_cuda"]):
+        if local == 0:
+            add_file_handler(get_logger(), Path(cfg["model_dir"]) / "train.log")
+        train(cfg)
+
+
+def hold_layout(data: Path, name: str, keys: dict, cards: int) -> dict:
+    """``training.train`` in the layout ``keys`` on every card (NCCL,
+    spawned ranks, phase 16 (b)'s cut: dropout 0, no SpecAugment, 2 updates
+    of 64 a data rank, a sharded greedy validation after each, then the
+    closing beam ``test`` of the gathered checkpoint over every rank)
+    against one process on the union of the data ranks' first batches: the
+    first update's gradients before clipping and weights within phase 16
+    (b)'s limits, the merged first validation equal to one process's
+    ``predict`` of its checkpoint, both validations reported, ``train.log``
+    written once and the test's 64 dev and 64 test hypotheses written."""
+    import torch.multiprocessing as mp
+
+    from joeys2t_torch.checkpoints import load_checkpoint
+    from joeys2t_torch.config import parse_global_args
+    from joeys2t_torch.data.samplers import SentenceBatchSampler, ShardedSubsetSampler
+    from joeys2t_torch.prediction import prepare
+    from joeys2t_torch.training import TrainManager
+
+    work = REPO / "build" / "chip_smoke"
+    model_dir = work / ("model_hold_" + re.sub(r"\W+", "_", name))
+    shutil.rmtree(model_dir, ignore_errors=True)
+    model_dir.mkdir(parents=True)
+    cfg = cli_config(data, model_dir)
+    del cfg["data"]["src"]["tokenizer_cfg"]["specaugment"]
+    for side in ("encoder", "decoder"):
+        cfg["model"][side]["dropout"] = 0.0
+        cfg["model"][side]["embeddings"]["dropout"] = 0.0
+    cfg["training"].update(updates=2, validation_freq=1, logging_freq=1, **keys)
+    cfg["testing"]["batch_size"] = 16
+    t0 = time.time()
+    mp.spawn(card_rank, args=(cards, free_port(), cfg), nprocs=cards, join=True)
+    wall = time.time() - t0
+    log = (model_dir / "train.log").read_text(encoding="utf-8").splitlines()
+    valid = (model_dir / "validations.txt").read_text(encoding="utf-8").splitlines()
+    check(len(valid) == 2, f"{name}: validations.txt {valid}")
+    check(sum("Training loop:" in ln for ln in log) == 1, f"{name}: train.log written twice")
+    for split in ("dev", "test"):
+        n = len((model_dir / f"best.hyps.{split}").read_text(encoding="utf-8").splitlines())
+        check(n == 64, f"{name}: best.hyps.{split} has {n} hypotheses")
+    inner = keys.get("model_parallel", keys.get("pipeline_parallel", 1))
+    data_world = cards // inner
+    rank_grads = torch.load(model_dir / "grads.pt")
+    after = load_checkpoint(model_dir / "1.ckpt")["model_state"]
+    args = parse_global_args(copy.deepcopy({**cfg, "training": {
+        k: v for k, v in cfg["training"].items() if k not in keys}}), mode="train")
+    model, spec, loss_fn, train_data, _, _ = prepare(args, mode="train")
+    rows = []
+    for rank in range(data_world):
+        train_data.reset_indices()
+        sampler = SentenceBatchSampler(
+            ShardedSubsetSampler(train_data, shuffle=True, seed=args.seed,
+                                 num_replicas=data_world, rank=rank),
+            batch_size=args.train.batch_size, drop_last=False, seed=args.seed)
+        sampler.set_seed(args.seed + 1)  # the first epoch's
+        rows += next(iter(sampler))
+    train_data.reset_indices()
+    tm = TrainManager(model, spec, loss_fn, args.train, seed=args.seed, model_cfg=args.model,
+                      device=args.device, task=args.task)
+    grads = {}
+    keep_first_grads(tm, grads)
+    lr = tm.current_lr
+    tm.train_batch(train_data.collate_fn([train_data[i] for i in rows],
+                                         pad_index=spec.pad_index, eos_index=spec.eos_index))
+    weights = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    del tm, model
+    g_gap = grad_gap(rank_grads, grads)
+    worst, allowance, outside = weight_gap(after, weights, lr)
+    apart_limit = TP_WEIGHTS_APART if "model_parallel" in keys else WEIGHTS_APART
+    check(g_gap <= GRAD_GAP, f"{name}: gradients {g_gap:.3e} of their norm from one process's "
+          f"on the union")
+    check(worst <= allowance and outside <= apart_limit,
+          f"{name}: max |dw| {worst:.3e} (allowed {allowance:.3e}), {100 * outside:.3f} % "
+          f"further apart than lr / 10")
+    _, _, hyps = one_process_validation(cfg, model_dir / "1.ckpt")
+    merged = (model_dir / "1.hyps").read_text(encoding="utf-8").splitlines()
+    check(merged == hyps, f"{name}: {sum(a != b for a, b in zip(merged, hyps))} of "
+          f"{len(hyps)} merged validation hypotheses differ from one process's")
+    print(f"[cards] {name} ({keys}) on {cards} cards over NCCL, 2 updates of "
+          f"{args.train.batch_size} utterances a data rank ({data_world} data ranks, "
+          f"{len(rows)} utterances the first), dropout 0, a sharded greedy validation "
+          f"after each, then the closing beam test over every rank ({valid[-1][:60]}), "
+          f"{wall:.1f} s wall with start-up: the first update against one "
+          f"process on the union, gradients before clipping {g_gap:.3e} of their norm "
+          f"apart (limit {GRAD_GAP}); max |dw| {worst:.3e} (allowed {allowance:.3e}, lr "
+          f"{lr:.3e}), {100 * outside:.4f} % further apart than lr / 10 (limit "
+          f"{100 * apart_limit} %); the merged first validation ({len(hyps)} hypotheses) "
+          f"equal to one process's predict of 1.ckpt")
+    return dict(grad_gap=g_gap, outside=outside, utterances=len(rows))
+
+
+def timed_train(data: Path, keys, cards: int) -> float:
+    """ms an update of phase 7's cut (8 updates, one validation, no test) in a
+    fresh interpreter: on one card (``keys`` None) or with ``-d`` on every
+    card in the layout ``keys``."""
     from joeys2t_torch.config import dump_yaml
 
-    build_phase()
     work = REPO / "build" / "chip_smoke"
-    data = work / "synthetic_asr"
-    generate_corpus(data)
+    model_dir = work / "model_timed"
+    shutil.rmtree(model_dir, ignore_errors=True)
+    cfg = cli_config(data, model_dir)
+    cfg["training"].update(updates=8, validation_freq=8, **(keys or {}))
+    path = work / "timed.yaml"
+    path.write_text(dump_yaml(cfg), encoding="utf-8")
+    sub = subprocess.run([sys.executable, "-m", "joeys2t_torch", "train", str(path),
+                          "--skip-test", *([] if keys is None else ["-d"])], cwd=REPO,
+                         capture_output=True, text=True, timeout=900)
+    check(sub.returncode == 0, f"timed train {keys}: exited {sub.returncode}: "
+          f"{sub.stderr[-3000:]}")
+    log = (model_dir / "train.log").read_text(encoding="utf-8").splitlines()
+    ranks = int(re.search(r"data-parallel ranks: (\d+)", "\n".join(log)).group(1))
+    inner = 1 if keys is None else keys.get("model_parallel", keys.get("pipeline_parallel", 1))
+    check(ranks == (1 if keys is None else cards // inner), f"{keys}: {ranks} data ranks")
+    return update_ms(log)
+
+
+def card_layouts() -> tuple:
+    """(phase 7's corpus, the ``CARD_LAYOUTS`` over every visible card)."""
+    data = REPO / "build" / "chip_smoke" / "synthetic_asr"
+    if not (data / "train").exists():
+        generate_corpus(data)
     cards = torch.cuda.device_count()
-    runs = {}
-    for tag, flags in (("one card", []), (f"-d, {cards} ranks", ["-d"])):
-        model_dir = work / ("model_cards" if flags else "model_one")
-        shutil.rmtree(model_dir, ignore_errors=True)
-        cfg = cli_config(data, model_dir)
-        path = work / f"{model_dir.name}.yaml"
-        path.write_text(dump_yaml(cfg), encoding="utf-8")
-        t0 = time.time()
-        sub = subprocess.run([sys.executable, "-m", "joeys2t_torch", "train", str(path),
-                              *flags], cwd=REPO, capture_output=True, text=True, timeout=900)
-        check(sub.returncode == 0, f"{tag}: exited {sub.returncode}: {sub.stderr[-3000:]}")
-        wall = time.time() - t0
-        log = (model_dir / "train.log").read_text(encoding="utf-8").splitlines()
-        valid = (model_dir / "validations.txt").read_text(encoding="utf-8").splitlines()
-        check(len(valid) == 2, f"{tag}: validations.txt {valid}")
-        check(sum("Training loop:" in ln for ln in log) == 1, f"{tag}: train.log written twice")
-        for split in ("dev", "test"):
-            n = len((model_dir / f"best.hyps.{split}").read_text(encoding="utf-8")
-                    .splitlines())
-            check(n == 64, f"{tag}: best.hyps.{split} has {n} hypotheses")
-        ranks = int(re.search(r"data-parallel ranks: (\d+)", "\n".join(log)).group(1))
-        check(ranks == (cards if flags else 1), f"{tag}: {ranks} ranks")
-        scores, refs, hyps = one_process_validation(cfg, model_dir / "8.ckpt")
-        merged = (model_dir / "8.hyps").read_text(encoding="utf-8").splitlines()
-        check(merged == hyps, f"{tag}: {sum(a != b for a, b in zip(merged, hyps))} of "
-              f"{len(hyps)} hypotheses of the first validation differ from one process's "
-              f"predict of 8.ckpt")
-        last = (model_dir / "16.hyps").read_text(encoding="utf-8").splitlines()
-        words = [float(np.mean([len(t.split()) for t in texts]))
-                 for texts in (hyps, refs, last)]
-        runs[tag] = (update_ms(log), wall, valid, scores["wer"], *words)
-    for tag, (ms, wall, valid, wer, hyp_words, ref_words, last_words) in runs.items():
-        per_step = 64 * (cards if "-d" in tag else 1)
-        print(f"[cards] train ({tag}): {ms:.2f} ms an update of {per_step} utterances, "
-              f"{wall:.1f} s wall with start-up; {valid[-1][:80]}")
-        print(f"[cards] train ({tag}): the first validation's 64 hypotheses equal one "
-              f"process's predict of 8.ckpt token for token; WER {wer:.2f} with "
-              f"{hyp_words:.2f} words a hypothesis against {ref_words:.2f} a reference; "
-              f"the last validation's (16.hyps) {last_words:.2f} words a hypothesis")
-    one, many = runs["one card"][0], runs[f"-d, {cards} ranks"][0]
-    print(f"[cards] weak scaling over {cards} card(s): {one / many:.3f} of one card's pace "
-          f"an update with {cards}x the utterances")
-    print("[done] phase 1 and the multi-card run passed (a partial run)")
+    check(cards > 1 and cards % 2 == 0, f"the card layouts need an even number of cards "
+          f"> 1, not {cards}")
+    return data, cards, [(name.replace("N/2", str(cards // 2)).replace("N", str(cards)),
+                          card_layout(keys, cards)) for name, keys in CARD_LAYOUTS]
+
+
+def card_holds() -> None:
+    """``hold_layout`` for each layout of ``CARD_LAYOUTS`` (``-d`` over every
+    card; ``model_parallel: 2`` x data; ``model_parallel`` over every card;
+    ``pipeline_parallel: 2`` x data)."""
+    data, cards, layouts = card_layouts()
+    for name, keys in layouts:
+        hold_layout(data, name, keys, cards)
+
+
+def card_timing() -> None:
+    """Phase 7's cut timed on one card and in each layout of
+    ``CARD_LAYOUTS`` in turns, one card first and last by turns (one, A, B,
+    C, D; D, C, B, A, one; one, A, B, C, D), each layout paired with the
+    one-card run of its turn: the median over the pairs of one card's ms an
+    update over the layout's, and of the utterances a second."""
+    data, cards, layouts = card_layouts()
+    order = [None] + [k for _, k in layouts]
+    times = {name: [] for name, _ in layouts}
+    for turn in range(3):
+        run = order if turn % 2 == 0 else order[::-1]
+        got = [(keys, timed_train(data, keys, cards)) for keys in run]
+        one = next(ms for keys, ms in got if keys is None)
+        for name, keys in layouts:
+            ms = next(ms for k, ms in got if k is keys)
+            times[name].append((one, ms))
+    for name, keys in layouts:
+        inner = keys.get("model_parallel", keys.get("pipeline_parallel", 1))
+        per_update = 64 * cards // inner
+        pace = [one / ms for one, ms in times[name]]
+        rate = [p * per_update / 64 for p in pace]
+        print(f"[cards] {name}: ms an update of {per_update} utterances "
+              f"{[round(ms, 2) for _, ms in times[name]]} against one card's "
+              f"{[round(one, 2) for one, _ in times[name]]} of 64 in the same turns; one "
+              f"card's ms over the layout's: median {float(np.median(pace)):.3f} "
+              f"({[round(p, 3) for p in pace]}); utterances a second over one card's: "
+              f"median {float(np.median(rate)):.3f}")
+
+
+# parts of the smoke that ``--phases a,b,...`` runs alone after phase 1, in
+# that order (exit code 4 and no result line): phases 18-19 on one card, and
+# on several cards each layout's hold and its timing (``cards``: both)
+PARTS = {"layouts": layout_phases, "holds": card_holds, "timing": card_timing}
+
+
+def run_parts(spec: str) -> None:
+    names = [n for part in spec.split(",")
+             for n in (("holds", "timing") if part == "cards" else (part,))]
+    check(names and all(n in PARTS for n in names), f"--phases {spec}: the parts are "
+          f"{sorted(PARTS)} and cards")
+    build_phase()
+    for name in names:
+        PARTS[name]()
+    print(f"[done] phase 1 and {', '.join(names)} passed (a partial run)")
     sys.exit(4)
 
 
@@ -3498,8 +3971,8 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if sys.argv[1:] == ["--phases", "cards"]:
-        cards_main()
+    if sys.argv[1:2] == ["--phases"]:
+        run_parts(" ".join(sys.argv[2:]))
     t_start = time.time()
     marks = [("start", t_start)]
 
@@ -3560,6 +4033,9 @@ def main():
     torch.cuda.empty_cache()
     remat_counts = remat_phase()
     mark("phase 17")
+    torch.cuda.empty_cache()
+    layouts = layout_phases()
+    mark("phases 18-19")
 
     def compact(c):  # a case's measurements, without what its printed line adds
         return {k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "library_ms",
@@ -3585,7 +4061,9 @@ def main():
                     int8_beam=int8_counts["beam 5 32 x 10 s"][name],
                     spm=spm_counts[name], conformer=conformer_counts[name],
                     mt=mt_counts[name], reverse_d16=reverse_counts[name],
-                    moe=moe_counts[name], ddp=ddp_counts[name], remat=remat_counts[name])
+                    moe=moe_counts[name], ddp=ddp_counts[name], remat=remat_counts[name],
+                    **{f"{layout} (2 ranks)": n[name] for layout, n in
+                       layouts["launches"].items() if name in n})
 
     def int8_paths(name):
         return {"int8_greedy": int8_counts["greedy 64 x 10 s"][name],
@@ -3595,7 +4073,8 @@ def main():
         return [c for c in cases if f" {mode}" in c["case"]]
 
     # phases 10-13 on their own inputs
-    for later in (spm_checks, conformer_checks, mt_checks, reverse_checks, moe_checks):
+    for later in (spm_checks, conformer_checks, mt_checks, reverse_checks, moe_checks,
+                  layouts["checks"]):
         for name, cases in later.items():
             cli_checks[name] = cli_checks[name] + cases
     decode_checks = cli_checks["decode_attention"]

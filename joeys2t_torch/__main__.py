@@ -11,6 +11,9 @@ one; ``use_cuda: False`` runs on the CPU. ``-d/--use-ddp`` runs ``train``
 with ``use_cuda: False``; without torchrun it spawns one process per visible
 card, as the reference's ``mp.spawn`` did (joeynmt/__main__.py:72-86). The
 CPU has no cards to count, so ``-d`` with ``use_cuda: False`` needs torchrun.
+The ranks form data-parallel groups, or with ``training: model_parallel``
+or ``pipeline_parallel`` a (data, model) or (data, pipe) layout, whose
+inner size must divide the ranks.
 ``-a/--save-attention`` is not ported yet and raises.
 """
 import argparse

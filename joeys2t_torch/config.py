@@ -9,12 +9,15 @@ Counterpart of joeys2t_tpu/config.py (``SpecialSymbols`` :28,
 ``parse_global_args`` :220, ``parse_train_args`` :259, ``parse_test_args``
 :360, ``set_validation_args`` :435). ``use_cuda`` (default True) selects the
 ``cuda`` device and raises without one; ``use_cuda: False`` runs on the CPU.
-``fp16`` selects bfloat16 compute on float32 masters. The `training` options
-of the parts the port does not have yet (profiling, model and pipeline
-parallelism with ``pipeline_microbatches``, optimizers other than
-adam/adamw, and sgd's ``momentum``) raise ``NotImplementedError`` when set;
-:func:`check_ported` refuses the unported `testing` and `model` options
-(returned attention, ``sequence_parallel``) before a run loads any data.
+``fp16`` selects bfloat16 compute on float32 masters. ``model_parallel``,
+``pipeline_parallel`` and ``pipeline_microbatches`` are read as JAX reads
+them (:284-292; both parallelisms at once raise by name); the model
+section's ``sequence_parallel`` is read by the trainer. The `training`
+options of the parts the port does not have yet (profiling, optimizers
+other than adam/adamw, and sgd's ``momentum``) raise
+``NotImplementedError`` when set; :func:`check_ported` refuses the
+unported `testing` options (returned attention) before a run loads any
+data.
 As in JAX, the ``JOEYS2T_BEAM_REORDER`` environment variable overrides
 ``beam_reorder`` when the `testing` section is parsed, never in the
 decode loop.
@@ -111,6 +114,10 @@ class TrainConfig:
     ctc_weight: float = 0.0
     # the dtype Adam keeps its first moment in (optax's mu_dtype); None: float32
     moment_dtype: Optional[str] = None
+    # tensor / pipeline parallelism (JAX's (data, model) and (data, pipe) meshes)
+    model_parallel: int = 1
+    pipeline_parallel: int = 1
+    pipeline_microbatches: int = 0  # 0: 2 * pipeline_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -265,17 +272,24 @@ def parse_train_args(cfg: Dict, mode: str = "train") -> TrainConfig:
         moment_dtype = str(moment_dtype).lower()
     _check_options("moment_dtype", moment_dtype, [None, "bfloat16", "float32"])
 
+    model_parallel = int(cfg.get("model_parallel", 1))
+    if model_parallel < 1:
+        raise ConfigurationError("`model_parallel` must be >= 1.")
+    pipeline_parallel = int(cfg.get("pipeline_parallel", 1))
+    if pipeline_parallel < 1:
+        raise ConfigurationError("`pipeline_parallel` must be >= 1.")
+    if pipeline_parallel > 1 and model_parallel > 1:
+        raise ConfigurationError(
+            "`pipeline_parallel` and `model_parallel` are mutually exclusive.")
+    pipeline_microbatches = int(cfg.get("pipeline_microbatches", 0))
+    if pipeline_microbatches < 0:
+        raise ConfigurationError("`pipeline_microbatches` must be >= 0.")
+
     unported = {
         "profile_dir": cfg.get("profile_dir") is not None,
-        "model_parallel": int(cfg.get("model_parallel", 1)) != 1,
-        "pipeline_parallel": int(cfg.get("pipeline_parallel", 1)) != 1,
-        "pipeline_microbatches": int(cfg.get("pipeline_microbatches", 0)) != 0,
         f"optimizer {optimizer}": optimizer not in PORTED_OPTIMIZERS,
     }
-    where = {"model_parallel": " (tensor parallelism, ROADMAP.md §A item 3)",
-             "pipeline_parallel": " (pipeline parallelism, ROADMAP.md §A item 4)",
-             "pipeline_microbatches": " (pipeline parallelism, ROADMAP.md §A item 4)",
-             "optimizer sgd": " (nor its `momentum`)"}
+    where = {"optimizer sgd": " (nor its `momentum`)"}
     for option, is_set in unported.items():
         if is_set:
             raise NotImplementedError(f"training option `{option}` is not ported "
@@ -320,6 +334,9 @@ def parse_train_args(cfg: Dict, mode: str = "train") -> TrainConfig:
         batch_multiplier=cfg.get("batch_multiplier", 1),
         moment_dtype=moment_dtype,
         ctc_weight=cfg.get("ctc_weight", 0.0),
+        model_parallel=model_parallel,
+        pipeline_parallel=pipeline_parallel,
+        pipeline_microbatches=pipeline_microbatches,
     )
 
 
@@ -394,19 +411,13 @@ def parse_test_args(cfg: Dict, mode: str = "test") -> TestConfig:
 
 
 def check_ported(args: BaseConfig, save_attention: bool = False) -> None:
-    """Raise ``NotImplementedError`` for an option of the `testing` or
-    `model` section that the port does not have yet, so that ``train``,
-    ``test`` and ``translate`` refuse it before loading any data rather than
-    where it would first run (after training, for the closing test)."""
-    t, model = args.test, args.model
-    unported = {
-        "return_attention": t.return_attention or save_attention,
-        # JAX's sequence-parallel constraint of tensor parallelism (ROADMAP.md §A item 3)
-        "sequence_parallel": bool(model.get("sequence_parallel", False)),
-    }
-    names = [name for name, is_set in unported.items() if is_set]
-    if names:
-        raise NotImplementedError(f"options not ported yet: {names}")
+    """Raise ``NotImplementedError`` for an option of the `testing` section
+    that the port does not have yet (returned attention), so that
+    ``train``, ``test`` and ``translate`` refuse it before loading any data
+    rather than where it would first run (after training, for the closing
+    test)."""
+    if args.test.return_attention or save_attention:
+        raise NotImplementedError("options not ported yet: ['return_attention']")
 
 
 def set_validation_args(args: TestConfig) -> TestConfig:

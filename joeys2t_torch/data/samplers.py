@@ -78,7 +78,7 @@ class ShardedSubsetSampler(RandomSubsetSampler):
                  drop_last: bool = True):
         super().__init__(data_source, shuffle, seed)
         if num_replicas is None or rank is None:
-            num_replicas, rank = distributed.world_size(), distributed.rank()
+            num_replicas, rank = distributed.data_world(), distributed.data_rank()
         if not 0 <= rank < num_replicas:
             raise ValueError(f"rank {rank} outside a world of {num_replicas}")
         self.num_replicas = num_replicas

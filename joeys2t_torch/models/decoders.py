@@ -18,7 +18,15 @@ scale per (b, h, channel), taken over the valid source frames only; with
 slot), each slot quantized as it is written (joeys2t_tpu/models/decoders.py
 :172-227). Decode attention reads them in its "channel" and "position"
 layouts.
+
+Under tensor parallelism with ``sequence_parallel`` the residual stream
+between the layers is this rank's slice of the target sequence (padded to
+a multiple of the model group; joeys2t_tpu/models/decoders.py:122).
+``pre_layers`` / ``post_layers`` split the teacher-forced pass around the
+layer stack for pipeline parallelism (joeys2t_tpu/models/model.py
+:127-140).
 """
+import torch.nn.functional as F
 from typing import Dict, Optional
 
 import torch
@@ -27,6 +35,7 @@ from torch import nn
 from joeys2t_torch.models.modules import (NEG_INF, Dropout, TransformerDecoderLayer, dense,
                                           layer_norm, rematerialized, sinusoidal_pe,
                                           subsequent_mask)
+from joeys2t_torch.parallel.tp import scatter, seq_exit
 
 
 def _quantize_per_channel(x: torch.Tensor, src_mask: Optional[torch.Tensor]):
@@ -72,6 +81,7 @@ class TransformerDecoder(nn.Module):
         # CTC head over the encoder output (joeynmt/model.py:452-454)
         self.ctc_output_layer = (nn.Linear(hidden_size, vocab_size, bias=False,
                                            device=device) if ctc_layer else None)
+        self.tp = None  # the model group under tensor parallelism
 
     def _final(self, x: torch.Tensor) -> torch.Tensor:
         if self.layer_norm is not None:
@@ -89,20 +99,42 @@ class TransformerDecoder(nn.Module):
         tied softmax, hidden, ctc_logits) (joeynmt/decoders.py:567-625).
         ``trg_prompt_embed`` is the embedded target prompt mask, added to the
         input (:600-601)."""
+        x, full_trg_mask = self.pre_layers(trg_embed, trg_mask, trg_prompt_embed)
+        tp = self.tp
+        t = x.shape[1]
+        if tp is not None and tp.sequence_parallel:  # pad to the group, keys masked
+            pad = -t % tp.world
+            x = scatter(F.pad(x, (0, 0, 0, pad)), tp)
+            full_trg_mask = (F.pad(trg_mask, (0, pad), value=False)
+                             & subsequent_mask(t + pad, trg_mask.device))
+        for layer in self.layers:
+            x = (rematerialized(layer, x, encoder_output, src_mask, full_trg_mask)
+                 if self.remat else layer(x, encoder_output, src_mask, full_trg_mask))
+        if tp is not None and tp.sequence_parallel:
+            x = seq_exit(x, t, tp)
+        x = self._final(x)
+        return self._project(x), x, self._ctc(encoder_output)
+
+    def pre_layers(self, trg_embed: torch.Tensor, trg_mask: torch.Tensor,
+                   trg_prompt_embed: Optional[torch.Tensor] = None):
+        """The teacher-forced pass up to the layer stack: (x (B, T, H), the
+        causal mask (B, T, T))."""
         t = trg_embed.shape[1]
         pe = sinusoidal_pe(t, trg_embed.shape[2], trg_embed.device)
         x = trg_embed + pe.to(trg_embed.dtype)[None]
         if trg_prompt_embed is not None:
             x = x + trg_prompt_embed
         x = self.emb_dropout(x).to(self.dtype)
-        full_trg_mask = trg_mask & subsequent_mask(t, trg_mask.device)  # (B, T, T)
-        for layer in self.layers:
-            x = (rematerialized(layer, x, encoder_output, src_mask, full_trg_mask)
-                 if self.remat else layer(x, encoder_output, src_mask, full_trg_mask))
-        x = self._final(x)
-        ctc_out = (None if self.ctc_output_layer is None
-                   else dense(self.ctc_output_layer, encoder_output, self.dtype))
-        return self._project(x), x, ctc_out
+        return x, trg_mask & subsequent_mask(t, trg_mask.device)
+
+    def post_layers(self, x: torch.Tensor, encoder_output: torch.Tensor):
+        """After the stack: (logits, or under the tied softmax the final
+        hidden states, and the CTC logits of ``encoder_output`` or None)."""
+        return self._project(self._final(x)), self._ctc(encoder_output)
+
+    def _ctc(self, encoder_output: torch.Tensor) -> Optional[torch.Tensor]:
+        return (None if self.ctc_output_layer is None
+                else dense(self.ctc_output_layer, encoder_output, self.dtype))
 
     def init_cache(self, encoder_output: torch.Tensor, max_len: int,
                    src_mask: Optional[torch.Tensor] = None,

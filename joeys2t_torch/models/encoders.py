@@ -8,6 +8,14 @@ The JAX encoder pads the subsampled audio sequence to a multiple of 128 for
 the TPU kernel's lanes (token sequences are never padded); the CUDA flash
 kernel masks any key length itself, so the port does not pad. Padded frames
 are masked keys either way, and the output is the same.
+
+Under tensor parallelism with ``sequence_parallel`` (joeys2t_tpu
+encoders.py :129, :248) the residual stream between the layers is this
+rank's slice of the sequence (``parallel/tp.py`` ``seq_enter`` /
+``seq_exit``), the sequence padded to a multiple of the model group with
+masked frames. ``pre_layers`` / ``post_layers`` split the forward around
+the layer stack for pipeline parallelism (joeys2t_tpu/models/model.py
+:101-125).
 """
 from typing import Optional, Sequence
 
@@ -17,12 +25,29 @@ from torch import nn
 from joeys2t_torch.models.modules import (ConformerEncoderLayer, Conv1dSubsampler, Dropout,
                                           TransformerEncoderLayer, dense, layer_norm,
                                           rematerialized, sinusoidal_pe)
+from joeys2t_torch.parallel.tp import seq_enter, seq_exit
 
 
 def lengths_to_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """Bool validity mask (B, 1, max_len); True at valid frames."""
     return (torch.arange(max_len, device=lengths.device)[None, :]
             < lengths[:, None])[:, None, :]
+
+
+def run_layers(encoder: nn.Module, x: torch.Tensor, mask: torch.Tensor,
+               layers=None, conformer: bool = False) -> torch.Tensor:
+    """``layers`` (the encoder's, by default) over ``x``, rematerialized
+    under ``remat``, inside the sequence-parallel region when the encoder
+    has one."""
+    layers = encoder.layers if layers is None else layers
+    tp = encoder.tp
+    seq_len = None
+    if tp is not None and tp.sequence_parallel:
+        x, mask, seq_len = seq_enter(x, mask, tp)
+    for layer in layers:
+        args = (x, mask, seq_len) if conformer else (x, mask)
+        x = rematerialized(layer, *args) if encoder.remat else layer(*args)
+    return x if seq_len is None else seq_exit(x, seq_len, tp)
 
 
 class TransformerEncoder(nn.Module):
@@ -53,6 +78,7 @@ class TransformerEncoder(nn.Module):
         self.subsampler = (Conv1dSubsampler(in_channels, conv_channels, hidden_size,
                                             conv_kernel_sizes, dtype, device)
                            if subsample else None)
+        self.tp = None  # the model group under tensor parallelism
 
     @property
     def output_size(self) -> int:
@@ -64,6 +90,13 @@ class TransformerEncoder(nn.Module):
         """(B, T, E) fbank features (S2T) or embedded tokens (MT, plus the
         embedded source prompt mask, joeynmt/encoders.py:274-275) ->
         (output (B, T', H), None, mask (B, 1, T'))."""
+        x, mask = self.pre_layers(src_embed, src_length, mask, src_prompt_embed)
+        return self.post_layers(run_layers(self, x, mask)), None, mask
+
+    def pre_layers(self, src_embed: torch.Tensor, src_length: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None,
+                   src_prompt_embed: Optional[torch.Tensor] = None):
+        """The forward up to the layer stack: (x (B, T', H), mask (B, 1, T'))."""
         if self.subsampler is not None:
             src_embed, src_length = self.subsampler(src_embed, src_length)
         if mask is None:
@@ -72,12 +105,13 @@ class TransformerEncoder(nn.Module):
         x = src_embed + pe.to(src_embed.dtype)[None]
         if src_prompt_embed is not None:
             x = x + src_prompt_embed
-        x = self.emb_dropout(x).to(self.dtype)
-        for layer in self.layers:
-            x = rematerialized(layer, x, mask) if self.remat else layer(x, mask)
+        return self.emb_dropout(x).to(self.dtype), mask
+
+    def post_layers(self, x: torch.Tensor) -> torch.Tensor:
+        """The final layer norm (pre-norm), after the stack."""
         if self.layer_norm is not None:
             x = layer_norm(self.layer_norm, x, self.dtype)
-        return x, None, mask
+        return x
 
 
 class ConformerEncoder(nn.Module):
@@ -106,6 +140,7 @@ class ConformerEncoder(nn.Module):
         self.emb_dropout = Dropout(emb_dropout)
         self.subsampler = Conv1dSubsampler(in_channels, conv_channels, hidden_size,
                                            conv_kernel_sizes, dtype, device)
+        self.tp = None  # the model group under tensor parallelism
 
     @property
     def output_size(self) -> int:
@@ -115,11 +150,18 @@ class ConformerEncoder(nn.Module):
                 mask: Optional[torch.Tensor] = None):
         """(B, T, E) fbank features -> (output (B, T', H), None, mask (B, 1,
         T')); the mask always comes from the subsampled lengths."""
-        del mask
+        x, mask = self.pre_layers(src_embed, src_length, mask)
+        return self.post_layers(run_layers(self, x, mask, conformer=True)), None, mask
+
+    def pre_layers(self, src_embed: torch.Tensor, src_length: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None, src_prompt_embed=None):
+        """The forward up to the layer stack: (x (B, T', H), mask (B, 1, T'))."""
+        del mask, src_prompt_embed
         x, src_length = self.subsampler(src_embed, src_length)
         mask = lengths_to_mask(src_length, x.shape[1])
         x = x + sinusoidal_pe(x.shape[1], x.shape[2], x.device).to(x.dtype)[None]
-        x = self.emb_dropout(dense(self.linear, x, self.dtype)).to(self.dtype)
-        for layer in self.layers:
-            x = rematerialized(layer, x, mask) if self.remat else layer(x, mask)
-        return x, None, mask
+        return self.emb_dropout(dense(self.linear, x, self.dtype)).to(self.dtype), mask
+
+    def post_layers(self, x: torch.Tensor) -> torch.Tensor:
+        """Nothing: each Conformer layer ends with its own norm."""
+        return x

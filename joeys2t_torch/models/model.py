@@ -117,6 +117,33 @@ class Seq2SeqModel(nn.Module):
                                             trg_prompt_mask, encoder_hidden)
         return logits, ctc_logits, src_mask
 
+    # ------------------------------------ the pipeline-parallel split of the pass
+    def encode_pre_layers(self, src: torch.Tensor, src_length: torch.Tensor,
+                          src_mask: Optional[torch.Tensor] = None,
+                          src_prompt_mask: Optional[torch.Tensor] = None):
+        """The encoder up to its layer stack (joeys2t_tpu/models/model.py
+        :101-120): (x, mask); the stack then runs in stages."""
+        if self.src_embed is None:
+            return self.encoder.pre_layers(src, src_length, src_mask)
+        prompt = None if src_prompt_mask is None else self.src_embed(src_prompt_mask)
+        return self.encoder.pre_layers(self.src_embed(src), src_length, src_mask, prompt)
+
+    def encode_post_layers(self, x: torch.Tensor) -> torch.Tensor:
+        """The encoder after its stack (:122-125)."""
+        return self.encoder.post_layers(x)
+
+    def decode_pre_layers(self, trg_input: torch.Tensor, trg_mask: torch.Tensor,
+                          trg_prompt_mask: Optional[torch.Tensor] = None):
+        """The transformer decoder up to its layer stack (:127-135): (x, the
+        causal mask (B, T, T))."""
+        prompt = None if trg_prompt_mask is None else self.trg_embed(trg_prompt_mask)
+        return self.decoder.pre_layers(self.trg_embed(trg_input), trg_mask, prompt)
+
+    def decode_post_layers(self, x: torch.Tensor, encoder_output: torch.Tensor):
+        """The decoder after its stack (:137-140): (logits, ctc_logits)."""
+        out, ctc = self.decoder.post_layers(x, encoder_output)
+        return self._output_logits(out), ctc
+
     def init_cache(self, encoder_output: torch.Tensor, max_len: int,
                    src_mask: Optional[torch.Tensor] = None, beam_k: int = 1) -> Dict:
         """Decode cache for ``max_len`` steps over ``encoder_output`` with

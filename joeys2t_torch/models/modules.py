@@ -35,6 +35,18 @@ ancestry map), on the card too; ``auto``, ``flash`` and ``decode_kernel``
 take the kernels on a CUDA tensor. JAX gates its Pallas kernels
 by backend; the port's kernels exist on the card only, so the three agree.
 
+Tensor parallelism (``parallel/tp.py``): a module whose ``tp`` is set holds
+this rank's shards and calls the model group's collectives where Megatron
+puts them; attention computes its local heads, the mixture of experts its
+local experts on every token. A dropout of a sharded activation draws the
+whole tensor's mask from the generator and keeps this rank's part of it
+(:class:`Dropout`'s ``shard``), so every rank of the group draws the same
+shapes in the same order, the replicated stream stays identical on them,
+and the masks are the unsharded model's. The flash kernel's per-call seed
+is decorrelated across the model ranks instead, as JAX's
+``mha_flash_sharded`` folds the model index into its key
+(joeys2t_tpu/ops/flash_attention.py:732-736).
+
 Unlike the functional JAX modules, ``step_self`` and ``step_self_ancestry``
 write the new key/value into the caller's self-attention cache in place,
 and the decode steps take additive (B, S) biases that the decoder builds
@@ -44,6 +56,7 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
@@ -51,6 +64,8 @@ from torch import nn
 from joeys2t_torch.ops.decode_attention import (decode_attention, decode_attention_plain,
                                                 quantize_per_position)
 from joeys2t_torch.ops.flash_attention import mha_flash_flat, supported
+from joeys2t_torch.parallel.tp import copy_to as tp_copy
+from joeys2t_torch.parallel.tp import reduce as tp_reduce
 
 NEG_INF = -1e9
 ATTENTION_IMPLS = ("auto", "xla", "flash", "decode_kernel")
@@ -77,11 +92,20 @@ class Dropout(nn.Module):
                                "set_dropout_generator(model, generator)")
         return True
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        """``shard`` (dim, rank, world) says that ``x`` is part ``rank`` of
+        ``world`` equal parts along ``dim`` of a larger tensor: the larger
+        tensor's mask is drawn and this part of it kept."""
         if not self.active():
             return x
-        keep = torch.rand(x.shape, generator=self.generator,
+        shape = list(x.shape)
+        if shard is not None:
+            shape[shard[0]] *= shard[2]
+        keep = torch.rand(shape, generator=self.generator,
                           device=self.generator.device).to(x.device) >= self.rate
+        if shard is not None:
+            dim, rank, _ = shard
+            keep = keep.narrow(dim, rank * x.shape[dim], x.shape[dim])
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros((), dtype=x.dtype,
                                                                     device=x.device))
 
@@ -178,6 +202,57 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
+class _Float32Product(torch.autograd.Function):
+    """x @ w.T of bfloat16 operands with a float32 result (the GEMM's own
+    accumulator, not rounded to bfloat16; on the CPU, which has no such
+    GEMM, the float32 product of the operands); the backward is the
+    bfloat16 GEMMs of ``F.linear``'s."""
+
+    @staticmethod
+    def forward(ctx, x, w):  # pylint: disable=arguments-differ
+        ctx.save_for_backward(x, w)
+        flat = x.reshape(-1, x.shape[-1])
+        if flat.is_cuda:
+            out = torch.mm(flat, w.t(), out_dtype=torch.float32)
+        else:
+            out = flat.float() @ w.float().t()
+        return out.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, grad):  # pylint: disable=arguments-differ
+        x, w = ctx.saved_tensors
+        g = grad.to(x.dtype)
+        return g @ w, g.reshape(-1, g.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+
+
+def column_dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, tp,
+                 region: bool = True) -> torch.Tensor:
+    """``layer`` applied in ``dtype``; with ``tp`` a column-parallel shard
+    whose input enters the model group's region (``tp.enter``; with
+    ``region`` False a replicated input, the encoder memory, which is only
+    copied)."""
+    if tp is not None:
+        x = tp.enter(x) if region else tp_copy(x, tp)
+    return dense(layer, x, dtype)
+
+
+def row_dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, tp) -> torch.Tensor:
+    """``layer`` applied in ``dtype``; with ``tp`` a row-parallel shard: the
+    partial products leave the region (``tp.exit``) in float32 and the
+    replicated bias is added to their sum, which is rounded to ``dtype``
+    once, as the unsharded layer's accumulator is."""
+    if tp is None:
+        return dense(layer, x, dtype)
+    x, w = x.to(dtype), layer.weight.to(dtype)
+    part = F.linear(x, w) if dtype == torch.float32 else _Float32Product.apply(x, w)
+    return (tp.exit(part) + layer.bias.to(dtype).float()).to(dtype)
+
+
+def seq_shard(tp):
+    """The Dropout shard of a residual-stream tensor under ``tp``."""
+    return None if tp is None else tp.seq_shard()
+
+
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """LayerNorm computed in float32, result cast to ``dtype``."""
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
@@ -210,6 +285,7 @@ class MultiHeadedAttention(nn.Module):
         self.output_layer = nn.Linear(size, size, device=device)
         self.attn_dropout = Dropout(dropout)
         self.plain = False  # attention_impl: xla
+        self.tp = None  # the model group of a tensor-parallel shard
 
     def _split_heads(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, size) -> (B, T, H, Dh)"""
@@ -227,31 +303,38 @@ class MultiHeadedAttention(nn.Module):
         scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
         if mask is not None:
             scores = scores.masked_fill(~mask, NEG_INF)
-        probs = self.attn_dropout(torch.softmax(scores, dim=-1).to(self.dtype))
+        tp = self.tp
+        probs = self.attn_dropout(torch.softmax(scores, dim=-1).to(self.dtype),
+                                  shard=None if tp is None else (1, tp.rank, tp.world))
         context = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return dense(self.output_layer,
-                     context.reshape(q.shape[0], q.shape[1], self.size), self.dtype)
+        return row_dense(self.output_layer,
+                         context.reshape(q.shape[0], q.shape[1], self.size), self.dtype, tp)
 
     def forward(self, k: torch.Tensor, v: torch.Tensor, q: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Full-sequence attention; ``mask`` bool, (B, 1, Tk) key mask or
         (B, Tq, Tk) full mask. As in the JAX module, both keys and values
-        are projected from ``k``."""
+        are projected from ``k``. Under tensor parallelism ``q`` enters the
+        model group's region (its slice of the sequence under sequence
+        parallelism), and ``k`` with it when it is ``q`` (self-attention),
+        else as the replicated memory it is."""
         del v
+        tp, region = self.tp, k is q
+        q, k, v = (column_dense(layer, x, self.dtype, tp, r) for layer, x, r in (
+            (self.q_layer, q, True), (self.k_layer, k, region), (self.v_layer, k, region)))
         key_mask_only = mask is None or (mask.dim() == 3 and mask.shape[1] == 1)
         if key_mask_only and (self.plain or q.device.type != "cpu"
                               or supported(self.head_size, self.dtype)):
             drop = self.attn_dropout.active()
             context = mha_flash_flat(
-                dense(self.q_layer, q, self.dtype), dense(self.k_layer, k, self.dtype),
-                dense(self.v_layer, k, self.dtype), self.num_heads,
+                q, k, v, self.num_heads,
                 None if mask is None else mask[:, 0, :],
                 1.0 / math.sqrt(self.head_size),
                 dropout_rate=self.dropout if drop else 0.0,
-                generator=self.attn_dropout.generator if drop else None, plain=self.plain)
-            return dense(self.output_layer, context, self.dtype)
-        k_h, v_h = self.project_kv(k)
-        q_h = self._split_heads(dense(self.q_layer, q, self.dtype))
+                generator=self.attn_dropout.generator if drop else None, plain=self.plain,
+                seed_salt=0 if tp is None else tp.rank)
+            return row_dense(self.output_layer, context, self.dtype, tp)
+        q_h, k_h, v_h = (self._split_heads(t) for t in (q, k, v))
         if mask is not None:
             mask = mask[:, None, :, :]  # head dim -> (B, 1, 1|Tq, Tk)
         return self._attend(q_h, k_h, v_h, mask)
@@ -314,6 +397,9 @@ class MultiHeadedAttention(nn.Module):
 
     def _step(self, q, k_h, v_h, bias, group=1, k_scale=None, v_scale=None, layout=None,
               ancestry=None):
+        if self.tp is not None:
+            raise RuntimeError("a tensor-parallel shard does not decode: decode the "
+                               "gathered model")
         q_h = self._split_heads(dense(self.q_layer, q, self.dtype))
         attend = decode_attention_plain if self.plain else decode_attention
         ctx = attend(q_h[:, 0], k_h, v_h, bias, k_scale, v_scale,
@@ -341,13 +427,20 @@ class PositionwiseFeedForward(nn.Module):
             nn.Linear(input_size, ff_size, device=device), build_activation(activation),
             Dropout(dropout), nn.Linear(ff_size, input_size, device=device),
             Dropout(dropout))
+        self.tp = None  # the model group of a tensor-parallel shard
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x
         if self.layer_norm_position == "pre":
             x = layer_norm(self.layer_norm, x, self.dtype)
         lin1, act, drop1, lin2, drop2 = self.pwff_layer
-        x = drop2(dense(lin2, drop1(act(dense(lin1, x, self.dtype))), self.dtype))
+        tp = self.tp
+        if tp is not None:  # columns, then rows
+            h = act(column_dense(lin1, x, self.dtype, tp))
+            h = drop1(h, shard=(h.dim() - 1, tp.rank, tp.world))
+            x = drop2(row_dense(lin2, h, self.dtype, tp), shard=tp.seq_shard())
+        else:
+            x = drop2(dense(lin2, drop1(act(dense(lin1, x, self.dtype))), self.dtype))
         x = x + self.alpha * residual
         if self.layer_norm_position == "post":
             x = layer_norm(self.layer_norm, x, self.dtype)
@@ -369,8 +462,16 @@ class MoEFeedForward(nn.Module):
     router probability, both over the valid tokens of ``token_valid``),
     where the trainer collects it (JAX sows it). With ``global_stats`` (the
     trainer sets it in a data-parallel run) the sums behind f_e and p_e are
-    summed over the ranks in training mode, differentiably, so the term is
-    the global batch's, as JAX computes it over one global array."""
+    summed over the data-parallel ranks (``stats_group``, the world when
+    None) in training mode, differentiably, so the term is the global
+    batch's, as JAX computes it over one global array. Under tensor
+    parallelism each rank holds E / tp experts, computes them on every
+    token and contracts them with its experts' dispatch weights; the partial
+    outputs are summed over the model group. The routing runs on every rank
+    of the group alike (under sequence parallelism on this rank's slice of
+    the sequence, its sums then summed over the group), so its sums go over
+    the data ranks only: over the world, every token would count tp
+    times."""
 
     def __init__(self, input_size: int, ff_size: int, num_experts: int,
                  dropout: float = 0.1, alpha: float = 1.0,
@@ -395,6 +496,8 @@ class MoEFeedForward(nn.Module):
         self.dropout2 = Dropout(dropout)
         self.aux_loss: Optional[torch.Tensor] = None
         self.global_stats = False
+        self.stats_group = None  # the data-parallel ranks' group (None: the world)
+        self.tp = None  # the model group of a tensor-parallel shard
 
     def forward(self, x: torch.Tensor,
                 token_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -402,6 +505,8 @@ class MoEFeedForward(nn.Module):
         if self.layer_norm_position == "pre":
             x = layer_norm(self.layer_norm, x, self.dtype)
         x = x.to(self.dtype)
+        if self.tp is not None and self.tp.sequence_parallel and token_valid is not None:
+            token_valid = self.tp.local(token_valid)
         gates = torch.softmax(F.linear(x.float(), self.router.weight.float()), dim=-1)
         top_p, top1 = gates.max(dim=-1)  # the first maximum, as jnp.argmax
         one_hot = F.one_hot(top1, self.num_experts).float()
@@ -410,18 +515,33 @@ class MoEFeedForward(nn.Module):
              else token_valid.float()[..., None])
         sums = torch.cat([(one_hot * w).sum(dim=(0, 1)), (gates * w).sum(dim=(0, 1)),
                           w.sum().reshape(1)])
+        tp = self.tp
+        if tp is not None and tp.sequence_parallel:  # routed on this rank's slice
+            sums = tp_reduce(sums, tp)
         if self.training and self.global_stats:
             from torch.distributed.nn.functional import all_reduce
 
-            sums = all_reduce(sums)
+            sums = all_reduce(sums, group=self.stats_group or dist.group.WORLD)
         denom = sums[2 * e].clamp(min=1.0)
         f, p = sums[:e] / denom, sums[e:2 * e] / denom
         self.aux_loss = e * (f * p).sum()
         dispatch = (one_hot * top_p[..., None]).to(self.dtype)  # (B, T, E)
+        if tp is not None:  # this rank's experts on every token
+            n = self.w1.shape[0]
+            if tp.sequence_parallel:
+                x, dispatch = tp.enter(x), tp.enter(dispatch)
+            else:
+                x, dispatch = tp_copy(x, tp), tp_copy(dispatch, tp)
+            dispatch = dispatch[..., tp.rank * n:(tp.rank + 1) * n]
         h = torch.einsum("bth,ehf->btef", x, self.w1.to(self.dtype)) + self.b1.to(self.dtype)
-        h = self.dropout1(self.act(h))
+        h = self.dropout1(self.act(h), shard=None if tp is None else (2, tp.rank, tp.world))
         y = torch.einsum("btef,efh->bteh", h, self.w2.to(self.dtype)) + self.b2.to(self.dtype)
-        y = self.dropout2(torch.einsum("bteh,bte->bth", y, dispatch))
+        if tp is not None:  # the partial sums in float32, rounded once after the sum
+            y = tp.exit(torch.einsum("bteh,bte->bth", y.float(), dispatch.float()))
+            y = y.to(self.dtype)
+        else:
+            y = torch.einsum("bteh,bte->bth", y, dispatch)
+        y = self.dropout2(y, shard=seq_shard(tp))
         y = y + self.alpha * residual
         if self.layer_norm_position == "post":
             y = layer_norm(self.layer_norm, y, self.dtype)
@@ -458,7 +578,7 @@ class TransformerEncoderLayer(nn.Module):
         if self.layer_norm_position == "pre":
             x = layer_norm(self.layer_norm, x, self.dtype)
         x = self.src_src_att(x, x, x, mask)
-        x = self.dropout(x) + self.alpha * residual
+        x = self.dropout(x, shard=seq_shard(self.src_src_att.tp)) + self.alpha * residual
         if self.layer_norm_position == "post":
             x = layer_norm(self.layer_norm, x, self.dtype)
         if isinstance(self.feed_forward, MoEFeedForward):
@@ -491,7 +611,9 @@ class TransformerDecoderLayer(nn.Module):
         residual = x
         if pre:
             x = layer_norm(self.x_layer_norm, x, self.dtype)
-        h1 = self.dropout(self.trg_trg_att(x, x, x, mask=trg_mask)) + self.alpha * residual
+        shard = seq_shard(self.trg_trg_att.tp)
+        h1 = (self.dropout(self.trg_trg_att(x, x, x, mask=trg_mask), shard=shard)
+              + self.alpha * residual)
         if not pre:
             h1 = layer_norm(self.x_layer_norm, h1, self.dtype)
 
@@ -499,7 +621,7 @@ class TransformerDecoderLayer(nn.Module):
         if pre:
             h1 = layer_norm(self.dec_layer_norm, h1, self.dtype)
         h2 = self.src_trg_att(memory, memory, h1, mask=src_mask)
-        h2 = self.dropout(h2) + self.alpha * h1_residual
+        h2 = self.dropout(h2, shard=shard) + self.alpha * h1_residual
         if not pre:
             h2 = layer_norm(self.dec_layer_norm, h2, self.dtype)
         return self.feed_forward(h2)
@@ -619,16 +741,32 @@ class ConvolutionModule(nn.Module):
             self.norm = _layer_norm_module(channels, device)
         self.pointwise_conv2 = _Pointwise(channels, hidden_size, device)
         self.dropout = Dropout(dropout)
+        self.tp = None  # the model group (replicated; its sequence slice under SP)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.pointwise_conv1(layer_norm(self.layer_norm, x, self.dtype), self.dtype)
+    def forward(self, x: torch.Tensor, seq_len: Optional[int] = None) -> torch.Tensor:
+        """Under sequence parallelism ``x`` is this rank's slice: the module
+        runs on the whole sequence (gathered), its frames from ``seq_len``
+        on (the region's padding) zeroed before the depthwise convolution
+        as its "same" padding would be, and returns this rank's slice."""
+        tp = self.tp
+        sp = tp is not None and tp.sequence_parallel
+        x = layer_norm(self.layer_norm, x, self.dtype)
+        if sp:
+            x = tp.enter(x)
+        x = self.pointwise_conv1(x, self.dtype)
         a, b = x.chunk(2, dim=-1)
-        x = _depthwise_conv(self.depthwise_conv, a * torch.sigmoid(b), self.dtype)
+        x = a * torch.sigmoid(b)
+        if sp and seq_len is not None and seq_len < x.shape[1]:
+            x = F.pad(x[:, :seq_len], (0, 0, 0, x.shape[1] - seq_len))
+        x = _depthwise_conv(self.depthwise_conv, x, self.dtype)
         if self.norm_type == "batchnorm":
             x = self.batch_norm(x, self.dtype)
         else:
             x = layer_norm(self.norm, x, self.dtype)
-        return self.dropout(self.pointwise_conv2(F.hardswish(x), self.dtype))
+        x = self.pointwise_conv2(F.hardswish(x), self.dtype)
+        if sp:
+            x = tp.local(x)
+        return self.dropout(x, shard=seq_shard(tp))
 
 
 class ConformerEncoderLayer(nn.Module):
@@ -679,7 +817,10 @@ class ConformerEncoderLayer(nn.Module):
         return getattr(self, name).to(delta.dtype) * delta if self.layerscale_init > 0 \
             else delta
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                seq_len: Optional[int] = None) -> torch.Tensor:
+        """``seq_len``: the sequence's length before the padding of the
+        sequence-parallel region (the convolution module's)."""
         pre, paper = self.layer_norm_position == "pre", self.macaron == "paper"
         residual = x
         x = self.initial_feed_forward(x)
@@ -691,13 +832,14 @@ class ConformerEncoderLayer(nn.Module):
         residual = x
         if pre:
             x = layer_norm(self.src_att_layer_norm, x, self.dtype)
-        x = self._scaled("ls_att", self.src_att_dropout(self.src_src_att(x, x, x, mask)))
+        x = self._scaled("ls_att", self.src_att_dropout(self.src_src_att(x, x, x, mask),
+                                                        shard=seq_shard(self.src_src_att.tp)))
         x = x + self.alpha * residual
         if not pre:
             x = layer_norm(self.src_att_layer_norm, x, self.dtype)
 
         residual = x
-        x = self._scaled("ls_conv", self.conv_module(x)) + self.alpha * residual
+        x = self._scaled("ls_conv", self.conv_module(x, seq_len)) + self.alpha * residual
 
         residual = x
         if pre and not paper:  # the reference normalizes the last FF's input twice

@@ -321,19 +321,24 @@ def mha_flash_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    num_heads: int, key_valid: Optional[torch.Tensor],
                    sm_scale: float, dropout_rate: float = 0.0,
                    generator: Optional[torch.Generator] = None,
-                   plain: bool = False) -> torch.Tensor:
+                   plain: bool = False, seed_salt: int = 0) -> torch.Tensor:
     """Adapter from the model's flat (B, T, E) projections and a bool key
     mask (B, Sk) (the TPU package's ``mha_flash_flat`` :644). The kernels
     mask the ragged key edge themselves, so keys are not padded. With
     dropout the per-call seed is drawn from ``generator``, never from
-    torch's global generator. ``plain`` (``attention_impl: xla``) runs the
-    plain versions on any device."""
+    torch's global generator; a nonzero ``seed_salt`` (a tensor-parallel
+    rank's index in its model group) is mixed into it, so the ranks' local
+    heads drop independently while every rank draws alike from its
+    generator. ``plain`` (``attention_impl: xla``) runs the plain versions
+    on any device."""
     seed = None
     if dropout_rate > 0.0:
         if generator is None:
             raise ValueError("attention dropout draws its seed from a generator the "
                              "caller passes")
         seed = draw_seed(generator, q.device)
+        if seed_salt:
+            seed = seed ^ (seed_salt * 0x2545F491 & 0x7FFFFFFF)
     bias = key_bias(key_valid, k.shape[0], k.shape[1], k.device)
     return flash_attention_flat(q, k, v, bias, sm_scale, num_heads, dropout_rate, seed,
                                 plain)

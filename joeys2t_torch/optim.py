@@ -27,15 +27,26 @@ from joeys2t_torch.config import PORTED_OPTIMIZERS, ConfigurationError
 
 class GlobalNormClipper:
     """optax.clip_by_global_norm: g <- (g / ||g||) * max_norm unless
-    ||g|| < max_norm, with ||g|| over all gradients together."""
+    ||g|| < max_norm, with ||g|| over all gradients together. Under tensor
+    parallelism the squares of the sharded gradients (``sharded``) are
+    summed over the model group (``group``), those of the replicated ones
+    counted once."""
 
     def __init__(self, max_norm: float):
         self.max_norm = float(max_norm)
 
-    def __call__(self, grads: List[torch.Tensor]) -> torch.Tensor:
+    def __call__(self, grads: List[torch.Tensor], sharded: Optional[List[bool]] = None,
+                 group=None) -> torch.Tensor:
         """Clip ``grads`` in place; returns the global norm before clipping
         (a device scalar)."""
-        norm = torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
+        squares = torch.stack(torch._foreach_norm(grads)).square()
+        if sharded is None:
+            norm = squares.sum().sqrt()
+        else:
+            mask = torch.tensor(sharded, device=squares.device)
+            split = squares[mask].sum()
+            torch.distributed.all_reduce(split, group=group)
+            norm = (split + squares[~mask].sum()).sqrt()
         keep = norm < self.max_norm
         one = torch.ones((), device=norm.device)
         torch._foreach_div_(grads, torch.where(keep, one, norm))

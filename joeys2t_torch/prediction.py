@@ -19,8 +19,10 @@ before loading any data.
 
 In a data-parallel run (``_eval_shard_info``, ``_merge_sharded_eval``, JAX
 :59-130) every rank makes the same batches, decodes the ones it owns
-(round-robin by batch index) and the ranks' outputs are gathered and put
-back in dataset order; losses and counts are summed. Scoring references
+(round-robin by batch index over the data ranks: the ranks of a tensor- or
+pipeline-parallel group decode alike, on the whole model) and the ranks'
+outputs are gathered and put back in dataset order; losses and counts are
+summed. Scoring references
 (``return_prob: ref``) decodes the whole set on every rank, as JAX does.
 Only rank 0 writes files.
 """
@@ -82,7 +84,7 @@ def _eval_shard_info(args: TestConfig) -> Optional[Tuple[int, int]]:
     which decodes nothing and scores the whole set on every rank; returned
     attention is not ported)."""
     if distributed.in_group() and not args.return_attention and args.return_prob != "ref":
-        return distributed.world_size(), distributed.rank()
+        return distributed.data_world(), distributed.data_rank()
     return None
 
 
@@ -95,7 +97,9 @@ def _merge_sharded_eval(outputs: List, scores: List, batch_rows: List[int],
     ``counts`` (loss, tokens, correct tokens) are summed over the ranks.
     Returns (outputs, scores, counts)."""
     n_proc, _ = shard
-    gathered = distributed.all_gather_objects((outputs, scores, counts))
+    # the ranks of a tensor- or pipeline-parallel group decode alike: one each
+    gathered = distributed.data_rows(distributed.all_gather_objects((outputs, scores,
+                                                                     counts)))
     cursors = [0] * n_proc
     merged_o, merged_s = [], []
     for bi, rows in enumerate(batch_rows):

@@ -46,8 +46,36 @@ and validation boundaries only. Schedulers step where the JAX loop steps
 them: per update, per epoch (:694-696) or per validation (:916-918).
 Validation decodes greedily. ``load_encoder``/``load_decoder`` initialize
 the encoder or decoder from another checkpoint (``init_layers`` :630). Not
-ported yet: profiling, a TensorBoard writer, attention plots, ``freeze``,
-and the tensor- and pipeline-parallel paths.
+ported yet: profiling, a TensorBoard writer, attention plots and ``freeze``.
+
+Tensor parallelism (``training: model_parallel``; JAX's (data, model) mesh,
+:240-254, :340-364): the world splits into model groups of
+``model_parallel`` consecutive ranks (``distributed.set_layout``) which
+read the same batches, sharded by data rank. The trainer trains a sharded
+copy of the model (``parallel/tp.py`` ``shard_model``): DDP sums its
+gradients over the data group; under ``sequence_parallel`` the replicated
+parameters of the layers, which each rank only sees its slice of the
+sequence through, are summed over the model group too; the global-norm
+clip sums the sharded gradients' squares over the model group and counts
+the replicated ones once; Adam's moments live on the shards. The dropout
+generator is seeded by data rank, so every rank of a model group draws the
+same shapes in the same order and the replicated weights stay identical
+on them. The model the caller passed stays whole and waits on the host,
+so a rank keeps only its shards on the card: it takes the gathered weights
+before each validation and checkpoint, which hold the whole model and the
+whole optimizer state (as an unsharded run's, so ``test`` and resuming in
+any layout read them), and is on the card only while validation decodes
+it, sharded by data rank.
+
+Pipeline parallelism (``pipeline_parallel``, ``pipeline_microbatches``;
+JAX's ``_init_pipeline`` :366 and ``_loss_and_metrics_pp`` :434): the
+encoder's layer stack, and the decoder's when its depth divides the
+stages, run in GPipe stages over the pipe group (``parallel/pp.py``), the
+rest of the model on every rank alike. The parameters stay whole and
+replicated: each stage's layer gradients are summed over the pipe group,
+all gradients over the data group, and every rank takes the same update,
+so validation, ``test`` and checkpoints run as without it. The stages'
+layers draw their dropout from a generator of the stage's own.
 """
 import contextlib
 import math
@@ -67,10 +95,14 @@ from joeys2t_torch.config import (TestConfig, TrainConfig, check_ported, log_con
 from joeys2t_torch.data.batch import Batch
 from joeys2t_torch.helpers import resolve_device, write_list_to_file
 from joeys2t_torch.losses import loss_terms
+from joeys2t_torch.config import ConfigurationError
+from joeys2t_torch.models.decoders import TransformerDecoder
+from joeys2t_torch.models.encoders import ConformerEncoder, TransformerEncoder
 from joeys2t_torch.models.modules import MoEFeedForward, set_dropout_generator
-from joeys2t_torch.optim import (build_gradient_clipper, build_optimizer, build_scheduler,
-                                 get_learning_rate, set_learning_rate)
-from joeys2t_torch.parallel import distributed
+from joeys2t_torch.optim import (GlobalNormClipper, build_gradient_clipper, build_optimizer,
+                                 build_scheduler, get_learning_rate, set_learning_rate)
+from joeys2t_torch.parallel import distributed, tp
+from joeys2t_torch.parallel.pp import PipePlan, pipeline_apply
 from joeys2t_torch.prediction import predict, prepare, test
 from joeys2t_torch.utils.logging import get_logger
 
@@ -108,11 +140,33 @@ class TrainManager:
         self.dev_cfg = dev_args
         self.num_workers = num_workers
         self.model_dir = None if model_dir is None else Path(model_dir)
-        self.params = [p for p in model.parameters() if p.requires_grad]
         if any(p.dtype != torch.float32 or p.device.type != self.device.type
-               for p in self.params):
+               for p in model.parameters() if p.requires_grad):
             raise ValueError(f"the model's parameters must be float32 masters on "
                              f"{self.device}")
+        self.layout = distributed.set_layout(train_args.model_parallel,
+                                             train_args.pipeline_parallel)
+        self.tp = self.pp = None
+        if self.layout is not None and self.layout.kind == "model":
+            self.tp = tp.TPContext(self.layout.inner_group, self.layout.inner_rank,
+                                   self.layout.inner,
+                                   bool((model_cfg or {}).get("sequence_parallel", False)))
+        # the module that trains: the model, or its shards under tensor
+        # parallelism, when the whole model waits on the host (gathered into
+        # before validation and checkpoints, on the card only to validate)
+        if self.tp is None:
+            self.net = model
+        else:
+            self.net = tp.shard_model(model.cpu(), self.tp).to(self.device)
+        named = [(n, p) for n, p in self.net.named_parameters() if p.requires_grad]
+        self.params = [p for _, p in named]
+        self._names = [n for n, _ in named]
+        self._split = [tp.split_dim(n) if self.tp is not None else None for n, _ in named]
+        # under sequence parallelism each rank sees the layers' replicated
+        # parameters through its slice of the sequence only
+        self._partial = [self.tp is not None and self.tp.sequence_parallel
+                         and dim is None and ".layers." in f".{n}"
+                         for (n, _), dim in zip(named, self._split)]
         self.clipper = build_gradient_clipper(self.args.__dict__)
         self.optimizer = build_optimizer(self.args.__dict__, self.params)
         self.scheduler, self.scheduler_step_at = build_scheduler(
@@ -125,13 +179,17 @@ class TrainManager:
             minimize_metric=self.args.minimize_metric))
         self.batch_sampler = None
         self.train_iter_state = None
-        self.world = distributed.world_size()
+        self.world = distributed.data_world()  # the data-parallel ranks
+        self.grouped = distributed.in_group()
         self.generator = torch.Generator(device=self.device).manual_seed(
-            seed + 7919 + distributed.rank())
-        set_dropout_generator(model, self.generator)
-        self._experts = [m for m in model.modules() if isinstance(m, MoEFeedForward)]
+            seed + 7919 + distributed.data_rank())
+        set_dropout_generator(self.net, self.generator)
+        if self.layout is not None and self.layout.kind == "pipe":
+            self._init_pipeline(seed)
+        self._experts = [m for m in self.net.modules() if isinstance(m, MoEFeedForward)]
         for m in self._experts:
             m.global_stats = distributed.in_group()
+            m.stats_group = None if self.layout is None else self.layout.data_group
         self._last_aux: Optional[torch.Tensor] = None  # the last micro-batch's term
         enc_dtype = getattr(model.encoder, "dtype", torch.float32)
         fd = self.args.feature_dtype
@@ -152,8 +210,41 @@ class TrainManager:
                                       ("decoder", self.args.load_decoder)):
             if load_path is not None:
                 self.init_layers(load_path, layer_name)
-        self.ddp = self._wrap() if distributed.in_group() else None
+        self.ddp = self._wrap() if self.grouped and self.pp is None else None
 
+    def _init_pipeline(self, seed: int) -> None:
+        """Check and set up the GPipe path (JAX's ``_init_pipeline``): the
+        encoder's stack always staged (a transformer or Conformer encoder
+        without experts, its depth a multiple of the stages), the
+        transformer decoder's when its depth divides them; the stages'
+        layers get a dropout generator of their own."""
+        enc, dec = self.model.encoder, self.model.decoder
+        stages = self.layout.inner
+        if not isinstance(enc, (TransformerEncoder, ConformerEncoder)):
+            raise ConfigurationError("pipeline_parallel supports transformer and conformer "
+                                     f"encoders (got {type(enc).__name__}).")
+        if any(isinstance(m, MoEFeedForward) for m in enc.modules()):
+            raise ConfigurationError("pipeline_parallel does not compose with MoE encoders.")
+        if len(enc.layers) % stages:
+            raise ConfigurationError(f"encoder num_layers={len(enc.layers)} must be divisible "
+                                     f"by pipeline_parallel={stages}.")
+        self.pp = PipePlan(self.layout.inner_group, self.layout.inner_ranks,
+                           self.layout.inner_rank,
+                           self.args.pipeline_microbatches or 2 * stages)
+        self._pp_dec = isinstance(dec, TransformerDecoder) and len(dec.layers) % stages == 0
+        if not self._pp_dec:
+            logger.info("pipeline_parallel: decoder runs replicated (needs a transformer "
+                        "decoder with num_layers divisible by %d).", stages)
+        self._staged = [enc.layers[self.pp.stage_slice(len(enc.layers))]]
+        if self._pp_dec:
+            self._staged.append(dec.layers[self.pp.stage_slice(len(dec.layers))])
+        stage_gen = torch.Generator(device=self.device).manual_seed(
+            seed + 7919 + distributed.data_rank() + 7907 * (self.pp.stage + 1))
+        for layers in self._staged:
+            set_dropout_generator(layers, stage_gen)
+        names = [f"{side}.layers." for side in ("encoder", "decoder")[:len(self._staged)]]
+        self._in_stack = [any(n.startswith(prefix) for prefix in names)
+                          for n, p in self.net.named_parameters() if p.requires_grad]
     def _params_without_gradient(self) -> List[str]:
         """The parameters the training loss never reaches, which DDP must
         leave out of its all-reduce: a speech model's CTC head under a loss
@@ -170,14 +261,17 @@ class TrainManager:
         return names
 
     def _wrap(self) -> DistributedDataParallel:
-        """The model under DDP for the training forward; the rank-0
-        parameters are broadcast to every rank here."""
+        """The training module under DDP over the data group (the world
+        without tensor parallelism); the group's rank-0 parameters (its
+        shards under tensor parallelism) are broadcast to its ranks here."""
         DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(
-            self.model, self._params_without_gradient())
+            self.net, self._params_without_gradient())
+        group = dist.group.WORLD if self.layout is None else self.layout.data_group
         ddp = DistributedDataParallel(
-            self.model, device_ids=([torch.cuda.current_device()]
-                                    if self.device.type == "cuda" else None))
-        ddp.register_comm_hook(dist.group.WORLD, _sum_gradients)
+            self.net, device_ids=([torch.cuda.current_device()]
+                                  if self.device.type == "cuda" else None),
+            process_group=group)
+        ddp.register_comm_hook(group, _sum_gradients)
         return ddp
 
     @property
@@ -193,7 +287,7 @@ class TrainManager:
         local = ([0] * 5 if batch is None else
                  [1, batch.src.shape[1], batch.trg.shape[1] if batch.has_trg else 0,
                   batch.nseqs, batch.ntokens])
-        rows = distributed.all_gather_counts(local)
+        rows = distributed.data_rows(distributed.all_gather_counts(local))
         if min(r[0] for r in rows) == 0:
             if batch is not None:
                 logger.warning("Data-parallel epoch sync: dropping local tail batch(es) so "
@@ -256,12 +350,45 @@ class TrainManager:
     def _loss_and_metrics(self, batch: Dict, normalizer: float):
         """The model in training mode on one prepared batch (:494), with the
         load-balance terms its mixture-of-experts layers left."""
-        self.model.train()
-        logits, ctc_logits, out_mask = (self.ddp or self.model)(
+        self.net.train()
+        if self.pp is not None:
+            return self._loss_and_metrics_pp(batch, normalizer)
+        logits, ctc_logits, out_mask = (self.ddp or self.net)(
             batch["src"], batch["trg_input"], batch["src_length"], batch["src_mask"],
             batch["trg_mask"], batch["src_prompt_mask"], batch["trg_prompt_mask"])
         aux = sum(m.aux_loss for m in self._experts) if self._experts else None
         return self._finish_loss(logits, ctc_logits, out_mask, batch, normalizer, aux)
+
+    def _loss_and_metrics_pp(self, batch: Dict, normalizer: float):
+        """The GPipe variant (JAX's ``_loss_and_metrics_pp``): the same
+        math, the encoder's layer stack (and the decoder's, when staged) run
+        by ``pipeline_apply`` over the pipe group."""
+        model = self.net
+        x, mask = model.encode_pre_layers(batch["src"], batch["src_length"],
+                                          batch["src_mask"], batch["src_prompt_mask"])
+        conformer = isinstance(model.encoder, ConformerEncoder)
+
+        def encoder_stage(h, m):
+            for layer in self._staged[0]:
+                h = layer(h, m, None) if conformer else layer(h, m)
+            return h
+
+        enc_out = model.encode_post_layers(pipeline_apply(encoder_stage, x, self.pp, mask))
+        if not self._pp_dec:
+            logits, _, ctc_logits = model.decode(batch["trg_input"], enc_out, mask,
+                                                 batch["trg_mask"], batch["trg_prompt_mask"])
+        else:
+            y, full_trg_mask = model.decode_pre_layers(batch["trg_input"], batch["trg_mask"],
+                                                       batch["trg_prompt_mask"])
+
+            def decoder_stage(h, memory, src_mask, trg_mask):
+                for layer in self._staged[1]:
+                    h = layer(h, memory, src_mask, trg_mask)
+                return h
+
+            y = pipeline_apply(decoder_stage, y, self.pp, enc_out, mask, full_trg_mask)
+            logits, ctc_logits = model.decode_post_layers(y, enc_out)
+        return self._finish_loss(logits, ctc_logits, mask, batch, normalizer)
 
     def _finish_loss(self, logits, ctc_logits, out_mask, batch: Dict, normalizer: float,
                      aux: Optional[torch.Tensor] = None):
@@ -304,18 +431,68 @@ class TrainManager:
 
     def apply_accum(self) -> None:
         """Clip the accumulated gradients, update, clear them (:570)."""
-        grads = [p.grad for p in self.params if p.grad is not None]
-        if self.clipper is not None:
+        self.reduce_gradients()
+        live = [i for i, p in enumerate(self.params) if p.grad is not None]
+        grads = [self.params[i].grad for i in live]
+        if isinstance(self.clipper, GlobalNormClipper) and self.tp is not None:
+            self.clipper(grads, [self._split[i] is not None for i in live], self.tp.group)
+        elif self.clipper is not None:
             self.clipper(grads)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
+
+    def reduce_gradients(self) -> None:
+        """Complete the accumulated gradients before clipping: sum them over
+        the pipe and data groups under pipeline parallelism, and the layers'
+        replicated ones over the model group under sequence parallelism
+        (DDP has summed the rest over the data group in the backward)."""
+        if self.pp is not None:
+            self._sum_pipeline_grads()
+        if any(self._partial):
+            self._sum_grads([p.grad for p, part in zip(self.params, self._partial)
+                             if part and p.grad is not None], self.tp.group)
+
+    def full_gradients(self) -> Dict[str, torch.Tensor]:
+        """The gradients as they stand, by parameter name, whole (the
+        shards gathered over the model group: every rank of it calls this
+        at once); zeros where a parameter has none."""
+        out = {}
+        for name, p, dim in zip(self._names, self.params, self._split):
+            g = torch.zeros_like(p) if p.grad is None else p.grad
+            out[name] = g if dim is None else tp.gather_along(g, dim, self.tp)
+        return out
+
+    @staticmethod
+    def _sum_grads(grads: List[torch.Tensor], group) -> None:
+        """Sum ``grads`` over ``group`` in place, in one flat buffer."""
+        if not grads:
+            return
+        flat = torch._utils._flatten_dense_tensors(grads)
+        dist.all_reduce(flat, group=group)
+        for g, synced in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
+            g.copy_(synced)
+
+    def _sum_pipeline_grads(self) -> None:
+        """Each stage's layer gradients (zero on the other stages) summed
+        over the world, the other gradients, the same on every stage, over
+        the data group."""
+        stack = []
+        for p, staged in zip(self.params, self._in_stack):
+            if staged:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                stack.append(p.grad)
+        self._sum_grads(stack, dist.group.WORLD)
+        if self.world > 1:
+            self._sum_grads([p.grad for p, staged in zip(self.params, self._in_stack)
+                             if not staged and p.grad is not None], self.layout.data_group)
 
     def train_batch(self, batch: Batch) -> Dict:
         """One micro-batch of the loop (:722-770) from a host batch; in a
         data-parallel run every rank calls it at the same step with its own
         batch."""
         step = None
-        if self.ddp is not None:
+        if self.grouped:
             step = self._agree(batch)
             if step is None:
                 raise ValueError("a rank has no batch for this step")
@@ -349,10 +526,48 @@ class TrainManager:
                 "stepped": stepped}
 
     # ----------------------------------------------------------- checkpoints
+    def _sync_model(self) -> None:
+        """Under tensor parallelism, gather the shards into the whole model
+        (a collective of the model group)."""
+        if self.tp is not None:
+            self.model.load_state_dict(tp.gather_state(self.net.state_dict(), self.tp))
+
+    def _optimizer_state(self) -> Dict:
+        """The optimizer's state; under tensor parallelism with the sharded
+        moments gathered, as an unsharded run's."""
+        state = self.optimizer.state_dict()
+        if self.tp is None:
+            return state
+        full = {}
+        for idx, st in state["state"].items():
+            dim = self._split[idx]
+            full[idx] = dict(st) if dim is None else {
+                k: (tp.gather_along(v, dim, self.tp)
+                    if torch.is_tensor(v) and v.dim() else v) for k, v in st.items()}
+        return dict(state, state=full)
+
+    def _load_optimizer_state(self, state: Dict) -> None:
+        if self.tp is not None:
+            shards = {}
+            for idx, st in state["state"].items():
+                dim = self._split[idx]
+                shards[idx] = dict(st) if dim is None else {
+                    k: (v.chunk(self.tp.world, dim)[self.tp.rank].clone()
+                        if torch.is_tensor(v) and v.dim() else v) for k, v in st.items()}
+            state = dict(state, state=shards)
+        self.optimizer.load_state_dict(state)
+
+    def _load_net(self) -> None:
+        """Under tensor parallelism, take this rank's shards of the model."""
+        if self.tp is not None:
+            self.net.load_state_dict(tp.shard_state(self.model.state_dict(), self.tp.rank,
+                                                    self.tp.world))
+
     def _state_for_ckpt(self) -> Dict:
+        self._sync_model()
         return {
             "model_state": self.model.state_dict(),
-            "optimizer_state": self.optimizer.state_dict(),
+            "optimizer_state": self._optimizer_state(),
             "scheduler_state": (self.scheduler.state_dict()
                                 if self.scheduler is not None else None),
             "train_iter_state": (self.batch_sampler.get_state()
@@ -372,8 +587,9 @@ class TrainManager:
         logger.info("Loading model from %s", path)
         ckpt = load_checkpoint(path)
         self.model.load_state_dict(ckpt["model_state"], strict=True)
+        self._load_net()
         if not reset_optimizer and ckpt.get("optimizer_state") is not None:
-            self.optimizer.load_state_dict(ckpt["optimizer_state"])
+            self._load_optimizer_state(ckpt["optimizer_state"])
         elif reset_optimizer:
             logger.info("Reset optimizer.")
         if not reset_scheduler:
@@ -398,6 +614,7 @@ class TrainManager:
         state, _ = partial_load(self.model.state_dict(),
                                 load_checkpoint(path)["model_state"], layer)
         self.model.load_state_dict(state, strict=True)
+        self._load_net()
 
     # -------------------------------------------------------------- main loop
     def train_and_validate(self, train_data, valid_data) -> None:
@@ -420,6 +637,11 @@ class TrainManager:
                     "\teffective batch size: %d", self.device, self.world,
                     self.args.batch_multiplier, self.args.batch_size,
                     self.world * self.args.batch_size * self.args.batch_multiplier)
+        if self.layout is not None:
+            logger.info("\t%s: %d ranks a group%s", "tensor-parallel" if self.tp else
+                        "pipeline-parallel", self.layout.inner,
+                        f", sequence parallel: {self.tp.sequence_parallel}" if self.tp else
+                        f", {self.pp.n_micro} microbatches, decoder staged: {self._pp_dec}")
 
         epoch_no = self.stats.epochs
         loop_start, data_time, valid_time, updates_before = (time.time(), 0.0, 0.0,
@@ -444,7 +666,7 @@ class TrainManager:
                 while True:
                     t_data = time.perf_counter()  # read, collate, pad, upload
                     batch = next(batches, None)
-                    if self.ddp is not None:  # lockstep: all ranks go on, or none
+                    if self.grouped:  # lockstep: all ranks go on, or none
                         step = self._agree(batch)
                         batch = None if step is None else batch
                     else:
@@ -524,9 +746,15 @@ class TrainManager:
         checkpoint when it is among the best, report (:898). Every rank
         decodes its share and decides on the same merged scores; rank 0
         reports."""
-        valid_scores, valid_references, valid_hypotheses, _, _, _ = predict(
-            self.model, self.spec, valid_data, loss_fn=self.loss_fn, compute_loss=True,
-            normalization=self.args.normalization, args=self.dev_cfg, device=self.device)
+        self._sync_model()
+        try:
+            valid_scores, valid_references, valid_hypotheses, _, _, _ = predict(
+                self.model.to(self.device), self.spec, valid_data, loss_fn=self.loss_fn,
+                compute_loss=True, normalization=self.args.normalization,
+                args=self.dev_cfg, device=self.device)
+        finally:
+            if self.tp is not None:
+                self.model.cpu()
         ckpt_score = valid_scores[self.args.early_stopping_metric]
         if self.scheduler_step_at == "validation":
             set_learning_rate(self.optimizer, self.scheduler.step_metric(ckpt_score))
@@ -576,7 +804,7 @@ class TrainManager:
         updates' losses, the last update's loss)."""
         step_losses = [sum(float(loss) for loss, _ in group) for _, group in pending]
         n_correct = sum(int(c) for _, group in pending for _, c in group)
-        if self.ddp is not None:
+        if self.grouped:
             *step_losses, n_correct = distributed.all_reduce_counts(step_losses + [n_correct])
         for (step_no, _), v in zip(pending, step_losses):
             if not np.isfinite(v):
@@ -673,6 +901,7 @@ def train(cfg: Dict, skip_test: bool = False) -> None:
     if not ckpt.exists():
         ckpt = args.model_dir / "latest.ckpt"
     model.load_state_dict(load_checkpoint(ckpt)["model_state"], strict=True)
+    model.to(trainer.device)  # tensor parallelism kept it on the host
     test(cfg=cfg, output_path=(args.model_dir / f"{ckpt.stem}.hyps").as_posix(),
          prepared={"model": model, "spec": spec, "loss_fn": loss_fn, "dev": dev_data,
                    "test": test_data})

@@ -212,8 +212,8 @@ def test_loop_steps_schedulers_where_jax_does(trained, tmp_path, scheduling, ste
     ("testing", {"beam_reorder": "lazy", "return_attention": True}),
     ("testing", {"return_attention": True}),
     ("testing", {"return_attention": True, "repetition_penalty": 1.2}),
-    ("model", {"sequence_parallel": True}),
-    ("training", {"pipeline_microbatches": 4})])
+    ("training", {"profile_dir": "profile"}),
+    ("training", {"optimizer": "rmsprop"})])
 @pytest.mark.parametrize("mode", ["train", "test", "translate"])
 def test_runs_refuse_unported_options_before_loading_data(tmp_path, mode, section,
                                                           option):

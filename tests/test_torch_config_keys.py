@@ -11,7 +11,10 @@ left side of an ``in`` test. The port's are found the same way over every
 module of joeys2t_torch. A few of JAX's names are not configuration keys
 (``NOT_CONFIG``); one is read under a computed name (``COMPUTED``); the
 rest must be read by the port, or be one of ``REFUSED``, whose options the
-port refuses with the key's name in the error.
+port refuses with the key's name in the error. ``model_parallel``,
+``sequence_parallel``, ``pipeline_parallel`` and ``pipeline_microbatches``
+are read (tensor and pipeline parallelism); what ``REFUSED`` holds of them
+besides is the values JAX refuses by name too.
 
 Keys found (197; the list is held here, so a new key read by JAX shows):
 JOEYS2T_BEAM_REORDER, JOEYS2T_PROFILE_DIR, JOEYS2T_PROFILE_WINDOW,
@@ -57,8 +60,7 @@ from pathlib import Path
 
 import pytest
 
-from joeys2t_torch.config import (BaseConfig, TestConfig, check_ported, parse_test_args,
-                                  parse_train_args)
+from joeys2t_torch.config import ConfigurationError, parse_test_args, parse_train_args
 
 REPO = Path(__file__).resolve().parents[1]
 JAX_SITES = ["config.py", "models/model.py", "prediction.py", "training.py", "optim.py",
@@ -77,10 +79,13 @@ NOT_CONFIG = {  # names JAX reads that no config holds
 COMPUTED = {  # key -> the port's source that reads it under a computed name
     "trg_prompt": ("data/datasets.py", 'f"{lang}_prompt"'),
 }
-REFUSED = {  # key -> (parser, the section that sets it)
-    "sequence_parallel": ("check_ported", {"sequence_parallel": True}),
-    "pipeline_microbatches": ("parse_train_args", {"pipeline_microbatches": 4}),
-    "momentum": ("parse_train_args", {"optimizer": "sgd", "momentum": 0.9}),
+REFUSED = {  # key -> (the `training` section that sets it, the error)
+    "momentum": ({"optimizer": "sgd", "momentum": 0.9}, NotImplementedError),
+}
+BAD_VALUES = {  # read keys whose values JAX refuses by name: the section, the error
+    "model_parallel": ({"model_parallel": 0}, ConfigurationError),
+    "pipeline_parallel": ({"pipeline_parallel": 0}, ConfigurationError),
+    "pipeline_microbatches": ({"pipeline_microbatches": -1}, ConfigurationError),
 }
 
 
@@ -129,15 +134,24 @@ def train_section(**extra):
     return dict({"batch_size": 4, "optimizer": "adam"}, **extra)
 
 
-@pytest.mark.parametrize("key", sorted(REFUSED))
+@pytest.mark.parametrize("key", sorted(REFUSED) + sorted(BAD_VALUES))
 def test_refused_keys_are_named(key):
-    parser, section = REFUSED[key]
-    with pytest.raises(NotImplementedError, match=key):
-        if parser == "parse_train_args":
-            parse_train_args(train_section(**section))
-        else:
-            check_ported(BaseConfig(name="x", model_dir=Path("."), device="cpu",
-                                    test=TestConfig(), model=dict(section)))
+    section, error = REFUSED.get(key) or BAD_VALUES[key]
+    with pytest.raises(error, match=key):
+        parse_train_args(train_section(**section))
+
+
+def test_parallel_keys_are_read_as_jax_reads_them():
+    """The four keys reach the training config (the model section's
+    ``sequence_parallel`` the trainer), and tensor with pipeline parallelism
+    is refused by name, as joeys2t_tpu/config.py:287-289 refuses it."""
+    args = parse_train_args(train_section(model_parallel=2, pipeline_microbatches=4))
+    assert (args.model_parallel, args.pipeline_parallel, args.pipeline_microbatches) \
+        == (2, 1, 4)
+    assert parse_train_args(train_section(pipeline_parallel=2)).pipeline_parallel == 2
+    with pytest.raises(ConfigurationError, match="model_parallel"):
+        parse_train_args(train_section(model_parallel=2, pipeline_parallel=2))
+    assert "sequence_parallel" in port_keys()
 
 
 @pytest.mark.parametrize("env,yaml,expected", [

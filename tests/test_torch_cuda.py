@@ -69,6 +69,40 @@ def test_flash_kernel_matches_plain(card, dtype, tol, b, sq, sk, h, d):
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
 
 
+@pytest.mark.parametrize("b,sq,sk", [(64, 250, 250), (64, 47, 250), (3, 250, 250),
+                                     (64, 750, 750)])
+def test_flash_forward_writes_every_output_over_poisoned_memory(card, b, sq, sk):
+    """The bf16 forward at phase 2's shape (row 0 with every key masked, the
+    others of random lengths) into memory the caching allocator hands back
+    full of NaN and inf: every out and lse entry written and finite, equal
+    to the plain version, ten calls bit-identical. An output the kernel
+    left unwritten, or a read of memory it did not write first, shows as a
+    non-finite value here (the one-off non-finite lse of PERF.md §7)."""
+    h, d = 4, 128
+    gen = torch.Generator().manual_seed(1)
+    q = torch.randn(b, sq, h * d, generator=gen).to(torch.bfloat16).to(card)
+    k, v = (torch.randn(b, sk, h * d, generator=gen).to(torch.bfloat16).to(card)
+            for _ in range(2))
+    valid = torch.arange(sk)[None, :] < torch.randint(sk // 2, sk + 1, (b,),
+                                                      generator=gen)[:, None]
+    valid[0] = False
+    bias = torch.where(valid, 0.0, -1e9).float().to(card)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, bias, d ** -0.5, h)
+    first = None
+    for i in range(10):
+        poison = torch.full((64 << 20,), float("nan") if i % 2 else float("inf"),
+                            device=card)
+        del poison  # its blocks go back to the allocator, still poisoned
+        out, lse = fa.flash_attention_fwd(q, k, v, bias, d ** -0.5, h)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all(), i
+        if first is None:
+            first = (out.clone(), lse.clone())
+            torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+            torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+        assert torch.equal(out, first[0]) and torch.equal(lse, first[1]), i
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("b,sq,sk,h,d", SHORT)
 def test_flash_kernel_matches_plain_at_token_lengths(card, dtype, tol, b, sq, sk, h, d):

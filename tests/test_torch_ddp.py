@@ -28,6 +28,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -59,7 +60,8 @@ def free_port() -> int:
 def launch(argv, tmp: Path, world: int = 2):
     """Run ``python argv`` as ranks 0..world-1 of a gloo group (torchrun's
     variables), wait at most ``TIMEOUT`` seconds, and fail with the ranks'
-    errors if one fails or the wait runs out."""
+    errors if one fails (the others are stopped then) or the wait runs
+    out."""
     port = free_port()
     procs, logs = [], []
     for r in range(world):
@@ -71,14 +73,18 @@ def launch(argv, tmp: Path, world: int = 2):
         logs.append((out, err))
         procs.append(subprocess.Popen([sys.executable, *map(str, argv)],
                                       cwd=REPO, env=rank_env, stdout=out, stderr=err))
-    try:
-        for p in procs:
-            p.wait(timeout=TIMEOUT)
-    except subprocess.TimeoutExpired:
+    deadline = time.monotonic() + TIMEOUT
+    # a rank that fails leaves the others waiting for it: stop them at once
+    while any(p.poll() is None for p in procs) and not any(p.poll() for p in procs):
+        if time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    if any(p.poll() is None for p in procs):
         for p in procs:
             p.kill()
             p.wait()
-        pytest.fail(f"ranks still running after {TIMEOUT} s: {read_logs(logs)}")
+        pytest.fail(f"ranks stopped ({[p.returncode for p in procs]}) after one failed or "
+                    f"{TIMEOUT} s ran out: {read_logs(logs)}")
     text = read_logs(logs)
     for out, err in logs:
         out.close()

@@ -292,7 +292,7 @@ def test_optimizer_update_matches_optax(name, wd):
 
 def test_unported_options_raise():
     for extra in ({"optimizer": "sgd"}, {"optimizer": "rmsprop"},
-                  {"model_parallel": 2}):
+                  {"profile_dir": "profile"}):
         with pytest.raises(NotImplementedError):
             parse_train_args(dict(TRAINING, **extra))
     vocab = Vocabulary(TOKENS, SpecialSymbols())
