@@ -212,9 +212,37 @@ goes wrong:
     microbatches (both stacks staged; phase 16 (b)'s limits), a stage
     launching K1 and K3 once a layer a microbatch.
 
+20. tooling: (a) ``test -a`` (greedy, bf16) of phase 7's checkpoint on 8
+    dev utterances: K1 on the encoder, K5 on every decoder attention but
+    the last layer's cross-attention, which returns its weights on the
+    plain math once a step, as JAX routes it ((2 x 8 - 1) K5 launches a
+    step), the hypotheses those of ``test`` without ``-a``, one plot a
+    hypothesis where matplotlib imports, the attention rows summing to 1
+    over the valid frames and 0 past them and after eos, and a float32 cut
+    to 2 + 2 layers with the same tokens and attention (1e-4) on the card
+    and the CPU; then one hub ``generate`` with attention; (b) ``freeze``:
+    phase 5's model (dropout 0, 16 utterances an update) with its encoder
+    frozen takes 2 updates with clipping at 1: the encoder bit-unchanged,
+    the decoder moved, the clip's norm that of the same update without
+    ``freeze``; (c) sgd (momentum 0.9), adagrad, adadelta, rmsprop and
+    adafactor, 2 updates each beside AdamW: the weights against the port's
+    same optimizer in float32 on the CPU fed the card's gradients, within
+    phase 16 (b)'s limits, and the optimizer step's ms against AdamW's;
+    adafactor under ``model_parallel: 2`` (float32) runs with phases 18-19
+    against one process; (d) ``profile_dir``: a 3-update ``train`` with
+    ``JOEYS2T_PROFILE_WINDOW=1,3`` writes one trace naming K1 and K3; (e)
+    on-device SpecAugment: zero masks bit-identical to the front end without
+    it, JAX's default masks within their bounds with the utterance mean as
+    the masked value; (f) in phases 18-19's ranks, ``save_sharded`` of
+    phase 5's model over model_parallel 2 restored bit-equal into the same
+    layout and into the whole model. TensorBoard and matplotlib are
+    optional, as in JAX: the phase prints whether they wrote.
+
 ``python3 chip_smoke.py --phases PART[,PART...]`` runs phase 1 and then
 only the parts named, in order, and exits 4 without a result line:
-``layouts`` (phases 18 and 19); on a machine with several cards ``holds``,
+``layouts`` (phases 18 and 19, and phase 20's two-rank legs), ``tooling``
+(phase 20's one-process legs, from a seeded model where phase 7 has not
+trained one); on a machine with several cards ``holds``,
 which trains ``-d`` over every card, ``model_parallel: 2`` x data,
 ``model_parallel`` over every card and ``pipeline_parallel: 2`` x data
 (NCCL, spawned ranks; 2 updates, a validation after each, the closing
@@ -224,7 +252,7 @@ first validation against one process's ``predict`` of the checkpoint, and
 ``timing``, which times phase 7's cut on one card and in each layout in
 alternating turns; ``cards`` is ``holds,timing``.
 
-Phases 9-19 run after phase 8, each with the counters zeroed just before
+Phases 9-20 run after phase 8, each with the counters zeroed just before
 its runs and the plain versions refused. Phase 2 also holds decode attention
 with int8 channel scales and ``group`` 5 bit for bit against group 1, and
 times int8 cases against SDPA on the dequantized cache.
@@ -251,6 +279,7 @@ JAX or of joeys2t_tpu.
 import collections
 import contextlib
 import copy
+import dataclasses
 import gc
 import json
 import logging
@@ -3472,7 +3501,11 @@ LAYOUTS = {"tensor parallel": {"model_parallel": 2},
            "pipeline parallel": {"pipeline_parallel": 2, "pipeline_microbatches": 4},
            "tensor parallel, float32": {"model_parallel": 2, "dtype": torch.float32},
            "tensor + sequence parallel, float32":
-               {"model_parallel": 2, "sequence_parallel": True, "dtype": torch.float32}}
+               {"model_parallel": 2, "sequence_parallel": True, "dtype": torch.float32},
+           # phase 20 (c): adafactor's factored statistics and block RMS over the
+           # whole of each shard's parameter (float32, as its one process)
+           "tensor parallel, adafactor, float32":
+               {"model_parallel": 2, "optimizer": "adafactor", "dtype": torch.float32}}
 # faults of the tensor-parallel path that the checks must catch (each must
 # break a limit; the port itself never runs them)
 FAULTS = {"the copy's backward not summed over the model group": {"model_parallel": 2},
@@ -3564,6 +3597,48 @@ def layout_update(cfg: dict, vocab, batch, layout: dict, fault: str = None) -> d
                       for k, v in kept.items()})
 
 
+def single_key(layout: dict) -> tuple:
+    """The one-process run a layout is held against: (dtype, optimizer)."""
+    return layout.get("dtype", torch.bfloat16), layout.get("optimizer", "adamw")
+
+
+def sharded_checkpoint_leg(job: dict) -> dict:
+    """Phase 20 (f) on a gloo rank: phase 5's model (seeded weights)
+    sharded over model_parallel 2 (``tp.shard_model``, the shards on the
+    card) written by ``checkpoints.save_sharded`` (each rank its own shards)
+    and read back by ``load_sharded`` into a fresh shard of the same layout
+    (bit-equal) and into the whole model (equal to ``tp.gather_state``)."""
+    from joeys2t_torch.checkpoints import load_sharded, save_sharded
+    from joeys2t_torch.models import build_model
+    from joeys2t_torch.parallel import distributed, tp
+
+    _, model_cfg = layout_args(job["cfg"], {})
+    layout = distributed.set_layout(model_parallel=2)
+    ctx = tp.TPContext(layout.inner_group, layout.inner_rank, layout.inner)
+
+    def model(seed):
+        return build_model(model_cfg, trg_vocab=job["vocab"], device="cpu",
+                           generator=torch.Generator().manual_seed(seed))[0]
+
+    directory = Path(job["out"]) / "sharded"
+    net = tp.shard_model(model(0), ctx).cuda()
+    t0 = time.perf_counter()
+    save_sharded(directory, net, ctx)
+    save_s = time.perf_counter() - t0
+    again = tp.shard_model(model(1), ctx).cuda()
+    load_sharded(directory, again, ctx)
+    same = all(torch.equal(a, b) for a, b in zip(net.state_dict().values(),
+                                                 again.state_dict().values()))
+    gathered = tp.gather_state(net.state_dict(), ctx)
+    whole = model(2).cuda()
+    load_sharded(directory, whole)
+    whole_ok = all(torch.equal(whole.state_dict()[k], v.to(whole.state_dict()[k].device))
+                   for k, v in gathered.items())
+    split = sum(1 for n in net.state_dict() if tp.split_dim(n) is not None)
+    distributed.set_layout()
+    return {"same layout": same, "whole model": whole_ok, "split": split, "save_s": save_s}
+
+
 def layout_rank(rank: int, port: int, job: dict) -> None:
     """One of the two gloo ranks of phases 18 and 19 on the one card: each
     layout's update in turn; rank 0 writes what it read."""
@@ -3587,6 +3662,7 @@ def layout_rank(rank: int, port: int, job: dict) -> None:
         for name, layout in FAULTS.items():
             got = layout_update(job["cfg"], job["vocab"], job["batch"], layout, fault=name)
             results[name] = got if rank == 0 else {}
+        results["sharded checkpoint"] = sharded_checkpoint_leg(job)
         torch.save(results, Path(job["out"]) / f"layouts{rank}.pt")
     finally:
         distributed.leave()
@@ -3631,8 +3707,8 @@ def layout_phases() -> dict:
     t0 = time.time()
     for p in procs:
         p.start()
-    singles = {dtype: layout_update(cfg, vocab, batch, {"dtype": dtype})  # meanwhile
-               for dtype in (torch.bfloat16, torch.float32)}
+    singles = {key: layout_update(cfg, vocab, batch, dict(zip(("dtype", "optimizer"), key)))
+               for key in {single_key(layout) for layout in LAYOUTS.values()}}  # meanwhile
     for p in procs:
         p.join(timeout=max(1.0, 600 - (time.time() - t0)))
     if any(p.is_alive() for p in procs):
@@ -3645,15 +3721,15 @@ def layout_phases() -> dict:
           f"{[p.exitcode for p in procs]}")
     ranks = [torch.load(out / f"layouts{r}.pt", weights_only=False) for r in range(2)]
     n_enc, n_dec = 16, 8
-    want = singles[torch.bfloat16]["counts"]
+    want = singles[(torch.bfloat16, "adamw")]["counts"]
     check(want["flash_attention_fwd"] == want["flash_attention_bwd"] == n_enc + n_dec,
           f"one process's launches {want}")
-    replicated = [n for n in singles[torch.bfloat16]["grads"]
+    replicated = [n for n in singles[(torch.bfloat16, "adamw")]["grads"]
                   if ".layers." in f".{n}" and split_dim(n) is None]
 
     def gaps(got: dict, layout: dict) -> tuple:
         """(readings, the limits they break) of ``got`` against one process."""
-        single = singles[layout.get("dtype", torch.bfloat16)]
+        single = singles[single_key(layout)]
         worst, allowance, outside = weight_gap(got["weights"], single["weights"],
                                                single["lr"])
         read = dict(loss=abs(got["loss"] - single["loss"]) / abs(single["loss"]),
@@ -3677,7 +3753,7 @@ def layout_phases() -> dict:
     launches, checks, failed = {}, {}, []
     for name, layout in LAYOUTS.items():
         got = ranks[0][name]
-        single = singles[layout.get("dtype", torch.bfloat16)]
+        single = singles[single_key(layout)]
         read, apart_limit, broken = gaps(got, layout)
         apart = sorted(((float((got["weights"][n] - w).abs().gt(single["lr"] / 10).sum()), n,
                          w.numel(), grad_gap({n: got["grads"][n]}, {n: single["grads"][n]}))
@@ -3728,12 +3804,483 @@ def layout_phases() -> dict:
               f"{'; '.join(broken) or 'no limit'}")
         if not broken:
             failed.append(f"the fault '{name}' breaks no limit")
+    for r, rank in enumerate(ranks):
+        sharded = rank["sharded checkpoint"]
+        check(sharded["same layout"] and sharded["whole model"],
+              f"rank {r}: the sharded checkpoint restored {sharded}")
+    print(f"[layouts] phase 20 (f) sharded checkpoint of phase 5's model, model_parallel 2: "
+          f"{ranks[0]['sharded checkpoint']['split']} tensors split, each rank wrote its "
+          f"shards in {[round(r['sharded checkpoint']['save_s'], 3) for r in ranks]} s; "
+          f"restored bit-equal into a fresh shard of the same layout and into the whole "
+          f"model on every rank, equal to gather_state's tensors")
     print(f"[layouts] phases 18-19: {wall:.1f} s wall with the ranks' start-up")
     check(not failed, "; ".join(failed))
     merged = {}
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
         merged[name] = [c for per in checks.values() for c in per[name]]
     return dict(launches=launches, checks=merged)
+
+
+# ----------------------------------------------------------------- phase 20
+@contextlib.contextmanager
+def port_log(lines: list):
+    """While active, ``lines`` gains the message of every record of the
+    port's loggers."""
+    handler = LogLines()
+    logger = logging.getLogger("joeys2t_torch")
+    logger.addHandler(handler)
+    try:
+        yield lines
+    finally:
+        logger.removeHandler(handler)
+        lines.extend(handler.lines)
+
+
+def check_attention_rows(att: list, hyps_raw: list, tag: str) -> int:
+    """Returned attention (steps, padded frames) of each hypothesis: every
+    step up to the hypothesis's eos sums to 1 over the frames it reads, the
+    steps after it are 0, and the padding frames past the longest read one
+    stay 0 on every step; returns the steps checked."""
+    checked = 0
+    for i, (a, toks) in enumerate(zip(att, hyps_raw)):
+        live = min(len(toks), a.shape[0])
+        sums = a[:live].sum(-1)
+        check(np.abs(sums - 1.0).max() <= 1e-4, f"{tag} row {i}: attention sums {sums}")
+        check((a[live:] == 0).all(), f"{tag} row {i}: attention after eos")
+        read = np.flatnonzero(a[:live].any(0))
+        check((a[:, read[-1] + 1:] == 0).all() if read.size else False,
+              f"{tag} row {i}: attention past the valid frames")
+        checked += live
+    return checked
+
+
+def tooling_model_dir(asr_ckpt) -> tuple:
+    """(phase 7's config with ``beam_size: 1`` over its first 8 dev
+    utterances and no test set, the model directory): phase 7's trained
+    checkpoint, or when phase 20 runs alone phase 7's model with seeded
+    weights in a model directory of its own."""
+    from joeys2t_torch.config import dump_yaml, parse_global_args
+    from joeys2t_torch.prediction import prepare
+
+    work = REPO / "build" / "chip_smoke"
+    data = work / "synthetic_asr"
+    if not (data / "dev.tsv").is_file():
+        generate_corpus(data)
+    rows = (data / "dev.tsv").read_text(encoding="utf-8").splitlines()
+    (data / "dev8.tsv").write_text("\n".join(rows[:9]) + "\n", encoding="utf-8")
+    model_dir = work / "model" if asr_ckpt is not None else work / "tooling_model"
+    cfg = cli_config(data, model_dir)
+    if asr_ckpt is None:
+        model_dir.mkdir(parents=True, exist_ok=True)
+        model = prepare(parse_global_args(copy.deepcopy(cfg), mode="train"), mode="train")[0]
+        torch.save({"model_state": model.state_dict()}, model_dir / "best.ckpt")
+        (model_dir / "config.yaml").write_text(dump_yaml(cfg), encoding="utf-8")
+        del model
+    cfg["data"] = {k: v for k, v in cfg["data"].items() if k != "test"}
+    cfg["data"]["dev"] = str(data / "dev8")
+    cfg["testing"].update(beam_size=1, load_model=str(model_dir / "best.ckpt"))
+    return cfg, model_dir
+
+
+def returned_attention_leg(asr_ckpt) -> dict:
+    """Phase 20 (a): ``test -a`` (greedy, bf16) of phase 7's checkpoint on 8
+    dev utterances: K1 for the encoder, K5 on every decoder self-attention
+    and on every cross-attention but the last layer's, which takes the
+    plain math once a step (JAX's rule): (2 * 8 - 1) K5 launches a step;
+    the hypotheses those of ``test`` without ``-a``; a plot a hypothesis
+    where matplotlib imports. The attention ``predict`` returns on the card
+    (bf16) sums to 1 over the frames and is 0 past them and after eos; a
+    float32 cut of the checkpoint to 2 + 2 layers gives the same tokens and
+    attention within 1e-4 on the card and on the CPU. Then ``generate`` of
+    the model directory's hub with attention."""
+    import importlib.util
+
+    from joeys2t_torch.config import dump_yaml, parse_global_args
+    from joeys2t_torch.hub_interface import load_model_dir
+    from joeys2t_torch.models.modules import MultiHeadedAttention
+    from joeys2t_torch.prediction import predict, prepare
+
+    work = REPO / "build" / "chip_smoke" / "tooling"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg, model_dir = tooling_model_dir(asr_ckpt)
+    cfg_path = work / "attention.yaml"
+    cfg_path.write_text(dump_yaml(cfg), encoding="utf-8")
+    n_enc, n_dec = 16, 8
+    MultiHeadedAttention.weight_steps = 0
+    with plain_refused("returned-attention path"):
+        wall, lines, _, launches = cli_run(["test", cfg_path, "-o", work / "att", "-a"])
+    weight_steps = MultiHeadedAttention.weight_steps
+    gens = generations(lines)
+    check(len(gens) == 1, f"test -a logged {len(gens)} predict calls")
+    _, batches, steps = gens[0]
+    want = dict(cli_launches(n_enc, n_dec, 0, [], gens, beam=False),
+                decode_attention=(2 * n_dec - 1) * steps)
+    check(launches == want, f"test -a launches {launches}, expected {want}")
+    check(weight_steps == steps, f"the returning layer took the plain math {weight_steps} "
+          f"times in {steps} steps")
+    plots = sorted(p.name for p in work.glob("att.dev.att.*.png"))
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    check(len(plots) == (8 if has_mpl else 0), f"test -a wrote {plots} (matplotlib "
+          f"{'imports' if has_mpl else 'does not import'})")
+
+    # the attention itself: bf16 on the card, then a float32 cut on card and CPU
+    args = parse_global_args(copy.deepcopy(cfg), mode="test")
+    model, spec, loss_fn, _, dev, _ = prepare(args, mode="test")
+    test_args = dataclasses.replace(args.test, return_attention=True)
+    _, _, _, raw, _, att = predict(model, spec, dev, loss_fn=loss_fn, args=test_args,
+                                   device="cuda")
+    rows_checked = check_attention_rows(att, raw, "bf16 card")
+    zero_counters()
+    with plain_refused("test without -a"):
+        _, _, plain_hyps, _, _, none = predict(model, spec, dev, loss_fn=loss_fn,
+                                               args=args.test, device="cuda")
+    plain_launches = read_counters()
+    check((work / "att.dev").read_text(encoding="utf-8").splitlines() == plain_hyps
+          and len(plain_hyps) == 8 and none == [], "the hypotheses differ without -a")
+    check(plain_launches["decode_attention"] == 2 * n_dec * steps,
+          f"predict without attention: {plain_launches}")
+    del model
+    keep = re.compile(r"(encoder|decoder)\.layers\.(\d+)\.")
+    state = torch.load(model_dir / "best.ckpt", map_location="cpu",
+                       weights_only=True)["model_state"]
+    cut = {k: v for k, v in state.items()
+           if not keep.match(k) or int(keep.match(k).group(2)) < 2}
+    from joeys2t_torch.losses import build_loss_function
+    from joeys2t_torch.models import build_model
+
+    cut_model_cfg = copy.deepcopy(cfg["model"])
+    for side in ("encoder", "decoder"):
+        cut_model_cfg[side]["num_layers"] = 2
+    both = {}
+    for device in ("cuda", "cpu"):
+        cmodel, cspec = build_model(cut_model_cfg, trg_vocab=dev.trg_vocab, device=device)
+        cmodel.load_state_dict(cut, strict=True)
+        both[device] = predict(cmodel, cspec, dev, loss_fn=build_loss_function(args.train,
+                                                                               cspec),
+                               args=test_args, device=device)
+    (_, _, hyp_card, _, _, att_card), (_, _, hyp_cpu, _, _, att_cpu) = both["cuda"], both["cpu"]
+    check(hyp_card == hyp_cpu, f"float32 cut: card and CPU hypotheses differ:\n{hyp_card}\n"
+          f"{hyp_cpu}")
+    err = max(float(np.abs(a - b).max()) for a, b in zip(att_card, att_cpu))
+    check(err <= 1e-4, f"float32 cut: card and CPU attention {err:.2e} apart (limit 1e-4)")
+
+    # the hub: one generate with attention, greedy
+    hub = load_model_dir(model_dir, load_model=str(model_dir / "best.ckpt"))
+    paths = [str(p) for p in sorted((REPO / "build" / "chip_smoke" / "synthetic_asr" /
+                                     "feats").glob("dev-*.npy"))[:8]]
+    hub_lines = []
+    zero_counters()
+    MultiHeadedAttention.weight_steps = 0
+    with plain_refused("hub generate with attention"), port_log(hub_lines):
+        out = hub.generate(paths, beam_size=1, return_attention=True)
+    hub_launches, hub_weights = read_counters(), MultiHeadedAttention.weight_steps
+    (_, hub_batches, hub_steps), = generations(hub_lines)
+    check(len(out) == 8 and hub_weights == hub_steps
+          and hub_launches["decode_attention"] == (2 * n_dec - 1) * hub_steps
+          and hub_launches["flash_attention_fwd"] == n_enc * hub_batches,
+          f"hub generate with attention: {hub_launches}, {hub_weights} plain steps in "
+          f"{hub_steps}")
+    print(f"[tooling] (a) test -a (greedy, bf16, 8 dev utterances, {steps} steps): K1 "
+          f"{launches['flash_attention_fwd']}, K5 {launches['decode_attention']} = "
+          f"(2 x {n_dec} - 1) a step, the returning layer on the plain math {weight_steps} "
+          f"times; hypotheses equal to a decode without attention (K5 "
+          f"{plain_launches['decode_attention']}); plots {len(plots)} "
+          f"({'matplotlib imports' if has_mpl else 'no matplotlib: none written'}); "
+          f"{wall:.2f} s wall; bf16 attention rows sum to 1 over the valid frames and are "
+          f"0 past them and after eos ({rows_checked} steps); float32 2 + 2 cut: card and "
+          f"CPU tokens identical, attention {err:.2e} apart (limit 1e-4); hub generate "
+          f"with attention: K1 {hub_launches['flash_attention_fwd']}, K5 "
+          f"{hub_launches['decode_attention']} over {hub_steps} steps")
+    return {"test -a": launches, "hub generate with attention": hub_launches}
+
+
+class PhaseFiveModel:
+    """Phase 5's model (dropout 0, bf16 on float32 masters) built once with
+    seeded weights, and trainers over it that each start from those
+    weights."""
+
+    def __init__(self, cfg: dict, vocab):
+        from joeys2t_torch.models import build_model
+
+        self.cfg = cfg
+        _, self.model_cfg = layout_args(cfg, {})
+        self.model, self.spec = build_model(self.model_cfg, trg_vocab=vocab,
+                                            compute_dtype=torch.bfloat16, device="cuda",
+                                            generator=torch.Generator().manual_seed(0))
+        self.init = {n: v.clone() for n, v in self.model.state_dict().items()}
+
+    def trainer(self, training: dict, freeze: bool = False):
+        """A trainer with ``training`` over phase 5's training section, the
+        weights back at their seeded values; with ``freeze`` the encoder
+        frozen."""
+        from joeys2t_torch.losses import build_loss_function
+        from joeys2t_torch.training import TrainManager
+
+        self.model.load_state_dict(self.init)
+        args, _ = layout_args(self.cfg, training)
+        model_cfg = copy.deepcopy(self.model_cfg)
+        model_cfg["encoder"]["freeze"] = freeze
+        return TrainManager(self.model, self.spec, build_loss_function(args, self.spec), args,
+                            seed=self.cfg.get("random_seed", 42), model_cfg=model_cfg,
+                            device="cuda")
+
+
+def freeze_leg(five: PhaseFiveModel, batches) -> dict:
+    """Phase 20 (b): phase 5's model with ``encoder: freeze: True`` takes 2
+    updates with global-norm clipping at 1 (on: the norm is far above it):
+    the encoder comes out bit-unchanged, the decoder moved, and the clip's
+    norm (so its factor) is that of the same update without ``freeze``
+    (1e-4 relative: CTC's backward uses atomics)."""
+    runs = {}
+    for frozen in (True, False):
+        tm = five.trainer({"clip_grad_norm": 1.0}, freeze=frozen)
+        before = {n: p.detach().clone() for n, p in tm.model.named_parameters()}
+        norms, clipper = [], tm.clipper
+        tm.clipper = lambda grads: norms.append(float(clipper(grads)))
+        zero_counters()
+        with plain_refused("freeze"):
+            for batch in batches:
+                tm.train_batch(batch)
+        counts = read_counters()
+        moved = {side: sum(not torch.equal(p, before[n]) for n, p in
+                           tm.model.named_parameters() if n.startswith(side + "."))
+                 for side in ("encoder", "decoder")}
+        runs[frozen] = dict(norms=norms, moved=moved, counts=counts,
+                            n_enc=sum(1 for n in before if n.startswith("encoder.")))
+        del tm, before
+        gc.collect()
+    got, free = runs[True], runs[False]
+    check(got["moved"]["encoder"] == 0 and got["moved"]["decoder"] > 0,
+          f"freeze: weights moved {got['moved']}")
+    check(free["moved"]["encoder"] == free["n_enc"], f"without freeze: {free['moved']}")
+    rel = abs(got["norms"][0] - free["norms"][0]) / free["norms"][0]
+    check(got["norms"][0] > 1.0 and rel <= 1e-4, f"freeze: the clip saw {got['norms']}, "
+          f"without freeze {free['norms']}")
+    per_micro = 24 * len(batches)
+    check(got["counts"]["flash_attention_fwd"] == per_micro ==
+          got["counts"]["flash_attention_bwd"], f"freeze launches {got['counts']}")
+    print(f"[tooling] (b) freeze (encoder): 2 updates of {batches[0].nseqs} utterances, "
+          f"clip at 1.0: the encoder's {got['n_enc']} tensors bit-unchanged, "
+          f"{got['moved']['decoder']} decoder tensors moved; global norms "
+          f"{[round(n, 4) for n in got['norms']]} (clip factor "
+          f"{1.0 / got['norms'][0]:.6f}) against {[round(n, 4) for n in free['norms']]} "
+          f"without freeze ({rel:.2e} apart); K1 / K3 "
+          f"{got['counts']['flash_attention_fwd']} / {got['counts']['flash_attention_bwd']}")
+    return {"freeze": got["counts"]}
+
+
+TOOLING_OPTIMIZERS = [("adamw", {}), ("sgd", {"momentum": 0.9}), ("adagrad", {}),
+                      ("adadelta", {}), ("rmsprop", {}), ("adafactor", {})]
+
+
+# the tensors phase 20 (c) replays on the CPU: all but those of the layers
+# past the first of each stack (a per-tensor optimizer's step on one tensor
+# reads no other; the global-norm clip's factor comes from the card)
+REPLAYED = re.compile(r"(encoder|decoder)\.layers\.([1-9][0-9]*)\.")
+
+
+def optimizer_leg(five: PhaseFiveModel, batches) -> dict:
+    """Phase 20 (c): phase 5's model takes 2 updates with each optimizer
+    (and AdamW beside them), its weight decay and clipping at 10: the
+    weights after each update against the port's same optimizer in float32
+    on the CPU, fed the card's own gradients before clipping and the clip's
+    global norm (a CPU forward of the 93 M-parameter model would take
+    minutes), over every tensor outside the layers past the first of each
+    stack (``REPLAYED``: embeddings, subsampler, output and CTC layers, the
+    first encoder and decoder layer: 16.56 M of the 93.27 M parameters), within
+    phase 16 (b)'s first-update limits (every weight within 2 lr; at most
+    0.5 % of them further apart than lr / 10); and the ms of the
+    optimizer's step on the card (the second update's) beside AdamW's."""
+    from joeys2t_torch.optim import build_optimizer, set_learning_rate
+
+    launches, readings = {}, []
+    for name, extra in TOOLING_OPTIMIZERS:
+        tm = five.trainer(dict(extra, optimizer=name, scheduling=None))
+        held = [(n, p) for n, p in tm.model.named_parameters() if not REPLAYED.match(n)]
+        init = {n: p.detach().cpu().clone() for n, p in held}
+        grads, weights, norms, step_ms = [], [], [], []
+        apply, step, clipper = tm.apply_accum, tm.optimizer.step, tm.clipper
+
+        def capture():
+            grads.append({n: p.grad.detach().float().cpu().clone() for n, p in held})
+            apply()
+            weights.append({n: p.detach().cpu().clone() for n, p in held})
+
+        def timed_step():
+            _, wall = sync_time(step)
+            step_ms.append(wall * 1e3)
+
+        def clip(g):
+            norms.append(clipper(g).cpu())
+
+        tm.apply_accum, tm.optimizer.step, tm.clipper = capture, timed_step, clip
+        zero_counters()
+        with plain_refused(f"{name} updates"):
+            for batch in batches:
+                tm.train_batch(batch)
+        launches[name] = read_counters()
+        lr, args, max_norm = tm.current_lr, tm.args, clipper.max_norm
+        del tm, apply, step, clipper, held
+        gc.collect()
+        params = {n: torch.nn.Parameter(v.clone()) for n, v in init.items()}
+        opt = build_optimizer(args.__dict__, list(params.values()))
+        set_learning_rate(opt, lr)
+        gaps = []
+        for g, w, norm in zip(grads, weights, norms):
+            for n, p in params.items():
+                p.grad = g[n].clone()
+            if norm >= max_norm:  # the clip of the whole gradient, as on the card
+                torch._foreach_div_([p.grad for p in params.values()], norm)
+                torch._foreach_mul_([p.grad for p in params.values()], max_norm)
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            gaps.append(weight_gap(w, {n: p.detach() for n, p in params.items()}, lr))
+        for k, (worst, allowance, outside) in enumerate(gaps):
+            check(worst <= allowance and outside <= WEIGHTS_APART,
+                  f"{name} update {k + 1}: card against CPU max |dw| {worst:.3e} (allowed "
+                  f"{allowance:.3e}), {100 * outside:.4f} % further apart than lr / 10")
+        readings.append((name, extra, gaps, step_ms[-1], lr))
+        del grads, weights, params, opt
+        gc.collect()
+    adam_ms = readings[0][3]
+    for name, extra, gaps, ms, lr in readings:
+        print(f"[tooling] (c) {name}{extra or ''}: 2 updates of {batches[0].nseqs} "
+              f"utterances at lr {lr:g}; card against CPU float32 on the card's gradients "
+              f"(the replayed tensors): "
+              + "; ".join(f"update {k + 1} max |dw| {w:.3e} (allowed {a:.3e}), "
+                          f"{100 * o:.4f} % further apart than lr / 10"
+                          for k, (w, a, o) in enumerate(gaps))
+              + f"; the optimizer's step {ms:.2f} ms on the card ({ms / adam_ms:.2f}x "
+                f"AdamW's {adam_ms:.2f} ms)")
+    return {f"optimizer {name}": c for name, c in launches.items()}
+
+
+def profile_leg() -> dict:
+    """Phase 20 (d): ``train`` of phase 7's config cut to 3 updates with
+    ``profile_dir`` and ``JOEYS2T_PROFILE_WINDOW=1,3``: one Chrome trace of
+    updates 2 and 3 whose kernels include the flash forward and backward
+    (K1, K3), 24 launches of each an update."""
+    from joeys2t_torch.config import dump_yaml
+
+    work = REPO / "build" / "chip_smoke" / "tooling_profile"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    data = REPO / "build" / "chip_smoke" / "synthetic_asr"
+    cfg = cli_config(data, work / "model")
+    cfg["training"].update(updates=3, validation_freq=1000, logging_freq=1,
+                           profile_dir=str(work / "trace"))
+    cfg_path = work / "profile.yaml"
+    cfg_path.write_text(dump_yaml(cfg), encoding="utf-8")
+    before = os.environ.get("JOEYS2T_PROFILE_WINDOW")
+    os.environ["JOEYS2T_PROFILE_WINDOW"] = "1,3"
+    try:
+        with plain_refused("profiled training"):
+            wall, _, _, launches = cli_run(["train", cfg_path, "--skip-test"])
+    finally:
+        if before is None:
+            del os.environ["JOEYS2T_PROFILE_WINDOW"]
+        else:
+            os.environ["JOEYS2T_PROFILE_WINDOW"] = before
+    traces = sorted(p.name for p in (work / "trace").iterdir())
+    check(traces == ["trace.1-3.json"], f"profile_dir holds {traces}")
+    events = json.loads((work / "trace" / "trace.1-3.json").read_text())["traceEvents"]
+    kernels = collections.Counter(e["name"] for e in events if e.get("cat") == "kernel")
+    fwd = sum(n for k, n in kernels.items() if "flash_fwd" in k)
+    bwd = sum(n for k, n in kernels.items() if "flash_bwd" in k)
+    check(fwd > 0 and bwd > 0, f"the trace names no flash kernel: {kernels.most_common(8)}")
+    check(launches["flash_attention_fwd"] == launches["flash_attention_bwd"] == 3 * 24,
+          f"profiled train launches {launches}")
+    print(f"[tooling] (d) profile_dir: train of 3 updates ({wall:.2f} s) wrote "
+          f"trace.1-3.json, {len(events)} events, {sum(kernels.values())} kernels, flash "
+          f"forward kernels {fwd} and backward kernels {bwd} in updates 2-3")
+    return {"profile_dir": launches}
+
+
+def specaugment_leg() -> None:
+    """Phase 20 (e): the on-device front end of 8 x 10 s waveforms with
+    zero SpecAugment masks equals it without SpecAugment bit for bit; with
+    JAX's default masks (2 of width < 27 over frequency, 2 of width < 100
+    over time) the masked value is each utterance's mean over its valid
+    frames, whole masked columns and rows stay within the masks' widths,
+    and frames past each length stay 0."""
+    from joeys2t_torch.ops.frontend import device_frontend
+
+    rng = np.random.RandomState(20)
+    lengths = rng.randint(80000, 160001, size=8)
+    lengths[0] = 160000
+    waves = np.zeros((8, 160000), np.float32)
+    for i, n in enumerate(lengths):
+        waves[i, :n] = speechlike(rng, int(n))
+    w, n = torch.tensor(waves, device="cuda"), torch.tensor(lengths, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    plain, frames = device_frontend(w, n)
+    none, _ = device_frontend(w, n, training=True, specaugment=(0, 27, 0, 100, 1.0),
+                              generator=gen)
+    check(torch.equal(plain, none), "SpecAugment without masks changed the features")
+    masked_cols, masked_rows = [], []
+    for _ in range(4):
+        feats, _ = device_frontend(w, n, training=True, generator=gen)
+        changed = feats != plain
+        for b, t in enumerate(frames.tolist()):
+            value = plain[b, :t].mean()
+            hit = feats[b][changed[b]]
+            check(hit.numel() == 0 or float((hit - value).abs().max()) <= 1e-4,
+                  f"SpecAugment masked value {hit[:4]} is not the mean {value}")
+            check(bool((feats[b, t:] == 0).all()), "SpecAugment wrote past a length")
+            cols = int(changed[b, :t].all(0).sum())
+            rows = int(changed[b, :t].all(1).sum())
+            check(cols <= 2 * 26 and rows <= 2 * 99, f"masks of {cols} columns, {rows} rows")
+            masked_cols.append(cols)
+            masked_rows.append(rows)
+    check(np.mean(masked_cols) > 0 and np.mean(masked_rows) > 0, "the masks never fired")
+    print(f"[tooling] (e) on-device SpecAugment: zero masks bit-identical to the front end "
+          f"without; JAX's default masks over 4 draws of 8 x 5-10 s: whole masked columns "
+          f"{np.mean(masked_cols):.1f} (at most 52), rows {np.mean(masked_rows):.1f} (at "
+          f"most 198) an utterance, the masked value each utterance's mean, padding 0")
+
+
+def tooling_phase(asr_ckpt=None) -> dict:
+    """Phase 20: (a) returned attention, (b) ``freeze``, (c) the other
+    optimizers, (d) ``profile_dir``, (e) on-device SpecAugment; the
+    tensor-parallel legs of (c) (adafactor) and (f) (sharded checkpoints)
+    run on the two gloo ranks of phases 18-19. TensorBoard is optional: the
+    training runs print whether its writer wrote an event file."""
+    import importlib.util
+
+    from joeys2t_torch.config import SpecialSymbols, load_config
+    from joeys2t_torch.vocabulary import Vocabulary
+
+    walls = []
+
+    def leg(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        walls.append(f"{name} {time.time() - t0:.1f} s")
+        return out or {}
+
+    launches = leg("(a)", returned_attention_leg, asr_ckpt)
+    cfg = load_config(REPO / "configs" / "librispeech_100h.yaml")
+    vocab = Vocabulary([f"w{i}" for i in range(4996)], SpecialSymbols())
+    batches = synthetic_batches(2, 16, np.random.RandomState(20), len(vocab))
+    five = leg("phase 5's model", PhaseFiveModel, cfg, vocab)
+    launches.update(leg("(b)", freeze_leg, five, batches))
+    launches.update(leg("(c)", optimizer_leg, five, batches))
+    del five
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(leg("(d)", profile_leg))
+    leg("(e)", specaugment_leg)
+    print(f"[tooling] walls: {', '.join(walls)}")
+    events = sorted((REPO / "build" / "chip_smoke" / "tooling_profile" / "model" /
+                     "tensorboard").glob("events.out.tfevents.*"))
+    has_tb = any(importlib.util.find_spec(m) is not None
+                 for m in ("tensorboardX", "tensorboard"))
+    check(bool(events) == has_tb, f"TensorBoard {'imports' if has_tb else 'is missing'} but "
+          f"the event files are {events}")
+    what = "an event file written" if events else "not installed: no writer, as in JAX"
+    print(f"[tooling] TensorBoard: {what}")
+    return launches
 
 
 # layouts of ``--phases cards``, over every visible card: (name, training keys)
@@ -3946,9 +4493,11 @@ def card_timing() -> None:
 
 
 # parts of the smoke that ``--phases a,b,...`` runs alone after phase 1, in
-# that order (exit code 4 and no result line): phases 18-19 on one card, and
-# on several cards each layout's hold and its timing (``cards``: both)
-PARTS = {"layouts": layout_phases, "holds": card_holds, "timing": card_timing}
+# that order (exit code 4 and no result line): phases 18-19 on one card
+# (with phase 20's two-rank legs), phase 20's one-process legs, and on
+# several cards each layout's hold and its timing (``cards``: both)
+PARTS = {"layouts": layout_phases, "holds": card_holds, "timing": card_timing,
+         "tooling": tooling_phase}
 
 
 def run_parts(spec: str) -> None:
@@ -4036,6 +4585,9 @@ def main():
     torch.cuda.empty_cache()
     layouts = layout_phases()
     mark("phases 18-19")
+    torch.cuda.empty_cache()
+    tooling = tooling_phase(asr_ckpt)
+    mark("phase 20")
 
     def compact(c):  # a case's measurements, without what its printed line adds
         return {k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "library_ms",
@@ -4063,7 +4615,8 @@ def main():
                     mt=mt_counts[name], reverse_d16=reverse_counts[name],
                     moe=moe_counts[name], ddp=ddp_counts[name], remat=remat_counts[name],
                     **{f"{layout} (2 ranks)": n[name] for layout, n in
-                       layouts["launches"].items() if name in n})
+                       layouts["launches"].items() if name in n},
+                    **{f"phase 20 {leg}": n[name] for leg, n in tooling.items()})
 
     def int8_paths(name):
         return {"int8_greedy": int8_counts["greedy 64 x 10 s"][name],

@@ -14,7 +14,9 @@ CPU has no cards to count, so ``-d`` with ``use_cuda: False`` needs torchrun.
 The ranks form data-parallel groups, or with ``training: model_parallel``
 or ``pipeline_parallel`` a (data, model) or (data, pipe) layout, whose
 inner size must divide the ranks.
-``-a/--save-attention`` is not ported yet and raises.
+``-a/--save-attention`` plots the attention of every hypothesis of ``test``
+(greedy decoding, ``beam_size: 1``, for a transformer decoder) to
+``<output_path>.{dev,test}.att.<i>.png``.
 """
 import argparse
 import os
@@ -41,7 +43,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("-o", "--output-path", type=str,
                     help="path for saving translation output")
     ap.add_argument("-a", "--save-attention", action="store_true",
-                    help="save attention visualizations (not ported yet)")
+                    help="save attention visualizations")
     ap.add_argument("-s", "--save-scores", action="store_true", help="save scores")
     ap.add_argument("-t", "--skip-test", action="store_true",
                     help="skip test after training")

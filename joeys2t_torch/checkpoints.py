@@ -14,6 +14,17 @@ plain Python type, so ``torch.load(weights_only=True)`` reads it.
 In a data-parallel run every rank keeps the same record of the best
 checkpoints, only rank 0 writes, links and deletes files, and the other
 ranks wait at each save until it has.
+
+``save_sharded``/``load_sharded`` (JAX's orbax pair, :198-220) write and
+read a model's state with ``torch.distributed.checkpoint``: under tensor
+parallelism each rank of the model group writes its own shards of the
+model that ``parallel/tp.py``'s ``shard_model`` builds, described to the
+checkpoint as ``DTensor``s of their whole shape (``Shard`` along the split
+dim, ``Replicate`` otherwise; plain per-rank tensors under one name would
+be taken for copies of one tensor, and all shards but one lost), and a
+restore reads into any layout: the same shards, another
+``model_parallel``, or the whole model in one process. As in JAX, no
+training path calls them.
 """
 import heapq
 import math
@@ -157,3 +168,54 @@ class CheckpointManager:
                 delete_ckpt(prev)
         distributed.barrier()
         return model_path
+
+
+def _described(state: Dict[str, torch.Tensor], tp) -> Dict[str, torch.Tensor]:
+    """``state`` as the checkpoint sees it: under tensor parallelism
+    (``tp``, a ``parallel.tp.TPContext``) every tensor a ``DTensor`` over
+    the model group, a shard placed at its offset in the whole tensor."""
+    if tp is None:
+        return dict(state)
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from joeys2t_torch.parallel.tp import split_dim
+
+    device_type = next(iter(state.values())).device.type
+    mesh = DeviceMesh.from_group(tp.group, device_type=device_type)
+    out = {}
+    for name, value in state.items():
+        dim = split_dim(name)
+        shape = list(value.shape)
+        if dim is not None:
+            shape[dim] *= tp.world
+        out[name] = DTensor.from_local(value, mesh, [Replicate() if dim is None else Shard(dim)],
+                                       run_check=False, shape=torch.Size(shape),
+                                       stride=torch.empty(shape, device="meta").stride())
+    return out
+
+
+def save_sharded(directory: Path, model: torch.nn.Module, tp=None) -> None:
+    """Write ``model``'s state to ``directory`` with
+    ``torch.distributed.checkpoint``; under tensor parallelism every rank
+    of the world calls it with its shard of the model (``tp`` its
+    ``TPContext``) and writes its own shards."""
+    import torch.distributed.checkpoint as dcp
+
+    dcp.save(_described(model.state_dict(), tp), checkpoint_id=Path(directory).absolute())
+
+
+def load_sharded(directory: Path, model: torch.nn.Module, tp=None) -> None:
+    """Read a ``save_sharded`` checkpoint into ``model`` in place: a shard
+    of any ``model_parallel`` (``tp`` its ``TPContext``), or with ``tp``
+    None the whole model."""
+    import torch.distributed.checkpoint as dcp
+
+    state = model.state_dict()
+    target = _described(state, tp)
+    dcp.load(target, checkpoint_id=Path(directory).absolute())
+    with torch.no_grad():
+        for name, value in target.items():
+            local = value.to_local() if hasattr(value, "to_local") else value
+            if local is not state[name]:
+                state[name].copy_(local)

@@ -12,12 +12,15 @@ Counterpart of joeys2t_tpu/config.py (``SpecialSymbols`` :28,
 ``fp16`` selects bfloat16 compute on float32 masters. ``model_parallel``,
 ``pipeline_parallel`` and ``pipeline_microbatches`` are read as JAX reads
 them (:284-292; both parallelisms at once raise by name); the model
-section's ``sequence_parallel`` is read by the trainer. The `training`
-options of the parts the port does not have yet (profiling, optimizers
-other than adam/adamw, and sgd's ``momentum``) raise
-``NotImplementedError`` when set; :func:`check_ported` refuses the
-unported `testing` options (returned attention) before a run loads any
-data.
+section's ``sequence_parallel`` is read by the trainer. Every optimizer
+of the JAX package is read, and sgd's ``momentum`` with it (JAX's
+``build_optimizer`` reads it, but its trainer's ``TrainConfig`` has no
+such field, so a JAX run drops it; the port applies it). ``profile_dir``
+names the directory of the trainer's profiler window.
+:func:`check_ported` refuses, before a run loads any data, the sacrebleu
+tokenizers the port does not have: ``ja-mecab`` and ``ko-mecab`` (they
+need MeCab) and ``spm``, ``flores101`` and ``flores200`` (they need a
+downloaded SentencePiece model).
 As in JAX, the ``JOEYS2T_BEAM_REORDER`` environment variable overrides
 ``beam_reorder`` when the `testing` section is parsed, never in the
 decode loop.
@@ -46,7 +49,14 @@ from joeys2t_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 
-PORTED_OPTIMIZERS = ("adam", "adamw")
+OPTIMIZERS = ("adam", "adamw", "adafactor", "adagrad", "adadelta", "rmsprop", "sgd")
+# sacrebleu tokenizers the port lacks, and what each needs
+UNPORTED_TOKENIZERS = {"ja-mecab": "MeCab", "ko-mecab": "MeCab",
+                       "spm": "a downloaded SentencePiece model",
+                       "flores101": "a downloaded SentencePiece model",
+                       "flores200": "a downloaded SentencePiece model"}
+# sacrebleu's BLEU default tokenizer by target language (13a otherwise)
+BLEU_DEFAULT_TOKENIZERS = {"zh": "zh", "ja": "ja-mecab", "ko": "ko-mecab"}
 
 
 class ConfigurationError(Exception):
@@ -97,6 +107,7 @@ class TrainConfig:
     patience: int = 5
     decrease_factor: float = 0.5
     weight_decay: float = 0.0
+    momentum: float = 0.0  # sgd's (optax.trace)
     clip_grad_norm: Optional[float] = None
     clip_grad_val: Optional[float] = None
     keep_best_ckpts: int = 5
@@ -118,6 +129,9 @@ class TrainConfig:
     model_parallel: int = 1
     pipeline_parallel: int = 1
     pipeline_microbatches: int = 0  # 0: 2 * pipeline_parallel
+    # a torch.profiler window over the updates JOEYS2T_PROFILE_WINDOW names
+    # ("10,20" by default), written here; JOEYS2T_PROFILE_DIR overrides it
+    profile_dir: Optional[Path] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,15 +250,13 @@ def parse_global_args(cfg: Dict, rank: int = 0, mode: str = "train") -> BaseConf
 
 
 def parse_train_args(cfg: Dict, mode: str = "train") -> TrainConfig:
-    """Parse and validate the `training` section (joeynmt/config.py:252-353);
-    options of parts not ported yet raise ``NotImplementedError``."""
+    """Parse and validate the `training` section (joeynmt/config.py:252-353)."""
     normalization = cfg.get("normalization", "batch").lower()
     _check_options("normalization", normalization, ["batch", "tokens", "none"])
     loss_type = cfg.get("loss", "crossentropy")
     _check_options("loss", loss_type, ["crossentropy", "crossentropy-ctc"])
     optimizer = cfg.get("optimizer", "adam").lower()
-    _check_options("optimizer", optimizer, ["adam", "adamw", "adafactor", "adagrad",
-                                            "adadelta", "rmsprop", "sgd"])
+    _check_options("optimizer", optimizer, list(OPTIMIZERS))
     keep_best_ckpts = int(cfg.get("keep_best_ckpts", 5))
     if cfg.get("keep_last_ckpts") is not None:  # backward compatibility
         keep_best_ckpts = int(cfg["keep_last_ckpts"])
@@ -285,16 +297,6 @@ def parse_train_args(cfg: Dict, mode: str = "train") -> TrainConfig:
     if pipeline_microbatches < 0:
         raise ConfigurationError("`pipeline_microbatches` must be >= 0.")
 
-    unported = {
-        "profile_dir": cfg.get("profile_dir") is not None,
-        f"optimizer {optimizer}": optimizer not in PORTED_OPTIMIZERS,
-    }
-    where = {"optimizer sgd": " (nor its `momentum`)"}
-    for option, is_set in unported.items():
-        if is_set:
-            raise NotImplementedError(f"training option `{option}` is not ported "
-                                      f"yet{where.get(option, '')}")
-
     is_test = mode != "train"
     return TrainConfig(
         load_model=_check_path(cfg.get("load_model", None), allow_empty=is_test),
@@ -318,6 +320,7 @@ def parse_train_args(cfg: Dict, mode: str = "train") -> TrainConfig:
         patience=cfg.get("patience", 5),
         decrease_factor=cfg.get("decrease_factor", 0.5),
         weight_decay=cfg.get("weight_decay", 0.0),
+        momentum=cfg.get("momentum", 0.0),
         clip_grad_norm=cfg.get("clip_grad_norm", None),
         clip_grad_val=cfg.get("clip_grad_val", None),
         keep_best_ckpts=keep_best_ckpts,
@@ -337,12 +340,12 @@ def parse_train_args(cfg: Dict, mode: str = "train") -> TrainConfig:
         model_parallel=model_parallel,
         pipeline_parallel=pipeline_parallel,
         pipeline_microbatches=pipeline_microbatches,
+        profile_dir=_check_path(cfg.get("profile_dir", None)),
     )
 
 
 def parse_test_args(cfg: Dict, mode: str = "test") -> TestConfig:
     """Parse and validate the `testing` section (joeynmt/config.py:356-446).
-    Returned attention is accepted here; :func:`check_ported` refuses it.
     ``beam_reorder`` (``auto``, ``lazy`` or ``physical``) is taken from the
     ``JOEYS2T_BEAM_REORDER`` environment variable where it is set, as JAX
     does (joeys2t_tpu/config.py:409-412)."""
@@ -410,14 +413,20 @@ def parse_test_args(cfg: Dict, mode: str = "test") -> TestConfig:
     )
 
 
-def check_ported(args: BaseConfig, save_attention: bool = False) -> None:
-    """Raise ``NotImplementedError`` for an option of the `testing` section
-    that the port does not have yet (returned attention), so that
-    ``train``, ``test`` and ``translate`` refuse it before loading any data
-    rather than where it would first run (after training, for the closing
-    test)."""
-    if args.test.return_attention or save_attention:
-        raise NotImplementedError("options not ported yet: ['return_attention']")
+def check_ported(args: BaseConfig) -> None:
+    """Raise ``NotImplementedError`` for a sacrebleu tokenizer of the
+    `testing` section that the port does not have (``UNPORTED_TOKENIZERS``),
+    named in ``sacrebleu_cfg``'s ``tokenize`` or, for BLEU, chosen by its
+    ``trg_lang``, so that ``train``, ``test`` and ``translate`` refuse it
+    before loading any data rather than where it would first run (at the
+    first validation)."""
+    sacrebleu_cfg = args.test.sacrebleu_cfg or {}
+    names = {sacrebleu_cfg.get("tokenize")}
+    if "bleu" in args.test.eval_metrics and sacrebleu_cfg.get("tokenize") is None:
+        names.add(BLEU_DEFAULT_TOKENIZERS.get(sacrebleu_cfg.get("trg_lang", "")))
+    for name in sorted(n for n in names if n in UNPORTED_TOKENIZERS):
+        raise NotImplementedError(f"the sacrebleu tokenizer {name!r} (`sacrebleu_cfg`) is "
+                                  f"not ported: it needs {UNPORTED_TOKENIZERS[name]}")
 
 
 def set_validation_args(args: TestConfig) -> TestConfig:

@@ -1,13 +1,15 @@
 # coding: utf-8
 """
 Host-side audio IO (counterpart of joeys2t_tpu/data/audio_io.py): wav
-reading (``read_wav`` :21), feature lookup from ``.npy``, ``.wav`` and
-``zip:offset:size`` entries (``get_features`` :189,
-``_get_features_from_zip`` :171), ``get_n_frames`` :183 and batch collation
-(``pad_features`` :219).
+reading (``read_wav`` :21), mp3 decoding (``read_mp3`` :82), feature lookup
+from ``.npy``, ``.wav``, ``.mp3`` and ``zip:offset:size`` entries
+(``get_features`` :189, ``_get_features_from_zip`` :171), ``get_n_frames``
+:183 and batch collation (``pad_features`` :219).
 
-A ``.wav`` entry goes through the port's own fbank (``ops/fbank.fbank``) on
-a CPU tensor. ``.mp3`` entries raise ``NotImplementedError``.
+A ``.wav`` or ``.mp3`` entry goes through the port's own fbank
+(``ops/fbank.fbank``) on a CPU tensor. mp3 is decoded by the system
+libmpg123 through ``ctypes``, as JAX decodes it (no Python package); a
+host without the library raises when an mp3 is read.
 """
 import io
 import wave
@@ -38,6 +40,84 @@ def read_wav(path: Union[str, Path]) -> Tuple[np.ndarray, int]:
     if n_channels > 1:
         data = data.reshape(-1, n_channels).mean(axis=1)
     return data, framerate
+
+
+_MPG123 = None
+
+
+def _load_mpg123():
+    """The system libmpg123 through ctypes, bound once; None without it."""
+    global _MPG123  # pylint: disable=global-statement
+    if _MPG123 is not None:
+        return _MPG123 or None
+    import ctypes
+    import ctypes.util
+
+    name = ctypes.util.find_library("mpg123") or "libmpg123.so.0"
+    try:
+        lib = ctypes.CDLL(name)
+    except OSError:
+        _MPG123 = False
+        return None
+    c = ctypes
+    lib.mpg123_new.restype = c.c_void_p
+    lib.mpg123_new.argtypes = [c.c_char_p, c.POINTER(c.c_int)]
+    lib.mpg123_open.argtypes = [c.c_void_p, c.c_char_p]
+    lib.mpg123_getformat.argtypes = [c.c_void_p, c.POINTER(c.c_long), c.POINTER(c.c_int),
+                                     c.POINTER(c.c_int)]
+    lib.mpg123_format_none.argtypes = [c.c_void_p]
+    lib.mpg123_format.argtypes = [c.c_void_p, c.c_long, c.c_int, c.c_int]
+    lib.mpg123_read.argtypes = [c.c_void_p, c.c_void_p, c.c_size_t, c.POINTER(c.c_size_t)]
+    lib.mpg123_close.argtypes = [c.c_void_p]
+    lib.mpg123_delete.argtypes = [c.c_void_p]
+    if hasattr(lib, "mpg123_init"):  # a no-op in modern mpg123
+        lib.mpg123_init()
+    _MPG123 = lib
+    return lib
+
+
+def read_mp3(path: Union[str, Path]) -> Tuple[np.ndarray, int]:
+    """An mp3 file -> (float32 waveform in int16 scale, sample rate), decoded
+    to signed 16-bit at the file's rate by libmpg123; several channels are
+    averaged to one, as ``read_wav`` does."""
+    import ctypes as c
+
+    lib = _load_mpg123()
+    if lib is None:
+        raise RuntimeError("mp3 decoding needs the system libmpg123, which was not found; "
+                           "convert the file to .wav or precompute .npy features.")
+    mpg123_ok, mpg123_done, mpg123_new_format = 0, -12, -11
+    enc_signed_16 = 0xD0
+    err = c.c_int(0)
+    handle = lib.mpg123_new(None, c.byref(err))
+    if not handle:
+        raise RuntimeError(f"mpg123_new failed: {err.value}")
+    try:
+        if lib.mpg123_open(handle, str(path).encode()) != mpg123_ok:
+            raise RuntimeError(f"mpg123_open({path}) failed")
+        rate, channels, encoding = c.c_long(0), c.c_int(0), c.c_int(0)
+        rc = lib.mpg123_getformat(handle, c.byref(rate), c.byref(channels),
+                                  c.byref(encoding))
+        if rc != mpg123_ok:
+            raise RuntimeError(f"mpg123_getformat failed: {rc}")
+        lib.mpg123_format_none(handle)  # signed 16-bit at the native rate and channels
+        lib.mpg123_format(handle, rate.value, channels.value, enc_signed_16)
+        chunks, buf, done = [], c.create_string_buffer(65536), c.c_size_t(0)
+        while True:
+            rc = lib.mpg123_read(handle, buf, len(buf), c.byref(done))
+            if done.value:
+                chunks.append(bytes(buf.raw[:done.value]))
+            if rc == mpg123_done:
+                break
+            if rc not in (mpg123_ok, mpg123_new_format):
+                raise RuntimeError(f"mpg123_read failed: {rc}")
+    finally:
+        lib.mpg123_close(handle)
+        lib.mpg123_delete(handle)
+    data = np.frombuffer(b"".join(chunks), dtype="<i2").astype(np.float32)
+    if channels.value > 1:
+        data = data.reshape(-1, channels.value).mean(axis=1)
+    return data, int(rate.value)
 
 
 def extract_fbank_features(waveform: np.ndarray, sample_rate: int,
@@ -74,11 +154,10 @@ def get_features(root_path, fbank_path: str) -> np.ndarray:
     if len(extra) == 0:
         if _path.suffix == ".npy":
             features = np.load(_path.as_posix())
-        elif _path.suffix == ".wav":
-            waveform, sample_rate = read_wav(_path)
+        elif _path.suffix in (".wav", ".mp3"):
+            read = read_wav if _path.suffix == ".wav" else read_mp3
+            waveform, sample_rate = read(_path)
             features = extract_fbank_features(waveform, sample_rate)
-        elif _path.suffix == ".mp3":
-            raise NotImplementedError(f"mp3 input is not ported yet: {_path}")
         else:
             raise ValueError(f"Invalid file type: {_path}")
     elif len(extra) == 2 and _path.suffix == ".zip":

@@ -15,16 +15,20 @@ The model runs on the device the directory's config asks for (``use_cuda``,
 ``cuda`` unless it is False; pass ``use_cuda=False`` to run on the CPU).
 Files the config names (vocabularies, a SentencePiece model, BPE codes,
 the checkpoint) that do not exist where it says are looked up by name in
-the directory. ``plot_attention`` raises, because returned attention is not
-ported yet, so ``score`` returns no attention; the named model-zoo
-downloads of joeys2t_tpu/zoo.py are not ported.
+the directory. ``score`` asks for the attention, as JAX's does: a greedy
+decode returns it (``attention_probs``, (steps, source positions) an
+input), and ``plot_attention`` draws one (src, trg) pair's as a heatmap.
+Named snapshots are fetched by ``joeys2t_torch.zoo``.
 """
 from pathlib import Path
 from typing import List, NamedTuple, Optional, Union
 
+import numpy as np
+
 from joeys2t_torch.config import (BaseConfig, TestConfig, _check_options, load_config,
                                   parse_global_args)
 from joeys2t_torch.data.datasets import BaseDataset, SpeechStreamDataset, StreamDataset
+from joeys2t_torch.plotting import plot_heatmap
 from joeys2t_torch.prediction import predict, prepare
 from joeys2t_torch.utils.logging import get_logger
 
@@ -123,6 +127,7 @@ class TranslatorHubInterface:
         if not isinstance(src, list):
             raise TypeError("Please provide a list of sentences!")
         kwargs["return_prob"] = "hyp" if trg is None else "ref"
+        kwargs["return_attention"] = True
         translations, tokens, probs, attn, test_cfg = self._generate(src, trg, **kwargs)
         n_best = test_cfg.get("n_best", 1)
         greedy = test_cfg.get("beam_size", 1) == 1
@@ -180,9 +185,27 @@ class TranslatorHubInterface:
         self.dataset.reset_cache()
         return translations, tokens, probs, attention_probs, test_cfg
 
-    def plot_attention(self, src: str, trg: str, attention_scores) -> None:
-        """Not ported: the port returns no attention yet."""
-        raise NotImplementedError("returned attention and its plots are not ported yet")
+    def plot_attention(self, src: str, trg: str, attention_scores):
+        """The attention heatmap of one (src, trg) pair, a matplotlib figure
+        (joeys2t_tpu/hub_interface.py:200-222): columns the source tokens
+        and eos (a speech source's: its subsampled frames' indices, as the
+        attention has them), rows the target's tokens and eos."""
+        self.dataset.reset_cache()
+        self.dataset.has_trg = True
+        self.dataset.set_item(src, trg)
+        speech = self.args.task == "S2T"
+        tokens, eos = {}, {}
+        for axis, lang in (("col", self.dataset.src_lang), ("row", self.dataset.trg_lang)):
+            if axis == "col" and speech:
+                continue
+            tokens[axis] = self.dataset.get_item(idx=0, lang=lang, is_train=False)
+            eos[axis] = getattr(self.dataset.tokenizer[lang], "eos_token", "</s>")
+        self.dataset.reset_cache()
+        scores = np.asarray(attention_scores)
+        columns = ([str(i) for i in range(scores.shape[1])] if speech
+                   else tokens["col"] + [eos["col"]])
+        return plot_heatmap(scores=scores, column_labels=columns,
+                            row_labels=tokens["row"] + [eos["row"]], output_path=None)
 
 
 def load_model_dir(model_dir: Union[str, Path], cfg_file: str = "config.yaml",

@@ -6,7 +6,9 @@ Evaluation metrics (counterpart of joeys2t_tpu/metrics.py: ``chrf`` :34,
 computes them itself, as sacrebleu's ``BLEU`` and ``CHRF`` classes do with
 the options of ``sacrebleu_cfg`` their constructors take (an option of the
 other metric is ignored; one of this metric that the port does not have
-raises ``NotImplementedError``): corpus BLEU over 13a or unsplit tokens
+raises ``NotImplementedError``): corpus BLEU over 13a, intl, zh, char or
+unsplit tokens (for a ``trg_lang`` of zh the zh tokenizer by default, as
+sacrebleu; ja and ko, whose defaults need MeCab, raise)
 with a brevity penalty and the smoothing methods none, floor, add-k and
 exp; chrF and chrF++ over character and word n-grams. WER is the
 corpus-level sum of token edit distances over the sum of reference lengths,
@@ -16,9 +18,11 @@ import math
 from collections import Counter
 from typing import Callable, Dict, List, Optional, Sequence
 
-from joeys2t_torch.tokenizers import tokenize_13a
+from joeys2t_torch.config import BLEU_DEFAULT_TOKENIZERS
+from joeys2t_torch.tokenizers import tokenize_13a, tokenize_intl, tokenize_zh
 
-_BLEU_TOKENIZERS = {"13a": tokenize_13a, "none": lambda line: line}
+_BLEU_TOKENIZERS = {"13a": tokenize_13a, "intl": tokenize_intl, "zh": tokenize_zh,
+                    "char": " ".join, "none": lambda line: line}
 _SMOOTH_DEFAULTS = {"none": None, "floor": 0.1, "add-k": 1, "exp": None}
 _PUNCTS = set("!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~")
 
@@ -42,12 +46,10 @@ def bleu(hypotheses: List[str], references: List[str], **sacrebleu_cfg) -> float
         smooth_value=None, max_ngram_order=4, effective_order=False, trg_lang=""))
     tokenize = opt["tokenize"]
     if tokenize is None:
-        if opt["trg_lang"] in ("zh", "ja", "ko"):
-            raise NotImplementedError(f"BLEU's default tokenizer for {opt['trg_lang']} is "
-                                      f"not ported yet")
-        tokenize = "13a"
+        tokenize = BLEU_DEFAULT_TOKENIZERS.get(opt["trg_lang"], "13a")
     if tokenize not in _BLEU_TOKENIZERS:
-        raise NotImplementedError(f"BLEU tokenizer {tokenize!r} is not ported yet")
+        raise NotImplementedError(f"BLEU tokenizer {tokenize!r} is not ported: it needs "
+                                  f"MeCab or a downloaded SentencePiece model")
     smooth_method, order = opt["smooth_method"], int(opt["max_ngram_order"])
     if smooth_method not in _SMOOTH_DEFAULTS:
         raise ValueError(f"Unknown smooth_method {smooth_method!r}")

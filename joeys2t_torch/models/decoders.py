@@ -177,14 +177,18 @@ class TransformerDecoder(nn.Module):
     def decode_step(self, trg_embed_t: torch.Tensor, index: int, cache: Dict,
                     beam_k: int = 1,
                     trg_prompt_embed_t: Optional[torch.Tensor] = None,
-                    ancestry: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    ancestry: Optional[torch.Tensor] = None,
+                    return_attention: bool = False):
         """One decode step at position ``index`` -> logits (B*beam_k, 1, V),
         or hidden states under the tied softmax, over a cache made with the
         same ``beam_k``; the self-attention caches are updated in place.
         ``trg_prompt_embed_t`` is the embedded prompt mask of this
         position; ``ancestry`` the (B, beam_k, max_len) int32 map of the
         lazy beam reorder, through which every layer's self-attention reads
-        (joeys2t_tpu/models/decoders.py:238-260)."""
+        (joeys2t_tpu/models/decoders.py:238-260). With ``return_attention``
+        it returns (logits, the last layer's cross-attention weights (B, 1,
+        S)), the other layers' cross-attention staying on the kernel, as in
+        JAX (:262-269)."""
         x = trg_embed_t + cache["pe"][index].to(trg_embed_t.dtype)
         if trg_prompt_embed_t is not None:
             x = x + trg_prompt_embed_t
@@ -193,7 +197,12 @@ class TransformerDecoder(nn.Module):
         self_bias = torch.full((x.shape[0], cache["pe"].shape[0]), NEG_INF,
                                dtype=torch.float32, device=x.device)
         self_bias[:, :index + 1] = 0.0
+        last, att = len(self.layers) - 1, None
         for i, layer in enumerate(self.layers):
             x = layer.decode_step(x, cache[f"layer_{i}"], index, self_bias,
-                                  cache["cross_bias"], beam_k, ancestry)
-        return self._project(self._final(x))
+                                  cache["cross_bias"], beam_k, ancestry,
+                                  return_attention and i == last)
+            if return_attention and i == last:
+                x, att = x
+        logits = self._project(self._final(x))
+        return (logits, att) if return_attention else logits

@@ -153,15 +153,21 @@ class Seq2SeqModel(nn.Module):
     def decode_step(self, prev_tokens: torch.Tensor, index: int, cache: Dict,
                     beam_k: int = 1,
                     trg_prompt_mask_t: Optional[torch.Tensor] = None,
-                    ancestry: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    ancestry: Optional[torch.Tensor] = None,
+                    return_attention: bool = False):
         """One KV-cached decode step -> logits (B*beam_k, 1, V) from
         ``prev_tokens`` (B*beam_k, 1), with the 0/1 prompt mask (B*beam_k, 1)
         of this position when decoding is forced; ``cache`` is updated in
         place. ``ancestry`` is the lazy beam reorder's (B, beam_k, S) map
-        (joeys2t_tpu/models/model.py:216-232)."""
+        (joeys2t_tpu/models/model.py:216-232). With ``return_attention``
+        it returns (logits, the last decoder layer's cross-attention (B, 1,
+        S))."""
         prompt = None if trg_prompt_mask_t is None else self.trg_embed(trg_prompt_mask_t)
-        return self._output_logits(self.decoder.decode_step(
-            self.trg_embed(prev_tokens), index, cache, beam_k, prompt, ancestry))
+        out = self.decoder.decode_step(self.trg_embed(prev_tokens), index, cache, beam_k,
+                                       prompt, ancestry, return_attention)
+        if return_attention:
+            return self._output_logits(out[0]), out[1]
+        return self._output_logits(out)
 
 
 def _embeddings(vocab, emb_cfg: Dict, dtype: torch.dtype) -> Embeddings:

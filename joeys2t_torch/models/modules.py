@@ -287,6 +287,10 @@ class MultiHeadedAttention(nn.Module):
         self.plain = False  # attention_impl: xla
         self.tp = None  # the model group of a tensor-parallel shard
 
+    # decode steps that returned their attention weights on the plain math
+    # (``step_cross(return_weights=True)``); tests and smoke runs reset it
+    weight_steps = 0
+
     def _split_heads(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, size) -> (B, T, H, Dh)"""
         return x.reshape(x.shape[0], x.shape[1], self.num_heads, self.head_size)
@@ -385,15 +389,41 @@ class MultiHeadedAttention(nn.Module):
     def step_cross(self, q: torch.Tensor, k_h: torch.Tensor, v_h: torch.Tensor,
                    bias: torch.Tensor, beam_k: int = 1,
                    k_scale: Optional[torch.Tensor] = None,
-                   v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   v_scale: Optional[torch.Tensor] = None, return_weights: bool = False):
         """One cross-attention decode step (B*K, 1, size) -> (B*K, 1, size)
         against the precomputed (B, H, S, Dh) K/V; ``bias`` (B, S) f32 is 0
         at valid source frames and NEG_INF at padding. With ``beam_k`` K > 1
         the K beams of each utterance share its cross cache, which is never
         expanded to B*K rows. int8 K/V come with (B, H, Dh) f32 scales, folded
-        in the "channel" layout."""
+        in the "channel" layout. With ``return_weights`` (greedy only) the
+        step takes the plain math instead of the decode-attention kernel,
+        as JAX's ``step_cross`` takes its einsum path there
+        (joeys2t_tpu/models/modules.py:461-470), and returns (output, the
+        heads' mean of the float32 attention probabilities (B, 1, S))."""
+        if return_weights:
+            return self._step_weights(q, k_h, v_h, bias, k_scale, v_scale)
         return self._step(q, k_h, v_h, bias, beam_k, k_scale, v_scale,
                           None if k_scale is None else "channel")
+
+    def _step_weights(self, q, k_h, v_h, bias, k_scale, v_scale):
+        """The decode kernel's plain math (``decode_attention_plain``:
+        float32 throughout, the context rounded once to the compute dtype)
+        with the probabilities kept; at float32 it is JAX's
+        ``_decode_einsum`` (joeys2t_tpu/models/modules.py:234-263), which in
+        bfloat16 rounds q and the weights to the compute dtype first."""
+        MultiHeadedAttention.weight_steps += 1
+        q_h = self._split_heads(dense(self.q_layer, q, self.dtype))[:, 0]  # (B, H, Dh)
+        qf = q_h.float() / math.sqrt(self.head_size)
+        if k_scale is not None:
+            qf = qf * k_scale.float()
+        scores = torch.einsum("bhd,bhsd->bhs", qf, k_h.float())
+        probs = torch.softmax(scores + bias.float()[:, None, :], dim=-1)
+        ctx = torch.einsum("bhs,bhsd->bhd", probs, v_h.float())
+        if v_scale is not None:
+            ctx = ctx * v_scale.float()
+        out = dense(self.output_layer, ctx.to(self.dtype).reshape(q.shape[0], 1, self.size),
+                    self.dtype)
+        return out, probs.mean(dim=1, keepdim=True)
 
     def _step(self, q, k_h, v_h, bias, group=1, k_scale=None, v_scale=None, layout=None,
               ancestry=None):
@@ -632,8 +662,8 @@ class TransformerDecoderLayer(nn.Module):
 
     def decode_step(self, x: torch.Tensor, cache: dict, index: int,
                     self_bias: torch.Tensor, cross_bias: torch.Tensor,
-                    beam_k: int = 1, ancestry: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    beam_k: int = 1, ancestry: Optional[torch.Tensor] = None,
+                    return_attention: bool = False):
         """Single decode step (B*K, 1, size) -> (B*K, 1, size) with the
         cached self K/V (B*K rows) and cross K/V (B rows, shared by the K
         beams of an utterance) and their additive biases, int8 with their
@@ -641,7 +671,9 @@ class TransformerDecoderLayer(nn.Module):
         cache is updated in place. With the (B, K, S) ``ancestry`` map the
         self-attention reads each beam's history through it
         (``step_self_ancestry``) instead of from a physically reordered
-        cache."""
+        cache. With ``return_attention`` it returns (output, the
+        cross-attention weights (B, 1, S)) (``step_cross``'s
+        ``return_weights``)."""
         pre = self.layer_norm_position == "pre"
         residual = x
         if pre:
@@ -659,11 +691,15 @@ class TransformerDecoderLayer(nn.Module):
             h1 = layer_norm(self.dec_layer_norm, h1, self.dtype)
         h2 = self.src_trg_att.step_cross(h1, cache["cross_k"], cache["cross_v"],
                                          cross_bias, beam_k, cache.get("cross_k_scale"),
-                                         cache.get("cross_v_scale"))
+                                         cache.get("cross_v_scale"), return_attention)
+        att = None
+        if return_attention:
+            h2, att = h2
         h2 = h2 + self.alpha * h1_residual
         if not pre:
             h2 = layer_norm(self.dec_layer_norm, h2, self.dtype)
-        return self.feed_forward(h2)
+        out = self.feed_forward(h2)
+        return (out, att) if return_attention else out
 
 
 class _Pointwise(nn.Module):

@@ -13,9 +13,11 @@ pads them, because the last valid outputs of the conv subsampler read those
 frames; rows are not padded to ``batch_size`` (eager PyTorch has no
 compiled shapes to reuse, and a padding row changes no real row). The
 decode side is cast to the compute dtype once per call. ``test`` and
-``translate`` refuse the options not ported yet (attention plots,
-``--save-attention``, and the rest that ``config.check_ported`` names)
-before loading any data.
+``translate`` refuse the sacrebleu tokenizers the port lacks (``config.check_ported``)
+before loading any data. Returned attention comes back in dataset order
+beside the hypotheses (greedy transformer decoding with
+``return_attention``, and every recurrent greedy decode, as in JAX), and
+``test``'s ``save_attention`` plots it (``plotting.store_attention_plots``).
 
 In a data-parallel run (``_eval_shard_info``, ``_merge_sharded_eval``, JAX
 :59-130) every rank makes the same batches, decodes the ones it owns
@@ -49,6 +51,7 @@ from joeys2t_torch.metrics import bleu, chrf, sequence_accuracy, token_accuracy,
 from joeys2t_torch.models import build_model
 from joeys2t_torch.models.embeddings import load_pretrained_embeddings, merge_pretrained
 from joeys2t_torch.parallel import distributed
+from joeys2t_torch.plotting import store_attention_plots
 from joeys2t_torch.search import _cast_params_to_compute_dtype, search
 from joeys2t_torch.tokenizers import EvaluationTokenizer
 from joeys2t_torch.utils.logging import get_logger
@@ -81,8 +84,8 @@ def _eval_loss(model, loss_fn, batch: Batch, device: torch.device, return_log_pr
 def _eval_shard_info(args: TestConfig) -> Optional[Tuple[int, int]]:
     """(world size, rank) when the ranks of a data-parallel run share the
     batches out, else None (no process group, or ``return_prob: ref``,
-    which decodes nothing and scores the whole set on every rank; returned
-    attention is not ported)."""
+    which decodes nothing and scores the whole set on every rank, or
+    ``return_attention``, which decodes it all too, as JAX does)."""
     if distributed.in_group() and not args.return_attention and args.return_prob != "ref":
         return distributed.data_world(), distributed.data_rank()
     return None
@@ -170,7 +173,7 @@ def predict(model, spec, data, loss_fn=None, compute_loss: bool = False,
         reverse_index = raw_batch.sort_by_src_length()
         sort_reverse_index = expand_reverse_index(reverse_index, args.n_best)
         batch = raw_batch.pad_to_shape(batch_size=nseqs)
-        output, ref_scores, hyp_scores = None, None, None
+        output, ref_scores, hyp_scores, attention = None, None, None, None
 
         if compute_loss and batch.has_trg:
             return_lp = args.return_prob == "ref"
@@ -184,7 +187,7 @@ def predict(model, spec, data, loss_fn=None, compute_loss: bool = False,
             total_ntokens += batch.ntokens
 
         if args.return_prob != "ref":
-            output, hyp_scores, _ = search(
+            output, hyp_scores, attention = search(
                 model, spec, batch, max_output_length=args.max_output_length,
                 beam_size=args.beam_size, beam_alpha=args.beam_alpha, n_best=args.n_best,
                 device=device, decode_model=decode_model, stats=stats,
@@ -196,6 +199,8 @@ def predict(model, spec, data, loss_fn=None, compute_loss: bool = False,
                 beam_reorder=args.beam_reorder)
 
         all_outputs.extend(np.asarray(output)[sort_reverse_index])
+        if attention is not None:
+            valid_attn_scores.extend(attention[sort_reverse_index])
         if ref_scores is not None:
             valid_seq_scores.extend(ref_scores[reverse_index])
         elif hyp_scores is not None:
@@ -214,6 +219,7 @@ def predict(model, spec, data, loss_fn=None, compute_loss: bool = False,
         all_outputs, valid_seq_scores, (total_loss, total_ntokens, total_n_correct) = \
             _merge_sharded_eval(all_outputs, valid_seq_scores, batch_rows, shard,
                                 [total_loss, total_ntokens, total_n_correct])
+        valid_attn_scores = []  # a recurrent decoder's, of this rank's rows only
     if total_nseqs != num_samples or len(all_outputs) != num_samples * args.n_best:
         raise RuntimeError(f"decoded {len(all_outputs)} of {num_samples} examples")
 
@@ -359,7 +365,14 @@ def test(cfg: Dict, output_path: Optional[str] = None, prepared: Optional[Dict] 
     write ``<output_path>.{dev,test}`` (joeynmt/prediction.py:524-635); the
     ranks of a data-parallel run share the batches out and rank 0 writes."""
     args = parse_global_args(cfg, rank=distributed.rank(), mode="test")
-    check_ported(args, save_attention=save_attention)
+    check_ported(args)
+    if save_attention:
+        if (args.model.get("decoder", {}).get("type", "transformer") == "transformer"
+                and args.test.beam_size != 1):
+            raise ValueError("Attention plots can be saved with greedy decoding only. "
+                             "Please set `beam_size: 1` in the config.")
+        args = dataclasses.replace(args, test=dataclasses.replace(args.test,
+                                                                  return_attention=True))
     if prepared is None:
         model, spec, loss_fn, _, dev_data, test_data = prepare(
             args, rank=distributed.rank(), mode="test")
@@ -384,12 +397,25 @@ def test(cfg: Dict, output_path: Optional[str] = None, prepared: Optional[Dict] 
         logger.info("%s on %s set...",
                     "Scoring" if args.test.return_prob == "ref" else "Decoding",
                     data_set_name)
-        _, _, hypotheses, hypotheses_raw, seq_scores, _ = predict(
+        _, _, hypotheses, hypotheses_raw, seq_scores, att_scores = predict(
             prepared["model"], prepared["spec"], data_set, loss_fn=prepared["loss_fn"],
             compute_loss=args.test.return_prob == "ref",
             normalization=args.train.normalization, num_workers=args.num_workers,
             args=args.test)
         if output_path is not None and distributed.is_main():
+            if save_attention and att_scores:
+                attention_file_name = f"{output_path}.{data_set_name}.att"
+                logger.info("Saving attention plots. This might take a while..")
+                store_attention_plots(
+                    attentions=att_scores, targets=hypotheses_raw,
+                    sources=data_set.get_list(lang=data_set.src_lang, tokenized=True),
+                    indices=range(len(hypotheses) if hypotheses else 0),
+                    output_prefix=attention_file_name)
+                logger.info("Attention plots saved to: %s", attention_file_name)
+            elif save_attention:
+                logger.warning("Attention scores could not be saved. Note that attention "
+                               "scores are not available when using beam search. Set "
+                               "beam_size to 1 for greedy decoding.")
             if save_scores and seq_scores is not None:
                 write_list_to_file(Path(f"{output_path}.{data_set_name}.scores"),
                                    seq_scores)

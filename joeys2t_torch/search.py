@@ -26,8 +26,16 @@ scales) where they were written and keep a (B, K, S) ancestry map of which
 row holds each position of each beam's history, which every layer's
 self-attention reads through (``step_self_ancestry``; on the card the
 decode-attention kernel's ancestry mode); ``physical`` reorders the buffers
-after each selection. The two are the same math. Returned attention is not
-ported yet and raises.
+after each selection. The two are the same math.
+
+Returned attention (``return_attention``, greedy only, as in JAX): the
+transformer loop fills a (B, L+1, S) float32 buffer with the last decoder
+layer's cross-attention, averaged over the heads, a finished row's zeroed
+(JAX's ``_transformer_greedy_jit`` :121-233). That layer's cross-attention
+takes the decode kernel's plain math at every step, the other layers' the
+kernel, as JAX's ``step_cross`` routes them to its einsum path and its
+kernel. The recurrent greedy loop returns its
+attention whether asked or not, as JAX's does; beam search returns none.
 
 Recurrent decoders (``recurrent_greedy`` :305, ``_recurrent_beam_search``
 :613) carry (state, attentional vector) from step to step on the device
@@ -186,12 +194,10 @@ def _prompt_arrays(decoder_prompt, trg_prompt_mask, rows: int, l1: int, pad: int
 
 
 def _check_search_args(device: torch.device, tensors: Dict, kwargs: Dict) -> None:
-    """Raise for inputs off ``device`` and for search options not ported."""
+    """Raise for inputs off ``device`` and for an unknown ``beam_reorder``."""
     for name, t in tensors.items():
         if t.device.type != device.type:
             raise ValueError(f"{name} is on {t.device}, the search runs on {device}")
-    if kwargs.get("return_attention", False):
-        raise NotImplementedError("search options not ported yet: ['return_attention']")
     reorder = kwargs.get("beam_reorder", "auto")
     if reorder not in ("auto", "lazy", "physical"):
         raise ValueError(f"beam_reorder must be auto, lazy or physical, got {reorder!r}")
@@ -229,8 +235,10 @@ def _transformer_greedy(model: Seq2SeqModel, spec: ModelSpec,
                         generate_unk: bool = True, return_prob: bool = False,
                         repetition_penalty: float = -1.0, no_repeat_ngram_size: int = -1,
                         encoder_input: Optional[torch.Tensor] = None,
-                        decoder_prompt=None, trg_prompt_mask=None):
-    """Greedy loop; returns (ys incl BOS (B, L+1), scores (B, L+1), steps run)."""
+                        decoder_prompt=None, trg_prompt_mask=None,
+                        return_attention: bool = False):
+    """Greedy loop; returns (ys incl BOS (B, L+1), scores (B, L+1), the
+    attention (B, L+1, S) or None, steps run)."""
     b = encoder_output.shape[0]
     device = encoder_output.device
     l1 = max_output_length + 1
@@ -238,6 +246,8 @@ def _transformer_greedy(model: Seq2SeqModel, spec: ModelSpec,
     ys = torch.full((b, l1), spec.pad_index, dtype=torch.long, device=device)
     ys[:, 0] = spec.bos_index
     yv = torch.zeros((b, l1), dtype=torch.float32, device=device)
+    yt = (torch.zeros((b, l1, src_mask.shape[-1]), dtype=torch.float32, device=device)
+          if return_attention else None)
     finished = torch.zeros((b,), dtype=torch.bool, device=device)
     banned = _banned_ids(spec, spec.trg_vocab_size, generate_unk, device)
     exclude = _exclude_ids(spec, device)
@@ -251,7 +261,11 @@ def _transformer_greedy(model: Seq2SeqModel, spec: ModelSpec,
     while step < max_output_length:
         logits = model.decode_step(ys[:, step:step + 1], step, cache,
                                    trg_prompt_mask_t=None if pm is None
-                                   else pm[:, step:step + 1])
+                                   else pm[:, step:step + 1],
+                                   return_attention=return_attention)
+        if return_attention:
+            logits, att = logits
+            yt[:, step + 1] = torch.where(finished[:, None], zero, att[:, 0].float())
         log_probs = logits[:, 0].float()
         if softmax:
             log_probs = _history_controls(torch.log_softmax(log_probs, dim=-1), ys, step,
@@ -272,7 +286,7 @@ def _transformer_greedy(model: Seq2SeqModel, spec: ModelSpec,
         step += 1
         if bool(finished.all()):
             break
-    return ys, yv, step
+    return ys, yv, yt, step
 
 
 def _exclude_ids(spec: ModelSpec, device: torch.device) -> torch.Tensor:
@@ -314,23 +328,25 @@ def transformer_greedy(model: Seq2SeqModel, spec: ModelSpec,
         ``encoder_input`` (B, S) source ids, and ``decoder_prompt`` with
         ``trg_prompt_mask`` (B, P), the forced prefix from bos on
     :return: (output ids (B, L) numpy, scores (B, L) numpy when
-        ``return_prob="hyp"`` else None, None)
+        ``return_prob="hyp"`` else None, the attention (B, L, S) float32
+        numpy when ``return_attention`` else None)
     """
     device = resolve_device(device)
     _check_search_args(device, {"encoder_output": encoder_output, "src_mask": src_mask,
                                 "model": next(model.parameters())}, kwargs)
     return_prob = kwargs.get("return_prob", "none") == "hyp"
     model = _cast_params_to_compute_dtype(model)
-    ys, yv, steps = _transformer_greedy(
+    ys, yv, yt, steps = _transformer_greedy(
         model, spec, encoder_output, src_mask, int(max_output_length),
         min_output_length=int(kwargs.get("min_output_length", 1)),
         generate_unk=bool(kwargs.get("generate_unk", True)), return_prob=return_prob,
+        return_attention=bool(kwargs.get("return_attention", False)),
         **_control_kwargs(kwargs, device))
     if stats is not None:
         stats["decode_steps"] = stats.get("decode_steps", 0) + steps
     output = ys[:, 1:].cpu().numpy()
     scores = yv[:, 1:].cpu().numpy() if return_prob else None
-    return output, scores, None
+    return output, scores, None if yt is None else yt[:, 1:].cpu().numpy()
 
 
 @torch.inference_mode()
@@ -339,7 +355,8 @@ def _recurrent_greedy(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torc
                       max_output_length: int, min_output_length: int = 1,
                       generate_unk: bool = True, return_prob: bool = False):
     """Greedy loop of a recurrent decoder (joeys2t_tpu/search.py:305-352);
-    returns (ids (B, steps), float64 scores (B, steps), steps run)."""
+    returns (ids (B, steps), float64 scores (B, steps), float32 attention
+    (B, steps, S), steps run)."""
     decoder = model.decoder
     encoder_output = encoder_output.float()
     b, device = encoder_output.shape[0], encoder_output.device
@@ -350,10 +367,13 @@ def _recurrent_greedy(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torc
     yv = torch.zeros((b, max_output_length), dtype=torch.float64, device=device)
     prev = torch.full((b, 1), spec.bos_index, dtype=torch.long, device=device)
     finished = torch.zeros((b,), dtype=torch.bool, device=device)
+    attention = []
     step = 0
     while step < max_output_length:
-        att_vector, carry, _ = decoder.step(model.trg_embed(prev), att_vector, carry,
-                                            proj_keys, encoder_output, src_mask)
+        att_vector, carry, att_probs = decoder.step(model.trg_embed(prev), att_vector,
+                                                    carry, proj_keys, encoder_output,
+                                                    src_mask)
+        attention.append(att_probs[:, 0].float())
         out = decoder.output_layer(att_vector)[:, 0].double()
         out[:, spec.bos_index] = -np.inf
         if return_prob:
@@ -367,7 +387,7 @@ def _recurrent_greedy(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torc
         step += 1
         if bool(finished.all()):
             break
-    return ys[:, :step], yv[:, :step], step
+    return ys[:, :step], yv[:, :step], torch.stack(attention, dim=1), step
 
 
 def greedy(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torch.Tensor,
@@ -376,7 +396,8 @@ def greedy(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torch.Tensor,
     """Greedy dispatch (joeynmt/search.py:21-61): a recurrent decoder's own
     loop from ``encoder_hidden``, or the transformer's KV-cached one.
     Returns (output ids (B, L) numpy, scores (B, L) numpy when
-    ``return_prob="hyp"`` else None, None)."""
+    ``return_prob="hyp"`` else None, the attention (B, L, S) numpy or None:
+    a recurrent decoder returns it always, as JAX's loop does)."""
     if not isinstance(model.decoder, RecurrentDecoder):
         return transformer_greedy(model, spec, encoder_output, src_mask,
                                   max_output_length, device=device, stats=stats, **kwargs)
@@ -384,13 +405,14 @@ def greedy(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torch.Tensor,
     _check_search_args(device, {"encoder_output": encoder_output, "src_mask": src_mask,
                                 "model": next(model.parameters())}, kwargs)
     return_prob = kwargs.get("return_prob", "none") == "hyp"
-    ys, yv, steps = _recurrent_greedy(
+    ys, yv, yt, steps = _recurrent_greedy(
         model, spec, encoder_output, encoder_hidden, src_mask, int(max_output_length),
         min_output_length=int(kwargs.get("min_output_length", 1)),
         generate_unk=bool(kwargs.get("generate_unk", True)), return_prob=return_prob)
     if stats is not None:
         stats["decode_steps"] = stats.get("decode_steps", 0) + steps
-    return ys.cpu().numpy(), yv.cpu().numpy() if return_prob else None, None
+    return (ys.cpu().numpy(), yv.cpu().numpy() if return_prob else None,
+            yt.cpu().numpy())
 
 
 def _stable_topk(x: torch.Tensor, k: int):
@@ -682,7 +704,8 @@ def search(model: Seq2SeqModel, spec: ModelSpec, batch: Batch, max_output_length
     from ``decode_model`` (``model`` with its decode side cast to the
     compute dtype) when the caller cast it once for many batches.
 
-    :return: (output ids (B*n_best, L), scores or None, None), numpy
+    :return: (output ids (B*n_best, L), scores or None, attention (B, L, S)
+        of a greedy decode or None), numpy
     """
     device = resolve_device(device)
     mt = batch.task == "MT"

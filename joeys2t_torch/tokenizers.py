@@ -23,14 +23,20 @@ a word-level hypothesis is detokenized from its pieces, a subword one
 from its joined text (:96-97, :161, :231, :286). It needs ``sacremoses``
 only when it is asked for.
 
-``EvaluationTokenizer`` carries its own ``13a`` and ``none`` tokenizers,
-the behaviour of sacrebleu's (the mteval-v13a regexes), so the port needs
-no sacrebleu. Not ported yet, each raising ``NotImplementedError``: the
-``intl``, ``zh`` and ``ja-mecab`` evaluation tokenizers.
+``EvaluationTokenizer`` carries its own ``13a``, ``intl``, ``zh`` and
+``none`` tokenizers, the behaviour of sacrebleu 2.x's, so the port needs no
+sacrebleu: ``13a`` the mteval-v13a regexes; ``intl`` the mteval-v14
+international rules (punctuation split off a non-digit neighbour, symbols
+split off), over ``unicodedata``'s general categories where sacrebleu asks
+the ``regex`` package for the classes P, S and N; ``zh``
+every Chinese character spaced apart (sacrebleu's code-point ranges,
+compared as it compares them) before the 13a regexes. ``ja-mecab`` needs
+MeCab and raises ``NotImplementedError``.
 """
 import random
 import re
 import shutil
+import unicodedata
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Union
 
@@ -367,18 +373,75 @@ def tokenize_13a(line: str) -> str:
     if "&" in line:
         line = (line.replace("&quot;", '"').replace("&amp;", "&")
                 .replace("&lt;", "<").replace("&gt;", ">"))
-    line = f" {line} "
+    return _post_13a(f" {line} ")
+
+
+def _post_13a(line: str) -> str:
+    """sacrebleu's ``TokenizerRegexp``: the 13a regexes, single spaces."""
     for rule, repl in _13A_RULES:
         line = rule.sub(repl, line)
     return " ".join(line.split())
 
 
-_EVAL_TOKENIZERS = {"13a": tokenize_13a, "none": lambda line: line}
+def _split_pairs(line: str, hit: Callable[[str, str], bool], repl: str) -> str:
+    """``re.sub`` of a two-character pattern ``(a)(b)`` that ``hit``
+    accepts, with ``repl`` over ``{a}`` and ``{b}``: scanned left to right,
+    matches do not overlap."""
+    out, i = [], 0
+    while i < len(line):
+        if i + 1 < len(line) and hit(line[i], line[i + 1]):
+            out.append(repl.format(a=line[i], b=line[i + 1]))
+            i += 2
+        else:
+            out.append(line[i])
+            i += 1
+    return "".join(out)
+
+
+def _category(ch: str) -> str:
+    return unicodedata.category(ch)[0]
+
+
+def tokenize_intl(line: str) -> str:
+    """sacrebleu's ``intl`` tokenization (mteval-v14's international
+    rules) of one line."""
+    line = _split_pairs(line, lambda a, b: _category(a) != "N" and _category(b) == "P",
+                        "{a} {b} ")
+    line = _split_pairs(line, lambda a, b: _category(a) == "P" and _category(b) != "N",
+                        " {a} {b}")
+    line = "".join(f" {ch} " if _category(ch) == "S" else ch for ch in line)
+    return " ".join(line.split())
+
+
+# sacrebleu's Chinese ranges as it writes them: two of the bounds are two
+# characters long ("\u20000" is U+2000 then "0"), and a character counts
+# when it compares between the strings
+_ZH_RANGES = [
+    ("\u3400", "\u4db5"), ("\u4e00", "\u9fa5"), ("\u9fa6", "\u9fbb"), ("\uf900", "\ufa2d"),
+    ("\ufa30", "\ufa6a"), ("\ufa70", "\ufad9"), ("\u20000", "\u2a6d6"),
+    ("\u2f800", "\u2fa1d"), ("\uff00", "\uffef"), ("\u2e80", "\u2eff"), ("\u3000", "\u303f"),
+    ("\u31c0", "\u31ef"), ("\u2f00", "\u2fdf"), ("\u2ff0", "\u2fff"), ("\u3100", "\u312f"),
+    ("\u31a0", "\u31bf"), ("\ufe10", "\ufe1f"), ("\ufe30", "\ufe4f"), ("\u2600", "\u26ff"),
+    ("\u2700", "\u27bf"), ("\u3200", "\u32ff"), ("\u3300", "\u33ff"),
+]
+
+
+def tokenize_zh(line: str) -> str:
+    """sacrebleu's ``zh`` tokenization of one line: each Chinese character
+    spaced apart, then the 13a regexes."""
+    spaced = "".join(f" {ch} " if any(lo <= ch <= hi for lo, hi in _ZH_RANGES) else ch
+                     for ch in line.strip())
+    return _post_13a(spaced)
+
+
+_EVAL_TOKENIZERS = {"13a": tokenize_13a, "intl": tokenize_intl, "zh": tokenize_zh,
+                    "none": lambda line: line}
 
 
 class EvaluationTokenizer(BasicTokenizer):
-    """Evaluation tokenization for WER: ``13a`` or ``none``, then optional
-    lowercasing and removal of punctuation-only tokens."""
+    """Evaluation tokenization for WER: ``13a``, ``intl``, ``zh`` or
+    ``none``, then optional lowercasing and removal of punctuation-only
+    tokens."""
 
     ALL_TOKENIZER_TYPES = ["none", "13a", "intl", "zh", "ja-mecab"]
 
@@ -389,7 +452,7 @@ class EvaluationTokenizer(BasicTokenizer):
             raise ConfigurationError(f"`{tokenize}` not supported.")
         if tokenize not in _EVAL_TOKENIZERS:
             raise NotImplementedError(f"the `{tokenize}` evaluation tokenizer is not "
-                                      f"ported yet")
+                                      f"ported: it needs MeCab")
         self.tokenize = tokenize
         self.tokenizer = _EVAL_TOKENIZERS[tokenize]
         self.no_punc = kwargs.get("no_punc", False)

@@ -1,1 +1,2 @@
-"""Measurement tools for the port, run on a CUDA card."""
+"""The port's tools: checkpoint averaging, test fixtures, and measurements run on
+a CUDA card."""

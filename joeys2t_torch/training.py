@@ -45,8 +45,31 @@ exchange in a data-parallel run); device metrics are read at the logging
 and validation boundaries only. Schedulers step where the JAX loop steps
 them: per update, per epoch (:694-696) or per validation (:916-918).
 Validation decodes greedily. ``load_encoder``/``load_decoder`` initialize
-the encoder or decoder from another checkpoint (``init_layers`` :630). Not
-ported yet: profiling, a TensorBoard writer, attention plots and ``freeze``.
+the encoder or decoder from another checkpoint (``init_layers`` :630).
+
+``freeze: True`` on the encoder, the decoder or either side's embeddings
+(JAX's ``frozen_prefixes`` :174 and ``_freeze_mask`` :187) holds the
+parameters under that top-level name (``encoder``, ``decoder``,
+``src_embed``, ``trg_embed``: the CTC head is the decoder's, a tied table
+is ``trg_embed``'s) where they are. As in JAX, which masks their update to
+zero after the clip and the optimizer (:280-287), they keep their
+gradients, which count in the global-norm clip, and their optimizer state
+moves; the trainer puts their values back after each update, so weight
+decay does not move them either.
+
+Rank 0 writes TensorBoard scalars (the training loss, accuracy and rate at
+each logging step, the validation scores) and the validation's attention
+plots to ``model_dir/tensorboard`` through tensorboardX's or
+``torch.utils.tensorboard``'s ``SummaryWriter``, whichever imports, and
+none when neither does (:263-270, :911, :1007-1015). A validation that
+returns attention (a recurrent decoder's always, a transformer's with
+``return_attention``) plots the ``print_valid_sents`` examples to
+``att.<step>.<i>.png`` (:939-946). ``profile_dir`` (or the
+``JOEYS2T_PROFILE_DIR`` environment variable, which overrides it) records a
+``torch.profiler`` window from the update ``JOEYS2T_PROFILE_WINDOW`` names
+first to the one it names last ("10,20" by default; :670-685, :760-767) and
+writes it as a Chrome trace ``trace.<first>-<last>.json`` under the
+directory.
 
 Tensor parallelism (``training: model_parallel``; JAX's (data, model) mesh,
 :240-254, :340-364): the world splits into model groups of
@@ -78,7 +101,9 @@ so validation, ``test`` and checkpoints run as without it. The stages'
 layers draw their dropout from a generator of the stage's own.
 """
 import contextlib
+import importlib
 import math
+import os
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
@@ -100,13 +125,83 @@ from joeys2t_torch.models.decoders import TransformerDecoder
 from joeys2t_torch.models.encoders import ConformerEncoder, TransformerEncoder
 from joeys2t_torch.models.modules import MoEFeedForward, set_dropout_generator
 from joeys2t_torch.optim import (GlobalNormClipper, build_gradient_clipper, build_optimizer,
-                                 build_scheduler, get_learning_rate, set_learning_rate)
+                                 build_scheduler, get_learning_rate, set_learning_rate,
+                                 state_split_dim)
 from joeys2t_torch.parallel import distributed, tp
 from joeys2t_torch.parallel.pp import PipePlan, pipeline_apply
+from joeys2t_torch.plotting import store_attention_plots
 from joeys2t_torch.prediction import predict, prepare, test
 from joeys2t_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
+
+
+def frozen_prefixes(model_cfg: Dict) -> set:
+    """The top-level parameter names that ``freeze: True`` in the model
+    config holds (joeys2t_tpu/training.py:174-184)."""
+    frozen = set()
+    enc, dec = model_cfg.get("encoder", {}), model_cfg.get("decoder", {})
+    if enc.get("freeze", False):
+        frozen.add("encoder")
+    if dec.get("freeze", False):
+        frozen.add("decoder")
+    if enc.get("embeddings", {}).get("freeze", False):
+        frozen.add("src_embed")
+    if dec.get("embeddings", {}).get("freeze", False):
+        frozen.add("trg_embed")
+    return frozen
+
+
+def _tensorboard_writer(log_dir: Path):
+    """A TensorBoard ``SummaryWriter`` into ``log_dir``: tensorboardX's, or
+    ``torch.utils.tensorboard``'s, or None when neither imports (an
+    optional dependency, as in JAX)."""
+    for module in ("tensorboardX", "torch.utils.tensorboard"):
+        try:
+            return importlib.import_module(module).SummaryWriter(log_dir=str(log_dir))
+        except Exception:  # pylint: disable=broad-except
+            continue
+    return None
+
+
+class ProfileWindow:
+    """A ``torch.profiler`` trace of the updates after update ``first`` up
+    to update ``last`` (JAX's ``jax.profiler`` window), written as
+    ``<directory>/trace.<first>-<last>.json``."""
+
+    def __init__(self, directory, first: int, last: int, device: torch.device):
+        self.directory, self.first, self.last = Path(directory), first, last
+        self.device = device
+        self.profiler = None
+
+    @classmethod
+    def from_config(cls, profile_dir, device) -> Optional["ProfileWindow"]:
+        directory = os.environ.get("JOEYS2T_PROFILE_DIR") or profile_dir
+        if not directory:
+            return None
+        first, last = (int(v) for v in
+                       os.environ.get("JOEYS2T_PROFILE_WINDOW", "10,20").split(","))
+        return cls(directory, first, last, device)
+
+    def after_update(self, steps: int) -> None:
+        """Start the trace after update ``first``, write it after ``last``."""
+        from torch.profiler import ProfilerActivity, profile
+
+        if steps == self.first and self.profiler is None:
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self.profiler = profile(activities=activities)
+            self.profiler.__enter__()
+        elif steps == self.last and self.profiler is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.profiler.__exit__(None, None, None)
+            self.directory.mkdir(parents=True, exist_ok=True)
+            path = self.directory / f"trace.{self.first}-{self.last}.json"
+            self.profiler.export_chrome_trace(str(path))
+            logger.info("Profiler trace written to %s", path)
+            self.profiler = None
 
 
 def _sum_gradients(group, bucket):
@@ -128,9 +223,6 @@ class TrainManager:
                  model_dir: Optional[Path] = None, task: str = "S2T",
                  dev_args: Optional[TestConfig] = None, num_workers: int = 0):
         self.device = resolve_device(device)
-        sides = [(model_cfg or {}).get(side, {}) for side in ("encoder", "decoder")]
-        if any(s.get("freeze") or s.get("embeddings", {}).get("freeze") for s in sides):
-            raise NotImplementedError("`freeze` is not ported yet")
         self.model = model
         self.spec = spec
         self.loss_fn = loss_fn
@@ -168,7 +260,21 @@ class TrainManager:
                          and dim is None and ".layers." in f".{n}"
                          for (n, _), dim in zip(named, self._split)]
         self.clipper = build_gradient_clipper(self.args.__dict__)
-        self.optimizer = build_optimizer(self.args.__dict__, self.params)
+        shard_dims = {p: dim for p, dim in zip(self.params, self._split) if dim is not None}
+        self.optimizer = build_optimizer(
+            self.args.__dict__, self.params, shard_dims=shard_dims,
+            shard_group=None if self.tp is None else self.tp.group,
+            shard_world=1 if self.tp is None else self.tp.world)
+        # the whole parameters' shapes, to gather a tensor-parallel state
+        whole = dict(model.named_parameters())
+        self._whole_shapes = [tuple(whole[n].shape) for n in self._names]
+        frozen = frozen_prefixes(model_cfg or {})
+        self._frozen = [p for n, p in named if n.split(".")[0] in frozen]
+        if frozen:
+            logger.info("Frozen parameter groups: %s", sorted(frozen))
+        self.tb_writer = (_tensorboard_writer(self.model_dir / "tensorboard")
+                          if self.model_dir is not None and distributed.is_main() else None)
+        self.profile_window = ProfileWindow.from_config(train_args.profile_dir, self.device)
         self.scheduler, self.scheduler_step_at = build_scheduler(
             cfg=self.args.__dict__,
             scheduler_mode="min" if self.args.minimize_metric else "max",
@@ -438,7 +544,11 @@ class TrainManager:
             self.clipper(grads, [self._split[i] is not None for i in live], self.tp.group)
         elif self.clipper is not None:
             self.clipper(grads)
-        self.optimizer.step()
+        with torch.no_grad():
+            kept = [p.clone() for p in self._frozen]
+            self.optimizer.step()
+            for p, value in zip(self._frozen, kept):
+                p.copy_(value)
         self.optimizer.zero_grad(set_to_none=True)
 
     def reduce_gradients(self) -> None:
@@ -540,20 +650,27 @@ class TrainManager:
             return state
         full = {}
         for idx, st in state["state"].items():
-            dim = self._split[idx]
-            full[idx] = dict(st) if dim is None else {
-                k: (tp.gather_along(v, dim, self.tp)
-                    if torch.is_tensor(v) and v.dim() else v) for k, v in st.items()}
+            dims = self._state_dims(idx, st)
+            full[idx] = {k: v if dims[k] is None else tp.gather_along(v, dims[k], self.tp)
+                         for k, v in st.items()}
         return dict(state, state=full)
+
+    def _state_dims(self, idx: int, st: Dict) -> Dict[str, Optional[int]]:
+        """The dim along which each optimizer state entry of parameter
+        ``idx`` is split over the model group, or None where every rank
+        holds it whole."""
+        dim = self._split[idx]
+        return {k: None if dim is None else state_split_dim(
+            self.optimizer, k, v, dim, self._whole_shapes[idx]) for k, v in st.items()}
 
     def _load_optimizer_state(self, state: Dict) -> None:
         if self.tp is not None:
             shards = {}
             for idx, st in state["state"].items():
-                dim = self._split[idx]
-                shards[idx] = dict(st) if dim is None else {
-                    k: (v.chunk(self.tp.world, dim)[self.tp.rank].clone()
-                        if torch.is_tensor(v) and v.dim() else v) for k, v in st.items()}
+                dims = self._state_dims(idx, st)
+                shards[idx] = {k: v if dims[k] is None else
+                               v.chunk(self.tp.world, dims[k])[self.tp.rank].clone()
+                               for k, v in st.items()}
             state = dict(state, state=shards)
         self.optimizer.load_state_dict(state)
 
@@ -682,6 +799,8 @@ class TrainManager:
                     if out["stepped"]:
                         pending.append((self.stats.steps, micro_metrics))
                         micro_metrics = []
+                        if self.profile_window is not None:
+                            self.profile_window.after_update(self.stats.steps)
                         if self.stats.steps % self.args.logging_freq == 0:
                             losses_sum, last_loss = self._sync_pending_metrics(pending)
                             epoch_loss += losses_sum
@@ -729,6 +848,8 @@ class TrainManager:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         loop_end = time.time()
+        if self.tb_writer is not None:
+            self.tb_writer.flush()
         self._save_checkpoint(False, float("nan"))
         train_wall = loop_end - loop_start - valid_time
         updates = self.stats.steps - updates_before
@@ -748,13 +869,19 @@ class TrainManager:
         reports."""
         self._sync_model()
         try:
-            valid_scores, valid_references, valid_hypotheses, _, _, _ = predict(
+            (valid_scores, valid_references, valid_hypotheses, valid_hypotheses_raw, _,
+             valid_attention_scores) = predict(
                 self.model.to(self.device), self.spec, valid_data, loss_fn=self.loss_fn,
                 compute_loss=True, normalization=self.args.normalization,
                 args=self.dev_cfg, device=self.device)
         finally:
             if self.tp is not None:
                 self.model.cpu()
+        if self.tb_writer is not None:
+            for eval_metric, score in valid_scores.items():
+                if not math.isnan(score):
+                    self.tb_writer.add_scalar(f"valid/{eval_metric}", score,
+                                              self.stats.steps)
         ckpt_score = valid_scores[self.args.early_stopping_metric]
         if self.scheduler_step_at == "validation":
             set_learning_rate(self.optimizer, self.scheduler.step_metric(ckpt_score))
@@ -774,6 +901,14 @@ class TrainManager:
                                data=valid_data)
             write_list_to_file(self.model_dir / f"{self.stats.steps}.hyps",
                                valid_hypotheses)
+            if valid_attention_scores:
+                store_attention_plots(
+                    attentions=valid_attention_scores, targets=valid_hypotheses_raw,
+                    sources=valid_data.get_list(lang=valid_data.src_lang, tokenized=True,
+                                                subsampled=True),
+                    indices=self.args.print_valid_sents,
+                    output_prefix=(self.model_dir / f"att.{self.stats.steps}").as_posix(),
+                    tb_writer=self.tb_writer, steps=self.stats.steps)
 
     def _add_report(self, valid_scores: Dict, new_best: bool = False) -> None:
         """One line of ``validations.txt`` (joeynmt/training.py:687-702)."""
@@ -819,6 +954,13 @@ class TrainManager:
         elapsed_tok = self.stats.total_tokens - start_tokens
         elapsed_correct = self.stats.total_correct - start_correct
         current_lr = self.current_lr
+        if self.tb_writer is not None:
+            steps = self.stats.steps
+            self.tb_writer.add_scalar("train/batch_loss", total_batch_loss, steps)
+            if elapsed_tok > 0:
+                self.tb_writer.add_scalar("train/batch_acc", elapsed_correct / elapsed_tok,
+                                          steps)
+            self.tb_writer.add_scalar("train/learning_rate", current_lr, steps)
         if current_lr < self.args.learning_rate_min:
             self.stats.is_min_lr = True
         logger.info("Epoch %3d, Step: %8d, Batch Loss: %12.6f, Batch Acc: %.6f, "

@@ -209,16 +209,19 @@ def test_loop_steps_schedulers_where_jax_does(trained, tmp_path, scheduling, ste
 
 
 @pytest.mark.parametrize("section,option", [
-    ("testing", {"beam_reorder": "lazy", "return_attention": True}),
-    ("testing", {"return_attention": True}),
-    ("testing", {"return_attention": True, "repetition_penalty": 1.2}),
-    ("training", {"profile_dir": "profile"}),
-    ("training", {"optimizer": "rmsprop"})])
+    ("testing", {"sacrebleu_cfg": {"tokenize": "ja-mecab"}}),
+    ("testing", {"eval_metrics": ["bleu"], "sacrebleu_cfg": {"tokenize": None,
+                                                             "trg_lang": "ja"}}),
+    ("testing", {"eval_metrics": ["bleu"], "sacrebleu_cfg": {"tokenize": None,
+                                                             "trg_lang": "ko"}}),
+    ("testing", {"sacrebleu_cfg": {"tokenize": "spm"}}),
+    ("testing", {"sacrebleu_cfg": {"tokenize": "flores200"}})])
 @pytest.mark.parametrize("mode", ["train", "test", "translate"])
 def test_runs_refuse_unported_options_before_loading_data(tmp_path, mode, section,
                                                           option):
-    """An option the port does not have stops ``train``, ``test`` and
-    ``translate`` at once: here the data does not even exist."""
+    """An option the port does not have (a sacrebleu tokenizer that needs
+    MeCab or a downloaded SentencePiece model) stops ``train``, ``test``
+    and ``translate`` at once: here the data does not even exist."""
     from joeys2t_torch.prediction import test, translate
     from joeys2t_torch.training import train
 

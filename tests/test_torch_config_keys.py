@@ -10,11 +10,13 @@ optim.py, tokenizers.py, data/*.py): the string constant of a ``.get``,
 left side of an ``in`` test. The port's are found the same way over every
 module of joeys2t_torch. A few of JAX's names are not configuration keys
 (``NOT_CONFIG``); one is read under a computed name (``COMPUTED``); the
-rest must be read by the port, or be one of ``REFUSED``, whose options the
-port refuses with the key's name in the error. ``model_parallel``,
-``sequence_parallel``, ``pipeline_parallel`` and ``pipeline_microbatches``
-are read (tensor and pipeline parallelism); what ``REFUSED`` holds of them
-besides is the values JAX refuses by name too.
+rest must be read by the port. ``model_parallel``, ``sequence_parallel``,
+``pipeline_parallel`` and ``pipeline_microbatches`` are read (tensor and
+pipeline parallelism); ``BAD_VALUES`` holds the values of them JAX refuses
+by name, which the port refuses by name too. ``momentum``, ``freeze``,
+``profile_dir`` (with JAX's ``JOEYS2T_PROFILE_*`` knobs) and
+``return_attention`` are read since the port has sgd's momentum, ``freeze``,
+the profiler window and returned attention.
 
 Keys found (197; the list is held here, so a new key read by JAX shows):
 JOEYS2T_BEAM_REORDER, JOEYS2T_PROFILE_DIR, JOEYS2T_PROFILE_WINDOW,
@@ -72,15 +74,9 @@ NOT_CONFIG = {  # names JAX reads that no config holds
     "lut": "a node of the flax parameter tree (prediction.py:558)",
     "trg_embed": "a node of the flax parameter tree (prediction.py:566)",
     "pipe": "a JAX mesh axis (training.py:255)",
-    "JOEYS2T_PROFILE_DIR": "an environment knob of JAX's profiler window "
-                           "(training.py), which belongs to the refused profile_dir",
-    "JOEYS2T_PROFILE_WINDOW": "the same",
 }
 COMPUTED = {  # key -> the port's source that reads it under a computed name
     "trg_prompt": ("data/datasets.py", 'f"{lang}_prompt"'),
-}
-REFUSED = {  # key -> (the `training` section that sets it, the error)
-    "momentum": ({"optimizer": "sgd", "momentum": 0.9}, NotImplementedError),
 }
 BAD_VALUES = {  # read keys whose values JAX refuses by name: the section, the error
     "model_parallel": ({"model_parallel": 0}, ConfigurationError),
@@ -123,9 +119,8 @@ def test_the_recorded_list_is_what_jax_reads():
 
 
 def test_every_jax_key_is_read_or_refused():
-    missing = jax_keys() - port_keys() - set(NOT_CONFIG) - set(COMPUTED) - set(REFUSED)
-    assert not missing, f"JAX reads these keys, the port neither reads nor refuses them: " \
-                        f"{sorted(missing)}"
+    missing = jax_keys() - port_keys() - set(NOT_CONFIG) - set(COMPUTED)
+    assert not missing, f"JAX reads these keys, the port does not: {sorted(missing)}"
     for key, (module, source) in COMPUTED.items():
         assert source in (REPO / "joeys2t_torch" / module).read_text(encoding="utf-8"), key
 
@@ -134,9 +129,9 @@ def train_section(**extra):
     return dict({"batch_size": 4, "optimizer": "adam"}, **extra)
 
 
-@pytest.mark.parametrize("key", sorted(REFUSED) + sorted(BAD_VALUES))
+@pytest.mark.parametrize("key", sorted(BAD_VALUES))
 def test_refused_keys_are_named(key):
-    section, error = REFUSED.get(key) or BAD_VALUES[key]
+    section, error = BAD_VALUES[key]
     with pytest.raises(error, match=key):
         parse_train_args(train_section(**section))
 

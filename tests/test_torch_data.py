@@ -248,6 +248,8 @@ def test_zip_and_wav_features_load(tmp_path):
         assert get_n_frames(samples_n, 16000) == jax_get_n_frames(samples_n, 16000)
     assert np.abs(port - ref).max() <= 5e-4  # the front-end tolerance, ROADMAP §C
 
+    # mp3 is read through libmpg123 (tests/test_torch_tooling.py); a file
+    # that holds no mp3 stream raises
     (tmp_path / "b.mp3").write_bytes(b"ID3")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError):
         get_features(tmp_path, "b.mp3")

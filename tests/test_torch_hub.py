@@ -120,7 +120,13 @@ def test_score_matches_jax(dirs, hubs, with_trg, testing):
                     np.testing.assert_allclose(np.asarray(x, np.float64),
                                                np.asarray(y, np.float64), rtol=1e-5,
                                                atol=1e-6)
-        assert g.attention_probs is None  # returned attention is not ported
+        # the attention a greedy decode returns, as JAX's (JAX pads its rows'
+        # frames to the batch's bucket): 1e-5 at float32; beam returns none
+        assert (g.attention_probs is None) == (w.attention_probs is None)
+        for a, b in zip(g.attention_probs or [], w.attention_probs or []):
+            a, b = np.asarray(a), np.asarray(b)
+            np.testing.assert_allclose(a, b[:, :a.shape[1]], rtol=0, atol=1e-5)
+            assert not b[:, a.shape[1]:].any()
     if with_trg:
         assert [g.translation for g in got] == refs
 
@@ -131,8 +137,14 @@ def test_model_dir_files_and_refusals(dirs, hubs):
     tok = port_hub.dataset.tokenizer["trg"]
     assert tok.model_file == port_dir / "spm.model"  # found in the directory
     assert port_hub.args.device.type == "cpu"
-    with pytest.raises(NotImplementedError):
-        port_hub.plot_attention("a", "b", np.zeros((2, 2)))
+    # a speech source's columns are its subsampled frames (JAX labels them
+    # with the feature rows, which matplotlib refuses)
+    _, _, feats, refs = dirs
+    scored = port_hub.score(feats[:1])[0]
+    att = np.asarray(scored.attention_probs[0])
+    rows = len(port_hub.dataset.tokenizer["trg"](refs[0], is_train=False)) + 1
+    fig = port_hub.plot_attention(feats[0], refs[0], np.resize(att, (rows, att.shape[1])))
+    assert len(fig.axes[0].get_xticklabels()) == att.shape[1]
     with pytest.raises(TypeError):
         port_hub.generate("not a list")
 

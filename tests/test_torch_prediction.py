@@ -208,8 +208,9 @@ def test_evaluation_tokenizer_and_wer_match_jax():
                 hyps, refs = zip(*pairs)
                 assert wer(list(hyps), list(refs), port) == jax_wer(list(hyps), list(refs),
                                                                     ref)
+    # intl and zh are ported (tests/test_torch_tooling.py); ja-mecab needs MeCab
     with pytest.raises(NotImplementedError):
-        EvaluationTokenizer(tokenize="intl")
+        EvaluationTokenizer(tokenize="ja-mecab")
 
 
 @pytest.mark.parametrize("keep,minimize", [(2, True), (3, False), (0, True)])

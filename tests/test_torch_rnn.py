@@ -334,20 +334,23 @@ GREEDY_OPTIONS = [
 def test_greedy_matches_jax(pairs, name, options):
     """Token-identical, as many steps as JAX runs (rnn_reverse's rows all
     reach eos before the limit; finished rows go on emitting, as in JAX),
-    float64 scores to 1e-5 relative."""
+    float64 scores to 1e-5 relative, and the attention JAX's loop returns
+    whether asked or not (float32, 1e-5 absolute)."""
     p = pairs[name]
     enc, hidden, mask, src = search_inputs(p)
     options = dict(options)
     if options.pop("encoder_input", False):
         options["encoder_input"] = src
-    ids_j, scores_j, _ = jax_greedy(p.params, p.jmodel, p.jspec, jnp.asarray(enc.numpy()),
+    ids_j, scores_j, att_j = jax_greedy(p.params, p.jmodel, p.jspec, jnp.asarray(enc.numpy()),
                                     jnp.asarray(hidden.numpy()), jnp.asarray(mask.numpy()),
                                     30, **options)
     stats = {}
     ids_t, scores_t, att = greedy(p.tmodel, p.tspec, enc, hidden, mask, 30, device="cpu",
                                   stats=stats, **options)
     np.testing.assert_array_equal(ids_t, np.asarray(ids_j))
-    assert att is None and stats["decode_steps"] == ids_t.shape[1]
+    assert stats["decode_steps"] == ids_t.shape[1]
+    assert att.dtype == np.float32 and att.shape == np.asarray(att_j).shape
+    np.testing.assert_allclose(att, np.asarray(att_j), rtol=0, atol=1e-5)
     assert (ids_t.shape[1] < 30) == (name == "rnn_reverse")
     first_eos = (ids_t == EOS).argmax(1)
     assert len(set(first_eos)) > 1, "the hypotheses should end at several lengths"

@@ -153,9 +153,13 @@ def test_beam_size_one_is_greedy(pairs, eos_scale):
 @pytest.mark.parametrize("option", [{"return_attention": True},
                                     {"return_attention": True, "no_repeat_ngram_size": 2}])
 def test_unported_beam_options_raise(pairs, option):
-    """Returned attention raises, also beside the repetition controls, which
-    are ported (tests/test_torch_mt.py)."""
+    """Beam search returns no attention, as JAX's does (its
+    ``prediction.test`` warns): asking for it, also beside the repetition
+    controls, changes no token."""
     pair = pairs["tiny"]
-    with pytest.raises(NotImplementedError):
-        beam_search(pair["tmodel"], pair["tspec"], torch.tensor(pair["enc"]), None,
-                    torch.tensor(pair["mask"]), 2, 4, 1.0, device="cpu", **option)
+    args = (pair["tmodel"], pair["tspec"], torch.tensor(pair["enc"]), None,
+            torch.tensor(pair["mask"]), 2, 4, 1.0)
+    out, _, att = beam_search(*args, device="cpu", **option)
+    plain = dict(option, return_attention=False)
+    np.testing.assert_array_equal(out, beam_search(*args, device="cpu", **plain)[0])
+    assert att is None

@@ -291,17 +291,27 @@ def test_optimizer_update_matches_optax(name, wd):
 
 
 def test_unported_options_raise():
-    for extra in ({"optimizer": "sgd"}, {"optimizer": "rmsprop"},
-                  {"profile_dir": "profile"}):
-        with pytest.raises(NotImplementedError):
-            parse_train_args(dict(TRAINING, **extra))
+    """Every optimizer of the JAX package, sgd's ``momentum`` and
+    ``profile_dir`` are read now, and ``freeze`` builds a trainer; an
+    optimizer JAX does not know is refused by name."""
+    for extra, cls in (({"optimizer": "sgd", "momentum": 0.9}, port_optim.SGD),
+                       ({"optimizer": "rmsprop"}, port_optim.RMSprop),
+                       ({"optimizer": "adafactor", "profile_dir": "profile"},
+                        port_optim.Adafactor)):
+        args = parse_train_args(dict(TRAINING, **extra))
+        assert isinstance(port_optim.build_optimizer(args.__dict__, [torch.zeros(2)]), cls)
+    assert parse_train_args(dict(TRAINING, momentum=0.9)).momentum == 0.9
+    assert parse_train_args(dict(TRAINING, profile_dir="profile")).profile_dir.name == \
+        "profile"
+    with pytest.raises(ConfigurationError, match="optimizer"):
+        parse_train_args(dict(TRAINING, optimizer="lamb"))
     vocab = Vocabulary(TOKENS, SpecialSymbols())
     model, spec = build_model(model_cfg(), trg_vocab=vocab, device="cpu")
     args = parse_train_args(TRAINING)
     frozen = dict(model_cfg(), encoder=dict(model_cfg()["encoder"], freeze=True))
-    with pytest.raises(NotImplementedError):
-        TrainManager(model, spec, build_loss_function(args, spec), args, model_cfg=frozen,
-                     device="cpu")
+    tm = TrainManager(model, spec, build_loss_function(args, spec), args, model_cfg=frozen,
+                      device="cpu")
+    assert {id(p) for p in tm._frozen} == {id(p) for p in model.encoder.parameters()}
 
 
 @pytest.mark.parametrize("option,error", [
