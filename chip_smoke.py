@@ -22,16 +22,19 @@ goes wrong:
    timed on rotating input copies (> 100 MB, so L2 is cold) against a
    bound that counts only the K/V rows the valid keys need; and decode
    attention with 5 query rows a cache row at the beam request's cross
-   shape (32 cache rows, 160 queries, S=250, bf16 and f32), bit-identical to
-   one query a row on the cache repeated 5 times, timed beside that call and
-   SDPA on the repeated cache, against two bounds (the shared cache read
-   once; once for each query); and decode attention through lazy beam
-   search's ancestry map at the beam request's self shape (32 x 5 rows,
-   97 slots, step 48; bf16, f32, int8 position) and the MT beam's (128 x 5
-   rows, 81 slots; D=128 bf16, D=16 bf16, f32, int8 position), bit for bit
-   the kernel on the caches physically reordered as the map says, timed
-   beside the physical path it replaces (an index_select of every self
-   buffer, then the kernel);
+   shape (32 cache rows, 160 queries, S=250, bf16 and f32) on the
+   multi-query kernel (its grid printed: a block or cluster per cache row
+   and head), bit-identical to its ancestry mode on the cache repeated 5
+   times with each query reading its own row, timed beside the one-query
+   kernel and SDPA on the repeated cache, against two bounds (the shared
+   cache read once; once for each query); and decode attention through
+   lazy beam search's ancestry map at the beam request's self shape (32 x
+   5 rows, 97 slots, step 48; bf16, f32, int8 position) and the MT beam's
+   (128 x 5 rows, 81 slots; D=128 bf16, D=16 bf16, f32, int8 position),
+   with the slots of the step, bit for bit the ancestry mode on the caches
+   physically reordered as the map says, timed beside the physical path it
+   replaces (an index_select of every self buffer, then the one-query
+   kernel);
 3. serving: build the librispeech_100h model (configs/librispeech_100h.yaml,
    16 encoder / 8 decoder layers, hidden 512) with random weights from a
    seed and a synthetic 5000-token vocabulary, in bf16, and serve three
@@ -45,10 +48,13 @@ goes wrong:
    penalty 1, 96 steps at most) with ``beam_reorder`` auto (lazy) and
    physical, the counters zeroed and the plain versions refused: 16 flash
    launches and 16 decode launches a step (8 of them with 5 queries a cache
-   row; in the lazy run the other 8 through the ancestry map), identical
+   row, the other 8 through the ancestry map: the lazy run's map, or each
+   row's own rows over the physically reordered buffers), identical
    transcripts, and for each its audio-s/s, ms a step, and busy share,
    launches and index_select kernels a step over a profiled 16-step slice
-   of the beam loop;
+   of the beam loop; the lazy request's own map, self caches and queries
+   at step 48 held and timed as phase 2's random maps are, with the share
+   of its distinct (row, slot) vectors;
 4. card vs CPU: a small float32 model with the same seeded weights on the
    card and on the CPU must give the same encoder output (within 1e-4), the
    same greedy tokens and the same beam-5 2-best hypotheses (scores within
@@ -240,7 +246,8 @@ goes wrong:
 
 ``python3 chip_smoke.py --phases PART[,PART...]`` runs phase 1 and then
 only the parts named, in order, and exits 4 without a result line:
-``layouts`` (phases 18 and 19, and phase 20's two-rank legs), ``tooling``
+``kernels`` (phase 2), ``layouts`` (phases 18 and 19, and phase 20's
+two-rank legs), ``tooling``
 (phase 20's one-process legs, from a seeded model where phase 7 has not
 trained one); on a machine with several cards ``holds``,
 which trains ``-d`` over every card, ``model_parallel: 2`` x data,
@@ -254,7 +261,7 @@ alternating turns; ``cards`` is ``holds,timing``.
 
 Phases 9-20 run after phase 8, each with the counters zeroed just before
 its runs and the plain versions refused. Phase 2 also holds decode attention
-with int8 channel scales and ``group`` 5 bit for bit against group 1, and
+with int8 channel scales and ``group`` 5 against its plain version, and
 times int8 cases against SDPA on the dequantized cache.
 
 Phase 2 also holds the kernels at the MT shapes (flash forward and
@@ -827,14 +834,22 @@ def decode_case(kind, b, s, valid_spec, mode, gen, timed, d=128, cold=True):
 BEAM_CROSS = (32, 5, 250)
 
 
+def own_rows(b, k, s):
+    """The (B, K, S) map of beams that read only their own rows."""
+    return torch.arange(k, dtype=torch.int32, device="cuda")[None, :, None].expand(
+        b, k, s).contiguous()
+
+
 def decode_group_case(mode, gen, shape=BEAM_CROSS):
-    """Decode attention with ``group`` 5 at the beam cross shape against the
-    plain version, bit for bit against group 1 on the cache, bias and
-    scales repeated 5 times, and two calls bit-identical; the kernel, the
-    expanded group-1 call and SDPA on the expanded (for int8: also
-    dequantized) cache timed on cold L2. Two bounds: one pass over the
-    shared cache (each input read once, the bound proper) and one pass for
-    each of the G queries of a row."""
+    """Decode attention with ``group`` 5 at the beam cross shape (the
+    multi-query kernel, its grid printed) against the plain version, two
+    calls bit-identical, and bit for bit its ancestry mode on the cache,
+    bias and scales repeated 5 times with each query reading its own row
+    (not with int8 channel scales, which the ancestry mode does not take);
+    the kernel, the one-query kernel on the repeated cache and SDPA on the
+    repeated (for int8: also dequantized) cache timed on cold L2. Two
+    bounds: one pass over the shared cache (each input read once, the bound
+    proper) and one pass for each of the G queries of a row."""
     from joeys2t_torch.ops import decode_attention as da
 
     b, g, s = shape
@@ -849,7 +864,10 @@ def decode_group_case(mode, gen, shape=BEAM_CROSS):
     def expand(t):
         return None if t is None else t.repeat_interleave(g, 0).contiguous()
 
-    flat = da.decode_attention(q, *map(expand, (k, v, bias, ks, vs)), **kw)
+    held = mode != "int8-channel"
+    if held:
+        flat = da.decode_attention(q, *map(expand, (k, v, bias, ks, vs)),
+                                   ancestry=own_rows(b, g, s), **kw)
     torch.cuda.synchronize()
     name = f"cross group {g} B={b} ({b * g} query rows) H={h} S={s} D={d} {mode} tails S/2..S"
     err = (out.float() - ref.float()).abs().max().item()
@@ -857,8 +875,11 @@ def decode_group_case(mode, gen, shape=BEAM_CROSS):
     check(bool(torch.isfinite(out.float()).all()), f"decode {name}: non-finite output")
     check(err <= tol, f"decode {name}: max abs err {err} > {tol}")
     check(torch.equal(out, again), f"decode {name}: two calls differ")
-    check(torch.equal(out, flat), f"decode {name}: differs from group 1 on the expanded cache")
-    splits, split_rows = da.decode_plan(b * g, h, s, da.num_sms(q.device))
+    check(not held or torch.equal(out, flat),
+          f"decode {name}: differs from the ancestry mode on the expanded cache")
+    grid = da.launch_grid(b, h, s, da.num_sms(q.device), group=g)
+    check(grid["grid"][2] == b, f"decode {name}: grid {grid['grid']} is not over cache rows")
+    splits, split_rows = grid["splits"], grid["split_rows"]
     needed = torch.where(valid.any(1), valid.sum(1), s).sum().item() * h  # cache rows
     flops = 4 * needed * g * d
     fixed = nbytes(q, bias, out, ks, vs)
@@ -876,6 +897,7 @@ def decode_group_case(mode, gen, shape=BEAM_CROSS):
     plain_ms = time_ms(lambda: da.decode_attention_plain(q, k, v, bias, ks, vs, group=g,
                                                          **kw), iters=5)
     return dict(case=name, max_abs_err=err, tol=tol, splits=splits, split_rows=split_rows,
+                grid=grid["grid"], held=held,
                 ms=ms, flat_ms=flat_ms, plain_ms=plain_ms, library_ms=library_ms,
                 library="SDPA on the expanded cache", bound_ms=bound_ms,
                 bound_by=bound_by, g_bound_ms=g_bound_ms, roofline=bound_ms / ms,
@@ -891,9 +913,11 @@ MT_SELF = (128, 5, 81, 40)
 
 def decode_ancestry_case(mode, gen, shape=BEAM_SELF, d=128, timed=True):
     """Decode attention through a random valid ancestry map (entries in
-    [0, K) up to the step, each row's own beyond it) against the plain
-    version, bit for bit against the kernel without a map on the caches
-    physically reordered as the map says, and two calls bit-identical.
+    [0, K) up to the step, each row's own beyond it) with ``slots`` at the
+    step, as the decode loop calls it (the multi-query kernel, its grid
+    printed), against the plain version, bit for bit against the ancestry
+    mode on the caches physically reordered as the map says with each query
+    reading its own row, and two calls bit-identical.
     Timed on cold L2: the kernel; the physical path it replaces for the
     same step (an ``index_select`` of each self buffer, and of its scales
     for int8, into a spare, then the kernel on the reordered buffers); the
@@ -913,76 +937,116 @@ def decode_ancestry_case(mode, gen, shape=BEAM_SELF, d=128, timed=True):
     anc = torch.randint(0, kb, (b, kb, s), generator=gen, dtype=torch.int32)
     anc[:, :, step + 1:] = torch.arange(kb, dtype=torch.int32)[None, :, None]
     anc = anc.cuda()
+    kw = dict(kw, slots=step + 1)
+    case = ancestry_holds(f"self ancestry map B={b} K={kb} ({rows} rows) H={h} S={s} D={d} "
+                          f"{mode} step {step}", args, anc, kw)
+    del case["out"]
+    if not timed:
+        return case
+    case.update(ancestry_timing(args, anc, kw))
+    used, vector, fixed, flops = case["used"], case["vector"], case["fixed"], case["flops"]
+    parents = torch.randint(0, kb, (b, kb), generator=gen)
+    select = (parents + torch.arange(b)[:, None] * kb).reshape(-1).cuda()
+
+    def physical(c, kw1):  # c: (q, k, v, bias, ks, vs, spare k, v, ks, vs)
+        spares = [sp for sp in c[6:] if sp is not None]
+        for src, sp in zip([t for t in c[1:3] + c[4:6] if t is not None], spares):
+            torch.index_select(src, 0, select, out=sp)
+        sk, sv = spares[0], spares[1]
+        sks, svs = (spares[2], spares[3]) if len(spares) == 4 else (None, None)
+        return da.decode_attention(c[0], sk, sv, c[3], sks, svs, **kw1)
+
+    buffers = [t for t in (k, v, ks, vs) if t is not None]
+    physical_bound_ms, _ = bound(used * vector + fixed + 2 * nbytes(*buffers), flops,
+                                 k.dtype)
+    kw1 = {n: a for n, a in kw.items() if n != "slots"}  # the one-query kernel reads all S
+    copies = cold_copies((q, k, v, bias, ks, vs) + tuple(
+        None if t is None else torch.empty_like(t) for t in (k, v, ks, vs)))
+    physical_ms = time_cold_ms([lambda c=c: physical(c, kw1) for c in copies])
+    del copies
+    case.update(physical_ms=physical_ms, physical_bound_ms=physical_bound_ms)
+    return case
+
+
+def ancestry_holds(name, args, anc, kw):
+    """The ancestry launch on ``args`` (q, k, v, bias, k_scale, v_scale)
+    through ``anc`` against the plain version, two calls bit-identical, bit
+    for bit the ancestry mode on the caches reordered as the map says with
+    each query reading its own row; its grid."""
+    from joeys2t_torch.ops import decode_attention as da
+
+    q, k, v, bias, ks, vs = args
+    b, kb, s = anc.shape
     out = da.decode_attention(*args, ancestry=anc, **kw)
     again = da.decode_attention(*args, ancestry=anc, **kw)
     ref = da.decode_attention_plain(*args, ancestry=anc, **kw)
     moved = [None if t is None else da.gather_ancestry(t, anc).contiguous()
              for t in (k, v, ks, vs)]
-    flat = da.decode_attention(q, moved[0], moved[1], bias, moved[2], moved[3], **kw)
+    flat = da.decode_attention(q, moved[0], moved[1], bias, moved[2], moved[3],
+                               ancestry=own_rows(b, kb, s), **kw)
     torch.cuda.synchronize()
-    name = (f"self ancestry map B={b} K={kb} ({rows} rows) H={h} S={s} D={d} {mode} "
-            f"step {step}")
     err = (out.float() - ref.float()).abs().max().item()
     tol = 1e-5 if q.dtype == torch.float32 else 1e-2
     check(bool(torch.isfinite(out.float()).all()), f"decode {name}: non-finite output")
     check(err <= tol, f"decode {name}: max abs err {err} > {tol}")
     check(torch.equal(out, again), f"decode {name}: two calls differ")
     check(torch.equal(out, flat), f"decode {name}: differs from the reordered cache")
-    splits, split_rows = da.decode_plan(rows, h, s, da.num_sms(q.device))
-    case = dict(case=name, max_abs_err=err, tol=tol, splits=splits, split_rows=split_rows)
-    if not timed:
-        return case
-    used = (step + 1) * rows  # (query row, slot) pairs read, each over H heads
-    own = (torch.arange(b, device=anc.device)[:, None, None] * kb + anc[:, :, :step + 1])
-    slots = torch.arange(step + 1, device=anc.device)
+    grid = da.launch_grid(k.shape[0], k.shape[1], s, da.num_sms(q.device), beam_k=kb,
+                          slots=kw.get("slots"))
+    check(grid["grid"][2] == b, f"decode {name}: grid {grid['grid']} is not over utterances")
+    return dict(case=name, max_abs_err=err, tol=tol, splits=grid["splits"],
+                split_rows=grid["split_rows"], grid=grid["grid"], out=out)
+
+
+def ancestry_timing(args, anc, kw):
+    """The ancestry launch timed on cold L2 and its plain version, against
+    two bounds: the distinct (cache row, slot) vectors that the map points
+    at among the used slots, read once (K, V, int8 scales; the bound
+    proper), and those of every query row, read once a row; both add the
+    map's used entries, q, the bias and the output."""
+    from joeys2t_torch.ops import decode_attention as da
+
+    q, k, v, bias, ks, vs = args
+    b, kb, s = anc.shape
+    h, d = k.shape[1], k.shape[3]
+    n_slots = kw.get("slots") or s
+    used = n_slots * b * kb  # (query row, slot) pairs read, each over H heads
+    own = (torch.arange(b, device=anc.device)[:, None, None] * kb + anc[:, :, :n_slots].clamp(
+        0, kb - 1))
+    slots = torch.arange(n_slots, device=anc.device)
     distinct = torch.unique(own * s + slots).numel()  # (cache row, slot) pairs
     vector = h * (d * k.element_size() * 2 + (8 if ks is not None else 0))  # K, V, scales
-    fixed = nbytes(q, bias, out)
+    fixed = nbytes(q, bias) + q.numel() * q.element_size()  # q, bias, the output
     flops = 4 * used * h * d
     bound_ms, bound_by = bound(distinct * vector + used * 4 + fixed, flops, k.dtype)
     q_bound_ms, _ = bound(used * vector + used * 4 + fixed, flops, k.dtype)
-    buffers = [t for t in (k, v, ks, vs) if t is not None]
-    physical_bound_ms, _ = bound(used * vector + fixed + 2 * nbytes(*buffers), flops,
-                                 k.dtype)
     copies = cold_copies((q, k, v, bias, ks, vs, anc))
     ms = time_cold_ms([lambda c=c: da.decode_attention(*c[:6], ancestry=c[6], **kw)
                        for c in copies])
     del copies
-    parents = torch.randint(0, kb, (b, kb), generator=gen)
-    select = (parents + torch.arange(b)[:, None] * kb).reshape(-1).cuda()
-
-    def physical(c):  # c: (q, k, v, bias, ks, vs, spare k, v, ks, vs)
-        spares = [sp for sp in c[6:] if sp is not None]
-        for src, sp in zip([t for t in c[1:3] + c[4:6] if t is not None], spares):
-            torch.index_select(src, 0, select, out=sp)
-        sk, sv = spares[0], spares[1]
-        sks, svs = (spares[2], spares[3]) if len(spares) == 4 else (None, None)
-        return da.decode_attention(c[0], sk, sv, c[3], sks, svs, **kw)
-
-    copies = cold_copies((q, k, v, bias, ks, vs) + tuple(
-        None if t is None else torch.empty_like(t) for t in (k, v, ks, vs)))
-    physical_ms = time_cold_ms([lambda c=c: physical(c) for c in copies])
-    del copies
-    case.update(ms=ms, plain_ms=time_ms(lambda: da.decode_attention_plain(
-        *args, ancestry=anc, **kw), iters=5), library_ms=None, physical_ms=physical_ms,
-        bound_ms=bound_ms, bound_by=bound_by, q_bound_ms=q_bound_ms,
-        physical_bound_ms=physical_bound_ms, distinct=distinct / used,
-        roofline=bound_ms / ms, q_roofline=q_bound_ms / ms, tflops=flops / ms / 1e9)
-    return case
+    return dict(ms=ms, plain_ms=time_ms(lambda: da.decode_attention_plain(
+        *args, ancestry=anc, **kw), iters=5), library_ms=None, bound_ms=bound_ms,
+        bound_by=bound_by, q_bound_ms=q_bound_ms, distinct=distinct / used,
+        roofline=bound_ms / ms, q_roofline=q_bound_ms / ms, tflops=flops / ms / 1e9,
+        used=used, vector=vector, fixed=fixed, flops=flops)
 
 
 def print_ancestry(c):
-    line = (f"[kernels] decode {c['case']}: plan {c['splits']} split(s) of "
-            f"{c['split_rows']} rows; err {c['max_abs_err']:.3g} (tol {c['tol']}), two "
-            f"calls bit-identical, bit-identical to the kernel on the reordered cache")
+    line = (f"[kernels] decode {c['case']}: multi-query grid {c['grid']}, plan "
+            f"{c['splits']} split(s) of {c['split_rows']} rows; err {c['max_abs_err']:.3g} "
+            f"(tol {c['tol']}), two calls bit-identical, bit-identical to the ancestry mode "
+            f"on the reordered cache")
     if "ms" in c:
-        line += (f"; cold L2: kernel {c['ms']:.4f} ms, physical reorder + kernel "
-                 f"{c['physical_ms']:.4f} ms; plain {c['plain_ms']:.4f} ms; bound "
+        physical = (f", physical reorder + one-query kernel {c['physical_ms']:.4f} ms"
+                    if "physical_ms" in c else "")
+        line += (f"; cold L2: kernel {c['ms']:.4f} ms{physical}; plain "
+                 f"{c['plain_ms']:.4f} ms; bound "
                  f"(the {100 * c['distinct']:.1f} % of the rows' used slots the map "
                  f"points at, once) {c['bound_ms']:.4f} ms ({c['bound_by']}), roofline "
                  f"share {100 * c['roofline']:.1f} %; bound once a query row "
-                 f"{c['q_bound_ms']:.4f} ms, share {100 * c['q_roofline']:.1f} %; the "
-                 f"physical path's bound {c['physical_bound_ms']:.4f} ms")
+                 f"{c['q_bound_ms']:.4f} ms, share {100 * c['q_roofline']:.1f} %")
+        if "physical_ms" in c:
+            line += f"; the physical path's bound {c['physical_bound_ms']:.4f} ms"
     print(line)
 
 
@@ -1026,10 +1090,12 @@ def print_decode(c, b):
 
 
 def print_group(c):
-    print(f"[kernels] decode {c['case']}: plan {c['splits']} split(s) of "
-          f"{c['split_rows']} rows; err {c['max_abs_err']:.3g} (tol {c['tol']}), two "
-          f"calls bit-identical, bit-identical to group 1 on the expanded cache; cold "
-          f"L2: kernel {c['ms']:.4f} ms, group 1 on the expanded cache "
+    held = ("bit-identical to the ancestry mode on the expanded cache" if c["held"] else
+            "no bit hold (the ancestry mode takes no channel scales)")
+    print(f"[kernels] decode {c['case']}: multi-query grid {c['grid']}, plan "
+          f"{c['splits']} split(s) of {c['split_rows']} rows; err {c['max_abs_err']:.3g} "
+          f"(tol {c['tol']}), two calls bit-identical, {held}; cold "
+          f"L2: kernel {c['ms']:.4f} ms, the one-query kernel on the expanded cache "
           f"{c['flat_ms']:.4f} ms, SDPA on the expanded cache {c['library_ms']:.4f} ms; "
           f"plain {c['plain_ms']:.4f} ms; bound one pass {c['bound_ms']:.4f} ms "
           f"({c['bound_by']}), roofline share {100 * c['roofline']:.1f} %; bound one "
@@ -1228,6 +1294,11 @@ def breakdown_phase(asr, batch):
     return decode_profile("breakdown", "decode", asr, wall, kernels, pstats["decode_steps"])
 
 
+# the decode kernels' names in a profile: one query a cache row, and the
+# multi-query kernel of group and ancestry launches
+K5_KERNELS = ("decode_attention_kernel", "multi_query_kernel")
+
+
 def decode_profile(tag, what, asr, wall, kernels, steps):
     """The card's busy share, kernels a step, top kernels and K5's device
     time in a profiled decode of ``steps`` steps; K5 must have launched 2 x
@@ -1243,11 +1314,15 @@ def decode_profile(tag, what, asr, wall, kernels, steps):
           f"{launches / steps:.0f} kernels per step")
     for name, (n, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"[{tag}]   {t / 1e3:8.3f} ms {n:5d}x  {name[:110]}")
-    k5 = [(n, t) for name, (n, t) in kernels.items() if "decode_attention_kernel" in name]
-    k5_n, k5_us = sum(n for n, _ in k5), sum(t for _, t in k5)
+    k5 = {kind: [(n, t) for name, (n, t) in kernels.items() if kind in name]
+          for kind in K5_KERNELS}
+    k5_n = sum(n for runs in k5.values() for n, _ in runs)
+    k5_us = sum(t for runs in k5.values() for _, t in runs)
     check(k5_n == 2 * len(asr.decode_model.decoder.layers) * steps,
           f"profiled {what}: {k5_n} decode attention kernels in {steps} steps")
-    print(f"[{tag}] K5 (decode_attention_kernel) in the profiled {what}: "
+    split = ", ".join(f"{kind} {sum(n for n, _ in runs)} launches "
+                      f"{sum(t for _, t in runs) / 1e3:.3f} ms" for kind, runs in k5.items())
+    print(f"[{tag}] K5 ({split}) in the profiled {what}: "
           f"{k5_us / 1e3:.3f} ms of device time over {k5_n} launches ({k5_n // steps} a "
           f"step, {k5_us / k5_n:.2f} us each), {100 * k5_us / busy_us:.1f} % of busy")
     return k5_us / 1e3 / steps
@@ -1270,13 +1345,16 @@ def beam_serving_phase(asr, batch):
     ``physical``, each with the launch counters zeroed just before and the
     plain attention versions refused: 16 flash forward launches (the
     encoder) and 16 decode launches a step (8 cross with 5 queries a cache
-    row, 8 self over the 160-row ring buffers, through the ancestry map in
-    the lazy run). The two must give the same transcripts. Then the decode
+    row, 8 self over the 160-row ring buffers through the ancestry map: the
+    lazy run's, or each row's own rows over the physical run's reordered
+    buffers). The two must give the same transcripts. Then the decode
     loop alone is timed for each, in the other order (physical, then lazy),
     and for each the busy share, launches and ``index_select`` kernels a
     step over a profiled 16-step slice of the loop (the physical reorder
-    adds one a self buffer a step). Returns the lazy run's launches, and
-    {reorder: (texts, wall s, steps, K5 ms a step)}."""
+    adds one a self buffer a step). The lazy run's ancestry launch at step
+    48 is then held and timed on its own real map (``real_map_case``).
+    Returns the lazy run's launches, {reorder: (texts, wall s, steps, K5 ms
+    a step)} and the real map's case."""
     from joeys2t_torch.ops.frontend import device_frontend
     from joeys2t_torch.search import beam_search
 
@@ -1284,11 +1362,11 @@ def beam_serving_phase(asr, batch):
     n_enc, n_dec = len(asr.model.encoder.layers), len(asr.model.decoder.layers)
     for reorder in REORDERS:  # warm-up at the request's batch
         asr.transcribe(waves, max_output_length=4, beam_size=5, beam_reorder=reorder)
-    runs = {}
+    runs, kept = {}, {}
     for reorder in REORDERS:
         s0 = asr.stats["decode_steps"]
         zero_counters()
-        with plain_refused("beam serving path"):
+        with plain_refused("beam serving path"), ancestry_kept(kept, BEAM_SELF[3] + 1):
             texts, request_wall = sync_time(lambda: asr.transcribe(
                 waves, max_output_length=96, beam_size=5, beam_alpha=1.0,
                 beam_reorder=reorder))
@@ -1300,7 +1378,7 @@ def beam_serving_phase(asr, batch):
         want = {"flash_attention_fwd": n_enc, "flash_attention_bwd": 0,
                 "decode_attention": 2 * n_dec * steps,
                 "decode_attention_group": n_dec * steps,
-                "decode_attention_ancestry": n_dec * steps if reorder == "auto" else 0,
+                "decode_attention_ancestry": n_dec * steps,
                 "decode_attention_int8_channel": 0, "decode_attention_int8_position": 0}
         check(launches == want, f"beam request ({reorder}) launches {launches}, "
               f"expected {want}")
@@ -1314,6 +1392,7 @@ def beam_serving_phase(asr, batch):
     print(f"[serving] beam 5: lazy (auto) {320.0 / runs['auto'][1]:.1f} against physical "
           f"{320.0 / runs['physical'][1]:.1f} audio-s/s "
           f"({runs['physical'][1] / runs['auto'][1]:.3f}x), transcripts identical")
+    real_map = real_map_case(kept)
 
     wave_t = torch.tensor(np.stack(waves)).cuda()
     lengths = torch.full((32,), wave_t.shape[1], device="cuda")
@@ -1345,7 +1424,60 @@ def beam_serving_phase(asr, batch):
               f"index_select kernels a step: physical {selects['physical']}, lazy "
               f"{selects['auto']}; only the physical loop reorders the {2 * n_dec} self "
               f"buffers")
-    return runs["auto"][3], served
+    return runs["auto"][3], served, real_map
+
+
+@contextlib.contextmanager
+def ancestry_kept(kept: dict, slots: int):
+    """While active, keeps card copies of the inputs of the first ancestry
+    launch over ``slots`` slots (the first decoder layer's self-attention at
+    step ``slots`` - 1 of the lazy beam loop) under ``kept["step"]``, and
+    the latest ancestry launch's inputs under ``kept["last"]`` (the caches
+    themselves: the loop writes no slot after its last step), for a loop
+    that ends sooner. The copies launch no kernel of the port."""
+    from joeys2t_torch.models import modules
+
+    decode = modules.decode_attention
+
+    def keeping(q, k, v, bias, k_scale=None, v_scale=None, **kw):
+        if kw.get("ancestry") is not None:
+            args = (q, k, v, bias, k_scale, v_scale)
+            if kw.get("slots") == slots and "step" not in kept:
+                kept["step"] = ([None if t is None else t.clone() for t in args],
+                                {n: a.clone() if torch.is_tensor(a) else a
+                                 for n, a in kw.items()})
+            kept["last"] = (args, dict(kw))
+        return decode(q, k, v, bias, k_scale, v_scale, **kw)
+
+    modules.decode_attention = keeping
+    try:
+        yield kept
+    finally:
+        modules.decode_attention = decode
+
+
+def real_map_case(kept: dict) -> dict:
+    """The ancestry launch on a real beam map: the lazy beam request's own
+    map, self caches, queries and bias at step 48 (or its last step if it
+    stopped sooner), held as phase 2 holds the random maps and timed on cold
+    L2 against the read-once bound of that map's distinct vectors."""
+    args, kw = kept.get("step") or kept["last"]
+    kw = dict(kw)
+    anc = kw.pop("ancestry")
+    b, kb, s = anc.shape
+    q, k = args[0], args[1]
+    name = (f"self ancestry map of the lazy beam request (a real map) B={b} K={kb} "
+            f"({b * kb} rows) H={k.shape[1]} S={s} D={k.shape[3]} "
+            f"{str(q.dtype)[6:]} step {kw['slots'] - 1}")
+    case = ancestry_holds(name, args, anc, kw)
+    del case["out"]
+    case.update(ancestry_timing(args, anc, kw))
+    print_ancestry(case)
+    print(f"[beam] real beam map at step {kw['slots'] - 1}: {100 * case['distinct']:.1f} % "
+          f"of the (query row, slot) vectors are distinct (a uniform random map: ~67 %), "
+          f"read-once bound {case['bound_ms']:.4f} ms, kernel {case['ms']:.4f} ms = "
+          f"{100 * case['roofline']:.1f} % of it")
+    return case
 
 
 # ------------------------------------------------------------------ phase 4
@@ -2185,7 +2317,8 @@ def int8_phase(batch, bf16):
     the plain versions refused: 16 decode launches a step, all int8 (8 with
     channel scales on the cross caches, 8 with position scales on the self
     ring buffers; in beam the 8 cross launches take 5 queries a cache row,
-    and the lazy run's 8 self launches read through the ancestry map),
+    and the 8 self launches read through the ancestry map: the lazy run's,
+    or each row's own rows in the physical run),
     and 16 flash launches (the encoder); the two beam runs must give the
     same transcripts. Decode attention is then held
     against its plain version on the inputs of a first and a later call of
@@ -2230,8 +2363,7 @@ def int8_phase(batch, bf16):
         want = {"flash_attention_fwd": n_enc, "flash_attention_bwd": 0,
                 "decode_attention": 2 * n_dec * steps,
                 "decode_attention_group": n_dec * steps if kw else 0,
-                "decode_attention_ancestry": (n_dec * steps if kw and "beam_reorder" not in kw
-                                              else 0),
+                "decode_attention_ancestry": n_dec * steps if kw else 0,
                 "decode_attention_int8_channel": n_dec * steps,
                 "decode_attention_int8_position": n_dec * steps}
         check(launches == want, f"int8 {name} launches {launches}, expected {want}")
@@ -4497,7 +4629,7 @@ def card_timing() -> None:
 # (with phase 20's two-rank legs), phase 20's one-process legs, and on
 # several cards each layout's hold and its timing (``cards``: both)
 PARTS = {"layouts": layout_phases, "holds": card_holds, "timing": card_timing,
-         "tooling": tooling_phase}
+         "tooling": tooling_phase, "kernels": kernel_phase}
 
 
 def run_parts(spec: str) -> None:
@@ -4536,7 +4668,7 @@ def main():
     mark("phase 2")
     flash_launches, decode_launches, asr, batch, served = serving_phase()
     greedy_k5_ms = breakdown_phase(asr, batch)
-    beam_launches, beam_served = beam_serving_phase(asr, batch)
+    beam_launches, beam_served, real_map = beam_serving_phase(asr, batch)
     bf16 = {"greedy 64 x 10 s": served["64 x 10 s"] + (greedy_k5_ms,),
             "beam 5 32 x 10 s": beam_served["auto"],
             "beam 5 32 x 10 s physical": beam_served["physical"]}
@@ -4591,7 +4723,7 @@ def main():
 
     def compact(c):  # a case's measurements, without what its printed line adds
         return {k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "library_ms",
-                                  "physical_ms", "bound_ms", "bound_by") if k in c}
+                                  "physical_ms", "bound_ms", "bound_by", "grid") if k in c}
 
     def entry(name, source, replaces, also, cases, launches, checks):
         head = cases[0]  # the main path's headline shape and dtype
@@ -4661,8 +4793,8 @@ def main():
         entry("decode_attention (ancestry map: lazy beam search's self caches)",
               "joeys2t_torch/csrc/decode_attention.cu",
               "joeys2t_tpu/ops/decode_attention.py:185",
-              "joeys2t_tpu/models/modules.py:320 (step_self_ancestry, einsum)", ancestry,
-              paths("decode_attention_ancestry"), anc_checks),
+              "joeys2t_tpu/models/modules.py:320 (step_self_ancestry, einsum)",
+              ancestry + [real_map], paths("decode_attention_ancestry"), anc_checks),
         entry("decode_attention (int8 with channel scales: the cross caches)",
               "joeys2t_torch/csrc/decode_attention.cu",
               "joeys2t_tpu/ops/decode_attention.py:185", None,

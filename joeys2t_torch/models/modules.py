@@ -367,11 +367,12 @@ class MultiHeadedAttention(nn.Module):
         into its own row's slot ``index``, as :meth:`step_self` does, then
         attends over the (B, K, S_max) int32 ``ancestry`` map: position s of
         beam k of utterance b reads row b*K + anc[b, k, s] of the caches
-        and of their scales. The same math as reorder-then-attend."""
+        and of their scales. The same math as reorder-then-attend; slots
+        0..index are the ones the step can use."""
         self._write_slot(q, cache_k, cache_v, index, k_scale, v_scale)
         return self._step(q, cache_k, cache_v, bias, k_scale=k_scale, v_scale=v_scale,
                           layout=None if k_scale is None else "position",
-                          ancestry=ancestry)
+                          ancestry=ancestry, slots=index + 1)
 
     def _write_slot(self, q, cache_k, cache_v, index, k_scale, v_scale) -> None:
         """Write this step's key/value into slot ``index`` of each query
@@ -426,7 +427,7 @@ class MultiHeadedAttention(nn.Module):
         return out, probs.mean(dim=1, keepdim=True)
 
     def _step(self, q, k_h, v_h, bias, group=1, k_scale=None, v_scale=None, layout=None,
-              ancestry=None):
+              ancestry=None, slots=None):
         if self.tp is not None:
             raise RuntimeError("a tensor-parallel shard does not decode: decode the "
                                "gathered model")
@@ -434,7 +435,7 @@ class MultiHeadedAttention(nn.Module):
         attend = decode_attention_plain if self.plain else decode_attention
         ctx = attend(q_h[:, 0], k_h, v_h, bias, k_scale, v_scale,
                      sm_scale=1.0 / math.sqrt(self.head_size), scale_layout=layout,
-                     group=group, ancestry=ancestry)
+                     group=group, ancestry=ancestry, slots=slots)
         return dense(self.output_layer, ctx.reshape(q.shape[0], 1, self.size), self.dtype)
 
 

@@ -1,7 +1,7 @@
 # coding: utf-8
 """
 Single-position (autoregressive decode) attention: the hand-written CUDA
-kernel (``csrc/decode_attention.cu``) and its plain PyTorch version.
+kernels (``csrc/decode_attention.cu``) and their plain PyTorch version.
 
 Counterpart of joeys2t_tpu/ops/decode_attention.py. Per (batch row, head) one
 query attends over a (B, H, S, D) K/V cache in f32, bf16 or int8; with
@@ -28,9 +28,13 @@ even for f32 inputs (decode_attention.py:64); this port does not, and
 matches the JAX einsum path (models/modules.py ``_decode_einsum``) instead.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises. The kernel splits S over a cluster of blocks
-as :func:`decode_plan` says, and skips rows whose bias is at or below
-``NEG_INF / 2`` when the row has any other key.
+launches a kernel or raises. One query a cache row (greedy, the physical
+beam reorder) takes the one-query kernel; ``group`` > 1 and the ancestry
+map take the multi-query kernel, one block or cluster per (utterance, head)
+serving all of the utterance's queries, so that each cache vector they
+share is read from device memory once (:func:`launch_grid`). Both split S
+over a cluster of blocks as :func:`decode_plan` says, and skip slots whose
+bias is at or below ``NEG_INF / 2`` when the query has any other key.
 """
 import ctypes
 import functools
@@ -45,7 +49,13 @@ _LAYOUTS = {None: 0, "channel": 1, "position": 2}
 MAX_SPLITS = 16  # the largest thread-block cluster Hopper launches
 SPLIT_ALIGN = 16  # a split starts on a multiple of this many rows
 MIN_SPLIT_GROUPS = 6  # a split takes at least this many SPLIT_ALIGN-row groups
+# slots a split of the multi-query kernel takes, from slot 0: a slot's place
+# in its arithmetic depends on its index alone, so an utterance's bits do not
+# depend on its batch (nor on the padding the batch's longest source adds)
+MULTI_SPLIT_SLOTS = 96
 HEAD_DIMS = (16, 64, 128, 192, 256)  # the head sizes the kernel is built for
+MAX_QUERIES = 8  # queries a block of the multi-query kernel serves (a chunk)
+MAX_BLOCKS_Z = 65535  # the grid's third dimension: (utterances or rows) x chunks
 
 
 def decode_plan(b: int, h: int, s: int, num_sms: int) -> Tuple[int, int]:
@@ -69,6 +79,40 @@ def num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def launch_grid(rows: int, h: int, s: int, num_sms: int, group: int = 1,
+                beam_k: Optional[int] = None, slots: Optional[int] = None) -> dict:
+    """The launch of one decode call over ``rows`` cache rows of S slots
+    with H heads: ``group`` query rows a cache row, or the ancestry map of
+    ``beam_k`` beams an utterance. One query a cache row takes the
+    one-query kernel, a block (cluster) per (cache row, head), planned over
+    all S slots. Otherwise the multi-query kernel takes one block (cluster)
+    per (utterance, head, chunk of ``MAX_QUERIES`` queries) -- the cache row
+    in group mode, the beam rows of an utterance with a map -- planned over
+    the ``slots`` leading slots the step can use (all S by default), so no
+    split holds only padding: splits of ``MULTI_SPLIT_SLOTS`` slots from
+    slot 0 (larger multiples of it beyond ``MAX_SPLITS`` splits). A slot's
+    split and place in the arithmetic depend on its index alone, and masked
+    slots add exact zeros: up to 1536 slots the kernel's bits for an
+    utterance are the same in any batch and under any padding, and a beam
+    search's hypotheses with them. Returns the kernel's name, the utterances,
+    queries an utterance, chunks, ``(splits, split_rows)`` and the grid."""
+    multi = group > 1 or beam_k is not None
+    used = s if slots is None or not multi else slots
+    if not multi:
+        splits, split_rows = decode_plan(rows, h, s, num_sms)
+        return dict(kernel="one-query", utterances=rows, queries=1, chunks=1, slots=s,
+                    splits=splits, split_rows=split_rows, grid=(splits, h, rows))
+    utterances, queries = (rows, group) if beam_k is None else (rows // beam_k, beam_k)
+    chunks = -(-queries // MAX_QUERIES)
+    # beyond MAX_SPLITS splits (over 1536 slots) the splits grow, by whole
+    # multiples of MULTI_SPLIT_SLOTS
+    split_rows = MULTI_SPLIT_SLOTS * -(-used // (MULTI_SPLIT_SLOTS * MAX_SPLITS))
+    splits = -(-used // split_rows)
+    return dict(kernel="multi-query", utterances=utterances, queries=queries,
+                chunks=chunks, slots=used, splits=splits, split_rows=split_rows,
+                grid=(splits, h, utterances * chunks))
+
+
 def _resolve_layout(k: torch.Tensor, k_scale: Optional[torch.Tensor],
                     scale_layout: Optional[str]) -> Optional[str]:
     b, h, s, d = k.shape
@@ -82,6 +126,11 @@ def _resolve_layout(k: torch.Tensor, k_scale: Optional[torch.Tensor],
         raise ValueError(f"scale_layout must be 'channel' or 'position', "
                          f"got {scale_layout!r}")
     return scale_layout
+
+
+def _check_slots(k: torch.Tensor, slots: Optional[int]) -> None:
+    if slots is not None and not 1 <= slots <= k.shape[2]:
+        raise ValueError(f"slots: expected 1 to {k.shape[2]}, got {slots}")
 
 
 def _check_ancestry(k: torch.Tensor, ancestry: Optional[torch.Tensor], group: int,
@@ -116,12 +165,18 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            sm_scale: float = 1.0,
                            scale_layout: Optional[str] = None,
                            group: int = 1,
-                           ancestry: Optional[torch.Tensor] = None) -> torch.Tensor:
+                           ancestry: Optional[torch.Tensor] = None,
+                           slots: Optional[int] = None) -> torch.Tensor:
     """The kernel's math in plain PyTorch, all in f32; returns (B*G, H, D) in
     q's dtype. With ``ancestry`` it gathers each beam's history rows
-    (:func:`gather_ancestry`) and attends over them."""
+    (:func:`gather_ancestry`) and attends over them. Slots from ``slots`` on
+    count as masked (bias ``NEG_INF``)."""
     layout = _resolve_layout(k, k_scale, scale_layout)
     _check_ancestry(k, ancestry, group, layout)
+    _check_slots(k, slots)
+    if slots is not None and slots < k.shape[2]:
+        bias = bias.clone()
+        bias[:, slots:] = NEG_INF
     if ancestry is not None:
         k, v = gather_ancestry(k, ancestry), gather_ancestry(v, ancestry)
         if layout == "position":
@@ -149,7 +204,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      sm_scale: float = 1.0,
                      scale_layout: Optional[str] = None,
                      group: int = 1,
-                     ancestry: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     ancestry: Optional[torch.Tensor] = None,
+                     slots: Optional[int] = None) -> torch.Tensor:
     """Single-step attention context (B*G, H, D) with fused int8 dequant.
 
     :param q: (B*G, H, D) f32 or bf16; query row r reads cache row r // G
@@ -164,6 +220,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         position s (group 1, no "channel" scales). On the card it must be
         int32, contiguous and on q's device; an entry outside [0, K) is
         clamped into it, so no utterance reads another's rows.
+    :param slots: the leading slots the step can use (a ring buffer at step
+        t: t + 1); slots from it on count as masked whatever ``bias`` holds.
+        The multi-query kernel (``group`` > 1 or a map) plans its splits
+        over them; on the card one query a cache row takes no ``slots``
+        below S.
     """
     if group < 1 or q.shape[0] != k.shape[0] * group:
         raise ValueError(f"q has {q.shape[0]} rows, expected {group} for each of the "
@@ -171,12 +232,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, bias, k_scale, v_scale,
                                       sm_scale=sm_scale, scale_layout=scale_layout,
-                                      group=group, ancestry=ancestry)
+                                      group=group, ancestry=ancestry, slots=slots)
     if q.device.type != "cuda":
         raise ValueError(f"decode attention runs on cpu or cuda, not {q.device}")
     b, h, s, d = k.shape
     layout = _resolve_layout(k, k_scale, scale_layout)
     _check_ancestry(k, ancestry, group, layout)
+    _check_slots(k, slots)
     if q.dtype not in (torch.float32, torch.bfloat16) or d not in HEAD_DIMS:
         raise ValueError(f"decode kernel takes f32/bf16 q and head_dim in "
                          f"{'/'.join(map(str, HEAD_DIMS))}, got {q.dtype} and {d}")
@@ -195,14 +257,21 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t, shape, dtype in checks:
         if (t is None or tuple(t.shape) != shape or t.dtype != dtype
                 or t.device != q.device or not t.is_contiguous()
-                or (name in ("k", "v") and t.data_ptr() % 16)):
+                or (name in ("q", "k", "v", "k_scale") and t.data_ptr() % 16)):
             desc = "None" if t is None else f"{tuple(t.shape)} {t.dtype} on {t.device}"
             raise ValueError(f"{name}: expected contiguous {shape} {dtype} on {q.device} "
-                             f"(caches 16-byte aligned), got {desc}")
-    plan = decode_plan(b * group, h, s, num_sms(q.device))
+                             f"(q, caches and k_scale 16-byte aligned), got {desc}")
+    grid = launch_grid(b, h, s, num_sms(q.device), group,
+                       None if ancestry is None else ancestry.shape[1], slots)
+    if grid["kernel"] == "one-query" and slots is not None and slots < s:
+        raise ValueError("slots: the one-query kernel reads the bias of all S slots")
+    if grid["grid"][2] > MAX_BLOCKS_Z:
+        raise ValueError(f"decode kernel: {grid['grid'][2]} blocks in the grid's third "
+                         f"dimension, at most {MAX_BLOCKS_Z}")
     out = torch.empty((b * group, h, d), dtype=q.dtype, device=q.device)
-    err = _launch(q, k, v, bias, k_scale, v_scale, out, layout, plan, sm_scale, group,
-                  ancestry)
+    err = _launch(q, k, v, bias, k_scale, v_scale, out, layout,
+                  (grid["splits"], grid["split_rows"]), sm_scale, group, ancestry,
+                  grid["slots"])
     if err != 0:
         raise RuntimeError(f"decode_attention_fwd launch failed: cudaError {err}")
     decode_attention.launches += 1
@@ -235,9 +304,10 @@ def quantize_per_position(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _launch(q, k, v, bias, k_scale, v_scale, out, layout: Optional[str],
             plan: Tuple[int, int], sm_scale: float, group: int = 1,
-            ancestry: Optional[torch.Tensor] = None) -> int:
-    """One launch of the kernel on checked tensors with the launch plan
-    ``(splits, split_rows)``; returns its cudaError_t (0 on success)."""
+            ancestry: Optional[torch.Tensor] = None, slots: Optional[int] = None) -> int:
+    """One launch of a kernel on checked tensors with the launch plan
+    ``(splits, split_rows)`` over ``slots`` (all S by default); returns its
+    cudaError_t (0 on success)."""
     b, h, s, d = k.shape
     int8 = layout is not None
     return _library().decode_attention_fwd(
@@ -246,9 +316,9 @@ def _launch(q, k, v, bias, k_scale, v_scale, out, layout: Optional[str],
         v_scale.data_ptr() if int8 else None,
         None if ancestry is None else ancestry.data_ptr(),
         1 if ancestry is None else ancestry.shape[1],
-        out.data_ptr(), b, group, h, s, d, 0 if q.dtype == torch.float32 else 1,
-        int(int8), _LAYOUTS[layout], plan[0], plan[1], float(sm_scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), b, group, h, s, s if slots is None else slots, d,
+        0 if q.dtype == torch.float32 else 1, int(int8), _LAYOUTS[layout], plan[0],
+        plan[1], float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def _library() -> ctypes.CDLL:
@@ -256,7 +326,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.decode_attention_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, i, i, i,
+        fn.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, i, i, i, i,
                        ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return lib

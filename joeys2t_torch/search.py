@@ -26,7 +26,8 @@ scales) where they were written and keep a (B, K, S) ancestry map of which
 row holds each position of each beam's history, which every layer's
 self-attention reads through (``step_self_ancestry``; on the card the
 decode-attention kernel's ancestry mode); ``physical`` reorders the buffers
-after each selection. The two are the same math.
+after each selection and reads them through the map of each row's own
+rows. The two are the same math, and the same arithmetic.
 
 Returned attention (``return_attention``, greedy only, as in JAX): the
 transformer loop fills a (B, L+1, S) float32 buffer with the last decoder
@@ -438,14 +439,16 @@ def _transformer_beam(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torc
     k, v, l1 = beam_size, spec.trg_vocab_size, max_output_length + 1
     device = encoder_output.device
     cache = model.init_cache(encoder_output, l1, src_mask, beam_k=k)
+    own_row = torch.arange(k, dtype=torch.int32, device=device)[None, :, None]
+    # slots past the step hold each row's own index: a row writes its next
+    # key/value into its own slot before the selection. The physical reorder
+    # keeps this map (each row reads its own, reordered buffers): both
+    # reorders then run the same attention arithmetic, so their hypotheses
+    # are the same bits, not only the same math
+    ancestry = own_row.expand(b, k, l1).contiguous()
     if lazy_reorder:
-        own_row = torch.arange(k, dtype=torch.int32, device=device)[None, :, None]
-        # slots past the step hold each row's own index: a row writes its
-        # next key/value into its own slot before the selection
-        ancestry = own_row.expand(b, k, l1).contiguous()
         s_grid = torch.arange(l1, device=device)
     else:
-        ancestry = None
         # the self-attention buffers (with their scales when int8), and a
         # spare of each to reorder into; the cross caches and their scales
         # stay as they are, shared by an utterance's beams

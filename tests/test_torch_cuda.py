@@ -281,16 +281,23 @@ def test_decode_kernel_matches_plain(card, mode, d, s, b, h):
         del kg, vg, sign
 
 
+def own_rows(b, k, s, device):
+    """The (B, K, S) map of beams that read only their own rows."""
+    return torch.arange(k, dtype=torch.int32, device=device)[None, :, None].expand(
+        b, k, s).contiguous()
+
+
 @pytest.mark.parametrize("mode", ["f32", "bf16", "channel", "position"])
 @pytest.mark.parametrize("d", [16, 64, 128])
 @pytest.mark.parametrize("s", [1, 61, 65, 250, 750])
 @pytest.mark.parametrize("b,h,group", [(1, 4, 5), (3, 2, 2), (32, 4, 5), (128, 4, 5)])
 def test_decode_kernel_group_matches_expanded_cache(card, mode, d, s, b, h, group):
-    """``group`` G query rows a cache row (the beam-shared cross cache):
-    bit for bit the kernel with one query a row over the cache, bias and
-    scales repeated G times (the same plan, the same math per row), and
-    within the tolerances above of the plain version; group 1 of the
-    expanded cache stays the kernel it was."""
+    """``group`` G query rows a cache row (the beam-shared cross cache), on
+    the multi-query kernel: bit for bit its ancestry mode over the cache,
+    bias and scales repeated G times with each query reading its own row
+    (the same grid, plan and arithmetic; only the rows differ) -- except
+    with "channel" scales, which the ancestry mode does not take -- within
+    the tolerances above of the plain version, and two calls bit-identical."""
     gen = torch.Generator(device=card).manual_seed(5)
     mask_gen = torch.Generator().manual_seed(6)
     qdt = torch.float32 if mode == "f32" else torch.bfloat16
@@ -305,13 +312,47 @@ def test_decode_kernel_group_matches_expanded_cache(card, mode, d, s, b, h, grou
 
     for kind in DECODE_MASKS:
         bias = torch.where(decode_valid(kind, b, s, mask_gen).to(card), 0.0, -1e9).float()
+        before = da.decode_attention.group_launches
         out = da.decode_attention(q, k, v, bias, ks, vs, group=group, **kw)
-        flat = da.decode_attention(q, *map(expand, (k, v, bias, ks, vs)), **kw)
+        again = da.decode_attention(q, k, v, bias, ks, vs, group=group, **kw)
+        assert da.decode_attention.group_launches == before + 2
         ref = da.decode_attention_plain(q, k, v, bias, ks, vs, group=group, **kw)
+        if mode != "channel":
+            flat = da.decode_attention(q, *map(expand, (k, v, bias, ks, vs)),
+                                       ancestry=own_rows(b, group, s, card), **kw)
         torch.cuda.synchronize()
-        assert torch.equal(out, flat), f"{kind}: group {group} differs from the expanded cache"
+        assert torch.equal(out, again), f"{kind}: two calls differ"
+        if mode != "channel":
+            assert torch.equal(out, flat), f"{kind}: group {group} differs from the " \
+                "ancestry mode on the expanded cache"
         torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0,
                                    msg=lambda m, kind=kind: f"{kind}: {m}")
+
+
+def test_decode_group_1_takes_the_one_query_kernel(card):
+    """``group`` 1 without a map, through the wrapper, launches the
+    one-query kernel with decode_plan's plan over all S rows: bit for bit a
+    direct launch of it, and no group launch counted."""
+    gen = torch.Generator(device=card).manual_seed(9)
+    for mode in ("f32", "bf16", "channel", "position"):
+        qdt = torch.float32 if mode == "f32" else torch.bfloat16
+        q = torch.randn(32, 4, 128, generator=gen, device=card).to(qdt)
+        kf, vf = (torch.randn(32, 4, 97, 128, generator=gen, device=card) for _ in range(2))
+        k, v, ks, vs = decode_caches(mode, kf, vf, qdt)
+        layout = mode if ks is not None else None
+        bias = torch.where(decode_valid("cross_tail", 32, 97, torch.Generator().manual_seed(10))
+                           .to(card), 0.0, -1e9).float()
+        grid = da.launch_grid(32, 4, 97, da.num_sms(q.device))
+        assert grid["kernel"] == "one-query"
+        before = da.decode_attention.group_launches
+        out = da.decode_attention(q, k, v, bias, ks, vs, sm_scale=0.1, scale_layout=layout,
+                                  group=1)
+        assert da.decode_attention.group_launches == before
+        direct = torch.empty_like(out)
+        assert da._launch(q, k, v, bias, ks, vs, direct, layout,
+                          da.decode_plan(32, 4, 97, da.num_sms(q.device)), 0.1) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out, direct), mode
 
 
 def random_ancestry(b, k, s, index, gen, device):
@@ -328,12 +369,15 @@ def random_ancestry(b, k, s, index, gen, device):
 @pytest.mark.parametrize("b,k,h", [(1, 5, 4), (3, 2, 2), (32, 5, 4)])
 def test_decode_kernel_ancestry_matches_reordered_cache(card, mode, d, s, b, k, h):
     """The ancestry-map mode (lazy beam search's self-attention): bit for
-    bit the kernel without a map over the cache physically reordered as the
-    map says (``gather_ancestry``: the same plan, the same math per row),
-    and within the tolerances above of the plain version, under each mask
-    kind with the map valid up to step S // 2 (the self-attention step) and
-    beyond; entries outside [0, K) read as clamped into it, so no row of
-    another utterance is read; a launch counts in ``ancestry_launches``."""
+    bit the ancestry mode over the caches physically reordered as the map
+    says (``gather_ancestry``) with each query reading its own row (the
+    same grid, plan and arithmetic; only the rows differ), with and without
+    ``slots`` at the step, and within the tolerances above of the plain
+    version, under each mask kind with the map valid up to step S // 2 (the
+    self-attention step) and beyond; a map whose K entries all name one row
+    (beams not yet diverged); entries outside [0, K) read as clamped into
+    it, so no row of another utterance is read; a launch counts in
+    ``ancestry_launches``."""
     gen = torch.Generator(device=card).manual_seed(7)
     cpu_gen = torch.Generator().manual_seed(8)
     qdt = torch.float32 if mode == "f32" else torch.bfloat16
@@ -343,26 +387,80 @@ def test_decode_kernel_ancestry_matches_reordered_cache(card, mode, d, s, b, k, 
     kc, vc, ks, vs = decode_caches(mode, kf, vf, qdt)
     kw = dict(sm_scale=d ** -0.5, scale_layout=mode if ks is not None else None)
     tol = 1e-5 if qdt == torch.float32 else 1e-2
+    own = own_rows(b, k, s, card)
     for kind in DECODE_MASKS:
         bias = torch.where(decode_valid(kind, rows, s, cpu_gen).to(card), 0.0, -1e9).float()
         for index in (s // 2, s - 1):
             anc = random_ancestry(b, k, s, index, cpu_gen, card)
-            before = da.decode_attention.ancestry_launches
-            out = da.decode_attention(q, kc, vc, bias, ks, vs, ancestry=anc, **kw)
-            assert da.decode_attention.ancestry_launches == before + 1
-            moved = [None if t is None else da.gather_ancestry(t, anc).contiguous()
-                     for t in (kc, vc, ks, vs)]
-            flat = da.decode_attention(q, *moved[:2], bias, *moved[2:], **kw)
-            ref = da.decode_attention_plain(q, kc, vc, bias, ks, vs, ancestry=anc, **kw)
-            torch.cuda.synchronize()
-            assert torch.equal(out, flat), f"{kind} {index}: differs from the reordered cache"
-            torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0,
-                                       msg=lambda m, kind=kind: f"{kind}: {m}")
+            one = anc.clone()
+            one[:, :, :index + 1] = torch.randint(0, k, (b, 1, index + 1), generator=cpu_gen,
+                                                  dtype=torch.int32).to(card)
+            for slots in (None, index + 1):
+                for name, m in (("map", anc), ("one row", one)):
+                    before = da.decode_attention.ancestry_launches
+                    out = da.decode_attention(q, kc, vc, bias, ks, vs, ancestry=m, slots=slots,
+                                              **kw)
+                    assert da.decode_attention.ancestry_launches == before + 1
+                    moved = [None if t is None else da.gather_ancestry(t, m).contiguous()
+                             for t in (kc, vc, ks, vs)]
+                    flat = da.decode_attention(q, *moved[:2], bias, *moved[2:], ancestry=own,
+                                               slots=slots, **kw)
+                    ref = da.decode_attention_plain(q, kc, vc, bias, ks, vs, ancestry=m,
+                                                    slots=slots, **kw)
+                    torch.cuda.synchronize()
+                    assert torch.equal(out, flat), \
+                        f"{kind} {index} {name} {slots}: differs from the reordered cache"
+                    torch.testing.assert_close(
+                        out.float(), ref.float(), atol=tol, rtol=0,
+                        msg=lambda msg, kind=kind, name=name: f"{kind} {name}: {msg}")
             wild = anc + torch.where(anc % 2 == 0, -7 * k, 9 * k).to(torch.int32)
             clamped = wild.clamp(0, k - 1)
             out_w = da.decode_attention(q, kc, vc, bias, ks, vs, ancestry=wild, **kw)
             out_c = da.decode_attention(q, kc, vc, bias, ks, vs, ancestry=clamped, **kw)
             assert torch.equal(out_w, out_c), f"{kind}: an entry outside [0, K) is not clamped"
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "channel", "position"])
+@pytest.mark.parametrize("d", [16, 128, 256])
+@pytest.mark.parametrize("s", [17, 97])
+@pytest.mark.parametrize("queries", [5, 10])
+def test_decode_multi_query_every_plan(card, mode, d, s, queries):
+    """Every plan the multi-query kernel takes (1-16 splits of any length,
+    up to 16 blocks of the largest shared-memory rings a cluster), in group
+    mode and (but with "channel" scales) through a map, at 5 queries a block
+    and at 10 (two chunks), under every mask kind, against the plain
+    version with the tolerances above; the C entry point refuses the plans
+    it does not take."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    mask_gen = torch.Generator().manual_seed(12)
+    b, h = 2, 2
+    qdt = torch.float32 if mode == "f32" else torch.bfloat16
+    layout = None if mode in ("f32", "bf16") else mode
+    sm_scale, tol = d ** -0.5, (1e-5 if qdt == torch.float32 else 1e-2)
+    q = torch.randn(b * queries, h, d, generator=gen, device=card).to(qdt)
+    for ancestry in ((False, True) if mode != "channel" else (False,)):
+        rows = b * queries if ancestry else b
+        kf, vf = (torch.randn(rows, h, s, d, generator=gen, device=card) for _ in range(2))
+        k, v, ks, vs = decode_caches(mode, kf, vf, qdt)
+        anc = random_ancestry(b, queries, s, s - 1, torch.Generator().manual_seed(13), card) \
+            if ancestry else None
+        group = 1 if ancestry else queries
+        for kind in DECODE_MASKS:
+            bias = torch.where(decode_valid(kind, rows, s, mask_gen).to(card), 0.0,
+                               -1e9).float()
+            ref = da.decode_attention_plain(q, k, v, bias, ks, vs, sm_scale=sm_scale,
+                                            scale_layout=layout, group=group, ancestry=anc)
+            for plan in legal_plans(s):
+                out = torch.full_like(ref, float("nan"))
+                assert da._launch(q, k, v, bias, ks, vs, out, layout, plan, sm_scale, group,
+                                  anc) == 0, plan
+                torch.testing.assert_close(
+                    out.float(), ref.float(), atol=tol, rtol=0,
+                    msg=lambda m, kind=kind, plan=plan: f"{kind} {plan} {ancestry}: {m}")
+        out = torch.empty_like(ref)
+        for plan in [(0, s), (17, 1), (1, 0), (1, s - 1), (2, s)]:
+            assert da._launch(q, k, v, bias, ks, vs, out, layout, plan, sm_scale, group,
+                              anc) == 1, plan
 
 
 def test_decode_kernel_ancestry_refuses_what_it_does_not_take(card):

@@ -447,6 +447,108 @@ def test_decode_plan(b, h, s):
         assert splits >= 8
 
 
+@pytest.mark.parametrize("rows,group,beam_k,s,slots", [
+    (32, 5, None, 250, None), (128, 5, None, 61, None), (1, 5, None, 750, None),
+    (3, 2, None, 97, None), (160, 1, 5, 97, 49), (640, 1, 5, 81, 41), (160, 1, 5, 97, None),
+    (15, 1, 5, 250, 1), (20, 1, 10, 97, 60), (12, 1, 12, 31, 16), (40, 9, None, 26, None),
+    (2, 5, None, 3000, None)])
+def test_multi_query_launch_grid(rows, group, beam_k, s, slots):
+    """The multi-query kernel's launch: one block (cluster) per (utterance,
+    head, chunk of 8 queries), never one per query row; the plan covers the
+    slots the step can use, so no split starts past them (no split made
+    only of padding), in splits of MULTI_SPLIT_SLOTS slots from slot 0, and
+    does not depend on the batch (nor on the card)."""
+    h = 4
+    grid = port_da.launch_grid(rows, h, s, 132, group, beam_k, slots)
+    utterances, queries = (rows, group) if beam_k is None else (rows // beam_k, beam_k)
+    chunks = -(-queries // port_da.MAX_QUERIES)
+    used = s if slots is None else slots
+    assert grid["kernel"] == "multi-query"
+    assert (grid["utterances"], grid["queries"], grid["chunks"]) == (utterances, queries, chunks)
+    assert grid["grid"] == (grid["splits"], h, utterances * chunks)
+    step = port_da.MULTI_SPLIT_SLOTS
+    rows_a_split = step * -(-used // (step * port_da.MAX_SPLITS))  # 96 up to 1536 slots
+    assert grid["split_rows"] == rows_a_split and grid["splits"] == -(-used // rows_a_split)
+    assert grid["splits"] <= port_da.MAX_SPLITS
+    for other in (1, 3, 1000):  # another batch, another card: the same plan
+        again = port_da.launch_grid(rows * other, h, s, 16 * other, group, beam_k, slots)
+        assert (again["splits"], again["split_rows"]) == (grid["splits"], grid["split_rows"])
+    assert grid["slots"] == used and (grid["splits"] - 1) * grid["split_rows"] < used
+    if (rows, s) == (32, 250):  # the beam cross shape: 128 (u, h) pairs, several splits
+        assert grid["grid"] == (3, 4, 32)
+    if (rows, s, slots) == (160, 97, 49):  # the beam self shape at step 48
+        assert grid["grid"] == (1, 4, 32)
+
+
+@pytest.mark.parametrize("s", [1, 17, 49, 97, 250, 750])
+def test_multi_query_plan_covers_only_used_slots(s):
+    """Over every step of a ring buffer of S slots, the plan of the
+    ancestry launch splits the used slots alone: each split non-empty and
+    inside them, together covering them."""
+    for used in range(1, s + 1):
+        grid = port_da.launch_grid(160, 4, s, 132, beam_k=5, slots=used)
+        splits, split_rows = grid["splits"], grid["split_rows"]
+        assert (splits - 1) * split_rows < used <= splits * split_rows, used
+
+
+def test_one_query_launch_grid_is_unchanged():
+    """One query a cache row keeps the one-query kernel and its plan over
+    all S slots, whatever ``slots`` says."""
+    for b, s in ((64, 250), (1, 750), (64, 97)):
+        grid = port_da.launch_grid(b, 4, s, 132, slots=1)
+        assert grid["kernel"] == "one-query" and grid["slots"] == s
+        assert (grid["splits"], grid["split_rows"]) == port_da.decode_plan(b, 4, s, 132)
+        assert grid["grid"] == (grid["splits"], 4, b)
+
+
+def test_decode_wrapper_refuses_before_any_card():
+    """What the multi-query launch does not take is refused on tensors that
+    need no card: ``group`` not dividing the query rows, a map of the wrong
+    shape, beside ``group`` > 1 or beside channel scales, ``slots`` outside
+    [1, S]."""
+    q, k, v, bias, ks, vs = (torch.tensor(x) for x in _decode_inputs(
+        "channel", seed=9, mask="cross_tail"))
+    b, h, s, d = k.shape
+    qf = torch.randn(b, h, d)
+    kf, vf = torch.randn(b, h, s, d), torch.randn(b, h, s, d)
+    anc = torch.zeros(1, b, s, dtype=torch.int32)
+    with pytest.raises(ValueError, match="rows"):
+        port_da.decode_attention(torch.randn(b * 3 - 1, h, d), kf, vf, bias, group=3)
+    with pytest.raises(ValueError, match="rows"):
+        port_da.decode_attention(torch.randn(b * 2, h, d), kf, vf, bias, group=3)
+    for bad in (torch.zeros(1, b, s + 1, dtype=torch.int32),
+                torch.zeros(2, b, s, dtype=torch.int32), torch.zeros(b, s, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="ancestry"):
+            port_da.decode_attention(qf, kf, vf, bias, ancestry=bad)
+    with pytest.raises(ValueError, match="channel"):
+        port_da.decode_attention(q.float(), k, v, bias, ks, vs, scale_layout="channel",
+                                 ancestry=anc)
+    with pytest.raises(ValueError, match="group 1"):
+        port_da.decode_attention(qf.repeat(2, 1, 1), kf, vf, bias, group=2, ancestry=anc)
+    for slots in (0, s + 1):
+        with pytest.raises(ValueError, match="slots"):
+            port_da.decode_attention(qf, kf, vf, bias, ancestry=anc, slots=slots)
+
+
+def test_decode_slots_mask_the_slots_past_them():
+    """``slots`` t: the slots from t on count as masked whatever the bias
+    holds, with or without a map, as if their bias were NEG_INF."""
+    _, k, v, bias, _, _ = _decode_inputs("f32", seed=10, mask="cross_tail")
+    kt, vt = torch.tensor(k), torch.tensor(v)
+    b, h, s, d = kt.shape
+    open_bias = torch.zeros(b, s)
+    anc = torch.randint(0, b, (1, b, s), generator=torch.Generator().manual_seed(11),
+                        dtype=torch.int32)
+    q = torch.randn(b, h, d)
+    for t in (1, s // 2, s):
+        masked = open_bias.clone()
+        masked[:, t:] = NEG_INF
+        for kw in ({}, {"ancestry": anc}):
+            got = port_da.decode_attention(q, kt, vt, open_bias, slots=t, **kw)
+            want = port_da.decode_attention(q, kt, vt, masked, **kw)
+            assert torch.equal(got, want), (t, kw)
+
+
 @pytest.mark.parametrize("sms", [16, 78, 114, 132])
 def test_decode_plan_follows_sm_count(sms):
     """The plan is made for the card's SM count: one split from B*H = SMs
