@@ -9,9 +9,10 @@ goes wrong:
 
 1. build: compile every CUDA kernel of the port from joeys2t_torch/csrc
    (one nvcc per source, all started together), timed; print each kernel's
-   registers and spills (ptxas) and HMMA instructions (cuobjdump -sass), and
-   the route (mma.sync tensor cores for bf16, SIMT for f32) and shared
-   memory of the flash kernels at every head size;
+   registers and spills (ptxas) and HMMA and HGMMA instructions (cuobjdump
+   -sass), and the route (the bf16 forward at head dim 128 on the
+   wgmma kernel, the other bf16 kernels on mma.sync tensor cores, SIMT for
+   f32) and shared memory of the flash kernels at every head size;
 2. kernels: hold each kernel against its plain PyTorch version on the card
    at the shapes of the serving path, and time the kernel, the plain
    version and one PyTorch library call computing the same function (CUDA
@@ -461,8 +462,8 @@ def ptxas_report(log: str) -> dict:
 
 
 def hmma_counts(lib: Path):
-    """{mangled kernel: HMMA instructions} in the library's SASS, or None
-    without cuobjdump."""
+    """{mangled kernel: (HMMA, HGMMA) instructions} in the library's SASS
+    (mma.sync and wgmma on the tensor cores), or None without cuobjdump."""
     tool = shutil.which("cuobjdump") or shutil.which("cuobjdump", path="/usr/local/cuda/bin")
     if tool is None:
         return None
@@ -473,9 +474,11 @@ def hmma_counts(lib: Path):
         m = re.search(r"Function : (\w+)", ln)
         if m:
             fn = m.group(1)
-            counts[fn] = 0
+            counts[fn] = [0, 0]
+        elif fn and "HGMMA" in ln:
+            counts[fn][1] += 1
         elif fn and "HMMA" in ln:
-            counts[fn] += 1
+            counts[fn][0] += 1
     return counts
 
 
@@ -494,17 +497,20 @@ def build_phase():
         print(f"[build] {name}: {path.name}, {len(report)} kernels")
         for fn, (regs, st, ld) in sorted(report.items(), key=lambda kv: names[kv[0]]):
             count = "HMMA not measured (no cuobjdump)" if hmma is None else \
-                f"{hmma.get(fn, 0)} HMMA"
+                "{} HMMA, {} HGMMA".format(*hmma.get(fn, (0, 0)))
             print(f"[build]   {names[fn]}: {regs} registers, spill {st}/{ld} bytes "
                   f"(stores/loads), {count}")
     for d in (16, 64, 128, 192, 256):
         for dtype in (torch.bfloat16, torch.float32):
             info = fa.kernel_info(d, dtype)
-            print(f"[build] flash D={d} {str(dtype)[6:]}: route {info['route']}; dynamic "
-                  f"shared memory forward {info['smem_fwd']} B, dK/dV {info['smem_dkdv']} B, "
-                  f"dQ {info['smem_dq']} B")
-            check(info["route"] == ("mma.sync" if dtype == torch.bfloat16 else "simt"),
-                  f"flash D={d} {dtype} takes route {info['route']}")
+            tile = (f" ({fa.WGMMA_BQ} query rows x {fa.WGMMA_BK} keys a tile, "
+                    f"{info['stages']} K/V stages, {info['threads']} threads a block)"
+                    if info["route"] == "wgmma" else "")
+            print(f"[build] flash D={d} {str(dtype)[6:]}: forward route {info['route']}{tile}, "
+                  f"backward {info['bwd_route']}; dynamic shared memory forward "
+                  f"{info['smem_fwd']} B, dK/dV {info['smem_dkdv']} B, dQ {info['smem_dq']} B")
+    check(fa.kernel_info(128, torch.bfloat16)["route"] == "wgmma",
+          "the bf16 D=128 forward does not take the wgmma kernel")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -541,14 +547,13 @@ def fault_detail(got, again, want, tol) -> str:
     return "; ".join(parts)
 
 
-def flash_case(b, sq, sk, dtype, gen, d=128, timed=True, scaled=False):
+def flash_case(b, sq, sk, dtype, gen, d=128, timed=True, scaled=False, h=4):
     """The forward kernel against its plain version (output and lse; two
     calls bit-identical), and when ``timed`` the kernel, the plain version
     and SDPA on the same inputs. Key lengths are drawn from Sk/2..Sk; row 0
     of a batch of more than 2 has every key masked."""
     from joeys2t_torch.ops import flash_attention as fa
 
-    h = 4
     e = h * d
     q = torch.randn(b, sq, e, generator=gen).to(dtype).cuda()
     k, v = (torch.randn(b, sk, e, generator=gen).to(dtype).cuda() for _ in range(2))
@@ -1054,7 +1059,7 @@ def print_flash(c):
     line = f"[kernels] {c['case']}: err {c['max_abs_err']:.3g} (tol {c['tol']}), two calls " \
         "bit-identical"
     if "ms" in c:
-        line += (f", kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, library "
+        line += (f", kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, SDPA "
                  f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
                  f"({c['bound_by']}), roofline share {100 * c['roofline']:.1f} % "
                  f"({c['bound_by']}), {c['tflops']:.1f} TFLOP/s")
@@ -1111,6 +1116,7 @@ def print_group(c):
 MT_FLASH = ((1, 1), (7, 7), (33, 33), (61, 61), (81, 61))
 MT_TIMED = ((61, 61), (81, 61))
 MT_CROSS = (128, 5, 61)
+FLASH_D64 = ((64, 250, 250), (192, 61, 61), (192, 81, 61))
 # phase 13's head dim 16 (configs/transformer_reverse.yaml: 4 heads of 16,
 # 12 sentences of <= 25 tokens + eos, a ring buffer of 30 + 1 slots), and a
 # 64-wide model at the MT batch shape
@@ -1160,6 +1166,11 @@ def kernel_phase():
     # sent to its second (B, H, S, D) kernel
     flash = [flash_case(b, s, s, dt, gen) for b, s in ((64, 250), (2, 750), (64, 750))
              for dt in (torch.bfloat16, torch.float32)]
+    # head dim 64: the 512-wide models of 8 heads (configs/wmt17_ende_*.yaml,
+    # iwslt14_deen_bpe.yaml, mustc_*.yaml, jparacrawl_enja_sp.yaml) at the
+    # speech batch and the MT shapes
+    flash += [flash_case(b, sq, sk, torch.bfloat16, gen, d=64, h=8, scaled=b == 192)
+              for b, sq, sk in FLASH_D64]
     # every decode shape in every mode is checked; bf16 is timed at each
     # shape and every mode at the headline shape
     decode = []
@@ -4725,12 +4736,12 @@ def main():
         return {k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "library_ms",
                                   "physical_ms", "bound_ms", "bound_by", "grid") if k in c}
 
-    def entry(name, source, replaces, also, cases, launches, checks):
+    def entry(name, source, replaces, also, cases, launches, checks, **extra):
         head = cases[0]  # the main path's headline shape and dtype
         # of the checks on the paths' own inputs, the count and the case
         # nearest its tolerance (each was printed above)
         worst = max(checks, key=lambda c: c["max_abs_err"] / c["tol"] if c["tol"] else 0.0)
-        return dict(name=name, route="cuda", source=source, replaces=replaces,
+        return dict(name=name, route="cuda", source=source, replaces=replaces, **extra,
                     also_replaces=also, launches=sum(launches.values()),
                     launches_by_path=launches, max_abs_err=head["max_abs_err"],
                     ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
@@ -4769,11 +4780,14 @@ def main():
     int8_decode_checks = int8_checks["decode_attention"]
     check(bool(anc_checks), "no ancestry-map decode input of the main paths was checked")
     kernels = [
-        entry("flash_attention_fwd", "joeys2t_torch/csrc/flash_attention.cu",
+        # the headline (bf16, D=128) on the wgmma kernel; head dims 16, 192
+        # and 256 in bf16 on mma.sync and f32 on SIMT, in flash_attention.cu
+        entry("flash_attention_fwd", "joeys2t_torch/csrc/flash_attention_wgmma.cu",
               "joeys2t_tpu/ops/flash_attention.py:492",
               "joeys2t_tpu/ops/flash_attention.py:262", flash + mt_flash,
               paths("flash_attention_fwd", serving=flash_launches, train=train_fwd_launches),
-              cli_checks["flash_attention_fwd"]),
+              cli_checks["flash_attention_fwd"], kernel_route=flash[0]["route"],
+              other_routes_source="joeys2t_torch/csrc/flash_attention.cu"),
         entry("flash_attention_bwd", "joeys2t_torch/csrc/flash_attention.cu",
               "joeys2t_tpu/ops/flash_attention.py:562",
               "joeys2t_tpu/ops/flash_attention.py:306", backward + mt_backward,

@@ -63,10 +63,16 @@
 // (S = 250) and operations the 30 s ones (S = 750). In f32 the ridge is
 // 67 TF / 3.35 TB/s ~ 20: operations at both.
 //
-// Two routes, chosen by dtype and head size (dispatch_fwd / dispatch_bwd;
+// Three routes, chosen by dtype and head size (dispatch_fwd / dispatch_bwd;
 // flash_attention_info reports the route):
 //
-// bf16, D in 16/64/128/192/256: tensor cores (the *_mma kernels below). Every
+// bf16 forward at D = 128: the wgmma kernel of flash_attention_wgmma.cu
+// (TMA, mbarriers, warp specialisation), its own library; this library's
+// flash_attention_fwd refuses that pair, and its backward reads that
+// kernel's out and lse.
+//
+// bf16, D in 16/64/128/192/256 (the forward at 16/64/192/256 only): tensor
+// cores (the *_mma kernels below). Every
 // product is mma.sync.m16n8k16 bf16 x bf16 -> f32. Tiles stay bf16 in shared
 // memory, in 16-byte chunks stored at chunk ^ (row % 8), so the 8 row
 // addresses of an ldmatrix hit 8 different bank groups. Operands reach the
@@ -75,17 +81,18 @@
 // products). Tiles are copied with 16-byte cp.async.cg into a two-stage
 // ring (the next tile loads while the current one multiplies); rows past Sq
 // or Sk are zero-filled (src-size 0), and their keys get a -inf score.
-//   forward: 4 warps, BQ = 64 query rows (16 a warp), BK = 64 keys (32 at
-//     D >= 192); FlashAttention-2 shape: S = Q.K^T and the online softmax in
+//   forward (D = 16, 64, 192 and 256; 128 runs on the wgmma kernel): 4
+//     warps, BQ = 64 query rows (16 a warp), BK = 64 keys (32 at D >= 192);
+//     FlashAttention-2 shape: S = Q.K^T and the online softmax in
 //     registers (an m16n8 accumulator gives lane l rows l/4 and l/4 + 8,
 //     columns 2*(l%4) + {0,1}; row max and sum over the 4 lanes of a quad),
 //     P rounded to bf16 and fed from the accumulator registers as the A
 //     operand of P.V (the Pallas kernel's p.astype(v.dtype), :99), O in
 //     registers normalised once at the end. Q sits in registers for D <= 128
 //     (its shared tile is then reused as the second K/V stage), in shared
-//     memory above. At D = 128 ptxas gives it 228-242 registers, so 2 blocks
-//     (8 warps) share an SM; tighter bounds (3 blocks), BQ = 128 and BK = 32
-//     were each slower on the card.
+//     memory above. At D = 128 (its head size until the wgmma kernel) ptxas
+//     gave it 228-242 registers, so 2 blocks (8 warps) shared an SM; tighter
+//     bounds (3 blocks), BQ = 128 and BK = 32 were each slower on the card.
 //   backward: 8 warps, BQ = BK = 64, the same split as the SIMT path. Each
 //     warp computes a 16 x 32 piece of S and dP = dO.V^T (score_grads_mma),
 //     writes P_drop and dS to shared memory as bf16, and then owns 16 rows x
@@ -127,6 +134,8 @@
 
 #include <type_traits>
 
+#include "flash_attention_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // a 16 x 16 grid of threads
@@ -150,29 +159,6 @@ __device__ __forceinline__ float row_sum(float x) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
-}
-
-// ------------------------------------------------------------ dropout bits
-struct Dropout {
-  const uint32_t* seed;  // one word in device memory; null without dropout
-  uint32_t threshold;    // keep where bits >= threshold
-  float scale;           // 1 / (1 - rate)
-};
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7feb352du;
-  x ^= x >> 15;
-  x *= 0x846ca68bu;
-  x ^= x >> 16;
-  return x;
-}
-__device__ __forceinline__ uint32_t row_key(uint32_t seed, int b, int h, int q) {
-  return mix32(mix32(mix32(mix32(seed ^ 0x9e3779b9u) ^ (uint32_t)b) ^ (uint32_t)h) ^
-               (uint32_t)q);
-}
-__device__ __forceinline__ bool keep(uint32_t key, int k, uint32_t threshold) {
-  return mix32(key ^ (uint32_t)k) >= threshold;
 }
 
 // ------------------------------------------------------------------ forward
@@ -605,12 +591,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------- tensor cores (bf16 only)
-using bf16 = __nv_bfloat16;
 constexpr int kMmaRows = 64;  // BQ of every mma kernel, BK of the backward
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 // 16 bytes global -> shared, bypassing L1; zero-filled (nothing read) if !valid
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
@@ -644,21 +626,6 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint3
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ void store2(bf16* p, float lo, float hi) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
-}
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Element offset of (row, col) in a bf16 tile W columns wide: 16-byte chunk
@@ -1303,7 +1270,12 @@ cudaError_t with_head_dim(int head_dim, F&& f) {
   }
 }
 
-// The route: bf16 on the tensor cores, f32 on the SIMT kernels.
+// Head sizes whose bf16 forward is the wgmma kernel (flash_attention_wgmma.cu)
+template <int D>
+constexpr bool kWgmmaFwd = D == 128;
+
+// The route: bf16 on the tensor cores, f32 on the SIMT kernels; the bf16
+// forward of the wgmma head sizes is not in this library.
 template <typename T, bool DROP>
 cudaError_t dispatch_fwd(const void* q, const void* k, const void* v,
                          const float* bias, void* out, float* lse, int batch,
@@ -1311,7 +1283,9 @@ cudaError_t dispatch_fwd(const void* q, const void* k, const void* v,
                          float sm_scale, Dropout drop, cudaStream_t st) {
   return with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
-    if constexpr (std::is_same_v<T, bf16>)
+    if constexpr (std::is_same_v<T, bf16> && kWgmmaFwd<D>)
+      return cudaErrorInvalidValue;
+    else if constexpr (std::is_same_v<T, bf16>)
       return launch_fwd_mma<D, kMmaFwdBK<D>, DROP>(
           q, k, v, bias, out, lse, batch, sq, sk, num_heads, sm_scale, drop, st);
     else
@@ -1419,17 +1393,21 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
 }
 
 // The route of (head_dim, dtype) and its kernels' dynamic shared memory:
-// info[0] = 1 for the tensor cores (mma.sync), 0 for the SIMT kernels;
-// info[1], info[2], info[3] = bytes of the forward, dK/dV and dQ kernels.
-// Returns cudaErrorInvalidValue for a pair the kernels do not take.
+// info[0] = the forward's route: 2 for wgmma (flash_attention_wgmma.cu), 1
+// for the tensor cores here (mma.sync), 0 for the SIMT kernels; the
+// backward is mma.sync for bf16 and SIMT for f32. info[1], info[2],
+// info[3] = bytes of the forward (0 where it is the wgmma kernel's), dK/dV
+// and dQ kernels. Returns cudaErrorInvalidValue for a pair the kernels do
+// not take.
 extern "C" int flash_attention_info(int head_dim, int dtype, int* info) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   return (int)with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
     using S = SimtTiles<D>;
     const bool mma_route = dtype == 1;
-    info[0] = mma_route;
-    info[1] = (int)(mma_route ? FwdMma<D, kMmaFwdBK<D>>::kBytes : Tile<D, S::FQ, S::FK>::kBytes);
+    info[0] = mma_route ? (kWgmmaFwd<D> ? 2 : 1) : 0;
+    info[1] = (int)(!mma_route ? Tile<D, S::FQ, S::FK>::kBytes
+                    : kWgmmaFwd<D> ? 0 : FwdMma<D, kMmaFwdBK<D>>::kBytes);
     info[2] = (int)(mma_route ? BwdMma<D>::kDkdvBytes : BwdTile<D, S::BQ, S::BK>::kBytes);
     info[3] = (int)(mma_route ? BwdMma<D>::kDqBytes : BwdTile<D, S::BQ, S::BK>::kBytes);
     return cudaSuccess;

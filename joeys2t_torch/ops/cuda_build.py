@@ -4,8 +4,9 @@ Build and load the port's hand-written CUDA kernels (``joeys2t_torch/csrc``).
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
-``build/joeys2t_torch/``, named after a hash of its source so an edited
-source is rebuilt and a stale library is never loaded. Libraries are loaded
+``build/joeys2t_torch/``, named after a hash of its source and the shared
+headers (``csrc/*.cuh``) so an edited source is rebuilt and a stale library
+is never loaded. Libraries are loaded
 with ``ctypes``. Nothing is built at import time: the first kernel launch
 builds what it needs, and :func:`build_all` builds every kernel at once, one
 ``nvcc`` process per source, all started together.
@@ -21,7 +22,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "joeys2t_torch"
-KERNELS = ("flash_attention", "decode_attention")
+KERNELS = ("flash_attention", "flash_attention_wgmma", "decode_attention")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -38,9 +39,12 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives once built."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the library of ``csrc/<name>.cu`` lives once built: named by
+    a hash of the source and of every header in ``csrc`` it may include."""
+    digest = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _command(name: str, out: Path) -> list:

@@ -18,10 +18,14 @@ plain versions compute the same bits as the kernels. They are not the TPU's
 bits, which cannot be reproduced.
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
-launch the kernels or raise. bf16 runs on the tensor-core kernels
-(mma.sync), f32 on the SIMT kernels, its exact path (:func:`kernel_info`).
+launch the kernels or raise. The bf16 forward at head dim 128 runs
+on Hopper's wgmma kernel (``csrc/flash_attention_wgmma.cu``: TMA loads over
+tensor maps this module plans, :func:`wgmma_plan`), the other bf16 kernels
+on the tensor cores (mma.sync), f32 on the SIMT kernels, its exact path
+(:func:`route`, :func:`kernel_info`).
 """
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -31,6 +35,16 @@ from joeys2t_torch.ops import cuda_build
 NEG_INF = -1e9
 _MASK32 = 0xFFFFFFFF
 
+# the wgmma forward (csrc/flash_attention_wgmma.cu): its head dim in bf16,
+# the columns of a TMA box (64 bf16: one 128-byte swizzle row), query rows a
+# tile (two consumer warpgroups of 64) and keys a tile (the same for every
+# shape, so a row's arithmetic does not depend on the batch or its padding);
+# the kernel is compiled for these boxes (kBoxCols, kBQ, kBK)
+WGMMA_HEAD_DIMS = (128,)
+WGMMA_BOX_COLS = 64
+WGMMA_BQ = 128
+WGMMA_BK = 128
+
 
 def supported(head_dim: int, dtype: torch.dtype) -> bool:
     """Whether the kernels take this head size and dtype: 16, 64, 128, 192
@@ -38,6 +52,18 @@ def supported(head_dim: int, dtype: torch.dtype) -> bool:
     0 and sends head dim 16 to einsum; here it has kernels of its own."""
     return (head_dim in (16, 64, 128, 192, 256)
             and dtype in (torch.float32, torch.bfloat16))
+
+
+def route(head_dim: int, dtype: torch.dtype) -> str:
+    """The forward's kernel on the card: "wgmma" (bf16 at
+    :data:`WGMMA_HEAD_DIMS`), "mma.sync" (the other bf16 head dims) or "simt"
+    (f32). The backward is "mma.sync" for bf16 and "simt" for f32."""
+    if not supported(head_dim, dtype):
+        raise ValueError(f"flash kernel takes head_dim in 16/64/128/192/256 and f32/bf16, "
+                         f"got {head_dim} and {dtype}")
+    if dtype == torch.float32:
+        return "simt"
+    return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma.sync"
 
 
 # ------------------------------------------------------------ dropout bits
@@ -181,6 +207,61 @@ def _check_operands(q, named, num_heads):
     return d
 
 
+def tensor_map(name: str, t: torch.Tensor, num_heads: int, box_rows: int) -> dict:
+    """The TMA tensor map through which the wgmma kernel reads a (B, S,
+    H * D) bf16 operand: 4-D (D, H, S, B), innermost first, with the byte
+    strides of dims 1-3 (D, H * D and S * H * D elements) and a box of
+    :data:`WGMMA_BOX_COLS` columns x 1 head x ``box_rows`` rows x 1 batch
+    row, so rows past S are zero-filled without touching the next batch
+    row. Raises on what TMA does not take: a tensor that is not contiguous
+    (B, S, E), a base not on a 16-byte boundary, a stride not a multiple of
+    16 bytes, a head dim not a whole number of boxes."""
+    if t.dim() != 3 or not t.is_contiguous():
+        raise ValueError(f"{name}: the wgmma kernel reads a contiguous (B, S, E) tensor, got "
+                         f"shape {tuple(t.shape)}, contiguous={t.is_contiguous()}")
+    b, s, e = t.shape
+    if e % num_heads or (e // num_heads) % WGMMA_BOX_COLS:
+        raise ValueError(f"{name}: E={e} is not num_heads={num_heads} heads of whole "
+                         f"{WGMMA_BOX_COLS}-column boxes")
+    d, size = e // num_heads, t.element_size()
+    strides = (d * size, e * size, s * e * size)
+    if t.data_ptr() % 16 or any(x % 16 for x in strides):
+        raise ValueError(f"{name}: TMA needs a 16-byte aligned base and strides, got base "
+                         f"{t.data_ptr() % 16} past a boundary and strides {strides}")
+    return dict(dims=(d, num_heads, s, b), strides=strides,
+                box=(WGMMA_BOX_COLS, 1, box_rows, 1))
+
+
+def wgmma_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+               num_sms: int) -> dict:
+    """The wgmma forward's launch: the tensor maps of q (boxes of
+    :data:`WGMMA_BQ` rows), k and v (:data:`WGMMA_BK` rows, the key tile),
+    the q-tiles of a (batch row, head), the (q-tile, head, batch row) tiles
+    and the persistent grid, one block an SM at most (the kernel's shared
+    memory takes the SM)."""
+    b, sq, _ = q.shape
+    q_tiles = -(-sq // WGMMA_BQ)
+    tiles = q_tiles * num_heads * b
+    return dict(q_map=tensor_map("q", q, num_heads, WGMMA_BQ),
+                k_map=tensor_map("k", k, num_heads, WGMMA_BK),
+                v_map=tensor_map("v", v, num_heads, WGMMA_BK),
+                q_tiles=q_tiles, tiles=tiles, grid=min(tiles, num_sms))
+
+
+def _map_words(plan: dict):
+    """The plan's three maps as the C interface takes them: for each of q,
+    k, v its dims, strides and box, 11 unsigned 64-bit words."""
+    words = [x for name in ("q_map", "k_map", "v_map")
+             for part in ("dims", "strides", "box") for x in plan[name][part]]
+    return (ctypes.c_ulonglong * len(words))(*words)
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device: Optional[int]) -> int:
+    """The card's SMs: the wgmma forward's persistent grid at most."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _dropout_args(dropout_rate: float, seed: Optional[torch.Tensor], device):
     """(flag, seed pointer, threshold, keep scale) of the C interface."""
     if dropout_rate <= 0.0:
@@ -219,11 +300,20 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     drop, seed_ptr, threshold, keep_scale = _dropout_args(dropout_rate, seed, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((b, sq, num_heads), dtype=torch.float32, device=q.device)
-    err = _library().flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b, sq, sk, num_heads, d,
-        0 if q.dtype == torch.float32 else 1, float(sm_scale), drop, seed_ptr,
-        threshold, keep_scale, torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route(d, q.dtype) == "wgmma":
+        plan = wgmma_plan(q, k, v, num_heads, _num_sms(q.device.index))
+        err = _wgmma_library().flash_attention_fwd_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, sq, sk, num_heads, d, _map_words(plan), plan["q_tiles"],
+            plan["tiles"], plan["grid"], float(sm_scale), drop, seed_ptr, threshold,
+            keep_scale, stream)
+    else:
+        err = _library().flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, sq, sk, num_heads, d,
+            0 if q.dtype == torch.float32 else 1, float(sm_scale), drop, seed_ptr,
+            threshold, keep_scale, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
     flash_attention_fwd.launches += 1
@@ -345,20 +435,31 @@ def mha_flash_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def kernel_info(head_dim: int, dtype: torch.dtype) -> dict:
-    """Which kernels a (head_dim, dtype) takes on the card: ``route``
-    "mma.sync" (bf16, tensor cores) or "simt" (f32, CUDA cores), and the
-    dynamic shared memory in bytes of the forward, dK/dV and dQ kernels.
-    Builds the library if needed."""
-    if not supported(head_dim, dtype):
-        raise ValueError(f"flash kernel takes head_dim in 16/64/128/192/256 and f32/bf16, "
-                         f"got {head_dim} and {dtype}")
+    """Which kernels a (head_dim, dtype) takes on the card: ``route``, the
+    forward's (:func:`route`: "wgmma", "mma.sync" or "simt"), as the C
+    library reports it; ``bwd_route``; the dynamic shared memory in bytes
+    of the forward, dK/dV and dQ kernels; and for the wgmma route the
+    kernel's K/V stages and threads a block (its tile is the plan's,
+    :func:`wgmma_plan`). Builds the libraries if needed."""
+    want = route(head_dim, dtype)
     info = (ctypes.c_int * 4)()
     err = _library().flash_attention_info(head_dim, 0 if dtype == torch.float32 else 1,
                                           info)
     if err != 0:
         raise RuntimeError(f"flash_attention_info failed: cudaError {err}")
-    return {"route": "mma.sync" if info[0] else "simt", "smem_fwd": info[1],
-            "smem_dkdv": info[2], "smem_dq": info[3]}
+    got = {0: "simt", 1: "mma.sync", 2: "wgmma"}[info[0]]
+    if got != want:
+        raise RuntimeError(f"flash library routes D={head_dim} {dtype} to {got}, the "
+                           f"wrapper to {want}")
+    out = {"route": got, "bwd_route": "simt" if dtype == torch.float32 else "mma.sync",
+           "smem_fwd": info[1], "smem_dkdv": info[2], "smem_dq": info[3]}
+    if got == "wgmma":
+        w = (ctypes.c_int * 3)()
+        err = _wgmma_library().flash_attention_wgmma_info(head_dim, w)
+        if err != 0:
+            raise RuntimeError(f"flash_attention_wgmma_info failed: cudaError {err}")
+        out.update(smem_fwd=w[0], stages=w[1], threads=w[2])
+    return out
 
 
 def _library() -> ctypes.CDLL:
@@ -373,4 +474,17 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i,
                                             i, i, f, i, p, u, f, p]
         lib.flash_attention_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _wgmma_library() -> ctypes.CDLL:
+    lib = cuda_build.load("flash_attention_wgmma")
+    if lib.flash_attention_fwd_wgmma.argtypes is None:
+        p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+        lib.flash_attention_wgmma_info.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+        lib.flash_attention_wgmma_info.restype = ctypes.c_int
+        lib.flash_attention_fwd_wgmma.argtypes = [
+            p, p, p, p, p, p, i, i, i, i, i, ctypes.POINTER(ctypes.c_ulonglong), i, i, i, f,
+            i, p, u, f, p]
+        lib.flash_attention_fwd_wgmma.restype = ctypes.c_int
     return lib

@@ -1,0 +1,141 @@
+# coding: utf-8
+"""Time the flash-attention forward of this checkout against another
+checkout's (for example the parent commit, unpacked under ``build/``) on one
+CUDA card, at the speech and MT shapes of the 4-head (D=128) and 8-head
+(D=64) 512-wide models, and the wrapper's host time per call.
+
+    python3 -m joeys2t_torch.tools.flash_ab OTHER_CHECKOUT [--pairs 1]
+
+Each turn is a fresh process that imports one checkout's ``joeys2t_torch``
+and runs chip_smoke.py's phase-2 case (``flash_case``: the kernel held to
+its plain version, two calls bit-identical; then the kernel, the plain
+version and SDPA timed back to back on warm L2, and the bound) at every
+shape. Turns run other, this, this, other for each pair, so a drift of the
+host or the card falls on both sides alike. The host time is the wall of
+500 back-to-back calls at B=1 Sq=Sk=16 over their count, beside the device
+time of the same call: where the host time is the larger, the launch loop
+is the wrapper's. Each turn first times its process's first two calls (head
+dims 128 and 64, tiny shapes), which load the kernel libraries. Prints the
+card's name and power limit, every turn's numbers, and each side's median
+kernel time, host time and first-call time. Imports nothing of JAX.
+"""
+import argparse
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[2]
+# (B, Sq, Sk, heads, head dim): the 10 s batch, a full batch of 30 s
+# utterances, the 45 s request's two chunks, the MT self and cross shapes
+SHAPES = [(b, sq, sk, h, d) for h, d in ((4, 128), (8, 64))
+          for b, sq, sk in ((64, 250, 250), (64, 750, 750), (2, 750, 750), (192, 61, 61),
+                            (192, 81, 61))]
+HOST_CALLS = 500
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def worker(tree: Path) -> None:
+    """One turn in ``tree``'s joeys2t_torch: a JSON line a shape."""
+    sys.path.insert(0, str(tree))
+    import torch
+    from joeys2t_torch.ops import flash_attention as fa
+
+    smoke = _chip_smoke()
+    gen = torch.Generator().manual_seed(0)
+    q = torch.zeros(1, 16, 512, dtype=torch.bfloat16, device="cuda")  # the context exists
+    bias = torch.zeros(1, 16, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()  # the first call loads the libraries and their kernels
+    for h in (4, 8):
+        fa.flash_attention_fwd(q, q, q, bias, 0.1, h)
+    torch.cuda.synchronize()
+    print(json.dumps(dict(first_calls_ms=(time.perf_counter() - t0) * 1e3)), flush=True)
+    for b, sq, sk, h, d in SHAPES:
+        c = smoke.flash_case(b, sq, sk, torch.bfloat16, gen, d=d, h=h, scaled=b == 192)
+        q = torch.randn(1, 16, h * d, generator=gen).to(torch.bfloat16).cuda()
+        bias = torch.zeros(1, 16, device="cuda")
+
+        def call():
+            fa.flash_attention_fwd(q, q, q, bias, d ** -0.5, h)
+
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            call()
+        torch.cuda.synchronize()
+        host_us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+        print(json.dumps(dict(shape=[b, sq, sk, h, d], route=c["route"], ms=c["ms"],
+                              library_ms=c["library_ms"], bound_ms=c["bound_ms"],
+                              bound_by=c["bound_by"], max_abs_err=c["max_abs_err"],
+                              tol=c["tol"], host_us=host_us,
+                              tiny_device_us=smoke.time_ms(call) * 1e3)), flush=True)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("other", type=Path, nargs="?", help="the other checkout's root")
+    ap.add_argument("--pairs", type=int, default=1, help="other/this/this/other rounds")
+    ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        return worker(args.worker.resolve())
+    if args.other is None:
+        ap.error("the other checkout's root is needed")
+    trees = {"other": args.other.resolve(), "this": REPO}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for tree in trees.values():
+        subprocess.run([sys.executable, "-c", "from joeys2t_torch.ops import cuda_build; "
+                        "cuda_build.build_all()"], cwd=tree, env=env, check=True, timeout=900)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    rows = {side: {} for side in trees}
+    first = {side: [] for side in trees}
+    for turn in ["other", "this", "this", "other"] * args.pairs:
+        run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker",
+                              str(trees[turn])], cwd=trees[turn], env=env,
+                             capture_output=True, text=True, timeout=900)
+        if run.returncode != 0:
+            sys.exit(f"{turn} turn failed:\n{run.stdout}\n{run.stderr}")
+        for line in run.stdout.splitlines():
+            if line.startswith("{"):
+                r = json.loads(line)
+                print(turn, line)
+                if "first_calls_ms" in r:
+                    first[turn].append(r["first_calls_ms"])
+                else:
+                    rows[turn].setdefault(tuple(r["shape"]), []).append(r)
+    print(f"first calls in a fresh process (D=128 and D=64, the libraries loaded): this "
+          f"{statistics.median(first['this']):.1f} ms, other "
+          f"{statistics.median(first['other']):.1f} ms")
+    for shape in rows["this"]:
+        b, sq, sk, h, d = shape
+        this, other = rows["this"][shape], rows["other"][shape]
+        med = {side: statistics.median(r["ms"] for r in rs)
+               for side, rs in (("this", this), ("other", other))}
+        host = {side: statistics.median(r["host_us"] for r in rs)
+                for side, rs in (("this", this), ("other", other))}
+        print(f"B={b} Sq={sq} Sk={sk} H={h} D={d}: this ({this[0]['route']}) {med['this']:.4f} "
+              f"ms, other ({other[0]['route']}) {med['other']:.4f} ms, this / other "
+              f"{med['this'] / med['other']:.3f}; SDPA {this[0]['library_ms']:.4f} ms; bound "
+              f"{this[0]['bound_ms']:.4f} ms ({this[0]['bound_by']}), share this "
+              f"{100 * this[0]['bound_ms'] / med['this']:.1f} %, other "
+              f"{100 * this[0]['bound_ms'] / med['other']:.1f} %; host a call this "
+              f"{host['this']:.1f} us, other {host['other']:.1f} us")
+
+
+if __name__ == "__main__":
+    main()

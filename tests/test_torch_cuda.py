@@ -1,7 +1,9 @@
 # coding: utf-8
 """The port's CUDA kernels against their plain versions (flash attention
-forward and backward, with and without dropout, and the dropout mask bit
-for bit; decode attention, also with query rows sharing a cache row and through an
+forward on each route, wgmma, mma.sync and SIMT, at the tiles' edges, an
+utterance alone bit-equal to its row in a padded batch; forward and
+backward with and without dropout, and the dropout mask bit for bit;
+decode attention, also with query rows sharing a cache row and through an
 ancestry map), and a
 small model on the card against the CPU (greedy and beam search, serving and
 one training update), a one-rank NCCL update and ``remat`` against the plain
@@ -46,6 +48,14 @@ SHORT = ([(192, s, s, 4, 128) for s in (1, 7, 33, 61)] + [(192, 81, 61, 4, 128)]
          + [(3, sq, sk, 2, 16) for sq in (1, 63, 64, 65, 250) for sk in (1, 63, 65, 250)])
 
 
+# the wgmma forward's tile edges (128 query rows, 128 keys a tile) at head
+# size 128, the pairs EDGES does not already hold (held at token lengths'
+# tolerance: Sk = 1 with dropout gives outputs of ~5)
+WGMMA_LENGTHS = (1, 63, 64, 65, 127, 128, 129, 250, 750, 1125)
+WGMMA_EDGES = [(3, sq, sk, 2, 128) for sq in WGMMA_LENGTHS for sk in WGMMA_LENGTHS
+               if (3, sq, sk, 2, 128) not in EDGES]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("b,sq,sk,h,d", [(3, 37, 70, 2, 64), (2, 130, 600, 4, 128),
                                          (2, 40, 33, 1, 256), (2, 70, 90, 2, 192)] + EDGES)
@@ -77,8 +87,10 @@ def test_flash_forward_writes_every_output_over_poisoned_memory(card, b, sq, sk)
     full of NaN and inf: every out and lse entry written and finite, equal
     to the plain version, ten calls bit-identical. An output the kernel
     left unwritten, or a read of memory it did not write first, shows as a
-    non-finite value here (the one-off non-finite lse of PERF.md §7)."""
+    non-finite value here (the one-off non-finite lse of PERF.md §7). bf16
+    at head size 128 runs on the wgmma kernel."""
     h, d = 4, 128
+    assert fa.kernel_info(d, torch.bfloat16)["route"] == "wgmma"
     gen = torch.Generator().manual_seed(1)
     q = torch.randn(b, sq, h * d, generator=gen).to(torch.bfloat16).to(card)
     k, v = (torch.randn(b, sk, h * d, generator=gen).to(torch.bfloat16).to(card)
@@ -104,13 +116,14 @@ def test_flash_forward_writes_every_output_over_poisoned_memory(card, b, sq, sk)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("b,sq,sk,h,d", SHORT)
+@pytest.mark.parametrize("b,sq,sk,h,d", SHORT + WGMMA_EDGES)
 def test_flash_kernel_matches_plain_at_token_lengths(card, dtype, tol, b, sq, sk, h, d):
-    """The forward at the text models' shapes, with and without dropout, row
-    0 with every key masked, two calls bit-identical. With few keys a row's
-    output is no average (at Sk = 1 the kept value times 1 / (1 - rate)), so
-    the tolerance is in units of the largest reference value where that
-    exceeds 1: bf16 rounds an output to its own ulp."""
+    """The forward at the text models' shapes and at the wgmma kernel's
+    tile edges, with and without dropout, row 0 with every key masked, two
+    calls bit-identical. With few keys a row's output is no average (at Sk =
+    1 the kept value times 1 / (1 - rate)), so the tolerance is in units of
+    the largest reference value where that exceeds 1: bf16 rounds an output
+    to its own ulp (0.03 at the ~5 of Sk = 1 with dropout)."""
     gen = torch.Generator().manual_seed(0)
     q = torch.randn(b, sq, h * d, generator=gen).to(dtype).to(card)
     k, v = (torch.randn(b, sk, h * d, generator=gen).to(dtype).to(card) for _ in range(2))
@@ -174,8 +187,11 @@ def test_dropout_mask_bits_match_plain(card, dtype):
     """The kernels' keep mask, read out bit for bit: with V the identity in
     each head band the forward's out is the dropped probability matrix, and
     with dO the identity the backward's dV is its transpose. bf16 takes the
-    tensor-core kernels, f32 the SIMT ones."""
+    tensor-core kernels (the forward on wgmma at this head size), f32 the
+    SIMT ones."""
     b, h, d = 3, 2, 128
+    assert fa.kernel_info(d, dtype)["route"] == ("simt" if dtype == torch.float32
+                                                 else "wgmma")
     sq = sk = d
     gen = torch.Generator().manual_seed(5)
     q, k = (torch.randn(b, sq, h * d, generator=gen).to(dtype).to(card) for _ in range(2))
@@ -194,9 +210,45 @@ def test_dropout_mask_bits_match_plain(card, dtype):
 
 @pytest.mark.parametrize("d", [16, 64, 128, 192, 256])
 def test_flash_route(card, d):
-    """bf16 takes the tensor-core kernels, f32 the exact SIMT ones."""
-    assert fa.kernel_info(d, torch.bfloat16)["route"] == "mma.sync"
-    assert fa.kernel_info(d, torch.float32)["route"] == "simt"
+    """The bf16 forward takes the wgmma kernel at head size 128 and
+    mma.sync at the others, its backward mma.sync; f32 the exact SIMT
+    kernels both ways. Both libraries agree on the route."""
+    info = fa.kernel_info(d, torch.bfloat16)
+    assert info["route"] == ("wgmma" if d == 128 else "mma.sync")
+    assert info["bwd_route"] == "mma.sync" and info["smem_fwd"] > 0
+    if info["route"] == "wgmma":
+        assert info["stages"] >= 2 and info["threads"] == 384
+    info = fa.kernel_info(d, torch.float32)
+    assert info["route"] == info["bwd_route"] == "simt"
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("row", [0, 37])
+@pytest.mark.parametrize("length,padded", [(200, 750), (129, 250), (61, 81), (1, 128)])
+def test_flash_utterance_alone_equals_its_row_in_a_padded_batch(card, d, row, length,
+                                                                 padded):
+    """An utterance's out and lse alone equal its row, bit for bit, inside a
+    padded batch of 64 (longer Sq and Sk, its keys past its length masked,
+    the other rows random): the key tiles start at key 0 and have one width
+    for every shape, and masked keys add exact zeros, so `translate` of a
+    few utterances gives the bits `test` gives them in a full batch."""
+    h = 4
+    gen = torch.Generator().manual_seed(row + length)
+    alone_q, alone_k, alone_v = (torch.randn(1, length, h * d, generator=gen)
+                                 .to(torch.bfloat16).to(card) for _ in range(3))
+    batch = [torch.randn(64, padded, h * d, generator=gen).to(torch.bfloat16).to(card)
+             for _ in range(3)]
+    for t, a in zip(batch, (alone_q, alone_k, alone_v)):
+        t[row, :length] = a[0]
+    lengths = torch.randint(1, padded + 1, (64,), generator=gen)
+    lengths[row] = length
+    bias = torch.where(torch.arange(padded)[None, :] < lengths[:, None], 0.0, -1e9)
+    sm = d ** -0.5
+    out, lse = fa.flash_attention_fwd(alone_q, alone_k, alone_v,
+                                      torch.zeros(1, length, device=card), sm, h)
+    b_out, b_lse = fa.flash_attention_fwd(*batch, bias.float().to(card), sm, h)
+    assert torch.equal(out[0], b_out[row, :length])
+    assert torch.equal(lse[0], b_lse[row, :length])
 
 
 DECODE_MASKS = ("self_prefix", "cross_tail", "holes", "all_masked_row", "last_key_only")

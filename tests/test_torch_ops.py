@@ -110,6 +110,99 @@ def test_flash_dropout_raises_on_every_device():
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("d,dtype,want", [
+    (16, torch.bfloat16, "mma.sync"), (64, torch.bfloat16, "mma.sync"),
+    (128, torch.bfloat16, "wgmma"), (192, torch.bfloat16, "mma.sync"),
+    (256, torch.bfloat16, "mma.sync")] + [(d, torch.float32, "simt")
+                                          for d in (16, 64, 128, 192, 256)])
+def test_flash_route(d, dtype, want):
+    """The forward's kernel for each (head dim, dtype): the wgmma kernel for
+    bf16 at head dim 128, mma.sync for the other bf16 head dims,
+    the exact SIMT kernels for f32; anything else is refused."""
+    assert port_fa.route(d, dtype) == want
+    with pytest.raises(ValueError, match="head_dim"):
+        port_fa.route(d + 8, dtype)
+    with pytest.raises(ValueError, match="head_dim"):
+        port_fa.route(d, torch.float16)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", [(64, 250, 250, 4, 128), (2, 750, 750, 4, 128),
+                                         (64, 750, 750, 4, 128), (192, 61, 61, 4, 128),
+                                         (192, 81, 61, 4, 128), (1, 1, 1, 1, 128),
+                                         (3, 129, 1125, 2, 128), (8, 127, 128, 3, 128)])
+def test_wgmma_plan(b, sq, sk, h, d):
+    """The wgmma forward's launch held to the tensors' own layout: each map
+    (D, H, S, B) with byte strides that address the element a (B, S, H, D)
+    view holds, boxes of 64 columns (the 128-byte swizzle row) x 1 head x
+    128 rows x 1 batch row, q-tiles that cover Sq and no tile beyond it,
+    one tile a (q-tile, head, batch row), a persistent grid of at most one
+    block an SM; the key tiles (K and V boxes) are 128 rows whatever the
+    shape."""
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn(b, sq, h * d, generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(b, sk, h * d, generator=gen).to(torch.bfloat16) for _ in range(2))
+    for sms in (16, 132):
+        plan = port_fa.wgmma_plan(q, k, v, h, sms)
+        for name, t, rows in (("q_map", q, port_fa.WGMMA_BQ), ("k_map", k, port_fa.WGMMA_BK),
+                              ("v_map", v, port_fa.WGMMA_BK)):
+            m = plan[name]
+            assert m["dims"] == (d, h, t.shape[1], b)
+            assert m["box"] == (port_fa.WGMMA_BOX_COLS, 1, rows, 1)
+            assert m["box"][0] * t.element_size() == 128 and m["box"][2] <= 256
+            size = t.element_size()
+            assert m["strides"] == tuple(size * x for x in (d, t.stride(1), t.stride(0)))
+            flat, heads = t.reshape(-1), t.reshape(b, t.shape[1], h, d)
+            for i in range(8):  # random elements, addressed through the map
+                at = [int(torch.randint(n, (1,), generator=gen)) for n in m["dims"]]
+                off = at[0] * size + sum(c * st for c, st in zip(at[1:], m["strides"]))
+                assert torch.equal(flat[off // size], heads[at[3], at[2], at[1], at[0]])
+        q_tiles = plan["q_tiles"]
+        assert (q_tiles - 1) * port_fa.WGMMA_BQ < sq <= q_tiles * port_fa.WGMMA_BQ
+        assert plan["tiles"] == q_tiles * h * b
+        assert plan["grid"] == min(plan["tiles"], sms)
+    assert port_fa.WGMMA_BK == 128 and port_fa.WGMMA_BQ == 128
+
+
+def test_wgmma_plan_refuses_before_any_card():
+    """What TMA does not take is refused on the host, before a launch: a
+    non-contiguous operand, a base off a 16-byte boundary, a head dim that
+    is not whole 64-column boxes, E not a multiple of the heads."""
+    q = torch.randn(2, 70, 512).to(torch.bfloat16)
+    plan = port_fa.wgmma_plan(q, q, q, 4, 132)
+    assert plan["q_tiles"] == 1 and plan["tiles"] == 8
+    with pytest.raises(ValueError, match="contiguous"):
+        port_fa.wgmma_plan(q.transpose(0, 1), q, q, 4, 132)
+    with pytest.raises(ValueError, match="contiguous"):
+        port_fa.tensor_map("k", q[:, :, :256], 2, port_fa.WGMMA_BK)
+    shifted = torch.zeros(2 * 70 * 512 + 8, dtype=torch.bfloat16)[1:2 * 70 * 512 + 1]
+    with pytest.raises(ValueError, match="16-byte"):
+        port_fa.wgmma_plan(q, shifted.view(2, 70, 512), q, 4, 132)
+    with pytest.raises(ValueError, match="boxes"):
+        port_fa.tensor_map("q", torch.zeros(2, 70, 64, dtype=torch.bfloat16), 4,
+                           port_fa.WGMMA_BQ)  # head dim 16
+    with pytest.raises(ValueError, match="boxes"):
+        port_fa.tensor_map("q", q, 3, port_fa.WGMMA_BQ)
+
+
+def test_library_name_follows_its_source_and_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel library is named by a hash of its source and of the headers
+    the sources share (the flash kernels' dropout bits live in one), so an
+    edit of either builds it anew and a stale library is never loaded."""
+    from joeys2t_torch.ops import cuda_build
+
+    (tmp_path / "k.cu").write_text("source")
+    (tmp_path / "common.cuh").write_text("header")
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    first = cuda_build._library_path("k")
+    assert first.parent == cuda_build.BUILD_DIR and first.name.startswith("libk-")
+    (tmp_path / "common.cuh").write_text("header, edited")
+    assert cuda_build._library_path("k") != first
+    (tmp_path / "common.cuh").write_text("header")
+    assert cuda_build._library_path("k") == first
+    (tmp_path / "k.cu").write_text("source, edited")
+    assert cuda_build._library_path("k") != first
+
+
 def _python_bits(seed, b, h, q, k):
     """The hash with Python's unbounded ints, masked to 32 bits."""
     def mix(x):
