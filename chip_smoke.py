@@ -10,9 +10,10 @@ goes wrong:
 1. build: compile every CUDA kernel of the port from joeys2t_torch/csrc
    (one nvcc per source, all started together), timed; print each kernel's
    registers and spills (ptxas) and HMMA and HGMMA instructions (cuobjdump
-   -sass), and the route (the bf16 forward at head dim 128 on the
-   wgmma kernel, the other bf16 kernels on mma.sync tensor cores, SIMT for
-   f32) and shared memory of the flash kernels at every head size;
+   -sass), and the route (the bf16 forward at head dims 64 and 128 on the
+   wgmma kernel, in its one-head tile and at 64 also its two-head tile, the
+   other bf16 kernels on mma.sync tensor cores, SIMT for f32) and shared
+   memory of the flash kernels at every head size;
 2. kernels: hold each kernel against its plain PyTorch version on the card
    at the shapes of the serving path, and time the kernel, the plain
    version and one PyTorch library call computing the same function (CUDA
@@ -245,9 +246,32 @@ goes wrong:
     layout and into the whole model. TensorBoard and matplotlib are
     optional, as in JAX: the phase prints whether they wrote.
 
+21. head dim 64, the 8-head 512-wide public models at full width, bf16,
+    random weights from a seed: (a) configs/mustc_asr.yaml's model (12
+    encoder / 6 decoder layers, 8 heads of 64, conv subsampler [5, 5] of 512
+    channels) written into a config of its own with phase 7's synthetic
+    character vocabulary serves the 64 x 10 s greedy request and the 45 s
+    ``transcribe_long`` request, then takes 2 updates of its training
+    section (8 micro-batches of 64 synthetic utterances, dropout 0.1): every
+    encoder attention on the wgmma flash forward, every decoder attention on
+    decode attention at head dim 64, the flash forward and backward once a
+    micro-batch per encoder self- and decoder cross-attention, then each
+    kernel against its plain version on the inputs the path gave it; (b)
+    configs/wmt17_ende_bpe.yaml's model (6 + 6 layers, 8 heads of 64, tied
+    embeddings and softmax) in phase 12's cut of synthetic_mt (its corpus
+    with one vocabulary for both sides, 192 sentences a batch) through
+    ``train`` (8 updates, one validation) and the beam-5 ``test``: exact
+    launch counts with the plain versions refused, the source
+    self-attention (<= 61 tokens) on the two-head wgmma tile, each kernel
+    against its plain version on the path's inputs, a float32 ``test`` cut
+    to 2 + 2 layers identical on card and CPU; each leg's audio-s/s or
+    sentences/s and ms an update beside the card's name and power limit,
+    and its launches under ``d64_speech`` / ``d64_mt`` in the kernels line.
+
 ``python3 chip_smoke.py --phases PART[,PART...]`` runs phase 1 and then
 only the parts named, in order, and exits 4 without a result line:
-``kernels`` (phase 2), ``layouts`` (phases 18 and 19, and phase 20's
+``kernels`` (phase 2), ``d64`` (phase 21, making phase 7's and phase 12's
+corpora first), ``layouts`` (phases 18 and 19, and phase 20's
 two-rank legs), ``tooling``
 (phase 20's one-process legs, from a seeded model where phase 7 has not
 trained one); on a machine with several cards ``holds``,
@@ -260,7 +284,7 @@ first validation against one process's ``predict`` of the checkpoint, and
 ``timing``, which times phase 7's cut on one card and in each layout in
 alternating turns; ``cards`` is ``holds,timing``.
 
-Phases 9-20 run after phase 8, each with the counters zeroed just before
+Phases 9-21 run after phase 8, each with the counters zeroed just before
 its runs and the plain versions refused. Phase 2 also holds decode attention
 with int8 channel scales and ``group`` 5 against its plain version, and
 times int8 cases against SDPA on the dequantized cache.
@@ -270,11 +294,15 @@ backward at B=192, Sq=Sk 1, 7, 33, 61 and cross 81 x 61, bf16 and f32,
 dropout 0 and 0.1, zero-length rows included; decode attention over the
 61-row cross cache with 1 and 5 queries a row and the 81-slot self ring
 buffer) and at head dim 16 (flash at B=12 S=26 and B=192 S=61, decode at
-B=12 over 26 and 31 rows, every dtype and int8 mode), timed beside SDPA.
+B=12 over 26 and 31 rows, every dtype and int8 mode), timed beside SDPA;
+and the flash forward at head dim 64 with 8 heads in bf16 (B=64 S=250 and
+750, B=2 S=750, B=64 Sq=47 Sk=250, MT B=192 61 x 61 and 81 x 61), each case
+naming its route and wgmma tile (query rows x heads).
 
 Phase 2 also holds the flash backward against its plain version at the
 training path's shapes (B=64 Sq=Sk=250; B=64 Sq=47 Sk=250; B=2 Sq=Sk=750),
-in f32 and bf16, at dropout 0 and 0.1, with the forward's dropped output
+in f32 and bf16 (and at the first two with 8 heads of 64 in bf16, phase
+21's speech path), at dropout 0 and 0.1, with the forward's dropped output
 against the plain one, two backward calls bit-identical, and the dropout
 mask read out of both kernels bit for bit in bf16 and f32, and times SDPA's
 backward beside it.
@@ -289,6 +317,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import hashlib
 import json
 import logging
 import os
@@ -503,14 +532,17 @@ def build_phase():
     for d in (16, 64, 128, 192, 256):
         for dtype in (torch.bfloat16, torch.float32):
             info = fa.kernel_info(d, dtype)
-            tile = (f" ({fa.WGMMA_BQ} query rows x {fa.WGMMA_BK} keys a tile, "
-                    f"{info['stages']} K/V stages, {info['threads']} threads a block)"
-                    if info["route"] == "wgmma" else "")
+            tile = ("; tiles " + ", ".join(
+                f"{rows} query rows x {heads} head(s) x {fa.WGMMA_BK} keys ({smem} B)"
+                for (rows, heads), smem in info["tiles"].items())
+                + f", {info['stages']} K/V stages, {info['threads']} threads a block"
+                if info["route"] == "wgmma" else "")
             print(f"[build] flash D={d} {str(dtype)[6:]}: forward route {info['route']}{tile}, "
                   f"backward {info['bwd_route']}; dynamic shared memory forward "
                   f"{info['smem_fwd']} B, dK/dV {info['smem_dkdv']} B, dQ {info['smem_dq']} B")
-    check(fa.kernel_info(128, torch.bfloat16)["route"] == "wgmma",
-          "the bf16 D=128 forward does not take the wgmma kernel")
+    for d in fa.WGMMA_HEAD_DIMS:
+        check(fa.kernel_info(d, torch.bfloat16)["route"] == "wgmma",
+              f"the bf16 D={d} forward does not take the wgmma kernel")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -547,11 +579,15 @@ def fault_detail(got, again, want, tol) -> str:
     return "; ".join(parts)
 
 
-def flash_case(b, sq, sk, dtype, gen, d=128, timed=True, scaled=False, h=4):
+def flash_case(b, sq, sk, dtype, gen, d=128, timed=True, scaled=False, h=4, digest=False):
     """The forward kernel against its plain version (output and lse; two
     calls bit-identical), and when ``timed`` the kernel, the plain version
     and SDPA on the same inputs. Key lengths are drawn from Sk/2..Sk; row 0
-    of a batch of more than 2 has every key masked."""
+    of a batch of more than 2 has every key masked. The case names the
+    route and, on the wgmma kernel, the plan's tile (query rows x heads; an
+    older checkout's plan names none and has one tile, one head of
+    ``WGMMA_BQ`` rows); with ``digest`` it keeps a hash of the out and lse
+    bits."""
     from joeys2t_torch.ops import flash_attention as fa
 
     e = h * d
@@ -567,8 +603,13 @@ def flash_case(b, sq, sk, dtype, gen, d=128, timed=True, scaled=False, h=4):
     again = fa.flash_attention_fwd(q, k, v, bias, sm, h)
     ref, ref_lse = fa.flash_attention_plain(q, k, v, bias, sm, h)
     torch.cuda.synchronize()
+    route = fa.kernel_info(d, dtype)["route"]
+    tile = None
+    if route == "wgmma":
+        tile = fa.wgmma_plan(q, k, v, h, 132).get("tile", (fa.WGMMA_BQ, 1))
     name = (f"B={b} Sq=Sk={sq}" if sq == sk else f"B={b} Sq={sq} Sk={sk}") + \
-        f" H={h} D={d} {str(dtype)[6:]} ({fa.kernel_info(d, dtype)['route']})"
+        f" H={h} D={d} {str(dtype)[6:]} ({route}" + \
+        (f", tile {tile[0]}x{tile[1]})" if tile else ")")
     err = max((out.float() - ref.float()).abs().max().item(),
               (lse - ref_lse).abs().max().item())
     tol = out_tol(ref, dtype == torch.float32, scaled)
@@ -579,7 +620,11 @@ def flash_case(b, sq, sk, dtype, gen, d=128, timed=True, scaled=False, h=4):
     check(err <= tol, f"flash {name}: max abs err {err} > {tol}{where}")
     check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
           f"flash {name}: two calls differ")
-    case = dict(case=name, route=fa.kernel_info(d, dtype)["route"], max_abs_err=err, tol=tol)
+    case = dict(case=name, route=route, tile=tile, max_abs_err=err, tol=tol)
+    if digest:
+        bits = hashlib.sha256(out.view(torch.uint8).cpu().numpy().tobytes())
+        bits.update(lse.view(torch.uint8).cpu().numpy().tobytes())
+        case["digest"] = bits.hexdigest()[:16]
     if not timed:
         return case
     qh = q.view(b, sq, h, d).transpose(1, 2).contiguous()
@@ -616,13 +661,12 @@ def sdpa_backend(qh, kh, vh, mask, sm, rate):
     fail("no SDPA backend runs forward and backward with an additive mask")
 
 
-def flash_bwd_case(b, sq, sk, dtype, rate, gen, d=128, timed=True, scaled=False):
+def flash_bwd_case(b, sq, sk, dtype, rate, gen, d=128, timed=True, scaled=False, h=4):
     """The backward kernels against the plain backward; with dropout also the
     forward kernel against the plain forward (the same keep bits); timed
     (kernel, plain, SDPA's backward) when ``timed``."""
     from joeys2t_torch.ops import flash_attention as fa
 
-    h = 4
     e = h * d
     q = torch.randn(b, sq, e, generator=gen).to(dtype).cuda()
     k, v = (torch.randn(b, sk, e, generator=gen).to(dtype).cuda() for _ in range(2))
@@ -658,7 +702,7 @@ def flash_bwd_case(b, sq, sk, dtype, rate, gen, d=128, timed=True, scaled=False)
         tols.append(rel * max(floor, r.float().abs().max().item()))
         check(errs[-1] <= tols[-1], f"flash bwd {name} {dtype} rate {rate} {b}x{sq}x{sk} "
               f"D={d}: max abs err {errs[-1]} > {tols[-1]} ({rel} of the largest value)")
-    route = fa.kernel_info(d, dtype)["route"]
+    route = fa.kernel_info(d, dtype)["bwd_route"]
     case = dict(case=f"B={b} Sq={sq} Sk={sk} H={h} D={d} {str(dtype)[6:]} dropout {rate} "
                      f"({route})", route=route, max_abs_err=max(errs), tol=min(tols),
                 fwd_err=fwd_err)
@@ -1116,7 +1160,17 @@ def print_group(c):
 MT_FLASH = ((1, 1), (7, 7), (33, 33), (61, 61), (81, 61))
 MT_TIMED = ((61, 61), (81, 61))
 MT_CROSS = (128, 5, 61)
-FLASH_D64 = ((64, 250, 250), (192, 61, 61), (192, 81, 61))
+# the 8-head 512-wide models' shapes at head dim 64: the speech ones
+# (mustc_*: 10 s utterances, a batch of 30 s, the 45 s request's chunks) on
+# one-head wgmma tiles, the speech decoder's cross-attention (47 target
+# positions over 250 frames, more than one key tile) and MT self-attention
+# (61 tokens) on two-head tiles, MT cross-attention (81 x 61) on one-head
+# tiles
+FLASH_D64 = ((64, 250, 250), (64, 750, 750), (2, 750, 750), (64, 47, 250), (192, 61, 61),
+             (192, 81, 61))
+# the speech training path's backward at head dim 64 (phase 21 (a)):
+# encoder self-attention and decoder cross-attention, 8 heads
+BWD_D64 = ((64, 250, 250), (64, 47, 250))
 # phase 13's head dim 16 (configs/transformer_reverse.yaml: 4 heads of 16,
 # 12 sentences of <= 25 tokens + eos, a ring buffer of 30 + 1 slots), and a
 # 64-wide model at the MT batch shape
@@ -1200,6 +1254,9 @@ def kernel_phase():
     backward = [flash_bwd_case(b, sq, sk, dt, rate, gen)
                 for b, sq, sk in ((64, 250, 250), (64, 47, 250), (2, 750, 750))
                 for rate in (0.1, 0.0) for dt in (torch.bfloat16, torch.float32)]
+    backward += [flash_bwd_case(b, sq, sk, torch.bfloat16, rate, gen, d=64, h=8,
+                                timed=rate > 0)
+                 for b, sq, sk in BWD_D64 for rate in (0.1, 0.0)]
     for c in backward:
         print_flash_bwd(c)
     for dtype in (torch.bfloat16, torch.float32):
@@ -4426,6 +4483,269 @@ def tooling_phase(asr_ckpt=None) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------- phase 21
+def card_name_and_limit() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def wgmma_tiles_zeroed() -> dict:
+    """Zeroes and returns the flash wrapper's wgmma launches by tile."""
+    from joeys2t_torch.ops import flash_attention as fa
+
+    fa.flash_attention_fwd.wgmma_tiles = {}
+    return fa.flash_attention_fwd.wgmma_tiles
+
+
+def d64_speech_leg(corpus: Path, work: Path) -> tuple:
+    """Phase 21 (a): configs/mustc_asr.yaml's model (12 encoder / 6 decoder
+    layers, hidden 512, 8 heads of 64, ff 2048, conv subsampler [5, 5] of 512
+    channels, untied) written into a config of its own with phase 7's
+    synthetic character vocabulary, random weights from a seed, bf16: the 64
+    x 10 s greedy request and the 45 s ``transcribe_long`` request, then 2
+    updates of the config's training section (8 micro-batches of 64
+    synthetic 6-10 s utterances each, dropout 0.1), every counter zeroed
+    just before and the plain versions refused: every encoder attention on
+    the flash kernel of ``route(64, bf16)``, every decoder attention on the
+    decode kernel at head dim 64, the flash forward and backward once a
+    micro-batch for each encoder self- and decoder cross-attention; then each
+    kernel against its plain version on the inputs the path gave it."""
+    from joeys2t_torch.config import (SpecialSymbols, dump_yaml, load_config,
+                                      parse_train_args)
+    from joeys2t_torch.losses import build_loss_function
+    from joeys2t_torch.models import build_model
+    from joeys2t_torch.ops import flash_attention as fa
+    from joeys2t_torch.serving import Transcriber
+    from joeys2t_torch.training import TrainManager
+    from joeys2t_torch.vocabulary import Vocabulary
+
+    public = load_config(REPO / "configs" / "mustc_asr.yaml")
+    enc, dec = public["model"]["encoder"], public["model"]["decoder"]
+    check(enc["num_layers"] == 12 and dec["num_layers"] == 6
+          and enc["hidden_size"] == dec["hidden_size"] == 512
+          and enc["num_heads"] == dec["num_heads"] == 8
+          and enc["ff_size"] == dec["ff_size"] == 2048
+          and enc["conv_kernel_sizes"] == [5, 5] and enc["conv_channels"] == 512
+          and not public["model"]["tied_softmax"], "unexpected mustc_asr model section")
+    cfg = {"name": "d64_speech", "task": "S2T", "model_dir": str(work / "d64_asr_model"),
+           "model": public["model"],
+           "training": dict(public["training"], random_seed=42),
+           "data": {"trg": {"voc_file": str(corpus / "char.txt")}}}
+    path = work / "d64_asr.yaml"
+    path.write_text(dump_yaml(cfg), encoding="utf-8")
+    cfg = load_config(path)
+    tokens = (corpus / "char.txt").read_text(encoding="utf-8").splitlines()
+    vocab = Vocabulary(tokens, SpecialSymbols())
+    t0 = time.time()
+    model, spec = build_model(cfg["model"], trg_vocab=vocab, compute_dtype=torch.bfloat16,
+                              device="cuda", generator=torch.Generator().manual_seed(21))
+    n_enc, n_dec = len(model.encoder.layers), len(model.decoder.layers)
+    check(fa.route(64, torch.bfloat16) == fa.kernel_info(64, torch.bfloat16)["route"],
+          "the D=64 route")
+    asr = Transcriber(model, spec, vocab, device="cuda")
+    rng = np.random.RandomState(21)
+    asr.transcribe([speechlike(rng, 16000)] * 2, max_output_length=4)  # warm-up
+    batch = [speechlike(rng, 160000) for _ in range(64)]
+    long_wave = speechlike(rng, 720000)
+    print(f"[d64] mustc_asr model: {n_enc} enc / {n_dec} dec layers, 8 heads of 64, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, a "
+          f"{len(vocab)}-token vocabulary, bf16, built in {time.time() - t0:.1f} s")
+    requests = [("64 x 10 s", lambda: asr.transcribe(batch, max_output_length=96), 640.0),
+                ("45 s long", lambda: [asr.transcribe_long(long_wave, max_output_length=96)],
+                 45.0)]
+    zero_counters()
+    tiles = wgmma_tiles_zeroed()
+    served, kept = {}, {}
+    with plain_refused("head-dim-64 speech serving path"), kernel_inputs(kept):
+        for name, run, seconds in requests:
+            before, s0 = read_counters(), asr.stats["decode_steps"]
+            texts, wall = sync_time(run)
+            n = {k: v - before[k] for k, v in read_counters().items()}
+            steps = asr.stats["decode_steps"] - s0
+            check(all(isinstance(t, str) for t in texts), f"d64 {name}: non-text output")
+            check(n["flash_attention_fwd"] == n_enc and 1 <= steps <= 96
+                  and n["decode_attention"] == 2 * n_dec * steps,
+                  f"d64 {name}: launches {n} over {steps} decode steps")
+            served[name] = seconds / wall
+            print(f"[d64] {name}: {len(texts)} transcripts, {steps} decode steps, "
+                  f"{wall:.3f} s wall, {seconds / wall:.1f} audio-s/s")
+    serve_tiles = dict(tiles)
+    check(sum(serve_tiles.values()) == 2 * n_enc,
+          f"d64 serving: wgmma launches by tile {serve_tiles}, expected {2 * n_enc}")
+    del asr
+    args = parse_train_args(cfg["training"])
+    check(cfg["model"]["encoder"]["dropout"] == 0.1 == cfg["model"]["decoder"]["dropout"]
+          and args.batch_multiplier == 8, f"unexpected mustc_asr training {args}")
+    tm = TrainManager(model, spec, build_loss_function(args, spec), args, seed=42,
+                      device="cuda")
+    batches = synthetic_batches(2 * args.batch_multiplier, 64, np.random.RandomState(22),
+                                len(vocab))
+    audio_s = sum(float(b.src_length.sum()) for b in batches[args.batch_multiplier:]) / 100.0
+    per_micro = n_enc + n_dec
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    losses, update_s = [], []
+    with plain_refused("head-dim-64 training path"), kernel_inputs(kept):
+        torch.cuda.synchronize()
+        t_update = time.perf_counter()
+        for i, b in enumerate(batches):
+            f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+            out = tm.train_batch(b)
+            check(fa.flash_attention_fwd.launches - f0 == per_micro
+                  and fa.flash_attention_bwd.launches - b0 == per_micro,
+                  f"d64 micro-batch {i}: {fa.flash_attention_fwd.launches - f0} forward and "
+                  f"{fa.flash_attention_bwd.launches - b0} backward flash launches, expected "
+                  f"{per_micro} each")
+            if out["stepped"]:
+                torch.cuda.synchronize()
+                update_s.append(time.perf_counter() - t_update)
+                t_update = time.perf_counter()
+            losses.append(out["loss"].item())
+    check(tm.stats.steps == 2 and all(np.isfinite(losses)),
+          f"d64 training: {tm.stats.steps} updates, losses {losses}")
+    moved = sum(not torch.equal(p, before[n]) for n, p in model.named_parameters())
+    check(moved == len(before), f"d64 training: {len(before) - moved} weights did not move")
+    launches = read_counters()
+    tiles = dict(tiles)  # the path's launches, before the checks' own
+    train_tiles = {t: n - serve_tiles.get(t, 0) for t, n in tiles.items()}
+    print(f"[d64] train: 2 updates of {args.batch_multiplier} micro-batches of 64, dropout "
+          f"0.1, losses {[round(x, 4) for x in losses[::4]]}, every weight moved; ms an "
+          f"update {[round(x * 1e3, 2) for x in update_s]}, trained audio-s/s (second "
+          f"update) {audio_s / update_s[1]:.1f}; flash forward {per_micro} and backward "
+          f"{per_micro} launches a micro-batch")
+    print(f"[d64] speech leg: launches {launches}; wgmma tiles (query rows, heads): serving "
+          f"{serve_tiles}, training {train_tiles}")
+    del tm, model, before
+    checks = cli_kernel_checks(kept, tag="d64 speech")
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, checks, served, audio_s / update_s[1], update_s[1], tiles
+
+
+def joint_vocab(data: Path, path: Path) -> None:
+    """One token list for both sides of the corpus in ``data`` (tied
+    embeddings need one vocabulary), by frequency over the training text."""
+    from joeys2t_torch.vocabulary import sort_and_cut
+
+    counts = collections.Counter()
+    for side in ("src", "trg"):
+        for line in (data / f"train.{side}").read_text(encoding="utf-8").splitlines():
+            counts.update(line.split())
+    path.write_text("\n".join(sort_and_cut(counts)) + "\n", encoding="utf-8")
+
+
+def d64_mt_leg(data: Path, work: Path) -> tuple:
+    """Phase 21 (b): configs/wmt17_ende_bpe.yaml's model (6 + 6 layers,
+    hidden 512, 8 heads of 64, ff 2048, tied embeddings and softmax) in phase
+    12's cut of configs/synthetic_mt.yaml (its corpus with one vocabulary
+    for both sides, 192 sentences a batch, bf16) through ``train`` (8
+    updates, one validation) and the config's beam-5 ``test``, exact launch
+    counts with the plain versions refused, each kernel against its plain
+    version on the path's inputs, and a float32 ``test`` of the checkpoint
+    cut to 2 + 2 layers identical on card and CPU. Source self-attention at
+    <= 61 tokens takes the two-head wgmma tile."""
+    from joeys2t_torch.checkpoints import load_checkpoint
+    from joeys2t_torch.config import dump_yaml, load_config
+
+    public = load_config(REPO / "configs" / "wmt17_ende_bpe.yaml")["model"]
+    enc, dec = public["encoder"], public["decoder"]
+    check(enc["num_layers"] == dec["num_layers"] == 6
+          and enc["hidden_size"] == dec["hidden_size"] == 512
+          and enc["num_heads"] == dec["num_heads"] == 8
+          and enc["ff_size"] == dec["ff_size"] == 2048
+          and public["tied_embeddings"] and public["tied_softmax"],
+          "unexpected wmt17_ende_bpe model section")
+    model_dir = work / "d64_mt_model"
+    cfg = mt_config(data, model_dir)
+    cfg["model"] = public
+    cfg["training"].update(updates=8, validation_freq=8, logging_freq=4, overwrite=True)
+    vocab_file = work / "d64_mt_vocab.txt"
+    joint_vocab(data, vocab_file)
+    for side in ("src", "trg"):
+        cfg["data"][side]["voc_file"] = str(vocab_file)
+    path = work / "d64_mt.yaml"
+    path.write_text(dump_yaml(cfg), encoding="utf-8")
+    n_enc = n_dec = 6
+    tiles = wgmma_tiles_zeroed()
+    kept, runs = {}, {}
+    with plain_refused("head-dim-64 MT CLI path"), kernel_inputs(kept):
+        runs["train"] = cli_run(["train", path, "--skip-test"])
+        runs["test"] = cli_run(["test", path, "-o", work / "d64_mt_out"])
+    tiles = dict(tiles)  # the path's launches, before the checks' own
+    checks = cli_kernel_checks(kept, tag="d64 mt")
+    del kept
+    gens = generations(runs["train"][1])
+    want = cli_launches(n_enc, n_dec, 8, gens, [])
+    check(len(gens) == 1 and runs["train"][3] == want,
+          f"d64 mt train launches {runs['train'][3]}, expected {want}")
+    test_gens = generations(runs["test"][1])
+    want = cli_launches(n_enc, n_dec, 0, [], test_gens)
+    check(runs["test"][3] == want, f"d64 mt test launches {runs['test'][3]}, expected {want}")
+    check(tiles.get((64, 2), 0) > 0, f"d64 mt: no two-head wgmma launch ({tiles})")
+    launches = {name: runs["train"][3][name] + runs["test"][3][name]
+                for name in runs["train"][3]}
+    check(sum(tiles.values()) == launches["flash_attention_fwd"],
+          f"d64 mt: wgmma launches {tiles}, flash forward {launches['flash_attention_fwd']}")
+    losses = [float(m.group(1)) for m in (re.search(r"Batch Loss: +([-\d.einfa]+)", ln)
+                                          for ln in runs["train"][1]) if m]
+    check(len(losses) == 2 and all(np.isfinite(losses)), f"d64 mt losses {losses}")
+    for split in ("dev", "test"):
+        n = len((work / f"d64_mt_out.{split}").read_text(encoding="utf-8").splitlines())
+        check(n == 64, f"d64 mt out.{split}: {n} hypotheses")
+    state = load_checkpoint(model_dir / "latest.ckpt")["model_state"]
+    check("decoder.output_layer.weight" not in state and "src_embed.lut.weight" not in state,
+          "d64 mt checkpoint: tied embeddings and softmax keep one table")
+    cut_mt_test_on_both(load_config(path), state, model_dir, data, work / "d64_mt_cut")
+    updates, loop_s, per_update, data_s, share = loop_stats(runs["train"][1])
+    test_gen = test_gens[0]  # the dev set
+    print(f"[d64] wmt17_ende_bpe model: 6 + 6 layers, 8 heads of 64, tied embeddings and "
+          f"softmax; train {updates} updates of 192 sentences, losses "
+          f"{[round(x, 4) for x in losses]}, {per_update * 1e3:.2f} ms an update (the host "
+          f"pipeline {share:.2f} %); test: dev decode {test_gen[0]:.3f} s = "
+          f"{64 / test_gen[0]:.1f} sentences/s over {test_gen[2]} beam-5 steps")
+    print(f"[d64] mt leg: launches {launches}; wgmma tiles (query rows, heads) {tiles}; float32 "
+          f"test at 2 + 2 layers: card and CPU hypotheses identical")
+    return launches, checks, 64 / test_gen[0], per_update, tiles
+
+
+def d64_phase() -> dict:
+    """Phase 21: the 8-head, head-dim-64 public model sections at full width
+    on the card, (a) speech (``d64_speech_leg``) and (b) MT
+    (``d64_mt_leg``), on phase 7's and phase 12's synthetic corpora (made
+    here when those phases have not run). Returns {"launches": {leg:
+    {counter: launches}}, "checks": {kernel: [case, ...]}}."""
+    work = REPO / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    corpus, mt_data = work / "synthetic_asr", work / "synthetic_mt"
+    if not (corpus / "char.txt").is_file():
+        generate_corpus(corpus)
+    if not (mt_data / "train.src").is_file():
+        mt_corpus(mt_data)
+    t0 = time.time()
+    speech_n, checks, served, trained_rate, speech_update_s, speech_tiles = \
+        d64_speech_leg(corpus, work)
+    t1 = time.time()
+    mt_n, mt_checks, mt_rate, mt_update_s, mt_tiles = d64_mt_leg(mt_data, work)
+    for name, cases in mt_checks.items():
+        checks[name] = checks[name] + cases
+    card = card_name_and_limit()
+    print(f"[d64] {card}: (a) speech {t1 - t0:.1f} s: greedy 64 x 10 s "
+          f"{served['64 x 10 s']:.1f} audio-s/s, 45 s long {served['45 s long']:.1f} "
+          f"audio-s/s, training {speech_update_s * 1e3:.2f} ms an update of 8 x 64 "
+          f"utterances ({trained_rate:.1f} audio-s/s); (b) MT {time.time() - t1:.1f} s: "
+          f"{mt_update_s * 1e3:.2f} ms an update of 192 sentences, test "
+          f"{mt_rate:.1f} sentences/s (beam 5)")
+    for leg, n in (("speech", speech_n), ("mt", mt_n)):
+        check(all(n[k] > 0 for k in ("flash_attention_fwd", "flash_attention_bwd",
+                                     "decode_attention")), f"d64 {leg}: launches {n}")
+    return {"launches": {"d64_speech": speech_n, "d64_mt": mt_n}, "checks": checks,
+            "tiles": {"d64_speech": speech_tiles, "d64_mt": mt_tiles}}
+
+
 # layouts of ``--phases cards``, over every visible card: (name, training keys)
 CARD_LAYOUTS = [("-d, data N", {}), ("model 2 x data N/2", {"model_parallel": 2}),
                 ("model N", {"model_parallel": "N"}),
@@ -4640,7 +4960,7 @@ def card_timing() -> None:
 # (with phase 20's two-rank legs), phase 20's one-process legs, and on
 # several cards each layout's hold and its timing (``cards``: both)
 PARTS = {"layouts": layout_phases, "holds": card_holds, "timing": card_timing,
-         "tooling": tooling_phase, "kernels": kernel_phase}
+         "tooling": tooling_phase, "kernels": kernel_phase, "d64": d64_phase}
 
 
 def run_parts(spec: str) -> None:
@@ -4731,6 +5051,9 @@ def main():
     torch.cuda.empty_cache()
     tooling = tooling_phase(asr_ckpt)
     mark("phase 20")
+    torch.cuda.empty_cache()
+    d64 = d64_phase()
+    mark("phase 21")
 
     def compact(c):  # a case's measurements, without what its printed line adds
         return {k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "library_ms",
@@ -4759,7 +5082,8 @@ def main():
                     moe=moe_counts[name], ddp=ddp_counts[name], remat=remat_counts[name],
                     **{f"{layout} (2 ranks)": n[name] for layout, n in
                        layouts["launches"].items() if name in n},
-                    **{f"phase 20 {leg}": n[name] for leg, n in tooling.items()})
+                    **{f"phase 20 {leg}": n[name] for leg, n in tooling.items()},
+                    **{leg: n[name] for leg, n in d64["launches"].items()})
 
     def int8_paths(name):
         return {"int8_greedy": int8_counts["greedy 64 x 10 s"][name],
@@ -4770,7 +5094,7 @@ def main():
 
     # phases 10-13 on their own inputs
     for later in (spm_checks, conformer_checks, mt_checks, reverse_checks, moe_checks,
-                  layouts["checks"]):
+                  layouts["checks"], d64["checks"]):
         for name, cases in later.items():
             cli_checks[name] = cli_checks[name] + cases
     decode_checks = cli_checks["decode_attention"]
@@ -4787,7 +5111,9 @@ def main():
               "joeys2t_tpu/ops/flash_attention.py:262", flash + mt_flash,
               paths("flash_attention_fwd", serving=flash_launches, train=train_fwd_launches),
               cli_checks["flash_attention_fwd"], kernel_route=flash[0]["route"],
-              other_routes_source="joeys2t_torch/csrc/flash_attention.cu"),
+              other_routes_source="joeys2t_torch/csrc/flash_attention.cu",
+              wgmma_tiles_by_path={leg: {f"{r}x{h}": n for (r, h), n in t.items()}
+                                   for leg, t in d64["tiles"].items()}),
         entry("flash_attention_bwd", "joeys2t_torch/csrc/flash_attention.cu",
               "joeys2t_tpu/ops/flash_attention.py:562",
               "joeys2t_tpu/ops/flash_attention.py:306", backward + mt_backward,
@@ -4826,11 +5152,7 @@ def main():
     ]
     print(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_name_and_limit())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

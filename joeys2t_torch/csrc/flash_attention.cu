@@ -63,15 +63,17 @@
 // (S = 250) and operations the 30 s ones (S = 750). In f32 the ridge is
 // 67 TF / 3.35 TB/s ~ 20: operations at both.
 //
-// Three routes, chosen by dtype and head size (dispatch_fwd / dispatch_bwd;
-// flash_attention_info reports the route):
+// Three routes, chosen by dtype and head size. The wrapper's `route`
+// (ops/flash_attention.py) chooses; this library builds what it sends here
+// (dispatch_fwd / dispatch_bwd):
 //
-// bf16 forward at D = 128: the wgmma kernel of flash_attention_wgmma.cu
-// (TMA, mbarriers, warp specialisation), its own library; this library's
-// flash_attention_fwd refuses that pair, and its backward reads that
-// kernel's out and lse.
+// bf16 forward at D = 64 and 128: the wgmma kernel of
+// flash_attention_wgmma.cu (TMA, mbarriers, warp specialisation), its own
+// library; this library builds no forward for those pairs (its
+// flash_attention_fwd refuses them), and its backward reads that kernel's
+// out and lse.
 //
-// bf16, D in 16/64/128/192/256 (the forward at 16/64/192/256 only): tensor
+// bf16, D in 16/64/128/192/256 (the forward at 16/192/256 only): tensor
 // cores (the *_mma kernels below). Every
 // product is mma.sync.m16n8k16 bf16 x bf16 -> f32. Tiles stay bf16 in shared
 // memory, in 16-byte chunks stored at chunk ^ (row % 8), so the 8 row
@@ -81,7 +83,7 @@
 // products). Tiles are copied with 16-byte cp.async.cg into a two-stage
 // ring (the next tile loads while the current one multiplies); rows past Sq
 // or Sk are zero-filled (src-size 0), and their keys get a -inf score.
-//   forward (D = 16, 64, 192 and 256; 128 runs on the wgmma kernel): 4
+//   forward (D = 16, 192 and 256; 64 and 128 run on the wgmma kernel): 4
 //     warps, BQ = 64 query rows (16 a warp), BK = 64 keys (32 at D >= 192);
 //     FlashAttention-2 shape: S = Q.K^T and the online softmax in
 //     registers (an m16n8 accumulator gives lane l rows l/4 and l/4 + 8,
@@ -1270,12 +1272,13 @@ cudaError_t with_head_dim(int head_dim, F&& f) {
   }
 }
 
-// Head sizes whose bf16 forward is the wgmma kernel (flash_attention_wgmma.cu)
+// Head sizes whose bf16 forward this library does not build: the wrapper
+// sends them to the wgmma kernel (flash_attention_wgmma.cu)
 template <int D>
-constexpr bool kWgmmaFwd = D == 128;
+constexpr bool kWgmmaFwd = D == 64 || D == 128;
 
-// The route: bf16 on the tensor cores, f32 on the SIMT kernels; the bf16
-// forward of the wgmma head sizes is not in this library.
+// bf16 on the tensor cores, f32 on the SIMT kernels; the bf16 forward of
+// the wgmma head sizes is not in this library.
 template <typename T, bool DROP>
 cudaError_t dispatch_fwd(const void* q, const void* k, const void* v,
                          const float* bias, void* out, float* lse, int batch,
@@ -1392,24 +1395,21 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// The route of (head_dim, dtype) and its kernels' dynamic shared memory:
-// info[0] = the forward's route: 2 for wgmma (flash_attention_wgmma.cu), 1
-// for the tensor cores here (mma.sync), 0 for the SIMT kernels; the
-// backward is mma.sync for bf16 and SIMT for f32. info[1], info[2],
-// info[3] = bytes of the forward (0 where it is the wgmma kernel's), dK/dV
-// and dQ kernels. Returns cudaErrorInvalidValue for a pair the kernels do
-// not take.
+// The dynamic shared memory of this library's kernels for (head_dim,
+// dtype): info[0], info[1], info[2] = bytes of the forward (0 where this
+// library builds none: bf16 at the wgmma kernel's head sizes), dK/dV and dQ
+// kernels (mma.sync for bf16, SIMT for f32). Returns cudaErrorInvalidValue
+// for a pair the kernels do not take.
 extern "C" int flash_attention_info(int head_dim, int dtype, int* info) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   return (int)with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
     using S = SimtTiles<D>;
     const bool mma_route = dtype == 1;
-    info[0] = mma_route ? (kWgmmaFwd<D> ? 2 : 1) : 0;
-    info[1] = (int)(!mma_route ? Tile<D, S::FQ, S::FK>::kBytes
+    info[0] = (int)(!mma_route ? Tile<D, S::FQ, S::FK>::kBytes
                     : kWgmmaFwd<D> ? 0 : FwdMma<D, kMmaFwdBK<D>>::kBytes);
-    info[2] = (int)(mma_route ? BwdMma<D>::kDkdvBytes : BwdTile<D, S::BQ, S::BK>::kBytes);
-    info[3] = (int)(mma_route ? BwdMma<D>::kDqBytes : BwdTile<D, S::BQ, S::BK>::kBytes);
+    info[1] = (int)(mma_route ? BwdMma<D>::kDkdvBytes : BwdTile<D, S::BQ, S::BK>::kBytes);
+    info[2] = (int)(mma_route ? BwdMma<D>::kDqBytes : BwdTile<D, S::BQ, S::BK>::kBytes);
     return cudaSuccess;
   });
 }

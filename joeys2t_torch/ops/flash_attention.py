@@ -18,11 +18,12 @@ plain versions compute the same bits as the kernels. They are not the TPU's
 bits, which cannot be reproduced.
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
-launch the kernels or raise. The bf16 forward at head dim 128 runs
+launch the kernels or raise. The bf16 forward at head dims 64 and 128 runs
 on Hopper's wgmma kernel (``csrc/flash_attention_wgmma.cu``: TMA loads over
-tensor maps this module plans, :func:`wgmma_plan`), the other bf16 kernels
-on the tensor cores (mma.sync), f32 on the SIMT kernels, its exact path
-(:func:`route`, :func:`kernel_info`).
+tensor maps this module plans, :func:`wgmma_plan`, in a tile
+:func:`wgmma_tile` picks from the shape), the other bf16 kernels on the
+tensor cores (mma.sync), f32 on the SIMT kernels, its exact path. Which
+kernel a (head dim, dtype) takes is :func:`route`'s choice alone.
 """
 import ctypes
 import functools
@@ -35,14 +36,18 @@ from joeys2t_torch.ops import cuda_build
 NEG_INF = -1e9
 _MASK32 = 0xFFFFFFFF
 
-# the wgmma forward (csrc/flash_attention_wgmma.cu): its head dim in bf16,
-# the columns of a TMA box (64 bf16: one 128-byte swizzle row), query rows a
-# tile (two consumer warpgroups of 64) and keys a tile (the same for every
-# shape, so a row's arithmetic does not depend on the batch or its padding);
-# the kernel is compiled for these boxes (kBoxCols, kBQ, kBK)
-WGMMA_HEAD_DIMS = (128,)
+# the wgmma forward (csrc/flash_attention_wgmma.cu): its head dims in bf16,
+# the columns of a TMA box (64 bf16: one 128-byte swizzle row), the query
+# rows of a one-head tile (two consumer warpgroups of 64) and of a two-head
+# tile (head dim 64: a consumer warpgroup a head), and keys a tile (the same
+# for every shape and tile, so a row's arithmetic depends on neither its
+# batch, its padding nor its tile). The kernel is compiled for these boxes
+# (kBoxCols, kBQ, kPairRows, kBK): the library reports its own, and
+# _wgmma_library checks them against these when it loads it.
+WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_BOX_COLS = 64
 WGMMA_BQ = 128
+WGMMA_BQ_PAIR = 64
 WGMMA_BK = 128
 
 
@@ -207,15 +212,18 @@ def _check_operands(q, named, num_heads):
     return d
 
 
-def tensor_map(name: str, t: torch.Tensor, num_heads: int, box_rows: int) -> dict:
+def tensor_map(name: str, t: torch.Tensor, num_heads: int, box_rows: int,
+               box_heads: int = 1) -> dict:
     """The TMA tensor map through which the wgmma kernel reads a (B, S,
-    H * D) bf16 operand: 4-D (D, H, S, B), innermost first, with the byte
-    strides of dims 1-3 (D, H * D and S * H * D elements) and a box of
-    :data:`WGMMA_BOX_COLS` columns x 1 head x ``box_rows`` rows x 1 batch
-    row, so rows past S are zero-filled without touching the next batch
-    row. Raises on what TMA does not take: a tensor that is not contiguous
-    (B, S, E), a base not on a 16-byte boundary, a stride not a multiple of
-    16 bytes, a head dim not a whole number of boxes."""
+    H * D) bf16 operand: 4-D (D, S, H, B), innermost first, with the byte
+    strides of dims 1-3 (H * D, D and S * H * D elements: not increasing,
+    which TMA takes) and a box of :data:`WGMMA_BOX_COLS` columns x
+    ``box_rows`` rows x ``box_heads`` heads x 1 batch row, which lands in
+    shared memory as one slab of rows a head, so rows past S and a head past
+    H are zero-filled without touching the next batch row. Raises on what
+    TMA does not take: a tensor that is not contiguous (B, S, E), a base not
+    on a 16-byte boundary, a stride not a multiple of 16 bytes, a head dim
+    not a whole number of boxes."""
     if t.dim() != 3 or not t.is_contiguous():
         raise ValueError(f"{name}: the wgmma kernel reads a contiguous (B, S, E) tensor, got "
                          f"shape {tuple(t.shape)}, contiguous={t.is_contiguous()}")
@@ -224,27 +232,44 @@ def tensor_map(name: str, t: torch.Tensor, num_heads: int, box_rows: int) -> dic
         raise ValueError(f"{name}: E={e} is not num_heads={num_heads} heads of whole "
                          f"{WGMMA_BOX_COLS}-column boxes")
     d, size = e // num_heads, t.element_size()
-    strides = (d * size, e * size, s * e * size)
+    strides = (e * size, d * size, s * e * size)
     if t.data_ptr() % 16 or any(x % 16 for x in strides):
         raise ValueError(f"{name}: TMA needs a 16-byte aligned base and strides, got base "
                          f"{t.data_ptr() % 16} past a boundary and strides {strides}")
-    return dict(dims=(d, num_heads, s, b), strides=strides,
-                box=(WGMMA_BOX_COLS, 1, box_rows, 1))
+    return dict(dims=(d, s, num_heads, b), strides=strides,
+                box=(WGMMA_BOX_COLS, box_rows, box_heads, 1))
+
+
+def wgmma_tile(head_dim: int, sq: int, num_heads: int) -> Tuple[int, int]:
+    """(query rows, heads) of the wgmma forward's tile for a shape: at head
+    dim 64 with two heads or more, two heads of :data:`WGMMA_BQ_PAIR` rows
+    when the last :data:`WGMMA_BQ`-row q-tile would be at most half full
+    (Sq % 128 in 1..64, as the MT models' 61 tokens), where a one-head tile
+    would leave its second consumer warpgroup idle; else one head of
+    :data:`WGMMA_BQ` rows (the 10 s and 30 s utterances' 250 and 750
+    frames, MT's 81-token cross attention). A function of the shape alone:
+    the route never follows Sq, and a row's bits do not follow the tile."""
+    if (head_dim == WGMMA_BOX_COLS and num_heads >= 2
+            and 0 < sq % WGMMA_BQ <= WGMMA_BQ_PAIR):
+        return WGMMA_BQ_PAIR, 2
+    return WGMMA_BQ, 1
 
 
 def wgmma_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
                num_sms: int) -> dict:
-    """The wgmma forward's launch: the tensor maps of q (boxes of
-    :data:`WGMMA_BQ` rows), k and v (:data:`WGMMA_BK` rows, the key tile),
-    the q-tiles of a (batch row, head), the (q-tile, head, batch row) tiles
+    """The wgmma forward's launch: the tile (:func:`wgmma_tile`), the
+    tensor maps of q (boxes of the tile's rows and heads), k and v
+    (:data:`WGMMA_BK` rows, the key tile, and the tile's heads), the q-tiles
+    of a (batch row, head group), the (q-tile, head group, batch row) tiles
     and the persistent grid, one block an SM at most (the kernel's shared
     memory takes the SM)."""
-    b, sq, _ = q.shape
-    q_tiles = -(-sq // WGMMA_BQ)
-    tiles = q_tiles * num_heads * b
-    return dict(q_map=tensor_map("q", q, num_heads, WGMMA_BQ),
-                k_map=tensor_map("k", k, num_heads, WGMMA_BK),
-                v_map=tensor_map("v", v, num_heads, WGMMA_BK),
+    b, sq, e = q.shape
+    rows, heads = wgmma_tile(e // num_heads, sq, num_heads)
+    q_tiles = -(-sq // rows)
+    tiles = q_tiles * -(-num_heads // heads) * b
+    return dict(tile=(rows, heads), q_map=tensor_map("q", q, num_heads, rows, heads),
+                k_map=tensor_map("k", k, num_heads, WGMMA_BK, heads),
+                v_map=tensor_map("v", v, num_heads, WGMMA_BK, heads),
                 q_tiles=q_tiles, tiles=tiles, grid=min(tiles, num_sms))
 
 
@@ -301,13 +326,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lse = torch.empty((b, sq, num_heads), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if route(d, q.dtype) == "wgmma":
+    wgmma = route(d, q.dtype) == "wgmma"
+    if wgmma:
         plan = wgmma_plan(q, k, v, num_heads, _num_sms(q.device.index))
         err = _wgmma_library().flash_attention_fwd_wgmma(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, sq, sk, num_heads, d, _map_words(plan), plan["q_tiles"],
-            plan["tiles"], plan["grid"], float(sm_scale), drop, seed_ptr, threshold,
-            keep_scale, stream)
+            lse.data_ptr(), b, sq, sk, num_heads, d, plan["tile"][1], _map_words(plan),
+            plan["q_tiles"], plan["tiles"], plan["grid"], float(sm_scale), drop, seed_ptr,
+            threshold, keep_scale, stream)
     else:
         err = _library().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
@@ -317,10 +343,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
     flash_attention_fwd.launches += 1
+    if wgmma:
+        tiles = flash_attention_fwd.wgmma_tiles
+        tiles[plan["tile"]] = tiles.get(plan["tile"], 0) + 1
     return out, lse
 
 
 flash_attention_fwd.launches = 0  # kernel launches; tests and smoke runs reset it
+# the launches of the wgmma kernel among them, by tile (query rows, heads)
+flash_attention_fwd.wgmma_tiles = {}
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -436,30 +467,45 @@ def mha_flash_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def kernel_info(head_dim: int, dtype: torch.dtype) -> dict:
     """Which kernels a (head_dim, dtype) takes on the card: ``route``, the
-    forward's (:func:`route`: "wgmma", "mma.sync" or "simt"), as the C
-    library reports it; ``bwd_route``; the dynamic shared memory in bytes
-    of the forward, dK/dV and dQ kernels; and for the wgmma route the
-    kernel's K/V stages and threads a block (its tile is the plan's,
-    :func:`wgmma_plan`). Builds the libraries if needed."""
+    forward's (:func:`route`'s choice: "wgmma", "mma.sync" or "simt");
+    ``bwd_route``; the dynamic shared memory in bytes of the forward, dK/dV
+    and dQ kernels; and for the wgmma route the kernel's K/V stages, threads
+    a block and ``tiles``, {(query rows, heads): shared memory bytes} of
+    each tile :func:`wgmma_tile` may pick at this head dim (``smem_fwd`` is
+    the one-head tile's). Builds the libraries if needed."""
     want = route(head_dim, dtype)
-    info = (ctypes.c_int * 4)()
+    info = (ctypes.c_int * 3)()
     err = _library().flash_attention_info(head_dim, 0 if dtype == torch.float32 else 1,
                                           info)
     if err != 0:
         raise RuntimeError(f"flash_attention_info failed: cudaError {err}")
-    got = {0: "simt", 1: "mma.sync", 2: "wgmma"}[info[0]]
-    if got != want:
-        raise RuntimeError(f"flash library routes D={head_dim} {dtype} to {got}, the "
-                           f"wrapper to {want}")
-    out = {"route": got, "bwd_route": "simt" if dtype == torch.float32 else "mma.sync",
-           "smem_fwd": info[1], "smem_dkdv": info[2], "smem_dq": info[3]}
-    if got == "wgmma":
-        w = (ctypes.c_int * 3)()
-        err = _wgmma_library().flash_attention_wgmma_info(head_dim, w)
-        if err != 0:
-            raise RuntimeError(f"flash_attention_wgmma_info failed: cudaError {err}")
-        out.update(smem_fwd=w[0], stages=w[1], threads=w[2])
+    out = {"route": want, "bwd_route": "simt" if dtype == torch.float32 else "mma.sync",
+           "smem_fwd": info[0], "smem_dkdv": info[1], "smem_dq": info[2]}
+    if want == "wgmma":
+        lib = _wgmma_library()
+        tiles = {tile: _wgmma_info(lib, head_dim, tile[1]) for tile in _wgmma_tiles(head_dim)}
+        one = tiles[(WGMMA_BQ, 1)]
+        out.update(smem_fwd=one[0], stages=one[1], threads=one[2],
+                   tiles={tile: w[0] for tile, w in tiles.items()})
     return out
+
+
+def _wgmma_tiles(head_dim: int):
+    """The (query rows, heads) tiles :func:`wgmma_tile` may pick at a head
+    dim of the wgmma route."""
+    return [(WGMMA_BQ, 1)] + ([(WGMMA_BQ_PAIR, 2)] if head_dim == WGMMA_BOX_COLS else [])
+
+
+def _wgmma_info(lib: ctypes.CDLL, head_dim: int, heads: int) -> list:
+    """The wgmma library's report on its tile of ``heads`` heads at a head
+    dim: shared memory bytes, K/V stages, threads, box columns, query rows,
+    keys a tile."""
+    w = (ctypes.c_int * 6)()
+    err = lib.flash_attention_wgmma_info(head_dim, heads, w)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_wgmma_info(D={head_dim}, {heads} head(s)) "
+                           f"failed: cudaError {err}")
+    return list(w)
 
 
 def _library() -> ctypes.CDLL:
@@ -478,13 +524,25 @@ def _library() -> ctypes.CDLL:
 
 
 def _wgmma_library() -> ctypes.CDLL:
+    """The wgmma forward's library. When it first loads, the boxes it was
+    compiled for must be the plan's (:data:`WGMMA_BOX_COLS`,
+    :data:`WGMMA_BQ`, :data:`WGMMA_BQ_PAIR`, :data:`WGMMA_BK`) for every
+    tile :func:`wgmma_tile` may pick at every head dim :func:`route` sends
+    there, or it raises."""
     lib = cuda_build.load("flash_attention_wgmma")
     if lib.flash_attention_fwd_wgmma.argtypes is None:
         p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-        lib.flash_attention_wgmma_info.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+        lib.flash_attention_wgmma_info.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
         lib.flash_attention_wgmma_info.restype = ctypes.c_int
+        for d in WGMMA_HEAD_DIMS:
+            for rows, heads in _wgmma_tiles(d):
+                got = tuple(_wgmma_info(lib, d, heads)[3:])
+                if got != (WGMMA_BOX_COLS, rows, WGMMA_BK):
+                    raise RuntimeError(
+                        f"the wgmma library's D={d} {heads}-head tile has boxes (columns, "
+                        f"query rows, keys) {got}, the plan {(WGMMA_BOX_COLS, rows, WGMMA_BK)}")
         lib.flash_attention_fwd_wgmma.argtypes = [
-            p, p, p, p, p, p, i, i, i, i, i, ctypes.POINTER(ctypes.c_ulonglong), i, i, i, f,
-            i, p, u, f, p]
+            p, p, p, p, p, p, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_ulonglong), i, i, i,
+            f, i, p, u, f, p]
         lib.flash_attention_fwd_wgmma.restype = ctypes.c_int
     return lib

@@ -10,8 +10,14 @@ Each turn is a fresh process that imports one checkout's ``joeys2t_torch``
 and runs chip_smoke.py's phase-2 case (``flash_case``: the kernel held to
 its plain version, two calls bit-identical; then the kernel, the plain
 version and SDPA timed back to back on warm L2, and the bound) at every
-shape. Turns run other, this, this, other for each pair, so a drift of the
-host or the card falls on both sides alike. The host time is the wall of
+shape, on the same seeded inputs in every turn, and prints the route, the
+wgmma tile (query rows x heads) and a digest of the out and lse bits of
+each shape; the summary says whether the two checkouts' bits are equal.
+At head dim 64 on the wgmma route, a turn also times each other tile the
+kernel has (``wgmma_tile`` replaced for that call) on the same inputs, whose
+bits must equal those of the tile the rule picks. Turns run other, this,
+this, other for each pair, so a drift of the host or the card falls on both
+sides alike. The host time is the wall of
 500 back-to-back calls at B=1 Sq=Sk=16 over their count, beside the device
 time of the same call: where the host time is the larger, the launch loop
 is the wrapper's. Each turn first times its process's first two calls (head
@@ -31,10 +37,14 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
 # (B, Sq, Sk, heads, head dim): the 10 s batch, a full batch of 30 s
-# utterances, the 45 s request's two chunks, the MT self and cross shapes
+# utterances, the 45 s request's two chunks, the MT self and cross shapes;
+# at head dim 64 also the speech decoder's cross-attention (47 target
+# positions over 250 frames) and the two sides of the tile rule's threshold
+# (Sq 64 and 65) over 250 frames
 SHAPES = [(b, sq, sk, h, d) for h, d in ((4, 128), (8, 64))
           for b, sq, sk in ((64, 250, 250), (64, 750, 750), (2, 750, 750), (192, 61, 61),
                             (192, 81, 61))]
+SHAPES += [(64, sq, 250, 8, 64) for sq in (47, 64, 65)]
 HOST_CALLS = 500
 
 
@@ -61,8 +71,22 @@ def worker(tree: Path) -> None:
         fa.flash_attention_fwd(q, q, q, bias, 0.1, h)
     torch.cuda.synchronize()
     print(json.dumps(dict(first_calls_ms=(time.perf_counter() - t0) * 1e3)), flush=True)
-    for b, sq, sk, h, d in SHAPES:
-        c = smoke.flash_case(b, sq, sk, torch.bfloat16, gen, d=d, h=h, scaled=b == 192)
+    for i, (b, sq, sk, h, d) in enumerate(SHAPES):
+        c = smoke.flash_case(b, sq, sk, torch.bfloat16, torch.Generator().manual_seed(i),
+                             d=d, h=h, scaled=b == 192, digest=True)
+        chosen = getattr(fa, "wgmma_tile", None)
+        others = [t for t in getattr(fa, "_wgmma_tiles", lambda _d: [])(d)
+                  if c["route"] == "wgmma" and d == 64 and t != tuple(c["tile"])]
+        for tile in others:  # the same inputs on another tile of the kernel
+            fa.wgmma_tile = lambda *_a, tile=tile: tile
+            try:
+                f = smoke.flash_case(b, sq, sk, torch.bfloat16,
+                                     torch.Generator().manual_seed(i), d=d, h=h,
+                                     scaled=b == 192, digest=True)
+            finally:
+                fa.wgmma_tile = chosen
+            print(json.dumps(dict(shape=[b, sq, sk, h, d], forced_tile=f["tile"],
+                                  digest=f["digest"], ms=f["ms"])), flush=True)
         q = torch.randn(1, 16, h * d, generator=gen).to(torch.bfloat16).cuda()
         bias = torch.zeros(1, 16, device="cuda")
 
@@ -77,7 +101,8 @@ def worker(tree: Path) -> None:
             call()
         torch.cuda.synchronize()
         host_us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
-        print(json.dumps(dict(shape=[b, sq, sk, h, d], route=c["route"], ms=c["ms"],
+        print(json.dumps(dict(shape=[b, sq, sk, h, d], route=c["route"], tile=c["tile"],
+                              digest=c["digest"], ms=c["ms"],
                               library_ms=c["library_ms"], bound_ms=c["bound_ms"],
                               bound_by=c["bound_by"], max_abs_err=c["max_abs_err"],
                               tol=c["tol"], host_us=host_us,
@@ -104,6 +129,7 @@ def main(argv=None) -> None:
     print(smi.stdout.strip().splitlines()[0])
     rows = {side: {} for side in trees}
     first = {side: [] for side in trees}
+    forced = {side: {} for side in trees}
     for turn in ["other", "this", "this", "other"] * args.pairs:
         run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker",
                               str(trees[turn])], cwd=trees[turn], env=env,
@@ -116,6 +142,8 @@ def main(argv=None) -> None:
                 print(turn, line)
                 if "first_calls_ms" in r:
                     first[turn].append(r["first_calls_ms"])
+                elif "forced_tile" in r:
+                    forced[turn].setdefault(tuple(r["shape"]), []).append(r)
                 else:
                     rows[turn].setdefault(tuple(r["shape"]), []).append(r)
     print(f"first calls in a fresh process (D=128 and D=64, the libraries loaded): this "
@@ -128,13 +156,32 @@ def main(argv=None) -> None:
                for side, rs in (("this", this), ("other", other))}
         host = {side: statistics.median(r["host_us"] for r in rs)
                 for side, rs in (("this", this), ("other", other))}
-        print(f"B={b} Sq={sq} Sk={sk} H={h} D={d}: this ({this[0]['route']}) {med['this']:.4f} "
-              f"ms, other ({other[0]['route']}) {med['other']:.4f} ms, this / other "
+        digests = {side: {r["digest"] for r in rs} for side, rs in (("this", this),
+                                                                     ("other", other))}
+        bits = ("equal" if digests["this"] == digests["other"] and len(digests["this"]) == 1
+                else f"this {sorted(digests['this'])}, other {sorted(digests['other'])}")
+
+        def kernel(r):
+            tile = f", tile {r['tile'][0]}x{r['tile'][1]}" if r.get("tile") else ""
+            return f"{r['route']}{tile}"
+
+        print(f"B={b} Sq={sq} Sk={sk} H={h} D={d}: this ({kernel(this[0])}) {med['this']:.4f} "
+              f"ms, other ({kernel(other[0])}) {med['other']:.4f} ms, this / other "
               f"{med['this'] / med['other']:.3f}; SDPA {this[0]['library_ms']:.4f} ms; bound "
               f"{this[0]['bound_ms']:.4f} ms ({this[0]['bound_by']}), share this "
               f"{100 * this[0]['bound_ms'] / med['this']:.1f} %, other "
               f"{100 * this[0]['bound_ms'] / med['other']:.1f} %; host a call this "
-              f"{host['this']:.1f} us, other {host['other']:.1f} us")
+              f"{host['this']:.1f} us, other {host['other']:.1f} us; out and lse bits "
+              f"{bits}")
+        if shape in forced["this"]:
+            alt = forced["this"][shape]
+            alt_ms = statistics.median(r["ms"] for r in alt)
+            same = {r["digest"] for r in alt} == digests["this"]
+            print(f"  this on the other tile {alt[0]['forced_tile'][0]}x"
+                  f"{alt[0]['forced_tile'][1]}: {alt_ms:.4f} ms, chosen tile / other tile "
+                  f"{med['this'] / alt_ms:.3f}, other tile / other checkout "
+                  f"{alt_ms / med['other']:.3f}; bits "
+                  f"{'equal to the chosen tile' if same else 'DIFFER from the chosen tile'}")
 
 
 if __name__ == "__main__":

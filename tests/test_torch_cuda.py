@@ -11,6 +11,7 @@ update. Needs a CUDA card and nvcc; skipped without them. Run on a card
 with (the suite's conftest.py imports JAX, which the card's machine need
 not have):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py"""
+import ctypes
 from pathlib import Path
 
 import numpy as np
@@ -48,12 +49,15 @@ SHORT = ([(192, s, s, 4, 128) for s in (1, 7, 33, 61)] + [(192, 81, 61, 4, 128)]
          + [(3, sq, sk, 2, 16) for sq in (1, 63, 64, 65, 250) for sk in (1, 63, 65, 250)])
 
 
-# the wgmma forward's tile edges (128 query rows, 128 keys a tile) at head
-# size 128, the pairs EDGES does not already hold (held at token lengths'
+# the wgmma forward's tile edges (one-head tiles of 128 query rows, at head
+# size 64 also two-head tiles of 64 rows; 128 keys a tile) at head sizes 128
+# (2 heads) and 64 (2, 3 and 8 heads: an odd H leaves the last pair's second
+# head idle), the pairs EDGES does not already hold (held at token lengths'
 # tolerance: Sk = 1 with dropout gives outputs of ~5)
 WGMMA_LENGTHS = (1, 63, 64, 65, 127, 128, 129, 250, 750, 1125)
-WGMMA_EDGES = [(3, sq, sk, 2, 128) for sq in WGMMA_LENGTHS for sk in WGMMA_LENGTHS
-               if (3, sq, sk, 2, 128) not in EDGES]
+WGMMA_EDGES = [(3, sq, sk, h, d) for h, d in ((2, 128), (2, 64), (3, 64), (8, 64))
+               for sq in WGMMA_LENGTHS for sk in WGMMA_LENGTHS
+               if (3, sq, sk, h, d) not in EDGES]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
@@ -79,18 +83,25 @@ def test_flash_kernel_matches_plain(card, dtype, tol, b, sq, sk, h, d):
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
 
 
-@pytest.mark.parametrize("b,sq,sk", [(64, 250, 250), (64, 47, 250), (3, 250, 250),
-                                     (64, 750, 750)])
-def test_flash_forward_writes_every_output_over_poisoned_memory(card, b, sq, sk):
-    """The bf16 forward at phase 2's shape (row 0 with every key masked, the
+@pytest.mark.parametrize("b,sq,sk,h,d,route,tile", [
+    (64, 250, 250, 4, 128, "wgmma", (128, 1)), (64, 47, 250, 4, 128, "wgmma", (128, 1)),
+    (3, 250, 250, 4, 128, "wgmma", (128, 1)), (64, 750, 750, 4, 128, "wgmma", (128, 1)),
+    (64, 250, 250, 8, 64, "wgmma", (128, 1)), (192, 61, 61, 8, 64, "wgmma", (64, 2)),
+    (192, 61, 61, 4, 16, "mma.sync", None)])
+def test_flash_forward_writes_every_output_over_poisoned_memory(card, b, sq, sk, h, d,
+                                                                route, tile):
+    """The bf16 forward at phase 2's shapes (row 0 with every key masked, the
     others of random lengths) into memory the caching allocator hands back
     full of NaN and inf: every out and lse entry written and finite, equal
     to the plain version, ten calls bit-identical. An output the kernel
     left unwritten, or a read of memory it did not write first, shows as a
-    non-finite value here (the one-off non-finite lse of PERF.md §7). bf16
-    at head size 128 runs on the wgmma kernel."""
-    h, d = 4, 128
-    assert fa.kernel_info(d, torch.bfloat16)["route"] == "wgmma"
+    non-finite value here (the one-off non-finite lse of PERF.md §7). Every
+    bf16 forward route: wgmma at head sizes 128 and 64 in both of its tiles
+    (the 8-head models' 10 s utterances and MT sentences), and the mma.sync
+    forward that remains (head size 16, the 64-wide MT models)."""
+    assert fa.kernel_info(d, torch.bfloat16)["route"] == route
+    if tile is not None:
+        assert fa.wgmma_tile(d, sq, h) == tile
     gen = torch.Generator().manual_seed(1)
     q = torch.randn(b, sq, h * d, generator=gen).to(torch.bfloat16).to(card)
     k, v = (torch.randn(b, sk, h * d, generator=gen).to(torch.bfloat16).to(card)
@@ -210,29 +221,78 @@ def test_dropout_mask_bits_match_plain(card, dtype):
 
 @pytest.mark.parametrize("d", [16, 64, 128, 192, 256])
 def test_flash_route(card, d):
-    """The bf16 forward takes the wgmma kernel at head size 128 and
+    """The bf16 forward takes the wgmma kernel at head sizes 64 and 128 and
     mma.sync at the others, its backward mma.sync; f32 the exact SIMT
-    kernels both ways. Both libraries agree on the route."""
+    kernels both ways. The wgmma library is built for every tile the plan
+    picks at its head sizes (two heads of 64 rows at 64, one of 128 rows at
+    both) and the mma.sync library builds no forward there."""
     info = fa.kernel_info(d, torch.bfloat16)
-    assert info["route"] == ("wgmma" if d == 128 else "mma.sync")
+    assert info["route"] == ("wgmma" if d in (64, 128) else "mma.sync")
     assert info["bwd_route"] == "mma.sync" and info["smem_fwd"] > 0
+    assert info["smem_dkdv"] > 0 and info["smem_dq"] > 0
     if info["route"] == "wgmma":
         assert info["stages"] >= 2 and info["threads"] == 384
+        want = {(128, 1), (64, 2)} if d == 64 else {(128, 1)}
+        assert set(info["tiles"]) == want and all(0 < b <= 232448
+                                                  for b in info["tiles"].values())
+        mma = (ctypes.c_int * 3)()
+        assert fa._library().flash_attention_info(d, 1, mma) == 0 and mma[0] == 0
     info = fa.kernel_info(d, torch.float32)
     assert info["route"] == info["bwd_route"] == "simt"
 
 
-@pytest.mark.parametrize("d", [64, 128])
+def test_wgmma_launch_with_a_bad_plan_raises(card, monkeypatch):
+    """A wgmma launch whose plan the library does not take (a box TMA
+    refuses, a map whose strides TMA refuses, a tile the library has no
+    kernel for) raises: nothing gives way to the mma.sync forward or the
+    plain version, and no launch is counted."""
+    gen = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn(4, 61, 512, generator=gen).to(torch.bfloat16).to(card)
+               for _ in range(3))
+    bias = torch.zeros(4, 61, device=card)
+    good = fa.wgmma_plan
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the forward gave way to another kernel")
+
+    monkeypatch.setattr(fa, "flash_attention_plain", refuse)
+    monkeypatch.setattr(fa, "_library", refuse)
+    q_map = lambda bad: lambda p: dict(p, q_map=bad(p["q_map"]))  # noqa: E731
+    for bad in (q_map(lambda m: dict(m, box=(m["box"][0], 512) + m["box"][2:])),
+                q_map(lambda m: dict(m, strides=(m["strides"][0] + 8,) + m["strides"][1:])),
+                lambda p: dict(p, tile=(p["tile"][0], 3))):
+        def plan(*args, bad=bad):
+            return bad(good(*args))
+
+        monkeypatch.setattr(fa, "wgmma_plan", plan)
+        before = fa.flash_attention_fwd.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fa.flash_attention_fwd(q, k, v, bias, 0.125, 8)
+        assert fa.flash_attention_fwd.launches == before
+
+
+# (H, D, length, padded): the 4-head shapes at head sizes 64 and 128, and at
+# the 8-head models' head size 64 an utterance whose wgmma tile differs from
+# its padded batch's (alone two heads of 64 rows, in the batch one head of
+# 128; and the reverse)
+BATCH_INVARIANCE = ([(4, d, length, padded) for d in (64, 128)
+                     for length, padded in ((200, 750), (129, 250), (61, 81), (1, 128))]
+                    + [(8, 64, 61, 250), (8, 64, 61, 81), (8, 64, 100, 192),
+                       (8, 64, 250, 320)])
+
+
 @pytest.mark.parametrize("row", [0, 37])
-@pytest.mark.parametrize("length,padded", [(200, 750), (129, 250), (61, 81), (1, 128)])
-def test_flash_utterance_alone_equals_its_row_in_a_padded_batch(card, d, row, length,
+@pytest.mark.parametrize("h,d,length,padded", BATCH_INVARIANCE)
+def test_flash_utterance_alone_equals_its_row_in_a_padded_batch(card, row, h, d, length,
                                                                  padded):
     """An utterance's out and lse alone equal its row, bit for bit, inside a
     padded batch of 64 (longer Sq and Sk, its keys past its length masked,
     the other rows random): the key tiles start at key 0 and have one width
-    for every shape, and masked keys add exact zeros, so `translate` of a
-    few utterances gives the bits `test` gives them in a full batch."""
-    h = 4
+    for every shape and both wgmma tiles, and masked keys add exact zeros,
+    so `translate` of a few utterances gives the bits `test` gives them in
+    a full batch, whichever tile each shape takes."""
+    if h == 8:
+        assert fa.wgmma_tile(d, length, h) != fa.wgmma_tile(d, padded, h)
     gen = torch.Generator().manual_seed(row + length)
     alone_q, alone_k, alone_v = (torch.randn(1, length, h * d, generator=gen)
                                  .to(torch.bfloat16).to(card) for _ in range(3))

@@ -5,8 +5,10 @@ numpy inputs go through both, and encoder outputs, decode-step logits and
 caches, teacher-forced logits and greedy tokens are compared at float32.
 
 Size: 2 encoder and 2 decoder layers, hidden 128, 2 heads (head dim 64),
-ff 256, a 40-token vocabulary."""
+ff 256, a 40-token vocabulary; and configs/mustc_asr.yaml's model section
+(hidden 512, 8 heads of 64, ff 2048) cut to 1 encoder and 1 decoder layer."""
 import glob
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -89,6 +91,66 @@ def pair():
         enc_t, _, mask_t = tmodel.encode(torch.tensor(src), torch.tensor(LENGTHS))
     return dict(jmodel=jmodel, jspec=jspec, params=params, tmodel=tmodel, tspec=tspec,
                 src=src, enc_j=enc_j, mask_j=mask_j, enc_t=enc_t, mask_t=mask_t)
+
+
+# configs/mustc_asr.yaml's model section (hidden 512, 8 heads of head dim
+# 64, ff 2048, conv subsampler [5, 5] of 512 channels, untied) cut to 1
+# encoder and 1 decoder layer: the 8-head models' attention shape, whose
+# bf16 forward takes the wgmma kernel's two tiles on the card
+with open(Path(__file__).resolve().parents[1] / "configs" / "mustc_asr.yaml",
+          encoding="utf-8") as _f:
+    CFG_D64 = yaml.safe_load(_f)["model"]
+CFG_D64["encoder"]["num_layers"] = CFG_D64["decoder"]["num_layers"] = 1
+B64, T64 = 3, 300  # 75 frames after subsampling
+LENGTHS64 = np.array([300, 211, 97])
+
+
+@pytest.fixture(scope="module")
+def pair_d64():
+    """The JAX model and the port at mustc_asr's widths (8 heads of 64), one
+    set of perturbed xavier weights, and both encoders' outputs."""
+    vocab = JaxVocabulary(TOKENS, JaxSpecialSymbols())
+    jmodel, jspec = jax_build_model(CFG_D64, trg_vocab=vocab, compute_dtype=jnp.float32)
+    params = jmodel.init({"params": jax.random.PRNGKey(64)}, jnp.zeros((B64, 40, 80)),
+                         jnp.zeros((B64, 4), jnp.int32), jnp.full((B64,), 40), None,
+                         jnp.ones((B64, 1, 4), bool))["params"]
+    params = jax_initialize(params, CFG_D64, 1, 1, jax.random.PRNGKey(65))
+    rng = np.random.RandomState(64)
+    params = jax.tree.map(
+        lambda x: np.asarray(x) + 0.02 * rng.randn(*x.shape).astype(np.float32), params)
+    tmodel, tspec = build_model(CFG_D64, trg_vocab=Vocabulary(TOKENS, SpecialSymbols()),
+                                compute_dtype=torch.float32, device="cpu")
+    tmodel.load_state_dict(flax_params_to_state_dict(params))
+    src = np.random.RandomState(164).randn(B64, T64, 80).astype(np.float32)
+    enc_j, _, mask_j = jmodel.apply({"params": params}, jnp.asarray(src),
+                                    jnp.asarray(LENGTHS64), None, method="encode")
+    with torch.no_grad():
+        enc_t, _, mask_t = tmodel.encode(torch.tensor(src), torch.tensor(LENGTHS64))
+    return dict(jmodel=jmodel, jspec=jspec, params=params, tmodel=tmodel, tspec=tspec,
+                enc_j=enc_j, mask_j=mask_j, enc_t=enc_t, mask_t=mask_t)
+
+
+def test_d64_encoder_output_matches(pair_d64):
+    """mustc_asr's 8-head, head-dim-64 encoder layer at full width: the
+    port's attention (the flash route's plain version on the CPU) against
+    the JAX package's, float32, within 1e-5."""
+    assert CFG_D64["encoder"]["hidden_size"] // CFG_D64["encoder"]["num_heads"] == 64
+    np.testing.assert_array_equal(pair_d64["mask_t"].numpy(), np.asarray(pair_d64["mask_j"]))
+    assert pair_d64["enc_t"].shape == (B64, 75, 512)
+    np.testing.assert_allclose(pair_d64["enc_t"].numpy(), np.asarray(pair_d64["enc_j"]),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_d64_greedy_tokens_match(pair_d64):
+    """Greedy search of the 8-head, head-dim-64 model: the same tokens as
+    JAX's, the decode steps' attention at head dim 64."""
+    out_j, _, _ = jax_greedy(pair_d64["params"], pair_d64["jmodel"], pair_d64["jspec"],
+                             pair_d64["enc_j"], pair_d64["mask_j"], 10)
+    out_t, _, _ = transformer_greedy(pair_d64["tmodel"], pair_d64["tspec"],
+                                     pair_d64["enc_t"], pair_d64["mask_t"], 10,
+                                     device="cpu")
+    np.testing.assert_array_equal(out_t, np.asarray(out_j))
+    assert out_t.shape == (B64, 10) and len(set(np.asarray(out_t).ravel())) > 1
 
 
 def test_subsampled_lengths_match():

@@ -111,13 +111,13 @@ def test_flash_dropout_raises_on_every_device():
 
 
 @pytest.mark.parametrize("d,dtype,want", [
-    (16, torch.bfloat16, "mma.sync"), (64, torch.bfloat16, "mma.sync"),
+    (16, torch.bfloat16, "mma.sync"), (64, torch.bfloat16, "wgmma"),
     (128, torch.bfloat16, "wgmma"), (192, torch.bfloat16, "mma.sync"),
     (256, torch.bfloat16, "mma.sync")] + [(d, torch.float32, "simt")
                                           for d in (16, 64, 128, 192, 256)])
 def test_flash_route(d, dtype, want):
     """The forward's kernel for each (head dim, dtype): the wgmma kernel for
-    bf16 at head dim 128, mma.sync for the other bf16 head dims,
+    bf16 at head dims 64 and 128, mma.sync for the other bf16 head dims,
     the exact SIMT kernels for f32; anything else is refused."""
     assert port_fa.route(d, dtype) == want
     with pytest.raises(ValueError, match="head_dim"):
@@ -126,41 +126,74 @@ def test_flash_route(d, dtype, want):
         port_fa.route(d, torch.float16)
 
 
-@pytest.mark.parametrize("b,sq,sk,h,d", [(64, 250, 250, 4, 128), (2, 750, 750, 4, 128),
-                                         (64, 750, 750, 4, 128), (192, 61, 61, 4, 128),
-                                         (192, 81, 61, 4, 128), (1, 1, 1, 1, 128),
-                                         (3, 129, 1125, 2, 128), (8, 127, 128, 3, 128)])
+# (B, Sq, Sk, H, D): the 4-head 128-wide models' speech and MT shapes and
+# the tile edges; the 8-head 64-wide models' (mustc_*, wmt17_ende_*) speech
+# and MT shapes, and an odd head count whose last head pair has one head
+WGMMA_PLANS = [(64, 250, 250, 4, 128), (2, 750, 750, 4, 128), (64, 750, 750, 4, 128),
+               (192, 61, 61, 4, 128), (192, 81, 61, 4, 128), (1, 1, 1, 1, 128),
+               (3, 129, 1125, 2, 128), (8, 127, 128, 3, 128),
+               (192, 61, 61, 8, 64), (192, 81, 61, 8, 64), (64, 250, 250, 8, 64),
+               (64, 750, 750, 8, 64), (2, 750, 750, 8, 64), (192, 61, 61, 3, 64),
+               (3, 129, 65, 8, 64), (1, 64, 64, 1, 64)]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", WGMMA_PLANS)
 def test_wgmma_plan(b, sq, sk, h, d):
     """The wgmma forward's launch held to the tensors' own layout: each map
-    (D, H, S, B) with byte strides that address the element a (B, S, H, D)
-    view holds, boxes of 64 columns (the 128-byte swizzle row) x 1 head x
-    128 rows x 1 batch row, q-tiles that cover Sq and no tile beyond it,
-    one tile a (q-tile, head, batch row), a persistent grid of at most one
-    block an SM; the key tiles (K and V boxes) are 128 rows whatever the
-    shape."""
+    (D, S, H, B) with byte strides that address the element a (B, S, H, D)
+    view holds, boxes of 64 columns (the 128-byte swizzle row) x the tile's
+    rows (q) or 128 key rows (k, v) x the tile's heads x 1 batch row,
+    q-tiles that cover Sq and no tile beyond it, one tile a (q-tile, head
+    group, batch row), a persistent grid of at most one block an SM; the key
+    tiles are 128 rows whatever the shape and tile. The tile is
+    :func:`wgmma_tile`'s: two heads of 64 rows at head dim 64 with H >= 2
+    and Sq % 128 in 1..64, else one head of 128 rows."""
     gen = torch.Generator().manual_seed(3)
     q = torch.randn(b, sq, h * d, generator=gen).to(torch.bfloat16)
     k, v = (torch.randn(b, sk, h * d, generator=gen).to(torch.bfloat16) for _ in range(2))
+    rows, heads = port_fa.wgmma_tile(d, sq, h)
+    pair = d == 64 and h >= 2 and 0 < sq % 128 <= 64
+    assert (rows, heads) == ((64, 2) if pair else (128, 1))
     for sms in (16, 132):
         plan = port_fa.wgmma_plan(q, k, v, h, sms)
-        for name, t, rows in (("q_map", q, port_fa.WGMMA_BQ), ("k_map", k, port_fa.WGMMA_BK),
-                              ("v_map", v, port_fa.WGMMA_BK)):
+        assert plan["tile"] == (rows, heads)
+        for name, t, box_rows in (("q_map", q, rows), ("k_map", k, port_fa.WGMMA_BK),
+                                  ("v_map", v, port_fa.WGMMA_BK)):
             m = plan[name]
-            assert m["dims"] == (d, h, t.shape[1], b)
-            assert m["box"] == (port_fa.WGMMA_BOX_COLS, 1, rows, 1)
-            assert m["box"][0] * t.element_size() == 128 and m["box"][2] <= 256
+            assert m["dims"] == (d, t.shape[1], h, b)
+            assert m["box"] == (port_fa.WGMMA_BOX_COLS, box_rows, heads, 1)
+            assert m["box"][0] * t.element_size() == 128 and m["box"][1] <= 256
             size = t.element_size()
-            assert m["strides"] == tuple(size * x for x in (d, t.stride(1), t.stride(0)))
-            flat, heads = t.reshape(-1), t.reshape(b, t.shape[1], h, d)
+            assert m["strides"] == tuple(size * x for x in (t.stride(1), d, t.stride(0)))
+            flat, split = t.reshape(-1), t.reshape(b, t.shape[1], h, d)
             for i in range(8):  # random elements, addressed through the map
                 at = [int(torch.randint(n, (1,), generator=gen)) for n in m["dims"]]
                 off = at[0] * size + sum(c * st for c, st in zip(at[1:], m["strides"]))
-                assert torch.equal(flat[off // size], heads[at[3], at[2], at[1], at[0]])
+                assert torch.equal(flat[off // size], split[at[3], at[1], at[2], at[0]])
         q_tiles = plan["q_tiles"]
-        assert (q_tiles - 1) * port_fa.WGMMA_BQ < sq <= q_tiles * port_fa.WGMMA_BQ
-        assert plan["tiles"] == q_tiles * h * b
+        assert (q_tiles - 1) * rows < sq <= q_tiles * rows
+        assert plan["tiles"] == q_tiles * -(-h // heads) * b
         assert plan["grid"] == min(plan["tiles"], sms)
     assert port_fa.WGMMA_BK == 128 and port_fa.WGMMA_BQ == 128
+    assert port_fa.WGMMA_BQ_PAIR == 64
+
+
+@pytest.mark.parametrize("sq", [1, 61, 64, 65, 81, 127, 128, 129, 192, 193, 250, 750])
+def test_wgmma_tile_follows_the_shape_not_the_route(sq):
+    """The tile is a function of (head dim, Sq, H) alone, never of the
+    route, which follows the head dim and dtype alone: bf16 D=64 takes
+    wgmma at every Sq, two heads a tile exactly where the last 128-row
+    q-tile would be at most half full and there is a second head, one head
+    otherwise; D=128 always one head of 128 rows (two heads of 128 columns
+    would not fit a K/V stage in shared memory)."""
+    assert port_fa.route(64, torch.bfloat16) == "wgmma"
+    for h in (1, 2, 3, 8):
+        want = (64, 2) if h >= 2 and 0 < sq % 128 <= 64 else (128, 1)
+        assert port_fa.wgmma_tile(64, sq, h) == want
+        assert port_fa.wgmma_tile(128, sq, h) == (128, 1)
+    assert port_fa.wgmma_tile(64, 61, 8) == (64, 2)  # MT self-attention
+    assert port_fa.wgmma_tile(64, 81, 8) == (128, 1)  # MT cross-attention queries
+    assert port_fa.wgmma_tile(64, 250, 8) == (128, 1)  # 10 s utterances
 
 
 def test_wgmma_plan_refuses_before_any_card():
