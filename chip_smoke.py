@@ -12,6 +12,7 @@ goes wrong:
    registers and spills (ptxas) and HMMA and HGMMA instructions (cuobjdump
    -sass), and the route (the bf16 forward at head dims 64 and 128 on the
    wgmma kernel, in its one-head tile and at 64 also its two-head tile, the
+   bf16 backward at those head dims on the wgmma backward's kernels, the
    other bf16 kernels on mma.sync tensor cores, SIMT for f32) and shared
    memory of the flash kernels at every head size;
 2. kernels: hold each kernel against its plain PyTorch version on the card
@@ -36,7 +37,10 @@ goes wrong:
    with the slots of the step, bit for bit the ancestry mode on the caches
    physically reordered as the map says, timed beside the physical path it
    replaces (an index_select of every self buffer, then the one-query
-   kernel);
+   kernel); the flash backward at the training shapes (and a full batch
+   of 30 s utterances in bf16) with its route, its time split over its
+   three kernels (delta, dK/dV, dQ; from the profiler) beside the call's,
+   the bound, the plain version's and SDPA's backward;
 3. serving: build the librispeech_100h model (configs/librispeech_100h.yaml,
    16 encoder / 8 decoder layers, hidden 512) with random weights from a
    seed and a synthetic 5000-token vocabulary, in bf16, and serve three
@@ -537,12 +541,17 @@ def build_phase():
                 for (rows, heads), smem in info["tiles"].items())
                 + f", {info['stages']} K/V stages, {info['threads']} threads a block"
                 if info["route"] == "wgmma" else "")
+            bwd = (f" ({info['bwd_stages']} Q/dO or K/V stages, {info['bwd_threads']} threads "
+                   f"a block)" if info["bwd_route"] == "wgmma" else "")
             print(f"[build] flash D={d} {str(dtype)[6:]}: forward route {info['route']}{tile}, "
-                  f"backward {info['bwd_route']}; dynamic shared memory forward "
+                  f"backward {info['bwd_route']}{bwd}; dynamic shared memory forward "
                   f"{info['smem_fwd']} B, dK/dV {info['smem_dkdv']} B, dQ {info['smem_dq']} B")
     for d in fa.WGMMA_HEAD_DIMS:
         check(fa.kernel_info(d, torch.bfloat16)["route"] == "wgmma",
               f"the bf16 D={d} forward does not take the wgmma kernel")
+    for d in fa.WGMMA_BWD_HEAD_DIMS:
+        check(fa.kernel_info(d, torch.bfloat16)["bwd_route"] == "wgmma",
+              f"the bf16 D={d} backward does not take the wgmma kernels")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -661,10 +670,32 @@ def sdpa_backend(qh, kh, vh, mask, sm, rate):
     fail("no SDPA backend runs forward and backward with an additive mask")
 
 
-def flash_bwd_case(b, sq, sk, dtype, rate, gen, d=128, timed=True, scaled=False, h=4):
+def bwd_split_ms(fn, calls: int = 10) -> dict:
+    """Device ms a call of ``fn`` (one backward call) in each of the
+    backward's three kernels, delta, dK/dV and dQ, from the profiler over
+    ``calls`` calls."""
+    for _ in range(3):  # the profiler now and then drops a trace's events
+        _, kernels = profiled(lambda: [fn() for _ in range(calls)])
+        split, seen = {"delta": 0.0, "dK/dV": 0.0, "dQ": 0.0}, {}
+        for name, (n, us) in kernels.items():
+            part = ("delta" if "delta" in name else "dK/dV" if "dkdv" in name
+                    else "dQ" if "_dq_" in name else None)
+            if part:
+                split[part] += us / calls / 1e3
+                seen[part] = seen.get(part, 0) + n
+        if seen == {part: calls for part in split}:
+            return split
+    fail(f"the profiler did not see each backward kernel {calls} times: {seen}")
+
+
+def flash_bwd_case(b, sq, sk, dtype, rate, gen, d=128, timed=True, scaled=False, h=4,
+                   digest=False):
     """The backward kernels against the plain backward; with dropout also the
-    forward kernel against the plain forward (the same keep bits); timed
-    (kernel, plain, SDPA's backward) when ``timed``."""
+    forward kernel against the plain forward (the same keep bits); the
+    backward's route (:func:`bwd_route` of the checkout's module, through
+    ``kernel_info``); timed (kernel, its three kernels apart, plain, SDPA's
+    backward) when ``timed``; with ``digest`` a hash of the dq, dk and dv
+    bits."""
     from joeys2t_torch.ops import flash_attention as fa
 
     e = h * d
@@ -706,10 +737,18 @@ def flash_bwd_case(b, sq, sk, dtype, rate, gen, d=128, timed=True, scaled=False,
     case = dict(case=f"B={b} Sq={sq} Sk={sk} H={h} D={d} {str(dtype)[6:]} dropout {rate} "
                      f"({route})", route=route, max_abs_err=max(errs), tol=min(tols),
                 fwd_err=fwd_err)
+    if digest:
+        bits = hashlib.sha256()
+        for g in grads:
+            bits.update(g.view(torch.uint8).cpu().numpy().tobytes())
+        case["digest"] = bits.hexdigest()[:16]
     if not timed:
         return case
-    ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, bias, out, lse, d_out, sm, h,
-                                                rate, seed))
+    def call():
+        return fa.flash_attention_bwd(q, k, v, bias, out, lse, d_out, sm, h, rate, seed)
+
+    ms = time_ms(call)
+    split = bwd_split_ms(call)
     plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, bias, out, lse, d_out, sm, h, rate, seed), iters=5)
     fwd_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, bias, sm, h, rate, seed))
@@ -728,7 +767,7 @@ def flash_bwd_case(b, sq, sk, dtype, rate, gen, d=128, timed=True, scaled=False,
     n_bytes = nbytes(q, k, v, bias, out, lse, d_out, *grads)
     flops = 10 * b * sq * sk * e
     bound_ms, bound_by = bound(n_bytes, flops, dtype)
-    case.update(ms=ms, plain_ms=plain_ms, fwd_ms=fwd_ms, library_ms=library_ms,
+    case.update(ms=ms, split_ms=split, plain_ms=plain_ms, fwd_ms=fwd_ms, library_ms=library_ms,
                 library=f"SDPA backward ({backend})", sdpa_fwd_bwd_ms=sdpa_fb_ms,
                 bound_ms=bound_ms, bound_by=bound_by, roofline=bound_ms / ms,
                 tflops=flops / ms / 1e9)
@@ -1114,7 +1153,9 @@ def print_flash_bwd(c):
     line = (f"[kernels] flash bwd {c['case']}: err {c['max_abs_err']:.3g} (tol "
             f"{c['tol']:.3g}), fwd err {c['fwd_err']:.3g}; two calls bit-identical")
     if "ms" in c:
-        line += (f"; kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, {c['library']} "
+        split = ", ".join(f"{k} {v:.4f}" for k, v in c["split_ms"].items())
+        line += (f"; kernel {c['ms']:.4f} ms ({split} ms, profiler), plain "
+                 f"{c['plain_ms']:.4f} ms, {c['library']} "
                  f"{c['library_ms']:.4f} ms (fwd+bwd {c['sdpa_fwd_bwd_ms']:.4f} ms), bound "
                  f"{c['bound_ms']:.4f} ms ({c['bound_by']}), roofline share "
                  f"{100 * c['roofline']:.1f} % ({c['bound_by']}), {c['tflops']:.1f} "
@@ -1250,10 +1291,13 @@ def kernel_phase():
     for c in flash:
         print_flash(c)
     # the training path's shapes: encoder (250 frames), decoder cross (47
-    # target positions), and 30 s utterances (K4's range); the headline first
+    # target positions), and 30 s utterances (K4's range); the headline first;
+    # a full batch of 30 s utterances in bf16, where operations bound it
     backward = [flash_bwd_case(b, sq, sk, dt, rate, gen)
                 for b, sq, sk in ((64, 250, 250), (64, 47, 250), (2, 750, 750))
                 for rate in (0.1, 0.0) for dt in (torch.bfloat16, torch.float32)]
+    backward += [flash_bwd_case(64, 750, 750, torch.bfloat16, rate, gen, timed=rate > 0)
+                 for rate in (0.1, 0.0)]
     backward += [flash_bwd_case(b, sq, sk, torch.bfloat16, rate, gen, d=64, h=8,
                                 timed=rate > 0)
                  for b, sq, sk in BWD_D64 for rate in (0.1, 0.0)]
@@ -5114,11 +5158,15 @@ def main():
               other_routes_source="joeys2t_torch/csrc/flash_attention.cu",
               wgmma_tiles_by_path={leg: {f"{r}x{h}": n for (r, h), n in t.items()}
                                    for leg, t in d64["tiles"].items()}),
-        entry("flash_attention_bwd", "joeys2t_torch/csrc/flash_attention.cu",
+        # the headline (bf16, D=128) on the wgmma backward; head dims 16, 192
+        # and 256 in bf16 on mma.sync and f32 on SIMT, in flash_attention.cu
+        entry("flash_attention_bwd", "joeys2t_torch/csrc/flash_attention_bwd_wgmma.cu",
               "joeys2t_tpu/ops/flash_attention.py:562",
               "joeys2t_tpu/ops/flash_attention.py:306", backward + mt_backward,
               paths("flash_attention_bwd", train=train_bwd_launches),
-              cli_checks["flash_attention_bwd"]),
+              cli_checks["flash_attention_bwd"], kernel_route=backward[0]["route"],
+              other_routes_source="joeys2t_torch/csrc/flash_attention.cu",
+              split_ms=backward[0]["split_ms"]),
         entry("decode_attention", "joeys2t_torch/csrc/decode_attention.cu",
               "joeys2t_tpu/ops/decode_attention.py:185", None,
               decode + mt_timed,

@@ -67,14 +67,14 @@
 // (ops/flash_attention.py) chooses; this library builds what it sends here
 // (dispatch_fwd / dispatch_bwd):
 //
-// bf16 forward at D = 64 and 128: the wgmma kernel of
-// flash_attention_wgmma.cu (TMA, mbarriers, warp specialisation), its own
-// library; this library builds no forward for those pairs (its
-// flash_attention_fwd refuses them), and its backward reads that kernel's
-// out and lse.
+// bf16 at D = 64 and 128: the wgmma kernels of flash_attention_wgmma.cu
+// (forward) and flash_attention_bwd_wgmma.cu (backward; TMA, mbarriers,
+// warp specialisation), libraries of their own; this library builds neither
+// direction for those pairs (its flash_attention_fwd and
+// flash_attention_bwd refuse them).
 //
-// bf16, D in 16/64/128/192/256 (the forward at 16/192/256 only): tensor
-// cores (the *_mma kernels below). Every
+// bf16, D in 16/192/256: tensor cores (the *_mma kernels below; their
+// templates still take D = 64 and 128, which no dispatch builds). Every
 // product is mma.sync.m16n8k16 bf16 x bf16 -> f32. Tiles stay bf16 in shared
 // memory, in 16-byte chunks stored at chunk ^ (row % 8), so the 8 row
 // addresses of an ldmatrix hit 8 different bank groups. Operands reach the
@@ -83,7 +83,7 @@
 // products). Tiles are copied with 16-byte cp.async.cg into a two-stage
 // ring (the next tile loads while the current one multiplies); rows past Sq
 // or Sk are zero-filled (src-size 0), and their keys get a -inf score.
-//   forward (D = 16, 192 and 256; 64 and 128 run on the wgmma kernel): 4
+//   forward (D = 16, 192 and 256; 64 and 128 run on the wgmma kernels): 4
 //     warps, BQ = 64 query rows (16 a warp), BK = 64 keys (32 at D >= 192);
 //     FlashAttention-2 shape: S = Q.K^T and the online softmax in
 //     registers (an m16n8 accumulator gives lane l rows l/4 and l/4 + 8,
@@ -95,13 +95,15 @@
 //     memory above. At D = 128 (its head size until the wgmma kernel) ptxas
 //     gave it 228-242 registers, so 2 blocks (8 warps) shared an SM; tighter
 //     bounds (3 blocks), BQ = 128 and BK = 32 were each slower on the card.
-//   backward: 8 warps, BQ = BK = 64, the same split as the SIMT path. Each
+//   backward (D = 16, 192 and 256; 64 and 128 run on the wgmma backward,
+//     which replaced this one there): 8 warps, BQ = BK = 64, the same split
+//     as the SIMT path. Each
 //     warp computes a 16 x 32 piece of S and dP = dO.V^T (score_grads_mma),
 //     writes P_drop and dS to shared memory as bf16, and then owns 16 rows x
 //     D/2 columns of dK and dV (dK/dV kernel: dV += P_drop^T.dO,
 //     dK += dS^T.Q) or of dQ (dQ kernel: dQ += dS.K). dK/dV holds both
-//     accumulators (234-238 registers at D = 128: 1 block an SM); dQ is
-//     bounded to 2 blocks an SM.
+//     accumulators (234-238 registers at D = 128 when it ran there: 1 block
+//     an SM); dQ is bounded to 2 blocks an SM.
 //   D = 16 (the 64-wide MT models, 4 heads): one k16 step makes S = Q.K^T,
 //     one x4 ldmatrix of V gives P.V's two n8 tiles, and 32-byte tile rows
 //     take their own swizzle (swz); in the backward each warp keeps the n8
@@ -128,7 +130,7 @@
 // the SIMT kernels spill in two instantiations, the dQ kernel at D = 64
 // with dropout (8 bytes stored, 32 loaded) and the dK/dV kernel at D = 16
 // without (24 / 48). The mma dQ kernel, bounded to 128 registers, spills
-// 8-56 bytes at D = 128 and 116-260 bytes at D = 192 and 256.
+// 116-260 bytes at D = 192 and 256.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -142,10 +144,6 @@ namespace {
 
 constexpr int kThreads = 256;  // a 16 x 16 grid of threads
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -312,24 +310,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ----------------------------------------------------------------- backward
-// delta[r] = sum_d dO[r, d] * out[r, d] over the (B*Sq*H) rows of D values
-// (row r = (b*Sq + q)*H + h starts at r*D because E = H*D); one warp a row.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_delta_kernel(const T* __restrict__ d_out, const T* __restrict__ out,
-                       float* __restrict__ delta, size_t rows) {
-  const size_t r = (size_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
-  if (r >= rows) return;
-  const int lane = threadIdx.x & 31;
-  float s = 0.f;
-#pragma unroll
-  for (int d = lane; d < D; d += 32)
-    s = fmaf(to_float(d_out[r * D + d]), to_float(out[r * D + d]), s);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if (lane == 0) delta[r] = s;
-}
-
 template <int D, int BQ, int BK>
 struct BwdTile {
   static constexpr int RQ = BQ / 16;  // query rows per thread (score tile)
@@ -1175,11 +1155,8 @@ cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v,
   const bf16* k_ = static_cast<const bf16*>(k);
   const bf16* v_ = static_cast<const bf16*>(v);
   const bf16* do_ = static_cast<const bf16*>(d_out);
-  const size_t rows = (size_t)batch * sq * num_heads;
-  const unsigned delta_blocks = (unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32));
-  flash_bwd_delta_kernel<bf16, D><<<delta_blocks, kThreads, 0, stream>>>(
-      do_, static_cast<const bf16*>(out), delta, rows);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_delta<bf16, D>(do_, out, delta, (size_t)batch * sq * num_heads,
+                                       stream);
   if (err != cudaSuccess) return err;
 
   auto dkdv = flash_bwd_dkdv_mma_kernel<D, DROP>;
@@ -1225,11 +1202,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   const T* k_ = static_cast<const T*>(k);
   const T* v_ = static_cast<const T*>(v);
   const T* do_ = static_cast<const T*>(d_out);
-  const size_t rows = (size_t)batch * sq * num_heads;
-  const unsigned delta_blocks = (unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32));
-  flash_bwd_delta_kernel<T, D><<<delta_blocks, kThreads, 0, stream>>>(
-      do_, static_cast<const T*>(out), delta, rows);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_delta<T, D>(do_, out, delta, (size_t)batch * sq * num_heads,
+                                       stream);
   if (err != cudaSuccess) return err;
 
   auto dkdv = flash_bwd_dkdv_kernel<T, D, BQ, BK, DROP>;
@@ -1272,10 +1246,13 @@ cudaError_t with_head_dim(int head_dim, F&& f) {
   }
 }
 
-// Head sizes whose bf16 forward this library does not build: the wrapper
-// sends them to the wgmma kernel (flash_attention_wgmma.cu)
+// Head sizes whose bf16 forward and backward this library does not build:
+// the wrapper sends them to the wgmma kernels (flash_attention_wgmma.cu,
+// flash_attention_bwd_wgmma.cu)
 template <int D>
 constexpr bool kWgmmaFwd = D == 64 || D == 128;
+template <int D>
+constexpr bool kWgmmaBwd = D == 64 || D == 128;
 
 // bf16 on the tensor cores, f32 on the SIMT kernels; the bf16 forward of
 // the wgmma head sizes is not in this library.
@@ -1306,7 +1283,9 @@ cudaError_t dispatch_bwd(const void* q, const void* k, const void* v,
                          cudaStream_t st) {
   return with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
-    if constexpr (std::is_same_v<T, bf16>)
+    if constexpr (std::is_same_v<T, bf16> && kWgmmaBwd<D>)
+      return cudaErrorInvalidValue;
+    else if constexpr (std::is_same_v<T, bf16>)
       return launch_bwd_mma<D, DROP>(q, k, v, bias, out, lse, d_out, delta, dq, dk, dv,
                                      batch, sq, sk, num_heads, sm_scale, drop, st);
     else
@@ -1396,9 +1375,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
 }
 
 // The dynamic shared memory of this library's kernels for (head_dim,
-// dtype): info[0], info[1], info[2] = bytes of the forward (0 where this
-// library builds none: bf16 at the wgmma kernel's head sizes), dK/dV and dQ
-// kernels (mma.sync for bf16, SIMT for f32). Returns cudaErrorInvalidValue
+// dtype): info[0], info[1], info[2] = bytes of the forward, dK/dV and dQ
+// kernels (mma.sync for bf16, SIMT for f32; 0 where this library builds
+// none: bf16 at the wgmma kernels' head sizes). Returns cudaErrorInvalidValue
 // for a pair the kernels do not take.
 extern "C" int flash_attention_info(int head_dim, int dtype, int* info) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
@@ -1408,8 +1387,10 @@ extern "C" int flash_attention_info(int head_dim, int dtype, int* info) {
     const bool mma_route = dtype == 1;
     info[0] = (int)(!mma_route ? Tile<D, S::FQ, S::FK>::kBytes
                     : kWgmmaFwd<D> ? 0 : FwdMma<D, kMmaFwdBK<D>>::kBytes);
-    info[1] = (int)(mma_route ? BwdMma<D>::kDkdvBytes : BwdTile<D, S::BQ, S::BK>::kBytes);
-    info[2] = (int)(mma_route ? BwdMma<D>::kDqBytes : BwdTile<D, S::BQ, S::BK>::kBytes);
+    info[1] = (int)(!mma_route ? BwdTile<D, S::BQ, S::BK>::kBytes
+                    : kWgmmaBwd<D> ? 0 : BwdMma<D>::kDkdvBytes);
+    info[2] = (int)(!mma_route ? BwdTile<D, S::BQ, S::BK>::kBytes
+                    : kWgmmaBwd<D> ? 0 : BwdMma<D>::kDqBytes);
     return cudaSuccess;
   });
 }

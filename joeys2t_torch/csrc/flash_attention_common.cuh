@@ -1,10 +1,12 @@
-// Device helpers of the flash attention kernels, shared by flash_attention.cu
-// and flash_attention_wgmma.cu: the dropout bits, which every forward and
-// backward kernel must draw alike (see flash_attention.cu), and small
-// register and shared-memory helpers.
+// Device helpers of the flash attention kernels, shared by flash_attention.cu,
+// flash_attention_wgmma.cu and flash_attention_bwd_wgmma.cu: the dropout
+// bits, which every forward and backward kernel must draw alike (see
+// flash_attention.cu), the backward's delta kernel, which every backward
+// launches first, and small register and shared-memory helpers.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -53,6 +55,40 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// ------------------------------------------------------- backward's delta
+constexpr int kDeltaThreads = 256;  // 8 rows a block
+
+// delta[r] = sum_d dO[r, d] * out[r, d] over the (B*Sq*H) rows of D values
+// (row r = (b*Sq + q)*H + h starts at r*D because E = H*D); one warp a row.
+template <typename T, int D>
+__global__ void __launch_bounds__(kDeltaThreads)
+flash_bwd_delta_kernel(const T* __restrict__ d_out, const T* __restrict__ out,
+                       float* __restrict__ delta, size_t rows) {
+  const size_t r = (size_t)blockIdx.x * (kDeltaThreads / 32) + threadIdx.x / 32;
+  if (r >= rows) return;
+  const int lane = threadIdx.x & 31;
+  float s = 0.f;
+#pragma unroll
+  for (int d = lane; d < D; d += 32)
+    s = fmaf(to_float(d_out[r * D + d]), to_float(out[r * D + d]), s);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (lane == 0) delta[r] = s;
+}
+
+template <typename T, int D>
+cudaError_t launch_delta(const T* d_out, const void* out, float* delta, size_t rows,
+                         cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((rows + kDeltaThreads / 32 - 1) / (kDeltaThreads / 32));
+  flash_bwd_delta_kernel<T, D><<<blocks, kDeltaThreads, 0, stream>>>(
+      d_out, static_cast<const T*>(out), delta, rows);
+  return cudaGetLastError();
 }
 
 }  // namespace

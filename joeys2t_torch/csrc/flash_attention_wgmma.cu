@@ -5,10 +5,12 @@
 // kernels of joeys2t_tpu/ops/flash_attention.py: `_fwd_kernel` (:69,
 // launched by `_flash_fwd` at :492) and `_fwd_kernel_bhsd` (:174, launched by
 // `_flash_fwd_bhsd` at :262). Other head dims keep the mma.sync forward of
-// flash_attention.cu, f32 its SIMT forward; the backward stays there and
-// reads this kernel's out and lse as it reads the mma.sync forward's. Which
-// head dims come here is the wrapper's choice alone
-// (ops/flash_attention.py `route`); this library builds these two.
+// flash_attention.cu, f32 its SIMT forward; the backward
+// (flash_attention_bwd_wgmma.cu at these head dims) reads this kernel's out
+// and lse. Which head dims come here is the wrapper's choice alone
+// (ops/flash_attention.py `route`); this library builds these two. The
+// Hopper helpers (mbarriers, TMA, wgmma, descriptors, the tensor maps'
+// encode) live in hopper_common.cuh, shared with the backward.
 //
 // Contract (as flash_attention.cu's forward): q (B, Sq, H*D), k/v (B, Sk,
 // H*D) bf16, bias (B, Sk) f32; out like q, lse (B, Sq, H) f32.
@@ -92,6 +94,7 @@
 #include <type_traits>
 
 #include "flash_attention_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -99,7 +102,6 @@ namespace {
 // maps (ops/flash_attention.py: WGMMA_BOX_COLS, WGMMA_BQ, WGMMA_BQ_PAIR,
 // WGMMA_BK); flash_attention_wgmma_info reports them and the wrapper checks
 // its own against them when it loads this library.
-constexpr int kBoxCols = 64;  // bf16 columns a TMA box: one 128-byte swizzle row
 constexpr int kWgRows = 64;   // query rows of a consumer warpgroup (wgmma's M)
 constexpr int kConsumers = 2;
 constexpr int kBQ = kConsumers * kWgRows;  // query rows of a one-head tile
@@ -134,144 +136,6 @@ struct WgmmaTile {
   static constexpr size_t kBytes = kBarOff + kBars * 8 + 1024;
 };
 
-
-// ------------------------------------------------------ Hopper primitives
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-// Spins until the phase of parity `parity` has completed. A wait that lasts
-// 2^28 tries (seconds) traps: a fault of the pipeline ends the launch with
-// an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0, tries = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (++tries == (1u << 28)) __trap();
-  } while (!done);
-}
-// A box of a 4-D tensor map into shared memory; completes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving accesses of wgmma's registers across the
-// asynchronous instructions (wgmma writes them after its asm statement).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
-         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
-}
-// 2^x (MUFU.EX2; -inf gives +0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// d (64 x 128 f32) (+)= a (64 x 16, K-major in shared memory) . b (16 x 128,
-// K-major in shared memory); scale_d = 0 overwrites d
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
-                                             int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// d (64 x 128 f32) += a (64 x 16 bf16 in registers, the m16n8k16 A layout per
-// warp) . b (16 x 128, MN-major in shared memory: the transpose bit set)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 64 f32) += a (64 x 16 bf16 in registers, the m16n8k16 A layout per
-// warp) . b (16 x 64, MN-major in shared memory: the transpose bit set)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  if constexpr (D == 128)
-    wgmma_rs_n128(o, a, b);
-  else
-    wgmma_rs_n64(o, a, b);
-}
 
 // ------------------------------------------------------------------ kernel
 // A persistent block walks tiles t = blockIdx.x, + gridDim.x, ... of the
@@ -476,7 +340,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                                  pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
                                  pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
                                  pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
-          wgmma_pv<D>(o, a, v_desc + ((stage * C::kKVBytes + kk * 16 * 128) >> 4));
+          wgmma_rs<D>(o, a, v_desc + ((stage * C::kKVBytes + kk * 16 * 128) >> 4));
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -512,53 +376,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ------------------------------------------------------------------- host
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled looked up through the CUDA runtime, so that the
-// library links nothing beyond what it links already; null if missing.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
-                                                             12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-constexpr int kMapWords = 11;  // dims[4], byte strides of dims 1-3, box[4]
-
-// Encodes one map of the wrapper's plan (ops/flash_attention.py
-// `wgmma_plan`), `m` (kMapWords values): a (batch, rows, heads * head_dim)
-// bf16 tensor seen as (head_dim, rows, heads, batch), boxes of kBoxCols
-// columns x the tile's rows (q) or kBK rows (k, v) x the tile's heads x 1
-// batch row.
-cudaError_t encode_map(CUtensorMap* map, const void* ptr, const unsigned long long* m) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {m[0], m[1], m[2], m[3]};
-  const cuuint64_t strides[3] = {m[4], m[5], m[6]};
-  const cuuint32_t box[4] = {(cuuint32_t)m[7], (cuuint32_t)m[8], (cuuint32_t)m[9],
-                             (cuuint32_t)m[10]};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int D, int HEADS, bool DROP>
 cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
                    const float* bias, void* out, float* lse, int sq, int sk, int num_heads,

@@ -22,7 +22,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "joeys2t_torch"
-KERNELS = ("flash_attention", "flash_attention_wgmma", "decode_attention")
+KERNELS = ("flash_attention", "flash_attention_wgmma", "flash_attention_bwd_wgmma",
+           "decode_attention")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -21,9 +21,12 @@ On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
 launch the kernels or raise. The bf16 forward at head dims 64 and 128 runs
 on Hopper's wgmma kernel (``csrc/flash_attention_wgmma.cu``: TMA loads over
 tensor maps this module plans, :func:`wgmma_plan`, in a tile
-:func:`wgmma_tile` picks from the shape), the other bf16 kernels on the
-tensor cores (mma.sync), f32 on the SIMT kernels, its exact path. Which
-kernel a (head dim, dtype) takes is :func:`route`'s choice alone.
+:func:`wgmma_tile` picks from the shape), and so does the bf16 backward at
+those head dims (``csrc/flash_attention_bwd_wgmma.cu``, planned by
+:func:`wgmma_bwd_plan`); the other bf16 kernels run on the tensor cores
+(mma.sync), f32 on the SIMT kernels, its exact path. Which kernel a (head
+dim, dtype) takes is :func:`route`'s choice alone for the forward and
+:func:`bwd_route`'s for the backward.
 """
 import ctypes
 import functools
@@ -49,6 +52,12 @@ WGMMA_BOX_COLS = 64
 WGMMA_BQ = 128
 WGMMA_BQ_PAIR = 64
 WGMMA_BK = 128
+# the wgmma backward (csrc/flash_attention_bwd_wgmma.cu): its head dims in
+# bf16, and the rows of every box of its tensor maps: a block's 64 keys
+# (dK/dV) or queries (dQ), the 64-row q-tiles and key tiles it streams
+# (kRows; checked against the library when it loads)
+WGMMA_BWD_HEAD_DIMS = (64, 128)
+WGMMA_BWD_ROWS = 64
 
 
 def supported(head_dim: int, dtype: torch.dtype) -> bool:
@@ -59,16 +68,27 @@ def supported(head_dim: int, dtype: torch.dtype) -> bool:
             and dtype in (torch.float32, torch.bfloat16))
 
 
-def route(head_dim: int, dtype: torch.dtype) -> str:
-    """The forward's kernel on the card: "wgmma" (bf16 at
-    :data:`WGMMA_HEAD_DIMS`), "mma.sync" (the other bf16 head dims) or "simt"
-    (f32). The backward is "mma.sync" for bf16 and "simt" for f32."""
+def _route(head_dim: int, dtype: torch.dtype, wgmma_head_dims) -> str:
     if not supported(head_dim, dtype):
         raise ValueError(f"flash kernel takes head_dim in 16/64/128/192/256 and f32/bf16, "
                          f"got {head_dim} and {dtype}")
     if dtype == torch.float32:
         return "simt"
-    return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma.sync"
+    return "wgmma" if head_dim in wgmma_head_dims else "mma.sync"
+
+
+def route(head_dim: int, dtype: torch.dtype) -> str:
+    """The forward's kernel on the card: "wgmma" (bf16 at
+    :data:`WGMMA_HEAD_DIMS`), "mma.sync" (the other bf16 head dims) or "simt"
+    (f32); the backward's is :func:`bwd_route`'s."""
+    return _route(head_dim, dtype, WGMMA_HEAD_DIMS)
+
+
+def bwd_route(head_dim: int, dtype: torch.dtype) -> str:
+    """The backward's kernels on the card: "wgmma" (bf16 at
+    :data:`WGMMA_BWD_HEAD_DIMS`), "mma.sync" (the other bf16 head dims) or
+    "simt" (f32)."""
+    return _route(head_dim, dtype, WGMMA_BWD_HEAD_DIMS)
 
 
 # ------------------------------------------------------------ dropout bits
@@ -273,11 +293,26 @@ def wgmma_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int
                 q_tiles=q_tiles, tiles=tiles, grid=min(tiles, num_sms))
 
 
-def _map_words(plan: dict):
-    """The plan's three maps as the C interface takes them: for each of q,
-    k, v its dims, strides and box, 11 unsigned 64-bit words."""
-    words = [x for name in ("q_map", "k_map", "v_map")
-             for part in ("dims", "strides", "box") for x in plan[name][part]]
+def wgmma_bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_out: torch.Tensor,
+                   num_heads: int) -> dict:
+    """The wgmma backward's launch: the tensor maps of q, k, v and d_out
+    (boxes of :data:`WGMMA_BWD_ROWS` rows x one head) and the grids of its
+    dK/dV and dQ kernels (blocks of 64 keys or queries, heads, batch rows).
+    A block is one warpgroup whatever the shape, so a row's bits do not
+    follow the batch."""
+    b, sq, e = q.shape
+    sk = k.shape[1]
+    maps = {f"{name}_map": tensor_map(name, t, num_heads, WGMMA_BWD_ROWS)
+            for name, t in (("q", q), ("k", k), ("v", v), ("d_out", d_out))}
+    return dict(maps, dkdv_grid=(-(-sk // WGMMA_BWD_ROWS), num_heads, b),
+                dq_grid=(-(-sq // WGMMA_BWD_ROWS), num_heads, b))
+
+
+def _map_words(plan: dict, names=("q", "k", "v")):
+    """The plan's maps as the C interface takes them: for each of
+    ``names`` its dims, strides and box, 11 unsigned 64-bit words."""
+    words = [x for name in names
+             for part in ("dims", "strides", "box") for x in plan[f"{name}_map"][part]]
     return (ctypes.c_ulonglong * len(words))(*words)
 
 
@@ -362,7 +397,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Gradients (dq, dk, dv) of :func:`flash_attention_fwd` from its
     (out, lse) and the output gradient ``d_out`` (like q); ``dropout_rate``
     and ``seed`` must be the forward's. On the card one call launches three
-    kernels (delta, dK/dV, dQ) and counts once."""
+    kernels (delta, dK/dV, dQ; :func:`bwd_route` picks them) and counts
+    once."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, bias, out, lse, d_out, sm_scale,
                                          num_heads, dropout_rate, seed)
@@ -376,12 +412,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     drop, seed_ptr, threshold, keep_scale = _dropout_args(dropout_rate, seed, q.device)
     delta = torch.empty((b, sq, num_heads), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    err = _library().flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), d_out.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, sq, sk, num_heads, d,
-        0 if q.dtype == torch.float32 else 1, float(sm_scale), drop, seed_ptr,
-        threshold, keep_scale, torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), d_out.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, sq, sk, num_heads, d)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if bwd_route(d, q.dtype) == "wgmma":
+        plan = wgmma_bwd_plan(q, k, v, d_out, num_heads)
+        err = _wgmma_bwd_library().flash_attention_bwd_wgmma(
+            *ptrs, _map_words(plan, ("q", "k", "v", "d_out")), float(sm_scale), drop,
+            seed_ptr, threshold, keep_scale, stream)
+    else:
+        err = _library().flash_attention_bwd(
+            *ptrs, 0 if q.dtype == torch.float32 else 1, float(sm_scale), drop, seed_ptr,
+            threshold, keep_scale, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: cudaError {err}")
     flash_attention_bwd.launches += 1
@@ -468,18 +511,20 @@ def mha_flash_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def kernel_info(head_dim: int, dtype: torch.dtype) -> dict:
     """Which kernels a (head_dim, dtype) takes on the card: ``route``, the
     forward's (:func:`route`'s choice: "wgmma", "mma.sync" or "simt");
-    ``bwd_route``; the dynamic shared memory in bytes of the forward, dK/dV
-    and dQ kernels; and for the wgmma route the kernel's K/V stages, threads
-    a block and ``tiles``, {(query rows, heads): shared memory bytes} of
-    each tile :func:`wgmma_tile` may pick at this head dim (``smem_fwd`` is
-    the one-head tile's). Builds the libraries if needed."""
-    want = route(head_dim, dtype)
+    ``bwd_route``, the backward's (:func:`bwd_route`'s); the dynamic shared
+    memory in bytes of the forward, dK/dV and dQ kernels; for the wgmma
+    forward the kernel's K/V stages, threads a block and ``tiles``,
+    {(query rows, heads): shared memory bytes} of each tile
+    :func:`wgmma_tile` may pick at this head dim (``smem_fwd`` is the
+    one-head tile's); for the wgmma backward its ring's ``bwd_stages`` and
+    ``bwd_threads`` a block. Builds the libraries if needed."""
+    want, want_bwd = route(head_dim, dtype), bwd_route(head_dim, dtype)
     info = (ctypes.c_int * 3)()
     err = _library().flash_attention_info(head_dim, 0 if dtype == torch.float32 else 1,
                                           info)
     if err != 0:
         raise RuntimeError(f"flash_attention_info failed: cudaError {err}")
-    out = {"route": want, "bwd_route": "simt" if dtype == torch.float32 else "mma.sync",
+    out = {"route": want, "bwd_route": want_bwd,
            "smem_fwd": info[0], "smem_dkdv": info[1], "smem_dq": info[2]}
     if want == "wgmma":
         lib = _wgmma_library()
@@ -487,6 +532,9 @@ def kernel_info(head_dim: int, dtype: torch.dtype) -> dict:
         one = tiles[(WGMMA_BQ, 1)]
         out.update(smem_fwd=one[0], stages=one[1], threads=one[2],
                    tiles={tile: w[0] for tile, w in tiles.items()})
+    if want_bwd == "wgmma":
+        w = _wgmma_bwd_info(_wgmma_bwd_library(), head_dim)
+        out.update(smem_dkdv=w[0], smem_dq=w[1], bwd_stages=w[2], bwd_threads=w[3])
     return out
 
 
@@ -505,6 +553,18 @@ def _wgmma_info(lib: ctypes.CDLL, head_dim: int, heads: int) -> list:
     if err != 0:
         raise RuntimeError(f"flash_attention_wgmma_info(D={head_dim}, {heads} head(s)) "
                            f"failed: cudaError {err}")
+    return list(w)
+
+
+def _wgmma_bwd_info(lib: ctypes.CDLL, head_dim: int) -> list:
+    """The wgmma backward library's report on its kernels at a head dim:
+    dK/dV and dQ shared memory bytes, stages, threads, box columns, box
+    rows."""
+    w = (ctypes.c_int * 6)()
+    err = lib.flash_attention_bwd_wgmma_info(head_dim, w)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_wgmma_info(D={head_dim}) failed: "
+                           f"cudaError {err}")
     return list(w)
 
 
@@ -545,4 +605,27 @@ def _wgmma_library() -> ctypes.CDLL:
             p, p, p, p, p, p, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_ulonglong), i, i, i,
             f, i, p, u, f, p]
         lib.flash_attention_fwd_wgmma.restype = ctypes.c_int
+    return lib
+
+
+def _wgmma_bwd_library() -> ctypes.CDLL:
+    """The wgmma backward's library. When it first loads, the boxes it was
+    compiled for must be the plan's (:data:`WGMMA_BOX_COLS` columns x
+    :data:`WGMMA_BWD_ROWS` rows) at every head dim :func:`bwd_route` sends
+    there, or it raises."""
+    lib = cuda_build.load("flash_attention_bwd_wgmma")
+    if lib.flash_attention_bwd_wgmma.argtypes is None:
+        p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+        lib.flash_attention_bwd_wgmma_info.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+        lib.flash_attention_bwd_wgmma_info.restype = ctypes.c_int
+        for d in WGMMA_BWD_HEAD_DIMS:
+            got = tuple(_wgmma_bwd_info(lib, d)[4:])
+            if got != (WGMMA_BOX_COLS, WGMMA_BWD_ROWS):
+                raise RuntimeError(
+                    f"the wgmma backward library's D={d} kernels have boxes (columns, rows) "
+                    f"{got}, the plan {(WGMMA_BOX_COLS, WGMMA_BWD_ROWS)}")
+        lib.flash_attention_bwd_wgmma.argtypes = [
+            p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
+            ctypes.POINTER(ctypes.c_ulonglong), f, i, p, u, f, p]
+        lib.flash_attention_bwd_wgmma.restype = ctypes.c_int
     return lib

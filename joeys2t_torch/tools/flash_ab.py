@@ -1,10 +1,20 @@
 # coding: utf-8
-"""Time the flash-attention forward of this checkout against another
-checkout's (for example the parent commit, unpacked under ``build/``) on one
-CUDA card, at the speech and MT shapes of the 4-head (D=128) and 8-head
-(D=64) 512-wide models, and the wrapper's host time per call.
+"""Time the flash-attention forward (or, with ``--backward``, the
+backward) of this checkout against another checkout's (for example the
+parent commit, unpacked under ``build/``) on one CUDA card, at the speech
+and MT shapes of the 4-head (D=128) and 8-head (D=64) 512-wide models, and
+the wrapper's host time per call.
 
-    python3 -m joeys2t_torch.tools.flash_ab OTHER_CHECKOUT [--pairs 1]
+    python3 -m joeys2t_torch.tools.flash_ab OTHER_CHECKOUT [--pairs 1] [--backward]
+
+With ``--backward`` each turn runs chip_smoke.py's ``flash_bwd_case`` at
+``BWD_SHAPES`` instead (the backward held to its plain version with two
+calls bit-identical, then its time, its three kernels' times from the
+profiler, the plain version's and SDPA's backward, the bound, and a digest
+of the dq, dk and dv bits), and the summary applies the keep-or-revert rule
+of PERF.md per head dim: the wgmma backward stays only if no shape
+of that head dim is more than 2 % slower than the other checkout's and both
+B=64 250x250 shapes are faster.
 
 Each turn is a fresh process that imports one checkout's ``joeys2t_torch``
 and runs chip_smoke.py's phase-2 case (``flash_case``: the kernel held to
@@ -46,6 +56,17 @@ SHAPES = [(b, sq, sk, h, d) for h, d in ((4, 128), (8, 64))
                             (192, 81, 61))]
 SHAPES += [(64, sq, 250, 8, 64) for sq in (47, 64, 65)]
 HOST_CALLS = 500
+# (B, Sq, Sk, heads, head dim, dropout) of the backward: at head dim 128 the
+# 10 s batch with and without dropout, the speech decoder's cross-attention,
+# a full batch of 30 s utterances, the 45 s request's chunks (K4's shape),
+# the MT self and cross shapes; at head dim 64 the phase-21 speech shapes
+# (chip_smoke.BWD_D64) and MT self-attention
+BWD_SHAPES = [(64, 250, 250, 4, 128, 0.1), (64, 250, 250, 4, 128, 0.0),
+              (64, 47, 250, 4, 128, 0.1), (64, 750, 750, 4, 128, 0.1),
+              (2, 750, 750, 4, 128, 0.1), (192, 61, 61, 4, 128, 0.1),
+              (192, 81, 61, 4, 128, 0.1), (64, 250, 250, 8, 64, 0.1),
+              (64, 250, 250, 8, 64, 0.0), (64, 47, 250, 8, 64, 0.1), (192, 61, 61, 8, 64, 0.1)]
+RULE_SLACK = 1.02  # a shape may be at most 2 % slower than the other checkout
 
 
 def _chip_smoke():
@@ -55,13 +76,68 @@ def _chip_smoke():
     return module
 
 
-def worker(tree: Path) -> None:
+def backward_worker(smoke) -> None:
+    """One backward turn: a JSON line a shape of ``BWD_SHAPES``."""
+    import torch
+
+    for i, (b, sq, sk, h, d, rate) in enumerate(BWD_SHAPES):
+        c = smoke.flash_bwd_case(b, sq, sk, torch.bfloat16, rate,
+                                 torch.Generator().manual_seed(i), d=d, h=h, scaled=b == 192,
+                                 digest=True)
+        print(json.dumps(dict(shape=[b, sq, sk, h, d, rate], route=c["route"],
+                              digest=c["digest"], ms=c["ms"], split_ms=c["split_ms"],
+                              library_ms=c["library_ms"], plain_ms=c["plain_ms"],
+                              bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                              max_abs_err=c["max_abs_err"], tol=c["tol"])), flush=True)
+
+
+def backward_summary(rows: dict) -> None:
+    """Each backward shape's medians side by side, then the rule per head
+    dim."""
+    verdict = {}
+    for shape in rows["this"]:
+        b, sq, sk, h, d, rate = shape
+        this, other = rows["this"][shape], rows["other"][shape]
+        med = {side: statistics.median(r["ms"] for r in rs)
+               for side, rs in (("this", this), ("other", other))}
+        split = {side: {k: statistics.median(r["split_ms"][k] for r in rs)
+                        for k in rs[0]["split_ms"]}
+                 for side, rs in (("this", this), ("other", other))}
+        ratio = med["this"] / med["other"]
+        parts = {side: ", ".join(f"{k} {v:.4f}" for k, v in split[side].items())
+                 for side in split}
+        bound = this[0]["bound_ms"]
+        sdpa = statistics.median(r["library_ms"] for r in this + other)  # every turn's
+        print(f"B={b} Sq={sq} Sk={sk} H={h} D={d} dropout {rate}: this ({this[0]['route']}) "
+              f"{med['this']:.4f} ms ({parts['this']}), other ({other[0]['route']}) "
+              f"{med['other']:.4f} ms ({parts['other']}), this / other {ratio:.3f}; SDPA "
+              f"backward {sdpa:.4f} ms; bound {bound:.4f} ms "
+              f"({this[0]['bound_by']}), share this {100 * bound / med['this']:.1f} %, other "
+              f"{100 * bound / med['other']:.1f} %; max abs err this "
+              f"{max(r['max_abs_err'] for r in this):.3g} (tol {this[0]['tol']:.3g}); "
+              f"digests this {sorted({r['digest'] for r in this})}, other "
+              f"{sorted({r['digest'] for r in other})}")
+        v = verdict.setdefault(d, {"slower": [], "headline": []})
+        if ratio > RULE_SLACK:
+            v["slower"].append(f"{b}x{sq}x{sk} dropout {rate} ({ratio:.3f})")
+        if (b, sq, sk) == (64, 250, 250):
+            v["headline"].append(ratio < 1.0)
+    for d, v in sorted(verdict.items()):
+        keep = not v["slower"] and len(v["headline"]) == 2 and all(v["headline"])
+        print(f"rule, head dim {d}: {'keep' if keep else 'REVERT'} this checkout's backward "
+              f"(shapes over {RULE_SLACK:.2f}x the other: {v['slower'] or 'none'}; both B=64 "
+              f"250x250 faster: {len(v['headline']) == 2 and all(v['headline'])})")
+
+
+def worker(tree: Path, backward: bool = False) -> None:
     """One turn in ``tree``'s joeys2t_torch: a JSON line a shape."""
     sys.path.insert(0, str(tree))
     import torch
     from joeys2t_torch.ops import flash_attention as fa
 
     smoke = _chip_smoke()
+    if backward:
+        return backward_worker(smoke)
     gen = torch.Generator().manual_seed(0)
     q = torch.zeros(1, 16, 512, dtype=torch.bfloat16, device="cuda")  # the context exists
     bias = torch.zeros(1, 16, device="cuda")
@@ -113,10 +189,11 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=Path, nargs="?", help="the other checkout's root")
     ap.add_argument("--pairs", type=int, default=1, help="other/this/this/other rounds")
+    ap.add_argument("--backward", action="store_true", help="time the backward instead")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        return worker(args.worker.resolve())
+        return worker(args.worker.resolve(), args.backward)
     if args.other is None:
         ap.error("the other checkout's root is needed")
     trees = {"other": args.other.resolve(), "this": REPO}
@@ -132,8 +209,9 @@ def main(argv=None) -> None:
     forced = {side: {} for side in trees}
     for turn in ["other", "this", "this", "other"] * args.pairs:
         run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker",
-                              str(trees[turn])], cwd=trees[turn], env=env,
-                             capture_output=True, text=True, timeout=900)
+                              str(trees[turn])] + ["--backward"] * args.backward,
+                             cwd=trees[turn], env=env, capture_output=True, text=True,
+                             timeout=900)
         if run.returncode != 0:
             sys.exit(f"{turn} turn failed:\n{run.stdout}\n{run.stderr}")
         for line in run.stdout.splitlines():
@@ -146,6 +224,8 @@ def main(argv=None) -> None:
                     forced[turn].setdefault(tuple(r["shape"]), []).append(r)
                 else:
                     rows[turn].setdefault(tuple(r["shape"]), []).append(r)
+    if args.backward:
+        return backward_summary(rows)
     print(f"first calls in a fresh process (D=128 and D=64, the libraries loaded): this "
           f"{statistics.median(first['this']):.1f} ms, other "
           f"{statistics.median(first['other']):.1f} ms")

@@ -1,8 +1,9 @@
 # coding: utf-8
 """The port's CUDA kernels against their plain versions (flash attention
-forward on each route, wgmma, mma.sync and SIMT, at the tiles' edges, an
-utterance alone bit-equal to its row in a padded batch; forward and
-backward with and without dropout, and the dropout mask bit for bit;
+forward and backward on each route, wgmma, mma.sync and SIMT, at the
+tiles' edges, an utterance alone bit-equal to its row in a padded batch,
+over memory poisoned with NaN and inf; with and without dropout, and the
+dropout mask bit for bit;
 decode attention, also with query rows sharing a cache row and through an
 ancestry map), and a
 small model on the card against the CPU (greedy and beam search, serving and
@@ -58,6 +59,13 @@ WGMMA_LENGTHS = (1, 63, 64, 65, 127, 128, 129, 250, 750, 1125)
 WGMMA_EDGES = [(3, sq, sk, h, d) for h, d in ((2, 128), (2, 64), (3, 64), (8, 64))
                for sq in WGMMA_LENGTHS for sk in WGMMA_LENGTHS
                if (3, sq, sk, h, d) not in EDGES]
+# the wgmma backward's tile edges (blocks and streamed tiles of 64 rows) at
+# head sizes 128 and 64 (2 heads; at 64 also 8), the pairs EDGES does not
+# already hold
+BWD_LENGTHS = (1, 63, 64, 65, 127, 128, 129, 250, 750)
+BWD_EDGES = [(3, sq, sk, h, d) for h, d in ((2, 128), (2, 64), (8, 64))
+             for sq in BWD_LENGTHS for sk in BWD_LENGTHS
+             if (3, sq, sk, h, d) not in EDGES and (h == 2 or sq in (1, 65, 250))]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
@@ -161,7 +169,7 @@ def _rel_err(a, b, floor=1e-30):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("b,sq,sk,h,d", [(3, 37, 70, 2, 64), (2, 47, 250, 4, 128),
                                          (2, 130, 600, 4, 128), (2, 40, 33, 1, 256),
-                                         (2, 70, 90, 2, 192)] + EDGES + SHORT)
+                                         (2, 70, 90, 2, 192)] + EDGES + SHORT + BWD_EDGES)
 def test_flash_backward_kernel_matches_plain(card, dtype, tol, rate, b, sq, sk, h, d):
     """dQ, dK, dV of the three backward kernels against the plain version,
     row 0 with every key masked; the tolerance is relative to the largest
@@ -169,7 +177,9 @@ def test_flash_backward_kernel_matches_plain(card, dtype, tol, rate, b, sq, sk, 
     on the tensor cores, of P_drop and dS before their products). A gradient
     that is zero but for rounding (Sk = 1: one key, so ds = 0 and dQ = dK = 0)
     is held to the largest of the three gradients instead. A second
-    call gives the same gradients bit for bit (no atomics)."""
+    call gives the same gradients bit for bit (no atomics). bf16 at head
+    sizes 64 and 128 takes the wgmma backward, at its tile edges too
+    (BWD_EDGES)."""
     gen = torch.Generator().manual_seed(4)
     q = torch.randn(b, sq, h * d, generator=gen).to(dtype).to(card)
     k, v = (torch.randn(b, sk, h * d, generator=gen).to(dtype).to(card) for _ in range(2))
@@ -179,6 +189,7 @@ def test_flash_backward_kernel_matches_plain(card, dtype, tol, rate, b, sq, sk, 
     bias = torch.where(valid, 0.0, -1e9).float().to(card)
     seed = torch.tensor([777], dtype=torch.int32, device=card)
     sm = d ** -0.5
+    assert fa.kernel_info(d, dtype)["bwd_route"] == fa.bwd_route(d, dtype)
     out, lse = fa.flash_attention_fwd(q, k, v, bias, sm, h, rate, seed)
     before = fa.flash_attention_bwd.launches
     grads = fa.flash_attention_bwd(q, k, v, bias, out, lse, d_out, sm, h, rate, seed)
@@ -198,11 +209,11 @@ def test_dropout_mask_bits_match_plain(card, dtype):
     """The kernels' keep mask, read out bit for bit: with V the identity in
     each head band the forward's out is the dropped probability matrix, and
     with dO the identity the backward's dV is its transpose. bf16 takes the
-    tensor-core kernels (the forward on wgmma at this head size), f32 the
-    SIMT ones."""
+    wgmma kernels at this head size both ways, f32 the SIMT ones."""
     b, h, d = 3, 2, 128
-    assert fa.kernel_info(d, dtype)["route"] == ("simt" if dtype == torch.float32
-                                                 else "wgmma")
+    info = fa.kernel_info(d, dtype)
+    assert info["route"] == info["bwd_route"] == ("simt" if dtype == torch.float32
+                                                  else "wgmma")
     sq = sk = d
     gen = torch.Generator().manual_seed(5)
     q, k = (torch.randn(b, sq, h * d, generator=gen).to(dtype).to(card) for _ in range(2))
@@ -221,22 +232,30 @@ def test_dropout_mask_bits_match_plain(card, dtype):
 
 @pytest.mark.parametrize("d", [16, 64, 128, 192, 256])
 def test_flash_route(card, d):
-    """The bf16 forward takes the wgmma kernel at head sizes 64 and 128 and
-    mma.sync at the others, its backward mma.sync; f32 the exact SIMT
-    kernels both ways. The wgmma library is built for every tile the plan
-    picks at its head sizes (two heads of 64 rows at 64, one of 128 rows at
-    both) and the mma.sync library builds no forward there."""
+    """The bf16 forward and backward take the wgmma kernels at head sizes
+    64 and 128 and mma.sync at the others (``bwd_route`` decides the
+    backward's); f32 the exact SIMT kernels both ways. The wgmma library is
+    built for every tile the plan picks at its head sizes (two heads of 64
+    rows at 64, one of 128 rows at both), the wgmma backward's kernels fit
+    two blocks an SM, and the mma.sync library builds neither direction
+    there."""
     info = fa.kernel_info(d, torch.bfloat16)
     assert info["route"] == ("wgmma" if d in (64, 128) else "mma.sync")
-    assert info["bwd_route"] == "mma.sync" and info["smem_fwd"] > 0
-    assert info["smem_dkdv"] > 0 and info["smem_dq"] > 0
+    assert info["bwd_route"] == fa.bwd_route(d, torch.bfloat16)
+    assert info["bwd_route"] == ("wgmma" if d in (64, 128) else "mma.sync")
+    assert info["smem_fwd"] > 0 and info["smem_dkdv"] > 0 and info["smem_dq"] > 0
+    mma = (ctypes.c_int * 3)()
+    assert fa._library().flash_attention_info(d, 1, mma) == 0
     if info["route"] == "wgmma":
         assert info["stages"] >= 2 and info["threads"] == 384
         want = {(128, 1), (64, 2)} if d == 64 else {(128, 1)}
         assert set(info["tiles"]) == want and all(0 < b <= 232448
                                                   for b in info["tiles"].values())
-        mma = (ctypes.c_int * 3)()
-        assert fa._library().flash_attention_info(d, 1, mma) == 0 and mma[0] == 0
+        assert mma[0] == 0
+    if info["bwd_route"] == "wgmma":
+        assert info["bwd_stages"] >= 2 and info["bwd_threads"] == 128
+        assert 2 * (max(info["smem_dkdv"], info["smem_dq"]) + 1024) <= 233472
+        assert mma[1] == mma[2] == 0
     info = fa.kernel_info(d, torch.float32)
     assert info["route"] == info["bwd_route"] == "simt"
 
@@ -309,6 +328,121 @@ def test_flash_utterance_alone_equals_its_row_in_a_padded_batch(card, row, h, d,
     b_out, b_lse = fa.flash_attention_fwd(*batch, bias.float().to(card), sm, h)
     assert torch.equal(out[0], b_out[row, :length])
     assert torch.equal(lse[0], b_lse[row, :length])
+
+
+def test_wgmma_backward_with_a_bad_plan_raises(card, monkeypatch):
+    """A wgmma backward whose plan the library does not take (a box TMA
+    refuses, a map whose strides TMA refuses) raises: nothing gives way to
+    the mma.sync backward or the plain version, and no launch is counted."""
+    gen = torch.Generator().manual_seed(6)
+    q, k, v, d_out = (torch.randn(4, 61, 512, generator=gen).to(torch.bfloat16).to(card)
+                      for _ in range(4))
+    bias = torch.zeros(4, 61, device=card)
+    out, lse = fa.flash_attention_fwd(q, k, v, bias, 0.125, 8)
+    good = fa.wgmma_bwd_plan
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the backward gave way to another kernel")
+
+    monkeypatch.setattr(fa, "flash_attention_bwd_plain", refuse)
+    monkeypatch.setattr(fa, "_library", refuse)
+    k_map = lambda bad: lambda p: dict(p, k_map=bad(p["k_map"]))  # noqa: E731
+    for bad in (k_map(lambda m: dict(m, box=(m["box"][0], 512) + m["box"][2:])),
+                k_map(lambda m: dict(m, strides=(m["strides"][0] + 8,) + m["strides"][1:]))):
+        def plan(*args, bad=bad):
+            return bad(good(*args))
+
+        monkeypatch.setattr(fa, "wgmma_bwd_plan", plan)
+        before = fa.flash_attention_bwd.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fa.flash_attention_bwd(q, k, v, bias, out, lse, d_out, 0.125, 8)
+        assert fa.flash_attention_bwd.launches == before
+
+
+# (H, D, length, padded) of the backward's batch invariance: the 4-head
+# shapes at head size 128 and the 8-head models' head size 64, an utterance
+# a block (64 rows) or several, alone shorter than a tile or not
+BWD_BATCH_INVARIANCE = ([(4, 128, length, padded) for length, padded in
+                         ((200, 750), (129, 250), (61, 81), (1, 128))]
+                        + [(8, 64, 61, 250), (8, 64, 250, 320), (8, 64, 47, 250)])
+
+
+@pytest.mark.parametrize("row", [0, 37])
+@pytest.mark.parametrize("h,d,length,padded", BWD_BATCH_INVARIANCE)
+def test_flash_backward_utterance_alone_equals_its_row_in_a_padded_batch(
+        card, row, h, d, length, padded):
+    """An utterance's dq, dk and dv alone equal its row's, bit for bit,
+    inside a padded batch of 64 (longer Sq and Sk, its keys past its length
+    masked, the output gradient of its padded queries zero as a masked loss
+    gives it, the other rows random): the wgmma backward's key and query
+    tiles start at 0 and are 64 wide for every shape, and masked keys and
+    padded queries add exact zeros."""
+    assert fa.bwd_route(d, torch.bfloat16) == "wgmma"
+    gen = torch.Generator().manual_seed(row + length)
+    alone = [torch.randn(1, length, h * d, generator=gen).to(torch.bfloat16).to(card)
+             for _ in range(4)]  # q, k, v, d_out
+    batch = [torch.randn(64, padded, h * d, generator=gen).to(torch.bfloat16).to(card)
+             for _ in range(4)]
+    for t, a in zip(batch, alone):
+        t[row, :length] = a[0]
+    batch[3][row, length:] = 0  # no gradient reaches the padded queries
+    lengths = torch.randint(1, padded + 1, (64,), generator=gen)
+    lengths[row] = length
+    bias = torch.where(torch.arange(padded)[None, :] < lengths[:, None], 0.0, -1e9)
+    bias = bias.float().to(card)
+    sm = d ** -0.5
+    q, k, v, d_out = alone
+    zero = torch.zeros(1, length, device=card)
+    out, lse = fa.flash_attention_fwd(q, k, v, zero, sm, h)
+    grads = fa.flash_attention_bwd(q, k, v, zero, out, lse, d_out, sm, h)
+    b_out, b_lse = fa.flash_attention_fwd(*batch[:3], bias, sm, h)
+    b_grads = fa.flash_attention_bwd(*batch[:3], bias, b_out, b_lse, batch[3], sm, h)
+    for name, g, bg in zip(("dq", "dk", "dv"), grads, b_grads):
+        assert torch.equal(g[0], bg[row, :length]), name
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d,rate", [
+    (64, 250, 250, 4, 128, 0.1), (64, 47, 250, 4, 128, 0.1), (2, 750, 750, 4, 128, 0.1),
+    (192, 61, 61, 4, 128, 0.0), (64, 250, 250, 8, 64, 0.1), (192, 61, 61, 8, 64, 0.1),
+    (192, 61, 61, 4, 16, 0.1)])
+def test_flash_backward_writes_every_output_over_poisoned_memory(card, b, sq, sk, h, d,
+                                                                 rate):
+    """The bf16 backward at phase 2's shapes (row 0 with every key masked,
+    the others of random lengths) with its outputs and its delta scratch
+    allocated from memory the caching allocator hands back full of NaN and
+    inf: every dq, dk and dv entry written and finite, within the plain
+    version's tolerance, ten calls bit-identical. An output the kernels left
+    unwritten, or a read of memory they did not write first, shows as a
+    non-finite value here. The wgmma backward at head sizes 128 and 64, and
+    the mma.sync backward that remains (head size 16)."""
+    assert fa.bwd_route(d, torch.bfloat16) == ("wgmma" if d in (64, 128) else "mma.sync")
+    gen = torch.Generator().manual_seed(2)
+    q, d_out = (torch.randn(b, sq, h * d, generator=gen).to(torch.bfloat16).to(card)
+                for _ in range(2))
+    k, v = (torch.randn(b, sk, h * d, generator=gen).to(torch.bfloat16).to(card)
+            for _ in range(2))
+    valid = torch.arange(sk)[None, :] < torch.randint(sk // 2, sk + 1, (b,),
+                                                      generator=gen)[:, None]
+    valid[0] = False
+    bias = torch.where(valid, 0.0, -1e9).float().to(card)
+    seed = torch.tensor([99], dtype=torch.int32, device=card)
+    sm = d ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, bias, sm, h, rate, seed)
+    refs = fa.flash_attention_bwd_plain(q, k, v, bias, out, lse, d_out, sm, h, rate, seed)
+    first = None
+    for i in range(10):
+        poison = torch.full((64 << 20,), float("nan") if i % 2 else float("inf"),
+                            device=card)
+        del poison  # its blocks go back to the allocator, still poisoned
+        grads = fa.flash_attention_bwd(q, k, v, bias, out, lse, d_out, sm, h, rate, seed)
+        torch.cuda.synchronize()
+        for name, g in zip(("dq", "dk", "dv"), grads):
+            assert torch.isfinite(g.float()).all(), (i, name)
+        if first is None:
+            first = [g.clone() for g in grads]
+            for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+                assert _rel_err(g, r) <= 2e-2, (name, _rel_err(g, r))
+        assert all(torch.equal(g, f) for g, f in zip(grads, first)), i
 
 
 DECODE_MASKS = ("self_prefix", "cross_tail", "holes", "all_masked_row", "last_key_only")

@@ -217,6 +217,127 @@ def test_wgmma_plan_refuses_before_any_card():
         port_fa.tensor_map("q", q, 3, port_fa.WGMMA_BQ)
 
 
+@pytest.mark.parametrize("d,dtype,want", [
+    (16, torch.bfloat16, "mma.sync"), (64, torch.bfloat16, "wgmma"),
+    (128, torch.bfloat16, "wgmma"), (192, torch.bfloat16, "mma.sync"),
+    (256, torch.bfloat16, "mma.sync")] + [(d, torch.float32, "simt")
+                                          for d in (16, 64, 128, 192, 256)])
+def test_flash_bwd_route(d, dtype, want):
+    """The backward's kernels for each (head dim, dtype): the wgmma backward
+    for bf16 at head dims 64 and 128, mma.sync for the other bf16 head
+    dims, the exact SIMT kernels for f32; anything else is refused."""
+    assert port_fa.bwd_route(d, dtype) == want
+    with pytest.raises(ValueError, match="head_dim"):
+        port_fa.bwd_route(d + 8, dtype)
+    with pytest.raises(ValueError, match="head_dim"):
+        port_fa.bwd_route(d, torch.float16)
+
+
+class _FakeLibrary:
+    """Stands in for the three flash libraries' info entry points: the
+    mma.sync/SIMT library reports no bf16 kernel at the wgmma head dims (as
+    flash_attention.cu's kWgmmaFwd and kWgmmaBwd say), the wgmma libraries
+    report their boxes and distinct byte counts."""
+
+    def flash_attention_info(self, d, dtype, info):
+        wgmma = dtype == 1 and d in (64, 128)
+        info[0], info[1], info[2] = (0, 0, 0) if wgmma else (1000 + d, 2000 + d, 3000 + d)
+        return 0
+
+    def flash_attention_wgmma_info(self, d, heads, w):
+        w[:6] = [4000 + d + heads, 2, 384, 64, 128 if heads == 1 else 64, 128]
+        return 0
+
+    def flash_attention_bwd_wgmma_info(self, d, w):
+        w[:6] = [5000 + d, 6000 + d, 2, 128, 64, 64]
+        return 0
+
+
+@pytest.mark.parametrize("d", [16, 64, 128, 192, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_info_reports_each_direction_from_its_library(d, dtype, monkeypatch):
+    """kernel_info names both routes (route, bwd_route) as the route
+    functions give them and takes each kernel's shared memory from the
+    library that builds it: a wgmma forward's from the forward library, a
+    wgmma backward's (dK/dV, dQ, stages, threads) from the backward's, the
+    rest from the mma.sync/SIMT library."""
+    lib = _FakeLibrary()
+    for name in ("_library", "_wgmma_library", "_wgmma_bwd_library"):
+        monkeypatch.setattr(port_fa, name, lambda lib=lib: lib)
+    info = port_fa.kernel_info(d, dtype)
+    assert info["route"] == port_fa.route(d, dtype)
+    assert info["bwd_route"] == port_fa.bwd_route(d, dtype)
+    if info["bwd_route"] == "wgmma":
+        assert (info["smem_dkdv"], info["smem_dq"]) == (5000 + d, 6000 + d)
+        assert info["bwd_stages"] == 2 and info["bwd_threads"] == 128
+    else:
+        assert (info["smem_dkdv"], info["smem_dq"]) == (2000 + d, 3000 + d)
+        assert "bwd_stages" not in info
+    assert info["smem_fwd"] == (4001 + d if info["route"] == "wgmma" else 1000 + d)
+
+
+# (B, Sq, Sk, H, D) of the wgmma backward: the speech shapes at head dims
+# 128 (4 heads) and 64 (8 heads), MT self and cross attention, K4's B=2
+# 750x750, the tile edges, an odd head count
+WGMMA_BWD_PLANS = [(64, 250, 250, 4, 128), (64, 47, 250, 4, 128), (64, 750, 750, 4, 128),
+                   (2, 750, 750, 4, 128), (192, 61, 61, 4, 128), (192, 81, 61, 4, 128),
+                   (64, 250, 250, 8, 64), (64, 47, 250, 8, 64), (192, 61, 61, 8, 64),
+                   (3, 1, 129, 2, 128), (3, 129, 1, 3, 64), (1, 64, 65, 1, 128)]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", WGMMA_BWD_PLANS)
+def test_wgmma_bwd_plan(b, sq, sk, h, d):
+    """The wgmma backward's launch held to the tensors' own layout: each of
+    the four maps (q, k, v, d_out) is (D, S, H, B) with byte strides that
+    address the element a (B, S, H, D) view holds and boxes of 64 columns
+    (the 128-byte swizzle row) x 64 rows x 1 head x 1 batch row; the dK/dV
+    grid has a block for every 64 keys of every (head, batch row) and the dQ
+    grid one for every 64 queries, none beyond."""
+    gen = torch.Generator().manual_seed(3)
+    q, d_out = (torch.randn(b, sq, h * d, generator=gen).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, sk, h * d, generator=gen).to(torch.bfloat16) for _ in range(2))
+    plan = port_fa.wgmma_bwd_plan(q, k, v, d_out, h)
+    rows = port_fa.WGMMA_BWD_ROWS
+    assert rows == 64
+    for name, t in (("q_map", q), ("k_map", k), ("v_map", v), ("d_out_map", d_out)):
+        m = plan[name]
+        size = t.element_size()
+        assert m["dims"] == (d, t.shape[1], h, b)
+        assert m["box"] == (port_fa.WGMMA_BOX_COLS, rows, 1, 1)
+        assert m["box"][0] * size == 128
+        assert m["strides"] == tuple(size * x for x in (t.stride(1), d, t.stride(0)))
+        flat, split = t.reshape(-1), t.reshape(b, t.shape[1], h, d)
+        for _ in range(8):  # random elements, addressed through the map
+            at = [int(torch.randint(n, (1,), generator=gen)) for n in m["dims"]]
+            off = at[0] * size + sum(c * st for c, st in zip(at[1:], m["strides"]))
+            assert torch.equal(flat[off // size], split[at[3], at[1], at[2], at[0]])
+    for grid, length in ((plan["dkdv_grid"], sk), (plan["dq_grid"], sq)):
+        assert grid[1:] == (h, b)
+        assert (grid[0] - 1) * rows < length <= grid[0] * rows
+    words = port_fa._map_words(plan, ("q", "k", "v", "d_out"))
+    assert len(words) == 4 * 11
+    assert list(words[11:15]) == list(plan["k_map"]["dims"])
+
+
+def test_wgmma_bwd_plan_refuses_before_any_card():
+    """What TMA does not take is refused on the host, before a backward
+    launch: a non-contiguous operand (d_out included), a base off a 16-byte
+    boundary, a head dim that is not whole 64-column boxes."""
+    q = torch.randn(2, 70, 512).to(torch.bfloat16)
+    plan = port_fa.wgmma_bwd_plan(q, q, q, q, 4)
+    assert plan["dkdv_grid"] == plan["dq_grid"] == (2, 4, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        port_fa.wgmma_bwd_plan(q, q, q, q.transpose(0, 1), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        port_fa.wgmma_bwd_plan(q, q[:, :, :256], q, q, 2)
+    shifted = torch.zeros(2 * 70 * 512 + 8, dtype=torch.bfloat16)[1:2 * 70 * 512 + 1]
+    with pytest.raises(ValueError, match="16-byte"):
+        port_fa.wgmma_bwd_plan(q, q, shifted.view(2, 70, 512), q, 4)
+    small = torch.zeros(2, 70, 64, dtype=torch.bfloat16)  # head dim 16
+    with pytest.raises(ValueError, match="boxes"):
+        port_fa.wgmma_bwd_plan(small, small, small, small, 4)
+
+
 def test_library_name_follows_its_source_and_the_shared_headers(tmp_path, monkeypatch):
     """A kernel library is named by a hash of its source and of the headers
     the sources share (the flash kernels' dropout bits live in one), so an
@@ -298,11 +419,14 @@ def test_dropout_mask_statistics():
         assert abs(corr(a, b)) < 4 / math.sqrt(a.numel()), name
 
 
-@pytest.mark.parametrize("sq,sk,heads,dim", [(40, 70, 2, 64), (20, 600, 1, 64)])
+@pytest.mark.parametrize("sq,sk,heads,dim", [(40, 70, 2, 64), (20, 600, 1, 64),
+                                             (47, 250, 4, 128)])
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
 def test_flash_backward_plain_matches_pallas(sq, sk, heads, dim, dtype, tol):
     """dQ, dK, dV of the plain backward against jax.vjp through the Pallas
-    kernels (interpret mode): ragged Sk, Sk > 512 (K4's route), and row 0
+    kernels (interpret mode): ragged Sk, Sk > 512 (K4's route), the speech
+    decoder's cross-attention at head dim 128 (4 heads, 47 target positions
+    over 250 frames, the wgmma backward's shape on the card), and row 0
     with every key masked, where both rebuild p = exp(s - lse) = 1."""
     rng = np.random.RandomState(7)
     b, e = 2, heads * dim
