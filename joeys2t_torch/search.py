@@ -11,7 +11,12 @@ for ``max_output_length + 1`` positions. The stop rule is the JAX one: stop
 after ``max_output_length`` steps or once every row has finished (greedy:
 emitted eos, after which a row emits pad with score 0,
 docs/architecture.md:129-130; beam: every utterance is done). Checking it
-reads one flag from the device per step.
+reads one flag from the device per step. The transformer loops add to a
+caller's ``stats`` the steps run (``decode_steps``), the host seconds of the
+loop (``loop_s``) and those blocked in that read-back (``readback_s``):
+near 1, ``readback_s / loop_s`` says the device paces the loop, near 0 the
+host's launches do. Under ``torch.profiler`` they open the decode loop's
+spans (``joeys2t_torch.tracing``).
 
 Beam search keeps JAX's fixed-shape state (K alive beams and a finished
 store of the K best hypotheses an utterance) and its rules: the GNMT length
@@ -61,11 +66,13 @@ take the tokens of ``decoder_prompt`` (:162-216, :402-470). As in JAX, the
 search encodes the source without its prompt mask.
 """
 import copy
+import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from joeys2t_torch import tracing
 from joeys2t_torch.data.batch import Batch, round_up_to_bucket
 from joeys2t_torch.helpers import resolve_device
 from joeys2t_torch.models.model import ModelSpec, Seq2SeqModel
@@ -229,6 +236,30 @@ def _cast_params_to_compute_dtype(model: Seq2SeqModel) -> Seq2SeqModel:
                         model.tied_softmax).train(model.training)
 
 
+class _LoopClock:
+    """The host seconds of one decode loop from its creation, and of the
+    part of them blocked in the loop's read-back of its stop flag."""
+
+    def __init__(self):
+        self.start = time.perf_counter()
+        self.readback_s = 0.0
+
+    def all(self, flags: torch.Tensor) -> bool:
+        """``bool(flags.all())``, the loop's one read-back a step, timed."""
+        with tracing.span("joeys2t.decode.readback"):
+            t = time.perf_counter()
+            out = bool(flags.all())
+            self.readback_s += time.perf_counter() - t
+        return out
+
+    def count(self, stats: Optional[Dict], steps: int) -> None:
+        """Add ``decode_steps``, ``loop_s`` and ``readback_s`` to ``stats``."""
+        if stats is not None:
+            stats["decode_steps"] = stats.get("decode_steps", 0) + steps
+            stats["loop_s"] = stats.get("loop_s", 0.0) + time.perf_counter() - self.start
+            stats["readback_s"] = stats.get("readback_s", 0.0) + self.readback_s
+
+
 @torch.inference_mode()
 def _transformer_greedy(model: Seq2SeqModel, spec: ModelSpec,
                         encoder_output: torch.Tensor, src_mask: torch.Tensor,
@@ -237,9 +268,9 @@ def _transformer_greedy(model: Seq2SeqModel, spec: ModelSpec,
                         repetition_penalty: float = -1.0, no_repeat_ngram_size: int = -1,
                         encoder_input: Optional[torch.Tensor] = None,
                         decoder_prompt=None, trg_prompt_mask=None,
-                        return_attention: bool = False):
+                        return_attention: bool = False, stats: Optional[Dict] = None):
     """Greedy loop; returns (ys incl BOS (B, L+1), scores (B, L+1), the
-    attention (B, L+1, S) or None, steps run)."""
+    attention (B, L+1, S) or None) and counts into ``stats``."""
     b = encoder_output.shape[0]
     device = encoder_output.device
     l1 = max_output_length + 1
@@ -258,36 +289,39 @@ def _transformer_greedy(model: Seq2SeqModel, spec: ModelSpec,
     softmax = (return_prob or repetition_penalty > 0 or no_repeat_ngram_size > 0
                or encoder_input is not None)
 
-    step = 0
+    clock, step = _LoopClock(), 0
     while step < max_output_length:
-        logits = model.decode_step(ys[:, step:step + 1], step, cache,
-                                   trg_prompt_mask_t=None if pm is None
-                                   else pm[:, step:step + 1],
-                                   return_attention=return_attention)
-        if return_attention:
-            logits, att = logits
-            yt[:, step + 1] = torch.where(finished[:, None], zero, att[:, 0].float())
-        log_probs = logits[:, 0].float()
-        if softmax:
-            log_probs = _history_controls(torch.log_softmax(log_probs, dim=-1), ys, step,
-                                          encoder_input, 2, no_repeat_ngram_size,
-                                          repetition_penalty, exclude)
-        log_probs = _apply_token_bans(log_probs, banned, spec.eos_index, step,
-                                      min_output_length)
-        prob = log_probs.amax(dim=-1)
-        next_word = log_probs.argmax(dim=-1)  # first maximum, as jnp.argmax
-        if pm is not None:  # forced (prompt) positions take their token, score 0
-            forced = pm[:, step + 1] > 0
-            next_word = torch.where(forced, dp[:, step + 1], next_word)
-            prob = torch.where(forced, zero, prob)
-        # finished rows emit pad with score 0
-        ys[:, step + 1] = torch.where(finished, pad, next_word)
-        yv[:, step + 1] = torch.where(finished, zero, prob)
-        finished |= ys[:, step + 1] == spec.eos_index
-        step += 1
-        if bool(finished.all()):
-            break
-    return ys, yv, yt, step
+        with tracing.span("joeys2t.decode.step"):
+            with tracing.span("joeys2t.decode.model"):
+                logits = model.decode_step(ys[:, step:step + 1], step, cache,
+                                           trg_prompt_mask_t=None if pm is None
+                                           else pm[:, step:step + 1],
+                                           return_attention=return_attention)
+            if return_attention:
+                logits, att = logits
+                yt[:, step + 1] = torch.where(finished[:, None], zero, att[:, 0].float())
+            log_probs = logits[:, 0].float()
+            if softmax:
+                log_probs = _history_controls(torch.log_softmax(log_probs, dim=-1), ys, step,
+                                              encoder_input, 2, no_repeat_ngram_size,
+                                              repetition_penalty, exclude)
+            log_probs = _apply_token_bans(log_probs, banned, spec.eos_index, step,
+                                          min_output_length)
+            prob = log_probs.amax(dim=-1)
+            next_word = log_probs.argmax(dim=-1)  # first maximum, as jnp.argmax
+            if pm is not None:  # forced (prompt) positions take their token, score 0
+                forced = pm[:, step + 1] > 0
+                next_word = torch.where(forced, dp[:, step + 1], next_word)
+                prob = torch.where(forced, zero, prob)
+            # finished rows emit pad with score 0
+            ys[:, step + 1] = torch.where(finished, pad, next_word)
+            yv[:, step + 1] = torch.where(finished, zero, prob)
+            finished |= ys[:, step + 1] == spec.eos_index
+            step += 1
+            if clock.all(finished):
+                break
+    clock.count(stats, step)
+    return ys, yv, yt
 
 
 def _exclude_ids(spec: ModelSpec, device: torch.device) -> torch.Tensor:
@@ -324,7 +358,9 @@ def transformer_greedy(model: Seq2SeqModel, spec: ModelSpec,
     :param encoder_output: (B, S, H) on ``device``
     :param src_mask: (B, 1, S) bool on ``device``
     :param stats: optional dict; ``stats["decode_steps"]`` grows by the
-        number of decode steps run
+        number of decode steps run, ``stats["loop_s"]`` by the host seconds
+        of the loop and ``stats["readback_s"]`` by those of them blocked in
+        its read-back of the stop flag
     :param kwargs: also ``repetition_penalty``, ``no_repeat_ngram_size``,
         ``encoder_input`` (B, S) source ids, and ``decoder_prompt`` with
         ``trg_prompt_mask`` (B, P), the forced prefix from bos on
@@ -337,17 +373,16 @@ def transformer_greedy(model: Seq2SeqModel, spec: ModelSpec,
                                 "model": next(model.parameters())}, kwargs)
     return_prob = kwargs.get("return_prob", "none") == "hyp"
     model = _cast_params_to_compute_dtype(model)
-    ys, yv, yt, steps = _transformer_greedy(
-        model, spec, encoder_output, src_mask, int(max_output_length),
-        min_output_length=int(kwargs.get("min_output_length", 1)),
-        generate_unk=bool(kwargs.get("generate_unk", True)), return_prob=return_prob,
-        return_attention=bool(kwargs.get("return_attention", False)),
-        **_control_kwargs(kwargs, device))
-    if stats is not None:
-        stats["decode_steps"] = stats.get("decode_steps", 0) + steps
-    output = ys[:, 1:].cpu().numpy()
-    scores = yv[:, 1:].cpu().numpy() if return_prob else None
-    return output, scores, None if yt is None else yt[:, 1:].cpu().numpy()
+    with tracing.span("joeys2t.decode"):
+        ys, yv, yt = _transformer_greedy(
+            model, spec, encoder_output, src_mask, int(max_output_length),
+            min_output_length=int(kwargs.get("min_output_length", 1)),
+            generate_unk=bool(kwargs.get("generate_unk", True)), return_prob=return_prob,
+            return_attention=bool(kwargs.get("return_attention", False)), stats=stats,
+            **_control_kwargs(kwargs, device))
+        output = ys[:, 1:].cpu().numpy()
+        scores = yv[:, 1:].cpu().numpy() if return_prob else None
+        return output, scores, None if yt is None else yt[:, 1:].cpu().numpy()
 
 
 @torch.inference_mode()
@@ -429,11 +464,12 @@ def _transformer_beam(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torc
                       alpha: float, min_output_length: int = 1, generate_unk: bool = True,
                       repetition_penalty: float = -1.0, no_repeat_ngram_size: int = -1,
                       encoder_input: Optional[torch.Tensor] = None,
-                      decoder_prompt=None, trg_prompt_mask=None, lazy_reorder: bool = False):
+                      decoder_prompt=None, trg_prompt_mask=None, lazy_reorder: bool = False,
+                      stats: Optional[Dict] = None):
     """Beam loop (joeys2t_tpu/search.py:381-610); returns (finished
-    sequences incl BOS (B, K, L+1), their scores (B, K) sorted best first,
-    steps run). ``lazy_reorder`` keeps the ancestry map instead of
-    reordering the self-attention caches."""
+    sequences incl BOS (B, K, L+1), their scores (B, K) sorted best first)
+    and counts into ``stats``. ``lazy_reorder`` keeps the ancestry map
+    instead of reordering the self-attention caches."""
     # pylint: disable=too-many-locals
     b = encoder_output.shape[0]
     k, v, l1 = beam_size, spec.trg_vocab_size, max_output_length + 1
@@ -473,64 +509,71 @@ def _transformer_beam(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torc
     beam_offset = (torch.arange(b, device=device) * k)[:, None]
     positions = torch.arange(1, l1, device=device)
 
-    step = 0
+    clock, step = _LoopClock(), 0
     while step < max_output_length:
-        logits = model.decode_step(alive_seq[:, step:step + 1], step, cache, beam_k=k,
-                                   trg_prompt_mask_t=None if pm is None
-                                   else pm[:, step:step + 1], ancestry=ancestry)
-        log_probs = torch.log_softmax(logits[:, 0].float(), dim=-1)
-        log_probs = _history_controls(log_probs, alive_seq, step, enc_in, 1,
-                                      no_repeat_ngram_size, repetition_penalty, exclude)
-        log_probs = _apply_token_bans(log_probs, banned, spec.eos_index, step,
-                                      min_output_length)
-        if pm is not None:  # a forced position keeps only its token, at log-prob 0
-            forced_row = torch.full_like(log_probs, NEG_INF).scatter_(
-                1, dp[:, step + 1:step + 2], 0.0)
-            log_probs = torch.where(pm[:, step + 1:step + 2] > 0, forced_row, log_probs)
-        log_probs = log_probs + topk_log_probs.reshape(-1)[:, None]
-        curr_scores = log_probs
-        if alpha > 0:  # GNMT length penalty, in float32 as the JAX loop computes it
-            length_penalty = ((torch.tensor(5.0) + (step + 1.0)) / 6.0) ** alpha
-            curr_scores = curr_scores / length_penalty
-        topk_scores, topk_ids = _stable_topk(curr_scores.reshape(b, k * v), k)
-        topk_log_probs = topk_scores * length_penalty if alpha > 0 else topk_scores
-        topk_token = topk_ids % v
-        parent = topk_ids // v
-        select = (parent + beam_offset).reshape(-1)
-        alive_seq = alive_seq.index_select(0, select)
-        alive_seq[:, step + 1] = topk_token.reshape(-1)
-        if lazy_reorder:
-            # a new beam reads its parent's history up to this step (the
-            # map's entry at ``step`` names the row that just wrote it);
-            # later slots go back to its own row (JAX :547-558)
-            inherited = torch.gather(ancestry, 1, parent[:, :, None].expand(b, k, l1))
-            ancestry = torch.where(s_grid > step, own_row, inherited)
-        else:
-            for i, (layer, key) in enumerate(buffers):  # the physical reorder
-                torch.index_select(layer[key], 0, select, out=spares[i])
-                layer[key], spares[i] = spares[i], layer[key]
+        with tracing.span("joeys2t.decode.step"):
+            with tracing.span("joeys2t.decode.model"):
+                logits = model.decode_step(alive_seq[:, step:step + 1], step, cache,
+                                           beam_k=k, trg_prompt_mask_t=None if pm is None
+                                           else pm[:, step:step + 1], ancestry=ancestry)
+            with tracing.span("joeys2t.beam.scores"):
+                log_probs = torch.log_softmax(logits[:, 0].float(), dim=-1)
+                log_probs = _history_controls(log_probs, alive_seq, step, enc_in, 1,
+                                              no_repeat_ngram_size, repetition_penalty,
+                                              exclude)
+                log_probs = _apply_token_bans(log_probs, banned, spec.eos_index, step,
+                                              min_output_length)
+                if pm is not None:  # a forced position keeps only its token, at log-prob 0
+                    forced_row = torch.full_like(log_probs, NEG_INF).scatter_(
+                        1, dp[:, step + 1:step + 2], 0.0)
+                    log_probs = torch.where(pm[:, step + 1:step + 2] > 0, forced_row,
+                                            log_probs)
+                log_probs = log_probs + topk_log_probs.reshape(-1)[:, None]
+                curr_scores = log_probs
+                if alpha > 0:  # GNMT length penalty, in float32 as the JAX loop computes it
+                    length_penalty = ((torch.tensor(5.0) + (step + 1.0)) / 6.0) ** alpha
+                    curr_scores = curr_scores / length_penalty
+            with tracing.span("joeys2t.beam.select"):
+                topk_scores, topk_ids = _stable_topk(curr_scores.reshape(b, k * v), k)
+                topk_log_probs = topk_scores * length_penalty if alpha > 0 else topk_scores
+                topk_token = topk_ids % v
+                parent = topk_ids // v
+            select = (parent + beam_offset).reshape(-1)
+            alive_seq = alive_seq.index_select(0, select)
+            alive_seq[:, step + 1] = topk_token.reshape(-1)
+            if lazy_reorder:
+                # a new beam reads its parent's history up to this step (the
+                # map's entry at ``step`` names the row that just wrote it);
+                # later slots go back to its own row (JAX :547-558)
+                inherited = torch.gather(ancestry, 1, parent[:, :, None].expand(b, k, l1))
+                ancestry = torch.where(s_grid > step, own_row, inherited)
+            else:
+                for i, (layer, key) in enumerate(buffers):  # the physical reorder
+                    torch.index_select(layer[key], 0, select, out=spares[i])
+                    layer[key], spares[i] = spares[i], layer[key]
 
-        # finished bookkeeping (joeynmt/search.py:671-717)
-        seq_bk = alive_seq.reshape(b, k, l1)
-        newly_eos = topk_token == spec.eos_index
-        n_eos_before = ((seq_bk[:, :, 1:] == spec.eos_index) & (positions <= step)).sum(-1)
-        # a candidate ends with eos now and has no earlier eos, or reaches
-        # the length limit without any
-        collectible = newly_eos & (n_eos_before == 0) & ~done[:, None]
-        at_max = step + 1 == max_output_length
-        if at_max:
-            collectible |= (n_eos_before == 0) & ~newly_eos & ~done[:, None]
-        cand_scores = torch.where(collectible, topk_scores, NEG_INF)
-        # the store keeps the k best of its own and the new candidates
-        fin_scores, best = _stable_topk(torch.cat([fin_scores, cand_scores], dim=1), k)
-        fin_seqs = torch.gather(torch.cat([fin_seqs, seq_bk], dim=1), 1,
-                                best[:, :, None].expand(b, k, l1))
-        is_finished = newly_eos | (n_eos_before > 0) | (topk_scores < NEG_INF / 10.0)
-        done |= is_finished.all(dim=1) | at_max
-        step += 1
-        if bool(done.all()):
-            break
-    return fin_seqs, fin_scores, step
+            # finished bookkeeping (joeynmt/search.py:671-717)
+            seq_bk = alive_seq.reshape(b, k, l1)
+            newly_eos = topk_token == spec.eos_index
+            n_eos_before = ((seq_bk[:, :, 1:] == spec.eos_index) & (positions <= step)).sum(-1)
+            # a candidate ends with eos now and has no earlier eos, or reaches
+            # the length limit without any
+            collectible = newly_eos & (n_eos_before == 0) & ~done[:, None]
+            at_max = step + 1 == max_output_length
+            if at_max:
+                collectible |= (n_eos_before == 0) & ~newly_eos & ~done[:, None]
+            cand_scores = torch.where(collectible, topk_scores, NEG_INF)
+            # the store keeps the k best of its own and the new candidates
+            fin_scores, best = _stable_topk(torch.cat([fin_scores, cand_scores], dim=1), k)
+            fin_seqs = torch.gather(torch.cat([fin_seqs, seq_bk], dim=1), 1,
+                                    best[:, :, None].expand(b, k, l1))
+            is_finished = newly_eos | (n_eos_before > 0) | (topk_scores < NEG_INF / 10.0)
+            done |= is_finished.all(dim=1) | at_max
+            step += 1
+            if clock.all(done):
+                break
+    clock.count(stats, step)
+    return fin_seqs, fin_scores
 
 
 def _sort_key(scores: torch.Tensor, collected: torch.Tensor) -> torch.Tensor:
@@ -633,7 +676,8 @@ def beam_search(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torch.Tens
     :param encoder_output: (B, S, H) on ``device``
     :param src_mask: (B, 1, S) bool on ``device``
     :param stats: optional dict; ``stats["decode_steps"]`` grows by the
-        number of decode steps run
+        number of decode steps run, and for a transformer decoder
+        ``loop_s`` and ``readback_s`` as in :func:`transformer_greedy`
     :param kwargs: the options of :func:`transformer_greedy`, and
         ``beam_reorder``: ``lazy`` (the ancestry map), ``physical``, or
         ``auto`` (the default), lazy for a transformer decoder as in JAX
@@ -666,25 +710,27 @@ def beam_search(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torch.Tens
         predictions = [seq[:n] if full else unk for row in zip(seqs, lengths, filled)
                        for seq, n, full in zip(*row)]
         scores = np.where(filled, fin_scores, -1.0).reshape(-1)
+        if stats is not None:
+            stats["decode_steps"] = stats.get("decode_steps", 0) + steps
     else:
-        fin_seqs, fin_scores, steps = _transformer_beam(
-            _cast_params_to_compute_dtype(model), spec, encoder_output, src_mask,
-            int(beam_size), int(max_output_length), float(alpha), **options,
-            **_control_kwargs(kwargs, device),
-            lazy_reorder=kwargs.get("beam_reorder", "auto") in ("auto", "lazy"))
-        predictions, scores = [], []
-        for seqs, seq_scores in zip(fin_seqs.cpu().numpy(), fin_scores.cpu().numpy()):
-            for n in range(n_best):
-                if seq_scores[n] <= NEG_INF:  # unfilled slot (joeynmt/search.py:795-804)
-                    predictions.append(unk)
-                    scores.append(-1.0)
-                    continue
-                seq = seqs[n, 1:]  # drop BOS
-                eos_pos = np.flatnonzero(seq == spec.eos_index)
-                predictions.append(seq[:eos_pos[0] + 1] if len(eos_pos) else seq)
-                scores.append(float(seq_scores[n]))
-    if stats is not None:
-        stats["decode_steps"] = stats.get("decode_steps", 0) + steps
+        with tracing.span("joeys2t.decode"):
+            fin_seqs, fin_scores = _transformer_beam(
+                _cast_params_to_compute_dtype(model), spec, encoder_output, src_mask,
+                int(beam_size), int(max_output_length), float(alpha), **options,
+                **_control_kwargs(kwargs, device),
+                lazy_reorder=kwargs.get("beam_reorder", "auto") in ("auto", "lazy"),
+                stats=stats)
+            predictions, scores = [], []
+            for seqs, seq_scores in zip(fin_seqs.cpu().numpy(), fin_scores.cpu().numpy()):
+                for n in range(n_best):
+                    if seq_scores[n] <= NEG_INF:  # unfilled slot (joeynmt/search.py:795-804)
+                        predictions.append(unk)
+                        scores.append(-1.0)
+                        continue
+                    seq = seqs[n, 1:]  # drop BOS
+                    eos_pos = np.flatnonzero(seq == spec.eos_index)
+                    predictions.append(seq[:eos_pos[0] + 1] if len(eos_pos) else seq)
+                    scores.append(float(seq_scores[n]))
     output = np.full((len(predictions), max(len(p) for p in predictions)), spec.pad_index,
                      np.int64)
     for row, p in zip(output, predictions):
@@ -710,29 +756,32 @@ def search(model: Seq2SeqModel, spec: ModelSpec, batch: Batch, max_output_length
     :return: (output ids (B*n_best, L), scores or None, attention (B, L, S)
         of a greedy decode or None), numpy
     """
-    device = resolve_device(device)
-    mt = batch.task == "MT"
-    with torch.inference_mode():
-        src = torch.from_numpy(np.ascontiguousarray(batch.src)).to(
-            device, torch.long if mt else getattr(model.encoder, "dtype", torch.float32))
-        src_length = torch.from_numpy(np.asarray(batch.src_length)).to(device, torch.long)
-        src_mask = (None if batch.src_mask is None
-                    else torch.from_numpy(batch.src_mask).to(device))
-        encoder_output, encoder_hidden, src_mask = model.encode(src, src_length, src_mask)
-    if max_output_length < 0:  # adapt to the source length
-        max_output_length = int(np.max(batch.src_length) * 1.5)
-    max_output_length = round_up_to_bucket(max_output_length)
-    if mt and (kwargs.get("no_repeat_ngram_size", -1) > 1
-               or kwargs.get("repetition_penalty", -1) > 1):
-        kwargs["encoder_input"] = batch.src
-    if batch.has_trg and batch.trg_prompt_mask is not None:
-        kwargs["decoder_prompt"] = batch.trg_input
-        kwargs["trg_prompt_mask"] = batch.trg_prompt_mask
-    decode_model = decode_model if decode_model is not None else model
-    if beam_size < 2:
-        kwargs.pop("beam_reorder", None)  # a beam-only option
-        return greedy(decode_model, spec, encoder_output, encoder_hidden, src_mask,
-                      max_output_length, device=device, stats=stats, **kwargs)
-    return beam_search(decode_model, spec, encoder_output, encoder_hidden, src_mask,
-                       beam_size, max_output_length, beam_alpha, n_best=n_best,
-                       device=device, stats=stats, **kwargs)
+    with tracing.span("joeys2t.request"):
+        device = resolve_device(device)
+        mt = batch.task == "MT"
+        with torch.inference_mode():
+            src = torch.from_numpy(np.ascontiguousarray(batch.src)).to(
+                device, torch.long if mt else getattr(model.encoder, "dtype", torch.float32))
+            src_length = torch.from_numpy(np.asarray(batch.src_length)).to(device, torch.long)
+            src_mask = (None if batch.src_mask is None
+                        else torch.from_numpy(batch.src_mask).to(device))
+            with tracing.span("joeys2t.encode"):
+                encoder_output, encoder_hidden, src_mask = model.encode(src, src_length,
+                                                                        src_mask)
+        if max_output_length < 0:  # adapt to the source length
+            max_output_length = int(np.max(batch.src_length) * 1.5)
+        max_output_length = round_up_to_bucket(max_output_length)
+        if mt and (kwargs.get("no_repeat_ngram_size", -1) > 1
+                   or kwargs.get("repetition_penalty", -1) > 1):
+            kwargs["encoder_input"] = batch.src
+        if batch.has_trg and batch.trg_prompt_mask is not None:
+            kwargs["decoder_prompt"] = batch.trg_input
+            kwargs["trg_prompt_mask"] = batch.trg_prompt_mask
+        decode_model = decode_model if decode_model is not None else model
+        if beam_size < 2:
+            kwargs.pop("beam_reorder", None)  # a beam-only option
+            return greedy(decode_model, spec, encoder_output, encoder_hidden, src_mask,
+                          max_output_length, device=device, stats=stats, **kwargs)
+        return beam_search(decode_model, spec, encoder_output, encoder_hidden, src_mask,
+                           beam_size, max_output_length, beam_alpha, n_best=n_best,
+                           device=device, stats=stats, **kwargs)

@@ -23,6 +23,7 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from joeys2t_torch import tracing
 from joeys2t_torch.data.audio_io import read_wav
 from joeys2t_torch.helpers import resolve_device
 from joeys2t_torch.ops.frontend import device_frontend
@@ -85,7 +86,13 @@ class Transcriber:
 
     ``norm_means``/``norm_vars`` are the CMVN the model was trained with.
     ``stats`` counts what the instance served: requests (calls of
-    ``transcribe_batch``), utterances, audio seconds and decode steps."""
+    ``transcribe_batch``), utterances, audio seconds, decode steps, and the
+    host seconds of the transformer decode loops (``loop_s``) and of their
+    blocking read-backs of the stop flag (``readback_s``): near 1,
+    ``readback_s / loop_s`` says the card paces the service, near 0 the
+    host's launches do. Under ``torch.profiler`` a request opens the spans of
+    ``joeys2t_torch.tracing``, its number in ``stats["requests"]`` as the
+    ``args`` of ``joeys2t.request``."""
 
     sample_rate = 16000.0
 
@@ -101,7 +108,7 @@ class Transcriber:
         self.tokenizer = tokenizer
         self.num_mel_bins = model.encoder.subsampler.conv_layers[0].weight.shape[1]
         self.stats = {"requests": 0, "utterances": 0, "audio_seconds": 0.0,
-                      "decode_steps": 0}
+                      "decode_steps": 0, "loop_s": 0.0, "readback_s": 0.0}
 
     @classmethod
     def from_hub(cls, hub) -> "Transcriber":
@@ -164,33 +171,37 @@ class Transcriber:
         the valid samples per row. ``beam_size`` > 1 decodes with beam search
         and the GNMT length penalty ``beam_alpha``, keeping the best
         hypothesis; the default is greedy."""
-        waveforms = torch.as_tensor(waveforms, dtype=torch.float32).to(self.device)
-        lengths = torch.as_tensor(lengths).to(self.device)
-        feats, frame_lengths = device_frontend(waveforms, lengths,
-                                               sample_rate=self.sample_rate,
-                                               num_mel_bins=self.num_mel_bins,
-                                               norm_means=self.norm_means,
-                                               norm_vars=self.norm_vars)
-        enc, _, enc_mask = self.model.encode(feats, frame_lengths)
-        if max_output_length is None:
-            max_output_length = int(enc.shape[1] * 1.5) + 8
-        if beam_size > 1:
-            out, _, _ = beam_search(self.decode_model, self.spec, enc, None, enc_mask,
-                                    beam_size, max_output_length, alpha=beam_alpha,
-                                    n_best=1, device=self.device, stats=self.stats,
-                                    **generate_kwargs)
-        else:
-            out, _, _ = transformer_greedy(self.decode_model, self.spec, enc, enc_mask,
-                                           max_output_length, device=self.device,
-                                           stats=self.stats, **generate_kwargs)
-        self.stats["requests"] += 1
-        self.stats["utterances"] += len(out)
-        self.stats["audio_seconds"] += float(lengths.sum()) / self.sample_rate
+        with tracing.span("joeys2t.request", str(self.stats["requests"] + 1)):
+            waveforms = torch.as_tensor(waveforms, dtype=torch.float32).to(self.device)
+            lengths = torch.as_tensor(lengths).to(self.device)
+            with tracing.span("joeys2t.frontend"):
+                feats, frame_lengths = device_frontend(waveforms, lengths,
+                                                       sample_rate=self.sample_rate,
+                                                       num_mel_bins=self.num_mel_bins,
+                                                       norm_means=self.norm_means,
+                                                       norm_vars=self.norm_vars)
+            with tracing.span("joeys2t.encode"):
+                enc, _, enc_mask = self.model.encode(feats, frame_lengths)
+            if max_output_length is None:
+                max_output_length = int(enc.shape[1] * 1.5) + 8
+            if beam_size > 1:
+                out, _, _ = beam_search(self.decode_model, self.spec, enc, None, enc_mask,
+                                        beam_size, max_output_length, alpha=beam_alpha,
+                                        n_best=1, device=self.device, stats=self.stats,
+                                        **generate_kwargs)
+            else:
+                out, _, _ = transformer_greedy(self.decode_model, self.spec, enc, enc_mask,
+                                               max_output_length, device=self.device,
+                                               stats=self.stats, **generate_kwargs)
+            self.stats["requests"] += 1
+            self.stats["utterances"] += len(out)
+            self.stats["audio_seconds"] += float(lengths.sum()) / self.sample_rate
 
-        pad_tok, eos_tok = self.trg_vocab.specials[1], self.trg_vocab.specials[3]
-        texts = []
-        for tokens in self.trg_vocab.arrays_to_sentences(out, cut_at_eos=True):
-            tokens = [t for t in tokens if t not in (pad_tok, eos_tok)]
-            texts.append(" ".join(tokens) if self.tokenizer is None
-                         else self.tokenizer.post_process(tokens))
-        return texts
+            with tracing.span("joeys2t.detokenize"):
+                pad_tok, eos_tok = self.trg_vocab.specials[1], self.trg_vocab.specials[3]
+                texts = []
+                for tokens in self.trg_vocab.arrays_to_sentences(out, cut_at_eos=True):
+                    tokens = [t for t in tokens if t not in (pad_tok, eos_tok)]
+                    texts.append(" ".join(tokens) if self.tokenizer is None
+                                 else self.tokenizer.post_process(tokens))
+            return texts

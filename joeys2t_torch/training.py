@@ -69,7 +69,7 @@ returns attention (a recurrent decoder's always, a transformer's with
 ``torch.profiler`` window from the update ``JOEYS2T_PROFILE_WINDOW`` names
 first to the one it names last ("10,20" by default; :670-685, :760-767) and
 writes it as a Chrome trace ``trace.<first>-<last>.json`` under the
-directory.
+directory, with the loop's spans (``joeys2t_torch.tracing``).
 
 Tensor parallelism (``training: model_parallel``; JAX's (data, model) mesh,
 :240-254, :340-364): the world splits into model groups of
@@ -114,6 +114,7 @@ import torch.distributed as dist
 from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
+from joeys2t_torch import tracing
 from joeys2t_torch.checkpoints import CheckpointManager, load_checkpoint, partial_load
 from joeys2t_torch.config import (TestConfig, TrainConfig, check_ported, log_config,
                                   parse_global_args, set_validation_args)
@@ -529,27 +530,29 @@ class TrainManager:
         data-parallel run the ranks' gradients are summed in this backward
         unless ``sync`` is False (``no_sync``: a micro-batch before the last
         of an update)."""
-        with (self.ddp.no_sync() if self.ddp is not None and not sync
-              else contextlib.nullcontext()):
+        with tracing.span("joeys2t.forward_backward"), (
+                self.ddp.no_sync() if self.ddp is not None and not sync
+                else contextlib.nullcontext()):
             loss, metrics = self._loss_and_metrics(batch, normalizer)
             loss.backward()
         return metrics
 
     def apply_accum(self) -> None:
         """Clip the accumulated gradients, update, clear them (:570)."""
-        self.reduce_gradients()
-        live = [i for i, p in enumerate(self.params) if p.grad is not None]
-        grads = [self.params[i].grad for i in live]
-        if isinstance(self.clipper, GlobalNormClipper) and self.tp is not None:
-            self.clipper(grads, [self._split[i] is not None for i in live], self.tp.group)
-        elif self.clipper is not None:
-            self.clipper(grads)
-        with torch.no_grad():
-            kept = [p.clone() for p in self._frozen]
-            self.optimizer.step()
-            for p, value in zip(self._frozen, kept):
-                p.copy_(value)
-        self.optimizer.zero_grad(set_to_none=True)
+        with tracing.span("joeys2t.optimizer"):
+            self.reduce_gradients()
+            live = [i for i, p in enumerate(self.params) if p.grad is not None]
+            grads = [self.params[i].grad for i in live]
+            if isinstance(self.clipper, GlobalNormClipper) and self.tp is not None:
+                self.clipper(grads, [self._split[i] is not None for i in live], self.tp.group)
+            elif self.clipper is not None:
+                self.clipper(grads)
+            with torch.no_grad():
+                kept = [p.clone() for p in self._frozen]
+                self.optimizer.step()
+                for p, value in zip(self._frozen, kept):
+                    p.copy_(value)
+            self.optimizer.zero_grad(set_to_none=True)
 
     def reduce_gradients(self) -> None:
         """Complete the accumulated gradients before clipping: sum them over
@@ -613,24 +616,25 @@ class TrainManager:
         step count and, after each update, the scheduler's next rate. Returns
         the device metrics and whether an update ran."""
         nseqs, ntokens, arrays, normalizer = prepared
-        if self.args.batch_multiplier == 1:
-            metrics = self.train_step(arrays, normalizer)
-            stepped = True
-        else:
-            last = self._micro + 1 >= self.args.batch_multiplier
-            metrics = self.accum_step(arrays, normalizer, sync=last)
-            self._micro += 1
-            stepped = last
+        with tracing.span("joeys2t.update"):
+            if self.args.batch_multiplier == 1:
+                metrics = self.train_step(arrays, normalizer)
+                stepped = True
+            else:
+                last = self._micro + 1 >= self.args.batch_multiplier
+                metrics = self.accum_step(arrays, normalizer, sync=last)
+                self._micro += 1
+                stepped = last
+                if stepped:
+                    self.apply_accum()
+                    self._micro = 0
+            self.stats.total_tokens += ntokens
             if stepped:
-                self.apply_accum()
-                self._micro = 0
-        self.stats.total_tokens += ntokens
-        if stepped:
-            self.stats.steps += 1
-            if self.scheduler is not None and self.scheduler_step_at == "step":
-                set_learning_rate(self.optimizer, self.scheduler.step(self.stats.steps))
-            if self.stats.steps >= self.args.max_updates:
-                self.stats.is_max_update = True
+                self.stats.steps += 1
+                if self.scheduler is not None and self.scheduler_step_at == "step":
+                    set_learning_rate(self.optimizer, self.scheduler.step(self.stats.steps))
+                if self.stats.steps >= self.args.max_updates:
+                    self.stats.is_max_update = True
         return {"loss": metrics[0], "nll": metrics[1], "ctc": metrics[2],
                 "n_correct": metrics[3], "nseqs": nseqs, "ntokens": ntokens,
                 "stepped": stepped}
@@ -761,7 +765,7 @@ class TrainManager:
                         f", {self.pp.n_micro} microbatches, decoder staged: {self._pp_dec}")
 
         epoch_no = self.stats.epochs
-        loop_start, data_time, valid_time, updates_before = (time.time(), 0.0, 0.0,
+        loop_start, data_time, valid_time, updates_before = (time.perf_counter(), 0.0, 0.0,
                                                              self.stats.steps)
         try:
             for epoch_no in range(self.stats.epochs, self.args.epochs + 1):
@@ -777,18 +781,20 @@ class TrainManager:
                 start_correct = self.stats.total_correct
                 epoch_nseqs, epoch_ntokens, epoch_loss = 0, 0, 0.0
                 total_valid_duration = 0.0
-                start = time.time()
+                start = time.perf_counter()
                 pending, micro_metrics = [], []  # device metrics awaiting a sync
                 batches = iter(train_iter)
                 while True:
                     t_data = time.perf_counter()  # read, collate, pad, upload
-                    batch = next(batches, None)
-                    if self.grouped:  # lockstep: all ranks go on, or none
-                        step = self._agree(batch)
-                        batch = None if step is None else batch
-                    else:
-                        step = None
-                    prepared = None if batch is None else self._prepare_batch(batch, step)
+                    with tracing.span("joeys2t.data"):
+                        batch = next(batches, None)
+                        if self.grouped:  # lockstep: all ranks go on, or none
+                            step = self._agree(batch)
+                            batch = None if step is None else batch
+                        else:
+                            step = None
+                        prepared = (None if batch is None
+                                    else self._prepare_batch(batch, step))
                     data_time += time.perf_counter() - t_data
                     if prepared is None:
                         break
@@ -804,20 +810,21 @@ class TrainManager:
                         if self.stats.steps % self.args.logging_freq == 0:
                             losses_sum, last_loss = self._sync_pending_metrics(pending)
                             epoch_loss += losses_sum
-                            elapsed = time.time() - start - total_valid_duration
+                            elapsed = time.perf_counter() - start - total_valid_duration
                             self._log_scores(epoch_no, elapsed, start_tokens,
                                              start_correct, last_loss)
-                            start = time.time()
+                            start = time.perf_counter()
                             start_tokens = self.stats.total_tokens
                             start_correct = self.stats.total_correct
                             total_valid_duration = 0.0
                         if self.stats.steps % self.args.validation_freq == 0:
                             epoch_loss += self._sync_pending_metrics(pending)[0]
-                            valid_start_time = time.time()
+                            valid_start_time = time.perf_counter()
                             valid_data.seed = self.seed + self.stats.steps
-                            self._validate(valid_data)
-                            total_valid_duration += time.time() - valid_start_time
-                            valid_time += time.time() - valid_start_time
+                            with tracing.span("joeys2t.validate"):
+                                self._validate(valid_data)
+                            total_valid_duration += time.perf_counter() - valid_start_time
+                            valid_time += time.perf_counter() - valid_start_time
                     if self.stats.is_min_lr or self.stats.is_max_update:
                         break
                 batches.close()  # stops a read-ahead worker (num_workers > 0) at a break
@@ -836,7 +843,7 @@ class TrainManager:
                 logger.info("Epoch %3d, total training loss: %.2f, num. of seqs: %d, "
                             "num. of tokens: %d, %.4f[sec]", epoch_no, epoch_loss,
                             epoch_nseqs, epoch_ntokens,
-                            time.time() - start - total_valid_duration)
+                            time.perf_counter() - start - total_valid_duration)
             else:
                 logger.info("Training ended after %3d epochs.", epoch_no)
         except KeyboardInterrupt:
@@ -847,7 +854,7 @@ class TrainManager:
                         self.args.early_stopping_metric)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        loop_end = time.time()
+        loop_end = time.perf_counter()
         if self.tb_writer is not None:
             self.tb_writer.flush()
         self._save_checkpoint(False, float("nan"))
@@ -859,7 +866,7 @@ class TrainManager:
                     "checkpoint %.4f[sec].", updates, train_wall,
                     train_wall / max(updates, 1), data_time,
                     100.0 * data_time / max(train_wall, 1e-9), valid_time,
-                    time.time() - loop_end)
+                    time.perf_counter() - loop_end)
 
     # ------------------------------------------------------------- validation
     def _validate(self, valid_data) -> None:
