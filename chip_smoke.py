@@ -60,7 +60,12 @@ goes wrong:
    launches and index_select kernels a step over a profiled 16-step slice
    of the beam loop; the lazy request's own map, self caches and queries
    at step 48 held and timed as phase 2's random maps are, with the share
-   of its distinct (row, slot) vectors;
+   of its distinct (row, slot) vectors; and the top-k kernel of beam
+   search's selection two launches a beam step in both beam requests, held
+   bit for bit against its plain version (the stable sort) on the lazy
+   request's own scores and store keys (steps 0 and 24) and at the
+   translation benchmark's step (3,004 x 160,000, k 5), and timed there
+   beside the plain version and ``torch.topk`` against its bytes bound;
 4. card vs CPU: a small float32 model with the same seeded weights on the
    card and on the CPU must give the same encoder output (within 1e-4), the
    same greedy tokens and the same beam-5 2-best hypotheses (scores within
@@ -420,9 +425,12 @@ def counters():
     ``decode_attention_ancestry`` those that read the self caches through
     lazy beam search's ancestry map, and
     ``decode_attention_int8_{channel,position}`` those on int8 caches with
-    channel scales (cross) or position scales (self)."""
+    channel scales (cross) or position scales (self); ``stable_topk`` counts
+    beam search's selections (two a beam step: the beams', the finished
+    store's)."""
     from joeys2t_torch.ops import decode_attention as da
     from joeys2t_torch.ops import flash_attention as fa
+    from joeys2t_torch.ops import topk as tk
 
     return {"flash_attention_fwd": (fa.flash_attention_fwd, "launches"),
             "flash_attention_bwd": (fa.flash_attention_bwd, "launches"),
@@ -430,7 +438,8 @@ def counters():
             "decode_attention_group": (da.decode_attention, "group_launches"),
             "decode_attention_ancestry": (da.decode_attention, "ancestry_launches"),
             "decode_attention_int8_channel": (da.decode_attention, "channel_launches"),
-            "decode_attention_int8_position": (da.decode_attention, "position_launches")}
+            "decode_attention_int8_position": (da.decode_attention, "position_launches"),
+            "stable_topk": (tk.stable_topk, "launches")}
 
 
 def zero_counters() -> None:
@@ -1464,9 +1473,12 @@ def beam_serving_phase(asr, batch):
     and for each the busy share, launches and ``index_select`` kernels a
     step over a profiled 16-step slice of the loop (the physical reorder
     adds one a self buffer a step). The lazy run's ancestry launch at step
-    48 is then held and timed on its own real map (``real_map_case``).
-    Returns the lazy run's launches, {reorder: (texts, wall s, steps, K5 ms
-    a step)} and the real map's case."""
+    48 is then held and timed on its own real map (``real_map_case``), and
+    the top-k kernel on the lazy run's own selection inputs (the beams'
+    scores and the finished store's keys at steps 0 and 24) and at the
+    translation benchmark's step (``topk_cases``). Returns the lazy run's
+    launches, {reorder: (texts, wall s, steps, K5 ms a step)}, the real
+    map's case and the top-k cases."""
     from joeys2t_torch.ops.frontend import device_frontend
     from joeys2t_torch.search import beam_search
 
@@ -1474,11 +1486,12 @@ def beam_serving_phase(asr, batch):
     n_enc, n_dec = len(asr.model.encoder.layers), len(asr.model.decoder.layers)
     for reorder in REORDERS:  # warm-up at the request's batch
         asr.transcribe(waves, max_output_length=4, beam_size=5, beam_reorder=reorder)
-    runs, kept = {}, {}
+    runs, kept, selections = {}, {}, {}
     for reorder in REORDERS:
         s0 = asr.stats["decode_steps"]
         zero_counters()
-        with plain_refused("beam serving path"), ancestry_kept(kept, BEAM_SELF[3] + 1):
+        with plain_refused("beam serving path"), ancestry_kept(kept, BEAM_SELF[3] + 1), \
+                topk_kept(selections if reorder == "auto" else {}):
             texts, request_wall = sync_time(lambda: asr.transcribe(
                 waves, max_output_length=96, beam_size=5, beam_alpha=1.0,
                 beam_reorder=reorder))
@@ -1491,7 +1504,8 @@ def beam_serving_phase(asr, batch):
                 "decode_attention": 2 * n_dec * steps,
                 "decode_attention_group": n_dec * steps,
                 "decode_attention_ancestry": n_dec * steps,
-                "decode_attention_int8_channel": 0, "decode_attention_int8_position": 0}
+                "decode_attention_int8_channel": 0, "decode_attention_int8_position": 0,
+                "stable_topk": 2 * steps}
         check(launches == want, f"beam request ({reorder}) launches {launches}, "
               f"expected {want}")
         runs[reorder] = (texts, request_wall, steps, launches)
@@ -1505,6 +1519,8 @@ def beam_serving_phase(asr, batch):
           f"{320.0 / runs['physical'][1]:.1f} audio-s/s "
           f"({runs['physical'][1] / runs['auto'][1]:.3f}x), transcripts identical")
     real_map = real_map_case(kept)
+    topk = topk_cases(selections)
+    del selections
 
     wave_t = torch.tensor(np.stack(waves)).cuda()
     lengths = torch.full((32,), wave_t.shape[1], device="cuda")
@@ -1536,7 +1552,84 @@ def beam_serving_phase(asr, batch):
               f"index_select kernels a step: physical {selects['physical']}, lazy "
               f"{selects['auto']}; only the physical loop reorders the {2 * n_dec} self "
               f"buffers")
-    return runs["auto"][3], served, real_map
+    return runs["auto"][3], served, real_map, topk
+
+
+@contextlib.contextmanager
+def topk_kept(kept: dict, calls=(0, 24)):
+    """While active, keeps card copies of the inputs of the first and the
+    25th call of beam search's selection (``search._stable_topk``) of each
+    shape: the beams' scores and the finished store's keys at steps 0 and
+    24. The copies launch no kernel of the port."""
+    from joeys2t_torch import search
+
+    select = search._stable_topk
+    seen = collections.Counter()
+
+    def keeping(x, k):
+        key = (tuple(x.shape), k)
+        if seen[key] in calls:
+            kept[key + (seen[key],)] = x.detach().clone()
+        seen[key] += 1
+        return select(x, k)
+
+    search._stable_topk = keeping
+    try:
+        yield kept
+    finally:
+        search._stable_topk = select
+
+
+def topk_case(x: torch.Tensor, k: int, desc: str) -> dict:
+    """The top-k kernel against its plain version (the stable sort) bit for
+    bit on ``x``, then timed on cold copies beside the plain version and
+    ``torch.topk`` (which does not keep equal values in index order; the
+    port calls it nowhere) against the bytes bound: the scores read once,
+    k values and int64 indices a row written."""
+    from joeys2t_torch.ops import topk as tk
+
+    got, again, want = tk.stable_topk(x, k), tk.stable_topk(x, k), tk.stable_topk_plain(x, k)
+    torch.cuda.synchronize()
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}[x.dtype]
+    for name, out in (("the stable sort", want), ("a second call", again)):
+        check(torch.equal(got[0].view(ints), out[0].contiguous().view(ints))
+              and torch.equal(got[1], out[1]),
+              f"top-k {desc}: the kernel's values or indices differ from {name}'s")
+    rows, n = x.shape
+    bound_ms, bound_by = bound(nbytes(x, got[0], got[1]), rows * n, x.dtype)
+    copies = cold_copies([x])
+    ms = time_cold_ms([lambda c=c: tk.stable_topk(c[0], k) for c in copies])
+    library_ms = time_cold_ms([lambda c=c: torch.topk(c[0], k, dim=-1) for c in copies])
+    del copies
+    return dict(case=f"{desc} {rows} x {n} k {k} {str(x.dtype)[6:]}", max_abs_err=0.0,
+                tol=0.0, ms=ms, plain_ms=time_ms(lambda: tk.stable_topk_plain(x, k), iters=5),
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                roofline=bound_ms / ms, threads=tk.topk_plan(n, x.dtype))
+
+
+def topk_cases(selections: dict) -> list:
+    """The top-k kernel at the translation benchmark's step (3,004
+    sentences, beam 5 over a 32,000-id table: a beam step's scores drawn as
+    ``tools/topk_bench`` draws them), then on each selection input the beam
+    request kept (``topk_kept``); printed, and returned for the kernels
+    line."""
+    from joeys2t_torch.tools.topk_bench import beam_step_scores
+
+    check(len({key[0][1] for key in selections}) == 2,
+          f"the beam request kept selection inputs of shapes {sorted(selections)}, "
+          f"expected the beams' scores and the store's keys")
+    cases = [topk_case(beam_step_scores(3004, 160000, 5, seed=3004), 5,
+                       "translation step (synthetic beam scores)")]
+    for (shape, k, step), x in sorted(selections.items()):  # a call of each shape a step
+        what = "the store's keys" if shape[1] == 2 * k else "the beams' scores"
+        cases.append(topk_case(x, k, f"beam request step {step}, {what}"))
+    for c in cases:
+        print(f"[kernels] top-k {c['case']}: {c['threads']} threads a row, bit for bit the "
+              f"stable sort and a second call; cold L2: kernel {c['ms']:.4f} ms, torch.topk "
+              f"{c['library_ms']:.4f} ms; plain (the stable sort) {c['plain_ms']:.4f} ms; "
+              f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}), roofline share "
+              f"{100 * c['roofline']:.1f} %")
+    return cases
 
 
 @contextlib.contextmanager
@@ -1682,18 +1775,24 @@ def card_vs_cpu_phase():
 
     model, spec = small_models(attention_impl="xla")[0]["cuda"]
     zero_counters()
+    stats = {}
     with torch.inference_mode():
         enc, _, mask = model.encode(feats.cuda(), flen.cuda())
         tokens, _, _ = transformer_greedy(model, spec, enc, mask, 40, device="cuda")
         beams, _, _ = beam_search(model, spec, enc, None, mask, 5, 40, 1.0, n_best=2,
-                                  device="cuda")
+                                  device="cuda", stats=stats)
     launches = read_counters()
+    selections = launches.pop("stable_topk")
     check(all(n == 0 for n in launches.values()),
-          f"attention_impl xla launched kernels: {launches}")
+          f"attention_impl xla launched attention kernels: {launches}")
+    check(selections == 2 * stats["decode_steps"],
+          f"attention_impl xla: {selections} top-k launches in {stats['decode_steps']} beam "
+          f"steps, expected 2 a step (the selection is no attention)")
     check(np.array_equal(tokens, cpu[2]) and np.array_equal(beams, cpu[3]),
           "attention_impl xla gave other tokens than the kernels")
-    print("[card-vs-cpu] attention_impl xla on the card: every launch counter 0, greedy "
-          "tokens and beam 5 (lazy) 2-best hypotheses identical to the kernels' run")
+    print("[card-vs-cpu] attention_impl xla on the card: every attention launch counter 0, "
+          "the top-k kernel twice a beam step, greedy tokens and beam 5 (lazy) 2-best "
+          "hypotheses identical to the kernels' run")
     del model
 
     # no plain path on the card: key-masked attention at a head size or dtype
@@ -2145,7 +2244,8 @@ def cli_launches(n_enc: int, n_dec: int, updates: int, validations, decodes,
     step, greedy in validation, beam search in ``decodes`` (greedy where
     not ``beam``), where the n_dec cross-attention launches a beam step
     have 5 query rows a cache row and the n_dec self-attention launches
-    read the ring buffers through the ancestry map (``auto`` is lazy)."""
+    read the ring buffers through the ancestry map (``auto`` is lazy), and
+    the top-k kernel runs twice (the beams' selection, the store's merge)."""
     per_micro = n_enc + n_dec
     valid_batches = sum(b for _, b, _ in validations)
     beam_steps = sum(s for _, _, s in decodes)
@@ -2155,7 +2255,8 @@ def cli_launches(n_enc: int, n_dec: int, updates: int, validations, decodes,
             "decode_attention": 2 * n_dec * (sum(s for _, _, s in validations) + beam_steps),
             "decode_attention_group": n_dec * beam_steps if beam else 0,
             "decode_attention_ancestry": n_dec * beam_steps if beam else 0,
-            "decode_attention_int8_channel": 0, "decode_attention_int8_position": 0}
+            "decode_attention_int8_channel": 0, "decode_attention_int8_position": 0,
+            "stable_topk": 2 * beam_steps if beam else 0}
 
 
 def cut_test_on_both(cfg: dict, state: dict, model_dir: Path, data: Path, cut: Path) -> None:
@@ -2477,7 +2578,8 @@ def int8_phase(batch, bf16):
                 "decode_attention_group": n_dec * steps if kw else 0,
                 "decode_attention_ancestry": n_dec * steps if kw else 0,
                 "decode_attention_int8_channel": n_dec * steps,
-                "decode_attention_int8_position": n_dec * steps}
+                "decode_attention_int8_position": n_dec * steps,
+                "stable_topk": 2 * steps if kw else 0}
         check(launches == want, f"int8 {name} launches {launches}, expected {want}")
         results[name] = (texts, wall, steps, launches)
     check(results["beam 5 32 x 10 s"][0] == results["beam 5 32 x 10 s physical"][0],
@@ -2637,9 +2739,11 @@ def spm_phase(data: Path) -> dict:
     want = {"flash_attention_fwd": n_enc, "flash_attention_bwd": 0,
             "decode_attention": 2 * n_dec * steps, "decode_attention_group": 0,
             "decode_attention_ancestry": 0,
-            "decode_attention_int8_channel": 0, "decode_attention_int8_position": 0}
+            "decode_attention_int8_channel": 0, "decode_attention_int8_position": 0,
+            "stable_topk": 0}
     check(serve_n == want, f"spm serving launches {serve_n}, expected {want}")
-    check(hub_n["flash_attention_fwd"] == n_enc and hub_n["decode_attention_group"] > 0,
+    check(hub_n["flash_attention_fwd"] == n_enc and hub_n["decode_attention_group"] > 0
+          and hub_n["stable_topk"] * n_dec == 2 * hub_n["decode_attention_group"],
           f"hub generate launches {hub_n}")
     check((model_dir / model_file.name).read_bytes() == model_file.read_bytes(),
           "train did not copy the SentencePiece model into the model directory")
@@ -2657,7 +2761,7 @@ def spm_phase(data: Path) -> dict:
           and asr.norm_vars, "Transcriber.from_hub took no SentencePiece tokenizer or "
           "not the config's CMVN flags")
     for name in ("flash_attention_fwd", "flash_attention_bwd", "decode_attention",
-                 "decode_attention_group", "decode_attention_ancestry"):
+                 "decode_attention_group", "decode_attention_ancestry", "stable_topk"):
         launches[name] += hub_n[name] + serve_n[name]
     print(f"[spm] train (4 updates, 1 validation) {runs['train'][0]:.2f} s, "
           f"{update_ms(runs['train'][1]):.2f} ms an update; test {runs['test'][0]:.2f} s; "
@@ -2877,7 +2981,8 @@ def mt_prompt_leg(cfg: dict, data: Path, work: Path, n_enc: int, n_dec: int) -> 
         check(n["flash_attention_fwd"] == n_enc and n["flash_attention_bwd"] == 0
               and steps > 2 and n["decode_attention"] == 2 * n_dec * steps
               and n["decode_attention_group"] == (n_dec * steps if group else 0)
-              and n["decode_attention_ancestry"] == (n_dec * steps if group else 0),
+              and n["decode_attention_ancestry"] == (n_dec * steps if group else 0)
+              and n["stable_topk"] == (2 * steps if group else 0),
               f"prompted {name} launches {n}")
     print(f"[mt] prompts: sep + 2 language tags, prompt files beside the corpus; train 4 "
           f"updates {train_wall:.2f} s; load_model_dir -> score (beam 5) and generate "
@@ -2940,7 +3045,8 @@ def mt_phase() -> tuple:
     translated = runs["translate"][2].splitlines()
     check(generated == translated and len(translated) == 8,
           f"hub generate {generated} differs from translate {translated}")
-    check(hub_n["flash_attention_fwd"] == n_enc and hub_n["decode_attention_group"] > 0,
+    check(hub_n["flash_attention_fwd"] == n_enc and hub_n["decode_attention_group"] > 0
+          and hub_n["stable_topk"] * n_dec == 2 * hub_n["decode_attention_group"],
           f"hub generate launches {hub_n}")
     for name in launches:
         launches[name] += hub_n[name] + prompt_n[name]
@@ -3121,11 +3227,21 @@ def recurrent_phase() -> None:
                                         stdin="".join(f"{s}\n" for s in srcs))
             hub = load_model_dir(model_dir)
             zero_counters()
-            generated = hub.generate(srcs)
+            hub_lines = []
+            with port_log(hub_lines):
+                generated = hub.generate(srcs)
             hub_n = read_counters()
             profile = decode_step_profile(hub, srcs, beam)
-        for run, (_, _, _, n) in list(runs.items()) + [("generate", (0, 0, 0, hub_n))]:
+        for run, (_, lines, _, n) in list(runs.items()) + [("generate",
+                                                             (0, hub_lines, 0, hub_n))]:
+            n = dict(n)
+            selections = n.pop("stable_topk")
             check(not any(n.values()), f"{name} {run} launched attention kernels: {n}")
+            # validation is greedy; test, translate and generate take the config's beam
+            steps = sum(s for _, _, s in generations(lines)) if run != "train" else 0
+            want = 2 * steps if beam > 1 else 0
+            check(selections == want, f"{name} {run}: {selections} top-k launches, expected "
+                  f"{want} (two a beam step)")
         translated = runs["translate"][2].splitlines()
         check(generated == translated and len(translated) == 8,
               f"{name}: hub generate {generated} differs from translate {translated}")
@@ -3240,7 +3356,8 @@ def moe_phase(dense_update_s: float, dense_rate: float) -> tuple:
     translated = runs["translate"][2].splitlines()
     check(generated == translated and len(translated) == 8,
           f"MoE hub generate {generated} differs from translate {translated}")
-    check(hub_n["flash_attention_fwd"] == n_enc and hub_n["decode_attention_group"] > 0,
+    check(hub_n["flash_attention_fwd"] == n_enc and hub_n["decode_attention_group"] > 0
+          and hub_n["stable_topk"] * n_dec == 2 * hub_n["decode_attention_group"],
           f"MoE hub generate launches {hub_n}")
     for name in launches:
         launches[name] += hub_n[name]
@@ -4612,7 +4729,7 @@ def d64_speech_leg(corpus: Path, work: Path) -> tuple:
             steps = asr.stats["decode_steps"] - s0
             check(all(isinstance(t, str) for t in texts), f"d64 {name}: non-text output")
             check(n["flash_attention_fwd"] == n_enc and 1 <= steps <= 96
-                  and n["decode_attention"] == 2 * n_dec * steps,
+                  and n["decode_attention"] == 2 * n_dec * steps and n["stable_topk"] == 0,
                   f"d64 {name}: launches {n} over {steps} decode steps")
             served[name] = seconds / wall
             print(f"[d64] {name}: {len(texts)} transcripts, {steps} decode steps, "
@@ -5043,7 +5160,7 @@ def main():
     mark("phase 2")
     flash_launches, decode_launches, asr, batch, served = serving_phase()
     greedy_k5_ms = breakdown_phase(asr, batch)
-    beam_launches, beam_served, real_map = beam_serving_phase(asr, batch)
+    beam_launches, beam_served, real_map, topk = beam_serving_phase(asr, batch)
     bf16 = {"greedy 64 x 10 s": served["64 x 10 s"] + (greedy_k5_ms,),
             "beam 5 32 x 10 s": beam_served["auto"],
             "beam 5 32 x 10 s physical": beam_served["physical"]}
@@ -5197,6 +5314,10 @@ def main():
                if c["case"].startswith("self")],
               int8_paths("decode_attention_int8_position"),
               [c for c in int8_decode_checks if "int8 position" in c["case"]]),
+        # replaces no Pallas kernel: JAX's beam loop calls jax.lax.top_k
+        entry("stable_topk (beam search's selection)", "joeys2t_torch/csrc/beam_topk.cu",
+              None, "joeys2t_tpu/search.py:531, :592 (jax.lax.top_k)", topk,
+              paths("stable_topk"), topk),
     ]
     print(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

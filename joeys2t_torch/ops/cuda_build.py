@@ -23,7 +23,7 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "joeys2t_torch"
 KERNELS = ("flash_attention", "flash_attention_wgmma", "flash_attention_bwd_wgmma",
-           "decode_attention")
+           "decode_attention", "beam_topk")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -21,8 +21,10 @@ spans (``joeys2t_torch.tracing``).
 Beam search keeps JAX's fixed-shape state (K alive beams and a finished
 store of the K best hypotheses an utterance) and its rules: the GNMT length
 penalty ``((5 + step + 1) / 6) ** alpha`` in float32, selection as
-``jax.lax.top_k`` makes it (ties to the lower index, through a stable
-sort), the finished store merged from 2K candidates, unfilled n-best slots
+``jax.lax.top_k`` makes it (ties to the lower index: the top-k kernel of
+``ops/topk.py`` on the card, a stable sort on the CPU, the same bits;
+``ops/topk.py`` says where the two zeros and a negative NaN rank), the
+finished store merged from 2K candidates, unfilled n-best slots
 as ``[unk]`` with score -1. The cross-attention cache stays at B rows,
 shared by an utterance's beams. The self-attention caches follow
 ``beam_reorder`` as JAX resolves it (:736-738): ``lazy``, and ``auto`` for
@@ -77,6 +79,7 @@ from joeys2t_torch.data.batch import Batch, round_up_to_bucket
 from joeys2t_torch.helpers import resolve_device
 from joeys2t_torch.models.model import ModelSpec, Seq2SeqModel
 from joeys2t_torch.models.rnn import RecurrentDecoder
+from joeys2t_torch.ops.topk import stable_topk
 
 NEG_INF = -1.0e9
 
@@ -451,11 +454,10 @@ def greedy(model: Seq2SeqModel, spec: ModelSpec, encoder_output: torch.Tensor,
             yt.cpu().numpy())
 
 
-def _stable_topk(x: torch.Tensor, k: int):
-    """The ``k`` largest entries of the last dimension in descending order,
-    equal values in index order, as ``jax.lax.top_k`` returns them."""
-    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[..., :k], indices[..., :k]
+# the k largest entries of the last dimension in descending order, equal
+# values in index order: the kernel of ops/topk.py on the card, a stable sort
+# on the CPU (jax.lax.top_k's order but for signed zeros and negative NaN)
+_stable_topk = stable_topk
 
 
 @torch.inference_mode()

@@ -5,7 +5,7 @@ tiles' edges, an utterance alone bit-equal to its row in a padded batch,
 over memory poisoned with NaN and inf; with and without dropout, and the
 dropout mask bit for bit;
 decode attention, also with query rows sharing a cache row and through an
-ancestry map), and a
+ancestry map; beam search's top-k bit for bit against the stable sort), and a
 small model on the card against the CPU (greedy and beam search, serving and
 one training update), a one-rank NCCL update and ``remat`` against the plain
 update. Needs a CUDA card and nvcc; skipped without them. Run on a card
@@ -951,3 +951,215 @@ def test_moe_model_card_matches_cpu(card):
     torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], atol=1e-4, rtol=0)
     assert abs(outs["cuda"][1] - outs["cpu"][1]) <= 1e-5
     assert outs["cuda"][2] == 4 and outs["cpu"][2] == 0  # 2 encoder + 2 cross attentions
+
+
+# ---------------------------------------------------------------- beam top-k
+
+NEG_INF = -1e9
+
+
+def _same_bits(got, want):
+    """Values bit for bit (NaN payloads and the sign of zero included) and
+    indices equal."""
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}[want[0].dtype]
+    assert got[0].dtype == want[0].dtype and got[1].dtype == torch.long
+    assert got[0].shape == want[0].shape and got[1].shape == want[1].shape
+    assert torch.equal(got[0].contiguous().view(ints).cpu(), want[0].contiguous().view(ints).cpu())
+    assert torch.equal(got[1].cpu(), want[1].cpu())
+
+
+def beam_scores(rows, beams, vocab, dtype, device, seed):
+    """A beam step's scores: each beam's log-probabilities plus its score,
+    three ids banned at NEG_INF, and in the first half of the rows only beam
+    0 alive (the others at NEG_INF, a plateau in float32)."""
+    gen = torch.Generator(device).manual_seed(seed)
+    lp = torch.log_softmax(torch.randn(rows * beams, vocab, generator=gen, device=device) * 3,
+                           dim=-1).to(dtype)
+    lp[:, :3] = NEG_INF
+    beam = -(torch.rand(rows, beams, generator=gen, device=device).to(dtype) * 4).cumsum(-1)
+    beam[: rows // 2, 1:] = NEG_INF
+    return (lp.reshape(rows, beams, vocab) + beam[..., None]).reshape(rows, beams * vocab)
+
+
+def _random_rows(rows, n, dtype, device, seed):
+    gen = torch.Generator(device).manual_seed(seed)
+    return (torch.randn(rows, n, generator=gen, device=device) * 3).to(dtype)
+
+
+# (rows, beams, vocab, k): the translation cell's step (3,004 sentences, beam
+# 5 over 32,000 ids), the 960h recipe's beam 20 over 10,000 ids, the published
+# test batch of 36 sentences (fewer rows than SMs), the finished store's 2k-wide rows
+TOPK_BEAM_SHAPES = [(3004, 5, 32000, 5), (256, 20, 10000, 20), (36, 5, 32000, 5),
+                    (3004, 2, 5, 5)]
+# (rows, n, k): k = 1, k = n, rows shorter than a warp, a row of one entry,
+# many rows of one vector, few long rows, rows fewer than the SMs, one long row
+TOPK_SHAPES = [(300, 4099, 1), (70, 32, 32), (50, 7, 7), (33, 9, 3), (9, 1, 1), (500, 4, 2),
+               (8, 300000, 32), (200, 20000, 5), (1, 1000003, 17)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows,beams,vocab,k", TOPK_BEAM_SHAPES)
+def test_topk_kernel_matches_stable_sort_on_beam_scores(card, dtype, rows, beams, vocab, k):
+    from joeys2t_torch.ops import topk as tk
+
+    x = beam_scores(rows, beams, vocab, dtype, card, seed=rows + k)
+    _same_bits(tk.stable_topk(x, k), tk.stable_topk_plain(x, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows,n,k", TOPK_SHAPES)
+def test_topk_kernel_matches_stable_sort(card, dtype, rows, n, k):
+    from joeys2t_torch.ops import topk as tk
+
+    x = _random_rows(rows, n, dtype, card, seed=n + k)
+    _same_bits(tk.stable_topk(x, k), tk.stable_topk_plain(x, k))
+    _same_bits(tk.stable_topk(x, k), tk.stable_topk_plain(x.cpu(), k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("rows,n,k", [(64, 4099, 5), (36, 160000, 5), (3004, 10, 5)])
+def test_topk_kernel_on_misaligned_rows(card, dtype, offset, rows, n, k):
+    """A view whose rows start off the 16-byte grid, each row at another
+    offset (the row stride is n + offset): scalar heads and tails."""
+    from joeys2t_torch.ops import topk as tk
+
+    x = _random_rows(rows, n + offset, dtype, card, seed=offset)[:, offset:]
+    assert x.stride(0) == n + offset and x.stride(1) == 1
+    _same_bits(tk.stable_topk(x, k), tk.stable_topk_plain(x, k))
+
+
+def _adversarial(pattern, rows, n, dtype, seed):
+    """Rows on the CPU that stress the order: ties, plateaus, infinities,
+    signed zeros and NaN."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(rows, n, generator=gen, dtype=torch.float64).to(dtype)
+    pick = lambda m: torch.rand(rows, n, generator=gen).argsort(-1)[:, :m]  # noqa: E731
+    if pattern == "equal":
+        x.fill_(0.5)
+    elif pattern == "ties_at_kth":  # 2 entries above a plateau of thousands
+        x.scatter_(1, pick(max(3, min(3000, n // 2))), 7.0)
+        x.scatter_(1, pick(2), 9.0)
+    elif pattern == "neg_inf_plateau":  # fewer finite entries than k
+        x.fill_(NEG_INF)
+        x.scatter_(1, pick(2), -3.0)
+    elif pattern == "minus_inf":
+        x.fill_(-np.inf)
+        x[: rows // 2].scatter_(1, pick(1)[: rows // 2], -1e30)
+    elif pattern == "signed_zeros":  # +0.0 and -0.0 tie, in index order
+        x = torch.where(torch.rand(rows, n, generator=gen) < 0.5, 0.0, -0.0).to(dtype)
+        x.scatter_(1, pick(2), 1.0)
+    elif pattern == "nan":  # more NaN than k, and in short rows fewer
+        x.scatter_(1, pick(max(1, n // 50)), float("nan"))
+    elif pattern == "negative_nan":  # NaN with the sign bit set ranks first too
+        x.scatter_(1, pick(max(1, n // 50)), -float("nan"))
+    return x
+
+
+TOPK_PATTERNS = ["equal", "ties_at_kth", "neg_inf_plateau", "minus_inf", "signed_zeros",
+                 "nan", "negative_nan"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("pattern", TOPK_PATTERNS)
+@pytest.mark.parametrize("rows,n,k", [(3, 100, 5), (300, 4099, 20), (4, 160000, 5),
+                                      (280, 20000, 32)])
+def test_topk_kernel_on_adversarial_rows(card, dtype, pattern, rows, n, k):
+    """Bit for bit the plain version (the stable sort) on the CPU, and the
+    card's own stable sort where the input has no NaN with its sign bit set
+    (the card's radix sort orders those by their bits)."""
+    from joeys2t_torch.ops import topk as tk
+
+    x = _adversarial(pattern, rows, n, dtype, seed=rows + n)
+    got = tk.stable_topk(x.to(card), k)
+    _same_bits(got, tk.stable_topk_plain(x, k))
+    if pattern != "negative_nan":
+        _same_bits(got, tk.stable_topk_plain(x.to(card), k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_topk_kernel_writes_every_output_over_poisoned_memory(card, dtype):
+    """The outputs are taken from memory just filled with a NaN payload no
+    input holds and with index -7."""
+    from joeys2t_torch.ops import topk as tk
+
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}[dtype]
+    payload = 0x7FBADBAD if dtype == torch.float32 else 0x7FF0BADBADBADBAD
+    for rows, n, k in [(3004, 10, 5), (36, 160000, 5), (5, 33, 32), (2, 300000, 20)]:
+        x = _random_rows(rows, n, dtype, card, seed=k)
+        want = tk.stable_topk_plain(x, k)
+        for _ in range(2):
+            poison = [torch.full((rows, k), payload, dtype=ints, device=card),
+                      torch.full((rows, k), -7, dtype=torch.long, device=card)]
+            del poison
+            got = tk.stable_topk(x, k)
+            torch.cuda.synchronize()
+            _same_bits(got, want)
+
+
+def test_topk_launch_counter(card):
+    """One launch a call on the card, many rows or few, none for a CPU
+    tensor."""
+    from joeys2t_torch.ops import topk as tk
+
+    many = _random_rows(3004, 640, torch.float32, card, seed=1)
+    few = _random_rows(4, 160000, torch.float32, card, seed=2)
+    before = tk.stable_topk.launches
+    tk.stable_topk(many, 5)
+    assert tk.stable_topk.launches == before + 1
+    tk.stable_topk(few, 5)
+    assert tk.stable_topk.launches == before + 2
+    tk.stable_topk(few.cpu(), 5)
+    assert tk.stable_topk.launches == before + 2
+
+
+def test_topk_kernel_refuses_what_it_does_not_take(card):
+    from joeys2t_torch.ops import topk as tk
+
+    x = torch.randn(4, 40, device=card)
+    bad = [(x, 41), (x, 33), (x, 0), (x.to(torch.int32), 5), (x.to(torch.bfloat16), 5),
+           (x.t(), 3), (x[:, ::2], 5)]
+    before = tk.stable_topk.launches
+    for t, k in bad:
+        with pytest.raises(ValueError):
+            tk.stable_topk(t, k)
+    assert tk.stable_topk.launches == before
+
+
+def test_beam_search_with_topk_kernel_equals_plain_sort(card, monkeypatch):
+    """A small speech transformer's beam search on the card (beam 5, 5-best,
+    a vocabulary of 2 words: at the first steps fewer than 5 candidates are
+    finite) gives the same hypotheses and scores with the kernel as with
+    ``_stable_topk`` on the plain sort, and launches the kernel twice a step
+    (the beams' selection and the finished store's merge)."""
+    from joeys2t_torch import search
+    from joeys2t_torch.ops import topk as tk
+
+    cfg = {"encoder": {"num_layers": 2, "num_heads": 2, "embeddings": {},
+                       "hidden_size": 128, "ff_size": 256, "subsample": True,
+                       "conv_kernel_sizes": [5, 5], "conv_channels": 128,
+                       "in_channels": 80},
+           "decoder": {"num_layers": 2, "num_heads": 2, "hidden_size": 128,
+                       "ff_size": 256, "embeddings": {"embedding_dim": 128, "scale": True},
+                       "layer_norm": "pre"}}
+    feats = torch.tensor(np.random.RandomState(8).randn(3, 120, 80).astype(np.float32))
+    lengths = torch.tensor([120, 90, 41])
+    outs = {}
+    with torch.inference_mode():
+        for words in (2, 60):
+            vocab = Vocabulary([f"w{i}" for i in range(words)], SpecialSymbols())
+            model, spec = build_model(cfg, trg_vocab=vocab, device=card,
+                                      generator=torch.Generator().manual_seed(9))
+            enc, _, mask = model.encode(feats.to(card), lengths.to(card))
+            for name in ("kernel", "plain"):
+                if name == "plain":
+                    monkeypatch.setattr(search, "_stable_topk", tk.stable_topk_plain)
+                stats, before = {}, tk.stable_topk.launches
+                out = beam_search(model, spec, enc, None, mask, 5, 12, 1.0, n_best=5,
+                                  device=card, return_prob="hyp", stats=stats)
+                launches = tk.stable_topk.launches - before
+                outs[words, name] = out[:2]
+                assert launches == (2 * stats["decode_steps"] if name == "kernel" else 0)
+                monkeypatch.undo()
+            np.testing.assert_array_equal(outs[words, "kernel"][0], outs[words, "plain"][0])
+            np.testing.assert_array_equal(outs[words, "kernel"][1], outs[words, "plain"][1])

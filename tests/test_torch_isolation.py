@@ -59,11 +59,12 @@ def test_kernel_wrappers_need_no_toolchain():
     code = (
         "import torch\n"
         "from joeys2t_torch.ops import cuda_build, decode_attention as da, "
-        "flash_attention as fa\n"
+        "flash_attention as fa, topk as tk\n"
         "q = torch.randn(2, 5, 128); b = torch.zeros(2, 5)\n"
         "fa.flash_attention_fwd(q, q, q, b, 0.125, 2)\n"
         "da.decode_attention(torch.randn(2, 2, 64), torch.randn(2, 2, 5, 64), "
         "torch.randn(2, 2, 5, 64), b)\n"
+        "tk.stable_topk(torch.randn(3, 40), 5)\n"
         "assert not cuda_build._loaded\n"
         "try:\n"
         "    cuda_build._nvcc()\n"
